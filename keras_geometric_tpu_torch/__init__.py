@@ -1,0 +1,31 @@
+"""keras_geometric_tpu_torch: the PyTorch/CUDA port of the JAX package beside it.
+
+A second package beside the JAX one, which stays as the reference. Ported so
+far: the full-graph GCN training path (graph preparation, the sorted-CSR SpMM
+with hand-written Hopper kernels, ``GCNConv``, ``GNNEncoder``, the training
+step). Entry points run on a CUDA device unless the caller passes another.
+"""
+
+from ._version import __version__
+from .models.gnn import GCN, GNNEncoder
+from .nn.gcn_conv import GCNConv
+from .nn.module import MLP, Dense
+from .ops.csr import GraphContext, prepare_graph
+from .ops.graph_ops import add_self_loops, ensure_edge_index, gcn_norm
+from .ops.precompute import precompute_propagation
+
+
+__all__ = [
+    "__version__",
+    "Dense",
+    "MLP",
+    "GCNConv",
+    "GNNEncoder",
+    "GCN",
+    "GraphContext",
+    "prepare_graph",
+    "precompute_propagation",
+    "add_self_loops",
+    "gcn_norm",
+    "ensure_edge_index",
+]

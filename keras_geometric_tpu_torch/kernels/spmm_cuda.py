@@ -1,0 +1,374 @@
+"""Sorted-CSR SpMM on Hopper: scatter-sum, its fused-gather form, and expand.
+
+Counterpart of the JAX package's ``kernels/spmm_pallas.py`` for
+:func:`scatter_sum_sorted` and :func:`expand_sorted`. The kernels are CUDA C++
+(``csrc/spmm.cu``, built by ``_build.py`` at first use); this module holds
+their wrappers, their plain PyTorch versions, their launch counters and the
+autograd wiring (each one's backward is the other, with the same weights).
+
+Source notes, one per kernel:
+
+- ``scatter_sum_sorted`` (messages form) replaces ``_scatter_impl`` /
+  ``_scatter_block_impl``. Bound by bytes (``E*F`` message values read once,
+  ``N*F`` written, ``E`` weights, ``N`` row pointers). A sub-warp per receiver
+  row walks ``row_ptr[r]:row_ptr[r+1]`` with 16-byte loads across the feature
+  axis and f32 register accumulators; no atomics, one store per row.
+- ``gather_scatter_sum_sorted`` (fused-gather form of the same kernel) replaces
+  the ``jnp.take`` + scatter pair inside ``_spmm_symmetric``/``_spmm_general``:
+  message ``e`` is ``h[idx[e]]`` read inside the kernel, so the ``[E, F]``
+  array never reaches device memory. Bound by bytes: the node array once, the
+  output once, index and weight streams; the random row reads are served by L2
+  when the node array fits there.
+- ``expand_sorted`` replaces ``_expand_impl``: ``out[e] = rows[recv[e]]*w[e]``,
+  one thread per (edge, 16-byte column chunk). Bound by the ``E*F`` write.
+
+A wrapper takes the plain version only for a tensor that lies on the CPU. For
+a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = [
+    "scatter_sum_sorted",
+    "expand_sorted",
+    "gather_scatter_sum_sorted",
+    "scatter_sum_sorted_plain",
+    "gather_scatter_sum_sorted_plain",
+    "expand_sorted_plain",
+    "row_ptr_from_sorted",
+    "LAUNCH_COUNTS",
+    "reset_launch_counts",
+]
+
+# One plain integer per kernel entry, incremented where the kernel is
+# launched and nowhere else.
+LAUNCH_COUNTS = {
+    "scatter_sum_sorted": 0,
+    "gather_scatter_sum_sorted": 0,
+    "expand_sorted": 0,
+}
+
+_DATA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+def row_ptr_from_sorted(receivers: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """``[N+1]`` int32 row pointers of a sorted index vector on the CPU.
+
+    ``row_ptr[r]:row_ptr[r+1]`` spans the entries equal to ``r``; entries
+    beyond the last node fall outside every row. Raises when the vector is
+    not sorted. A host helper: for tensors on the card graph preparation
+    supplies ``row_ptr``.
+    """
+    if receivers.is_cuda:
+        raise ValueError(
+            "row_ptr_from_sorted runs on the host; for CUDA tensors pass the "
+            "row_ptr that graph preparation built"
+        )
+    recv = receivers.detach().numpy()
+    if recv.size and not np.all(recv[1:] >= recv[:-1]):
+        raise ValueError("receivers must be sorted (receiver-major CSR)")
+    row_ptr = np.searchsorted(recv, np.arange(num_nodes + 1), side="left")
+    return torch.from_numpy(row_ptr.astype(np.int32))
+
+
+def _row_ptr_or_raise(data, receivers, num_nodes, row_ptr):
+    """The sortedness contract: a CUDA tensor comes with its ``row_ptr``; for
+    a CPU tensor it is derived (and the order checked) on the host."""
+    if row_ptr is not None:
+        return row_ptr
+    if data.is_cuda:
+        raise ValueError(
+            "row_ptr is required for CUDA tensors (it is the sortedness "
+            "contract of the kernel; graph preparation builds it)"
+        )
+    return row_ptr_from_sorted(receivers, num_nodes)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: the same functions with library ops, accumulated in
+# f32 and rounded once. Used for CPU tensors and as the yardstick the kernels
+# are held against on the card.
+# ---------------------------------------------------------------------------
+
+
+def _weighted_f32(values, weights, mask):
+    values = values.float()
+    if weights is not None:
+        values = values * weights.float()[:, None]
+    if mask is not None:
+        values = torch.where(mask[:, None], values, torch.zeros_like(values))
+    return values
+
+
+def scatter_sum_sorted_plain(messages, receivers, num_nodes, *, weights=None,
+                             mask=None):
+    vals = _weighted_f32(messages, weights, mask)
+    out = torch.zeros(num_nodes, messages.shape[1], dtype=torch.float32,
+                      device=messages.device)
+    out.index_add_(0, receivers.long(), vals)
+    return out.to(messages.dtype)
+
+
+def gather_scatter_sum_sorted_plain(h, idx, receivers, num_nodes, *,
+                                    weights=None, self_weight=None):
+    vals = _weighted_f32(h.float().index_select(0, idx.long()), weights, None)
+    out = torch.zeros(num_nodes, h.shape[1], dtype=torch.float32,
+                      device=h.device)
+    out.index_add_(0, receivers.long(), vals)
+    if self_weight is not None:
+        out = out + h.float()[:num_nodes] * self_weight.float()[:, None]
+    return out.to(h.dtype)
+
+
+def expand_sorted_plain(rows, receivers, *, weights=None, mask=None):
+    vals = rows.float().index_select(0, receivers.long())
+    return _weighted_f32(vals, weights, mask).to(rows.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("spmm")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.kgt_scatter_sum_sorted.argtypes = [
+        vp, vp, vp, vp, i32, vp, vp, i32, vp, i64, i64, i32, vp,
+    ]
+    lib.kgt_scatter_sum_sorted.restype = i32
+    lib.kgt_expand_sorted.argtypes = [
+        vp, vp, vp, i32, vp, vp, i64, i64, i32, vp,
+    ]
+    lib.kgt_expand_sorted.restype = i32
+    lib.kgt_cuda_error_string.argtypes = [i32]
+    lib.kgt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_data(name, t):
+    if t.dtype not in _DATA_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.ndim != 2:
+        raise ValueError(f"{name} must be [rows, F], got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_index(name, t, length, device):
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, data on {device}")
+    if t.ndim != 1 or t.shape[0] != length or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous [{length}] vector, got "
+            f"{tuple(t.shape)}"
+        )
+
+
+def _scalar_arg(name, t, length, device):
+    """(pointer, is_bf16) of an optional per-edge / per-node scalar vector."""
+    if t is None:
+        return None, 0
+    if t.dtype not in _DATA_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, data on {device}")
+    if t.ndim != 1 or t.shape[0] != length or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous [{length}] vector, got "
+            f"{tuple(t.shape)}"
+        )
+    return t.data_ptr(), int(t.dtype == torch.bfloat16)
+
+
+def _mask_arg(mask, length, device):
+    if mask is None:
+        return None
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    if mask.device != device:
+        raise ValueError(f"mask lies on {mask.device}, data on {device}")
+    if mask.ndim != 1 or mask.shape[0] != length or not mask.is_contiguous():
+        raise ValueError(f"mask must be a contiguous [{length}] vector")
+    return mask.data_ptr()
+
+
+def _raise_on_error(lib, code, what):
+    if code != 0:
+        msg = lib.kgt_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
+
+
+def _launch_scatter(counter, src, idx, row_ptr, num_nodes, num_edges, weights,
+                    mask, self_weight):
+    device = src.device
+    _check_data("source", src)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    if idx is not None:
+        _check_index("idx", idx, num_edges, device)
+    w_ptr, w_bf16 = _scalar_arg("weights", weights, num_edges, device)
+    sw_ptr, sw_bf16 = _scalar_arg("self_weight", self_weight, num_nodes, device)
+    mask_ptr = _mask_arg(mask, num_edges, device)
+    if num_edges >= 2**31:
+        raise ValueError("edge count must stay below 2**31 (int32 indices)")
+    f = src.shape[1]
+    out = torch.empty(num_nodes, f, dtype=src.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.kgt_scatter_sum_sorted(
+            src.data_ptr(), None if idx is None else idx.data_ptr(),
+            row_ptr.data_ptr(), w_ptr, w_bf16, mask_ptr, sw_ptr, sw_bf16,
+            out.data_ptr(), num_nodes, f, int(src.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, counter)
+    LAUNCH_COUNTS[counter] += 1
+    return out
+
+
+def _scatter_raw(messages, receivers, row_ptr, num_nodes, weights, mask):
+    if messages.shape[0] != receivers.shape[0]:
+        raise ValueError(
+            f"{messages.shape[0]} messages for {receivers.shape[0]} receivers"
+        )
+    if not messages.is_cuda:
+        return scatter_sum_sorted_plain(
+            messages, receivers, num_nodes, weights=weights, mask=mask
+        )
+    return _launch_scatter(
+        "scatter_sum_sorted", messages, None, row_ptr, num_nodes,
+        messages.shape[0], weights, mask, None,
+    )
+
+
+def gather_scatter_sum_sorted(h, idx, receivers, row_ptr, num_nodes, *,
+                              weights=None, self_weight=None):
+    """``out[r] = sum_{e: receivers[e]=r} weights[e]*h[idx[e]] (+ self_weight[r]*h[r])``.
+
+    The fused-gather form of the sorted scatter: no ``[E, F]`` array is
+    formed. ``receivers`` is sorted and ``row_ptr`` are its row pointers. Not
+    differentiable by itself; ``GraphContext.spmm`` wraps it with its VJP.
+    """
+    if self_weight is not None and h.shape[0] < num_nodes:
+        raise ValueError("self_weight needs one source row per output row")
+    if not h.is_cuda:
+        return gather_scatter_sum_sorted_plain(
+            h, idx, receivers, num_nodes, weights=weights,
+            self_weight=self_weight,
+        )
+    return _launch_scatter(
+        "gather_scatter_sum_sorted", h, idx, row_ptr, num_nodes, idx.shape[0],
+        weights, None, self_weight,
+    )
+
+
+def _expand_raw(rows, receivers, weights, mask):
+    if not rows.is_cuda:
+        return expand_sorted_plain(rows, receivers, weights=weights, mask=mask)
+    device = rows.device
+    num_edges = receivers.shape[0]
+    _check_data("rows", rows)
+    _check_index("receivers", receivers, num_edges, device)
+    w_ptr, w_bf16 = _scalar_arg("weights", weights, num_edges, device)
+    mask_ptr = _mask_arg(mask, num_edges, device)
+    f = rows.shape[1]
+    out = torch.empty(num_edges, f, dtype=rows.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.kgt_expand_sorted(
+            rows.data_ptr(), receivers.data_ptr(), w_ptr, w_bf16, mask_ptr,
+            out.data_ptr(), num_edges, f, int(rows.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "expand_sorted")
+    LAUNCH_COUNTS["expand_sorted"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd: scatter and expand are each other's transposes.
+# ---------------------------------------------------------------------------
+
+
+class _ScatterSumSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, messages, receivers, row_ptr, num_nodes, weights, mask):
+        ctx.index = (receivers, row_ptr, weights, mask)
+        return _scatter_raw(
+            messages.contiguous(), receivers, row_ptr, num_nodes, weights, mask
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        receivers, row_ptr, weights, mask = ctx.index
+        dmsg = _ExpandSorted.apply(g, receivers, row_ptr, weights, mask)
+        return dmsg, None, None, None, None, None
+
+
+class _ExpandSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, receivers, row_ptr, weights, mask):
+        ctx.index = (receivers, row_ptr, weights, mask)
+        ctx.num_nodes = rows.shape[0]
+        return _expand_raw(rows.contiguous(), receivers, weights, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        receivers, row_ptr, weights, mask = ctx.index
+        drows = _ScatterSumSorted.apply(
+            g, receivers, row_ptr, ctx.num_nodes, weights, mask
+        )
+        return drows, None, None, None, None
+
+
+def scatter_sum_sorted(messages, receivers, num_nodes, *, mask=None,
+                       row_ptr=None, weights=None):
+    """Sum receiver-sorted ``[E, F]`` messages into ``[N, F]`` rows.
+
+    ``row_ptr`` (``[N+1]`` int32, from graph preparation) is the sortedness
+    contract the kernel relies on: required for CUDA tensors; for CPU tensors
+    it is computed from ``receivers`` when absent, which raises if they are
+    not sorted. ``weights`` (``[E]``)
+    and ``mask`` (``[E]`` bool) are applied inside the kernel. The gradient
+    with respect to ``messages`` is :func:`expand_sorted` with the same
+    weights.
+    """
+    if messages.ndim != 2:
+        raise ValueError(f"messages must be [E, F], got {tuple(messages.shape)}")
+    row_ptr = _row_ptr_or_raise(messages, receivers, num_nodes, row_ptr)
+    return _ScatterSumSorted.apply(
+        messages, receivers, row_ptr, num_nodes, weights, mask
+    )
+
+
+def expand_sorted(rows, receivers, *, row_ptr=None, weights=None):
+    """Sorted gather: ``out[e] = rows[receivers[e]] (* weights[e])``.
+
+    The transpose of :func:`scatter_sum_sorted` and its gradient; its own
+    gradient is that scatter over the same ``row_ptr`` (required for CUDA
+    tensors, as for the scatter).
+    """
+    if rows.ndim != 2:
+        raise ValueError(f"rows must be [N, F], got {tuple(rows.shape)}")
+    row_ptr = _row_ptr_or_raise(rows, receivers, rows.shape[0], row_ptr)
+    return _ExpandSorted.apply(rows, receivers, row_ptr, weights, None)

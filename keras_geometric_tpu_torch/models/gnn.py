@@ -1,0 +1,130 @@
+"""Standard multi-layer GNN model families.
+
+Counterpart of the JAX package's ``models/gnn.py``: the canonical stacks are
+first-class modules so training and benchmarks share one definition. Only the
+GCN family is ported so far; the other three raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..nn.gcn_conv import GCNConv
+from ..nn.module import dropout, get_activation
+
+__all__ = ["GNNEncoder", "GCN"]
+
+_UNPORTED = {
+    "gin": "ROADMAP M5",
+    "sage": "ROADMAP M5",
+    "gatv2": "ROADMAP M6",
+}
+
+
+class GNNEncoder(nn.Module):
+    """A stack of conv layers with inter-layer activation (+ dropout).
+
+    ``conv``: layer family name (``'gcn'``). ``hidden_dims``: output dim of
+    each layer (last entry = output dim). The final layer gets no activation
+    (logits-friendly). Layers are the sub-modules ``layer_0 .. layer_k``, so
+    the state dict mirrors the reference's ``{"layer_i": {"kernel", "bias"}}``
+    parameter tree.
+    """
+
+    def __init__(
+        self,
+        conv: str,
+        hidden_dims: tuple[int, ...],
+        *,
+        input_dim: int,
+        activation: str | None = "relu",
+        dropout_rate: float = 0.0,
+        final_activation: str | None = None,
+        conv_kwargs: Any = (),
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        hidden_dims = tuple(hidden_dims)
+        if not hidden_dims:
+            raise ValueError("hidden_dims must be non-empty")
+        if conv in _UNPORTED:
+            raise NotImplementedError(
+                f"conv family {conv!r} is not ported yet: {_UNPORTED[conv]}"
+            )
+        if conv != "gcn":
+            raise ValueError(f"Unknown conv family: {conv}")
+        self.conv = conv
+        self.hidden_dims = hidden_dims
+        self.input_dim = input_dim
+        self.activation = activation
+        self.dropout_rate = dropout_rate
+        self.final_activation = final_activation
+        self.num_layers = len(hidden_dims)
+        dim = input_dim
+        for i, out_dim in enumerate(hidden_dims):
+            layer = GCNConv(
+                out_dim, input_dim=dim, generator=generator, device=device,
+                dtype=dtype, **dict(conv_kwargs),
+            )
+            self.add_module(f"layer_{i}", layer)
+            dim = out_dim
+
+    @classmethod
+    def for_context(
+        cls, conv: str, hidden_dims: tuple, **kwargs
+    ) -> "GNNEncoder":
+        """Encoder preconfigured for ``forward(..., context=...)`` layers.
+
+        Folds the family's context requirements into ``conv_kwargs`` (GCN:
+        ``add_self_loops=False, normalize=False``) so training on a prepared
+        graph cannot hit the layer flag trap. User-passed conv_kwargs win.
+        """
+        ck = dict(kwargs.pop("conv_kwargs", ()))
+        if conv == "gcn":
+            ck.setdefault("add_self_loops", False)
+            ck.setdefault("normalize", False)
+        return cls(conv, hidden_dims, conv_kwargs=tuple(ck.items()), **kwargs)
+
+    @property
+    def output_dim(self) -> int:
+        return self.hidden_dims[-1]
+
+    def layers(self) -> list[nn.Module]:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        edge_index: torch.Tensor | None = None,
+        *,
+        edge_mask: torch.Tensor | None = None,
+        node_mask: torch.Tensor | None = None,
+        context=None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        act = get_activation(self.activation)
+        h = x
+        for i, layer in enumerate(self.layers()):
+            if context is not None:
+                h = layer(h, context=context, generator=generator)
+            else:
+                h = layer(
+                    h, edge_index, edge_mask=edge_mask, node_mask=node_mask,
+                    generator=generator,
+                )
+            if i < self.num_layers - 1:
+                h = act(h)
+                h = dropout(h, self.dropout_rate, self.training, generator)
+        if self.final_activation is not None:
+            h = get_activation(self.final_activation)(h)
+        return h
+
+
+def GCN(hidden_dims: tuple[int, ...], **kwargs) -> GNNEncoder:
+    """2-layer-style GCN stack (Kipf & Welling)."""
+    return GNNEncoder("gcn", tuple(hidden_dims), **kwargs)

@@ -1,0 +1,521 @@
+"""Preprocessed CSR graph context: everything the hot path needs, computed once.
+
+Counterpart of the JAX package's ``ops/csr.py``. The backward pass of the
+edge gather (dL/dx_j) is an SpMM over the *transposed* graph, so preparation
+builds **both CSR orientations** up front:
+
+- receiver-sorted edges + ``row_ptr``: the forward scatter runs the sorted
+  scatter kernel;
+- sender-sorted permutation + ``row_ptr_bwd``: the gather's backward is the
+  same kernel over the transposed orientation, never an unsorted scatter-add.
+
+``prepare_graph`` is host numpy and produces arrays equal, element for
+element, to the reference context's; the kernel tables reduce to one
+``row_ptr`` per orientation. ``GraphContext.spmm`` runs the fused-gather
+kernel with a custom gradient of the same structure as the reference's.
+The attention ops (``attend``, ``edge_softmax``, ``sddmm_scores``) and the
+banded tiers are not part of this module yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import native
+from ..kernels import spmm_cuda
+
+__all__ = ["GraphContext", "prepare_graph"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphContext:
+    """Static per-graph state for the sorted SpMM path."""
+
+    senders: torch.Tensor  # [E] int32, receiver-sorted order
+    receivers: torch.Tensor  # [E] int32, non-decreasing
+    edge_weight: torch.Tensor | None  # [E] (e.g. GCN norm), 0 on padded slots
+    num_nodes: int
+    row_ptr: torch.Tensor  # [N+1] int32 over `receivers`
+    bwd_perm: torch.Tensor  # [E] int32: sender-sorted pos -> receiver-order edge
+    senders_sorted: torch.Tensor  # [E] int32, sender-sorted (for bwd scatter)
+    row_ptr_bwd: torch.Tensor  # [N+1] int32 over `senders_sorted`
+    num_real_edges: int = -1  # unpadded edge count
+    edge_mask: torch.Tensor | None = None  # [E] bool, False on padded slots
+    in_degree: torch.Tensor | None = None  # [N] f32 receiver in-degree (real)
+    is_symmetric: bool = False  # weighted adjacency equals its transpose
+    # Densified diagonal (prepare_graph(densify_self_loops=True)): appended
+    # self-loops stay out of the edge stream and are applied as the dense
+    # term ``self_weight[:, None] * h`` inside spmm().
+    self_weight: torch.Tensor | None = None  # [N] or None
+    num_diag: int = 0  # densified self-loop count (for edge accounting)
+    # pad_nodes=True rounds num_nodes up; num_real_nodes keeps the true count
+    # for reporting and loss masking.
+    num_real_nodes: int = -1
+    # Sender-sorted companions for the general spmm's backward: the backward
+    # of a linear spmm is A^T @ g with g a NODE array, gathered by
+    # receivers-in-sender-order.
+    receivers_ss: torch.Tensor | None = None  # [E] int32
+    edge_weight_ss: torch.Tensor | None = None  # [E]
+    # True when edge_weight is all ones (zero on pads): layers that ignore
+    # edge weights may route sum/mean aggregation through spmm()/spmm_mean().
+    has_unit_weights: bool = False
+    # Edge validity in SENDER-sorted order (1.0 real / 0.0 padded); None when
+    # no padded slots exist.
+    edge_mask_ss: torch.Tensor | None = None
+    # Full-stream companion: a densified context's stream lacks the
+    # self-loops, so per-edge ops route through a second context that holds
+    # every edge (prepare_graph(attend_full_stream=True)).
+    full: "GraphContext | None" = None
+
+    # -- placement ---------------------------------------------------------
+    def _replace(self, **changes) -> "GraphContext":
+        return dataclasses.replace(self, **changes)
+
+    def _map_tensors(self, fn) -> "GraphContext":
+        changes = {}
+        for field in dataclasses.fields(self):
+            value = getattr(self, field.name)
+            if isinstance(value, torch.Tensor):
+                changes[field.name] = fn(field.name, value)
+            elif isinstance(value, GraphContext):
+                changes[field.name] = value._map_tensors(fn)
+        return self._replace(**changes)
+
+    def to(self, device) -> "GraphContext":
+        """The same context with every array on ``device``."""
+        return self._map_tensors(lambda _name, t: t.to(device))
+
+    def with_weight_dtype(self, dtype: torch.dtype) -> "GraphContext":
+        """Edge, sender-sorted edge and self weights cast to ``dtype`` (the
+        bf16-IO training setup keeps them in the data's type)."""
+        names = ("edge_weight", "edge_weight_ss", "self_weight")
+        return self._map_tensors(
+            lambda name, t: t.to(dtype) if name in names else t
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.receivers.device
+
+    # -- structure ---------------------------------------------------------
+    @property
+    def num_edges(self) -> int:
+        base = (
+            self.num_real_edges
+            if self.num_real_edges >= 0
+            else int(self.senders.shape[0])
+        )
+        return base + self.num_diag
+
+    def full_stream(self) -> "GraphContext":
+        """The context to use for per-edge ops: ``self`` when the CSR stream
+        already holds every edge; the attached ``full`` companion when
+        densify moved the self-loops out of the stream."""
+        if self.num_diag == 0:
+            return self
+        if self.full is not None:
+            return self.full
+        raise ValueError(
+            "This context's CSR stream is incomplete for per-edge ops "
+            "(densify_self_loops=True moves self-loops out). Prepare "
+            "with attend_full_stream=True to attach a full-stream "
+            "companion, or prepare without densify."
+        )
+
+    @property
+    def edge_index(self) -> torch.Tensor:
+        return torch.stack([self.senders, self.receivers])
+
+    # -- per-edge ops ------------------------------------------------------
+    def gather(self, h: torch.Tensor) -> torch.Tensor:
+        """``[N, F] -> [E, F]`` sender-row gather whose gradient is a sorted
+        scatter. Routes to the full-stream companion on densified contexts
+        (per-edge semantics need every edge)."""
+        ctx = self.full_stream()
+        return _GatherRows.apply(h, ctx)
+
+    def _check_message_stream(self, messages: torch.Tensor) -> None:
+        """Densified contexts route gather() to the full-stream companion but
+        scatter over THIS context's residual stream: mixing the two must fail
+        loudly, not through a shape mismatch further down."""
+        if messages.shape[0] != self.receivers.shape[0]:
+            hint = ""
+            if self.num_diag:
+                hint = (
+                    " This context is densified: its CSR stream "
+                    "holds only residual edges, while per-edge ops "
+                    "(gather) route through the full-stream companion; "
+                    "scatter through ctx.full_stream() for messages "
+                    "produced there."
+                )
+            raise ValueError(
+                f"scatter got {messages.shape[0]} messages but this "
+                f"context's edge stream has {self.receivers.shape[0]} "
+                f"slots.{hint}"
+            )
+
+    def scatter(self, messages: torch.Tensor, *, masked: bool = False):
+        """``[E, F] -> [N, F]`` receiver scatter-sum (sorted kernel).
+
+        ``masked=True`` zeroes padded edge slots first: needed whenever the
+        messages were not already nulled by a zero edge weight. Unmasked,
+        padded slots are summed into the last node's row like any edge.
+        """
+        self._check_message_stream(messages)
+        return spmm_cuda.scatter_sum_sorted(
+            messages,
+            self.receivers,
+            self.num_nodes,
+            row_ptr=self.row_ptr,
+            mask=self.edge_mask if masked else None,
+        )
+
+    def scatter_mean(self, messages: torch.Tensor, *, masked: bool = True):
+        """Mean aggregation with the reference 1e-8 degree clamp."""
+        total = self.scatter(messages, masked=masked)
+        deg = self.in_degree.clamp_min(1e-8).to(total.dtype)
+        return total / deg[:, None]
+
+    def gather_receivers(self, h: torch.Tensor) -> torch.Tensor:
+        """``[N, F] -> [E, F]`` receiver-row gather (x_i) through the sorted
+        expand kernel; its backward is the sorted scatter."""
+        return spmm_cuda.expand_sorted(
+            h, self.receivers, row_ptr=self.row_ptr
+        )
+
+    def scatter_weighted(self, messages: torch.Tensor) -> torch.Tensor:
+        """Scatter with the per-edge weights applied inside the kernel (no
+        separate [E, F] weighting pass; padded slots carry zero weight)."""
+        self._check_message_stream(messages)
+        return spmm_cuda.scatter_sum_sorted(
+            messages,
+            self.receivers,
+            self.num_nodes,
+            row_ptr=self.row_ptr,
+            weights=self.edge_weight,
+        )
+
+    # -- spmm --------------------------------------------------------------
+    def spmm(self, h: torch.Tensor) -> torch.Tensor:
+        """Full ``A @ h``: sender rows gathered and weighted-summed into the
+        receivers in one kernel.
+
+        When the weighted adjacency is symmetric (``is_symmetric``, e.g. GCN
+        normalization on an undirected graph) the gradient is the same
+        operator; otherwise it is the same kernel over the transposed
+        orientation. Neither forms an ``[E, F]`` array.
+        """
+        if self.is_symmetric:
+            return _SpmmSymmetric.apply(h, self)
+        if self.receivers_ss is not None and self.edge_weight is not None:
+            return _SpmmGeneral.apply(h, self)
+        out = self.scatter_weighted(_GatherRows.apply(h, self))
+        if self.self_weight is not None:
+            out = out + h * self.self_weight[:, None].to(h.dtype)
+        return out
+
+    def spmm_mean(self, h: torch.Tensor) -> torch.Tensor:
+        """Mean-aggregated spmm: ``(A @ h) / max(in_degree, 1e-8)``; valid for
+        unit edge weights (``has_unit_weights``)."""
+        deg = self.in_degree.clamp_min(1e-8).to(h.dtype)
+        return self.spmm(h) / deg[:, None]
+
+
+class _GatherRows(torch.autograd.Function):
+    """``h[senders]``; backward: cotangents permuted into sender-sorted order
+    (``bwd_perm``) and summed by the sorted scatter over ``senders_sorted``.
+    The permutation is read inside the scatter kernel."""
+
+    @staticmethod
+    def forward(ctx, h, graph):
+        ctx.graph = graph
+        return h.index_select(0, graph.senders)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        dh = spmm_cuda.gather_scatter_sum_sorted(
+            g.contiguous(), graph.bwd_perm, graph.senders_sorted,
+            graph.row_ptr_bwd, graph.num_nodes,
+        )
+        return dh, None
+
+
+class _SpmmSymmetric(torch.autograd.Function):
+    """Weighted spmm over a symmetric adjacency: ``A^T = A``, so the
+    cotangent flows through the same operator (re-entering the Function keeps
+    higher-order gradients valid; nothing is saved)."""
+
+    @staticmethod
+    def forward(ctx, h, graph):
+        ctx.graph = graph
+        return spmm_cuda.gather_scatter_sum_sorted(
+            h.contiguous(), graph.senders, graph.receivers, graph.row_ptr,
+            graph.num_nodes, weights=graph.edge_weight,
+            self_weight=graph.self_weight,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SpmmSymmetric.apply(g, ctx.graph), None
+
+
+class _SpmmGeneral(torch.autograd.Function):
+    """Weighted spmm over a (possibly) asymmetric adjacency. Backward:
+    ``dh = A^T g`` built directly in sender-sorted order: the node cotangent
+    gathered by receivers-in-sender-order, summed over the transposed
+    orientation. Valid because the per-edge message is linear in ``h``."""
+
+    @staticmethod
+    def forward(ctx, h, graph):
+        ctx.graph = graph
+        return spmm_cuda.gather_scatter_sum_sorted(
+            h.contiguous(), graph.senders, graph.receivers, graph.row_ptr,
+            graph.num_nodes, weights=graph.edge_weight,
+            self_weight=graph.self_weight,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SpmmGeneralTransposed.apply(g, ctx.graph), None
+
+
+class _SpmmGeneralTransposed(torch.autograd.Function):
+    """``A^T @ g`` of :class:`_SpmmGeneral`; its own backward is ``A``."""
+
+    @staticmethod
+    def forward(ctx, g, graph):
+        ctx.graph = graph
+        return spmm_cuda.gather_scatter_sum_sorted(
+            g.contiguous(), graph.receivers_ss, graph.senders_sorted,
+            graph.row_ptr_bwd, graph.num_nodes, weights=graph.edge_weight_ss,
+            self_weight=graph.self_weight,
+        )
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _SpmmGeneral.apply(gg, ctx.graph), None
+
+
+def _row_ptr(sorted_ids: np.ndarray, num_nodes: int) -> np.ndarray:
+    return np.searchsorted(
+        sorted_ids, np.arange(num_nodes + 1), side="left"
+    ).astype(np.int32)
+
+
+def prepare_graph(
+    edge_index: np.ndarray,
+    num_nodes: int,
+    *,
+    add_self_loops: bool = False,
+    gcn_normalize: bool = False,
+    edge_weight: np.ndarray | None = None,
+    edge_chunk: int = 1024,
+    symmetric: bool = False,
+    densify_self_loops: bool = False,
+    scatter_row_block: int = 256,
+    expand_row_block: int = 128,
+    pad_nodes: bool = False,
+    band_window: int | None = None,
+    pad_to: int | None = None,
+    attend_full_stream: bool | None = None,
+    attend_window: int | None = None,
+    device: torch.device | str = torch.device("cuda"),
+) -> GraphContext:
+    """One-time host preprocessing into a :class:`GraphContext` on ``device``.
+
+    Sorts edges by receiver (native counting sort when available), builds
+    both orientations' row pointers, optionally folds in self-loops and GCN
+    normalization.
+
+    ``densify_self_loops=True`` (requires ``add_self_loops=True``) keeps the
+    appended self-loops OUT of the edge stream and stores their weights as a
+    dense per-node ``self_weight`` vector; ``spmm()`` applies the diagonal in
+    the kernel's epilogue. Only valid for linear per-edge messages.
+
+    ``pad_nodes=True`` rounds ``num_nodes`` up to a multiple of
+    ``max(scatter_row_block, expand_row_block)`` (256 by default): node arrays
+    are then supplied and returned with that many rows. Padded rows have no
+    edges and zero self-weight. The edge axis is padded to a multiple of
+    ``edge_chunk``; padded slots point at node ``num_nodes - 1`` in both
+    orientations and carry weight 0, so every weighted op ignores them.
+    (These grains keep the prepared arrays equal to the reference context's;
+    the kernels themselves take any size.)
+
+    ``attend_full_stream=True`` attaches a companion context holding every
+    edge to a densified one, for per-edge ops. ``pad_to`` forces the padded
+    node count (keeps the companion's shapes aligned).
+
+    ``band_window=`` and ``attend_window=`` (the locality tiers) are not
+    ported yet.
+    """
+    if band_window is not None:
+        raise NotImplementedError(
+            "band_window= (banded-dense tier) is not ported yet: ROADMAP M9"
+        )
+    if attend_window is not None:
+        raise NotImplementedError(
+            "attend_window= (banded attention backward) is not ported yet: "
+            "ROADMAP M9"
+        )
+    edge_index = np.asarray(edge_index)
+    if edge_index.shape[0] != 2:
+        edge_index = edge_index.T
+    s = edge_index[0].astype(np.int64)
+    r = edge_index[1].astype(np.int64)
+    orig_s, orig_r = s.copy(), r.copy()
+    orig_edge_weight = (
+        None if edge_weight is None else np.asarray(edge_weight).copy()
+    )
+    num_real_nodes = num_nodes
+    grain = max(scatter_row_block, expand_row_block)
+    if pad_nodes:
+        num_nodes = -(-num_nodes // grain) * grain
+    if pad_to is not None:
+        if not pad_nodes:
+            raise ValueError("pad_to requires pad_nodes=True")
+        if pad_to < num_nodes or pad_to % grain:
+            raise ValueError(
+                f"pad_to={pad_to} incompatible with computed padded "
+                f"node count {num_nodes}"
+            )
+        num_nodes = pad_to
+    if symmetric:
+        # Symmetry of the *weighted* adjacency lets spmm() reuse itself as its
+        # own gradient. GCN normalization and self-loops preserve symmetry;
+        # arbitrary user edge_weight would not.
+        if edge_weight is not None:
+            raise ValueError(
+                "symmetric=True supports only structural weights "
+                "(gcn_normalize); arbitrary edge_weight breaks Aᵀ=A."
+            )
+        fwd = np.sort(s * num_nodes + r)
+        rev = np.sort(r * num_nodes + s)
+        if not np.array_equal(fwd, rev):
+            raise ValueError(
+                "symmetric=True but the edge multiset is not symmetric"
+            )
+    self_weight = None
+    num_diag = 0
+    densified_norm = None
+    if densify_self_loops:
+        if not add_self_loops:
+            raise ValueError(
+                "densify_self_loops=True requires add_self_loops=True "
+                "(it densifies the loops that would have been appended)"
+            )
+        num_diag = num_real_nodes
+        if gcn_normalize:
+            # Weights computed over the FULL edge list including the appended
+            # loops, then split: real-edge weights stay in the stream, loop
+            # weights become the dense diagonal. Loops are added for REAL
+            # nodes only; padded rows keep self_weight 0.
+            loops = np.arange(num_real_nodes, dtype=np.int64)
+            s_full = np.concatenate([s, loops]).astype(np.int32)
+            r_full = np.concatenate([r, loops]).astype(np.int32)
+            w_full = native.gcn_norm_weights(s_full, r_full, num_nodes)
+            densified_norm = np.asarray(w_full[: s.shape[0]], np.float32)
+            self_weight = np.asarray(w_full[s.shape[0]:], np.float32)
+        else:
+            self_weight = np.ones(num_real_nodes, np.float32)
+        if num_nodes > num_real_nodes:
+            self_weight = np.concatenate(
+                [self_weight, np.zeros(num_nodes - num_real_nodes, np.float32)]
+            )
+    elif add_self_loops:
+        loops = np.arange(num_real_nodes, dtype=np.int64)
+        s = np.concatenate([s, loops])
+        r = np.concatenate([r, loops])
+        if edge_weight is not None:
+            edge_weight = np.concatenate(
+                [np.asarray(edge_weight), np.ones(num_real_nodes, np.float32)]
+            )
+
+    # Resolve per-edge weights BEFORE any sort: the GCN norm is a per-edge
+    # function of endpoint degrees, hence order-independent.
+    w_resolved = None
+    if gcn_normalize:
+        if densified_norm is not None:
+            w_resolved = densified_norm
+        else:
+            w_resolved = native.gcn_norm_weights(
+                s.astype(np.int32), r.astype(np.int32), num_nodes
+            )
+    if edge_weight is not None:
+        ew = np.asarray(edge_weight, np.float32)
+        w_resolved = ew if w_resolved is None else w_resolved * ew
+
+    in_degree = np.bincount(r, minlength=num_nodes).astype(np.float32)
+
+    perm_r, _ = native.coo_to_csr_perm(r.astype(np.int32), num_nodes)
+    s_sorted_by_r = s[perm_r].astype(np.int32)
+    r_sorted = r[perm_r].astype(np.int32)
+    e_real = int(s_sorted_by_r.shape[0])
+    if w_resolved is None:
+        w = np.ones(e_real, np.float32)
+    else:
+        w = np.asarray(w_resolved, np.float32)[perm_r]
+
+    e_pad = ((e_real + edge_chunk - 1) // edge_chunk) * edge_chunk
+    pad = e_pad - e_real
+    last = max(num_nodes - 1, 0)
+    s_p = np.concatenate([s_sorted_by_r, np.full(pad, last, np.int32)])
+    r_p = np.concatenate([r_sorted, np.full(pad, last, np.int32)])
+    w_p = np.concatenate([w, np.zeros(pad, np.float32)])
+
+    # Transposed orientation: sort (receiver-sorted, padded) edges by sender.
+    perm_s, _ = native.coo_to_csr_perm(s_p, num_nodes)
+    senders_sorted = s_p[perm_s]
+    receivers_ss = r_p[perm_s]
+    weight_ss = w_p[perm_s]
+
+    if attend_full_stream is None:
+        attend_full_stream = False
+    full_ctx = None
+    if attend_full_stream and num_diag > 0:
+        full_ctx = prepare_graph(
+            np.stack([orig_s, orig_r]),
+            num_real_nodes,
+            add_self_loops=add_self_loops,
+            gcn_normalize=gcn_normalize,
+            edge_weight=orig_edge_weight,
+            edge_chunk=edge_chunk,
+            symmetric=symmetric,
+            densify_self_loops=False,
+            scatter_row_block=scatter_row_block,
+            expand_row_block=expand_row_block,
+            pad_nodes=pad_nodes,
+            pad_to=num_nodes if pad_nodes else None,
+            device=device,
+        )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return GraphContext(
+        senders=dev(s_p),
+        receivers=dev(r_p),
+        edge_weight=dev(w_p),
+        num_nodes=num_nodes,
+        row_ptr=dev(_row_ptr(r_p, num_nodes)),
+        bwd_perm=dev(perm_s.astype(np.int32)),
+        senders_sorted=dev(senders_sorted),
+        row_ptr_bwd=dev(_row_ptr(senders_sorted, num_nodes)),
+        num_real_edges=e_real,
+        edge_mask=dev(np.arange(e_pad) < e_real),
+        in_degree=dev(in_degree),
+        is_symmetric=symmetric,
+        self_weight=None if self_weight is None else dev(self_weight),
+        num_diag=num_diag,
+        num_real_nodes=num_real_nodes,
+        receivers_ss=dev(receivers_ss),
+        edge_weight_ss=dev(weight_ss),
+        has_unit_weights=(not gcn_normalize) and edge_weight is None,
+        edge_mask_ss=(
+            None if pad == 0 else dev((perm_s < e_real).astype(np.float32))
+        ),
+        full=full_ctx,
+    )

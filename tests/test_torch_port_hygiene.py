@@ -1,0 +1,235 @@
+"""Hygiene of the PyTorch port: it stands beside the JAX package and imports
+none of it; its kernel wrappers take the plain version only for CPU tensors;
+its entry points default to the CUDA device.
+"""
+
+import inspect
+import pathlib
+import re
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import keras_geometric_tpu_torch as kgt_torch
+from keras_geometric_tpu_torch import native
+from keras_geometric_tpu_torch.kernels import _build, spmm_cuda
+from keras_geometric_tpu_torch.ops import spmm as spmm_ops
+from keras_geometric_tpu_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "keras_geometric_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
+    r"|(import|from)\s+keras_geometric_tpu(?!_torch)\b)", re.M)
+
+MODULES = [
+    "_version.py", "__init__.py", "native.py", "convert.py",
+    "kernels/spmm_cuda.py", "kernels/_build.py", "kernels/csrc/spmm.cu",
+    "ops/segment.py", "ops/graph_ops.py", "ops/spmm.py", "ops/csr.py",
+    "ops/precompute.py", "nn/module.py", "nn/gcn_conv.py", "models/gnn.py",
+    "training/train.py", "utils/profiling.py",
+]
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_slice_module_exists(rel):
+    assert (PORT / rel).is_file()
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_and_no_reference_package_imports(path):
+    text = path.read_text()
+    assert not FORBIDDEN.search(text), path
+    # The reference package is not even named: its name only ever appears
+    # followed by the port's "_torch".
+    assert not re.search(r"keras_geometric_tpu[^_]", text), path
+
+
+def test_importing_the_port_does_not_import_jax():
+    code = (
+        "import sys\n"
+        "import keras_geometric_tpu_torch as k\n"
+        "import keras_geometric_tpu_torch.training, "
+        "keras_geometric_tpu_torch.convert, "
+        "keras_geometric_tpu_torch.utils, "
+        "keras_geometric_tpu_torch.kernels.spmm_cuda\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'keras_geometric_tpu' or "
+        "m.startswith('keras_geometric_tpu.') or m == 'optax']\n"
+        "assert not bad, bad\n"
+        "print(k.__version__)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == kgt_torch.__version__
+
+
+def test_importing_builds_and_loads_nothing():
+    """Kernels are built at first use on a CUDA tensor, never at import."""
+    assert _build.BUILD_SECONDS == {}
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    spmm_cuda.reset_launch_counts()
+    recv = torch.tensor([0, 0, 2, 3, 3], dtype=torch.int32)
+    idx = torch.tensor([1, 2, 0, 3, 1], dtype=torch.int32)
+    w = torch.tensor([1.0, 0.5, 2.0, 1.0, 0.0])
+    msgs = torch.arange(10, dtype=torch.float32).reshape(5, 2)
+    rows = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    row_ptr = spmm_cuda.row_ptr_from_sorted(recv, 4)
+
+    out = spmm_cuda.scatter_sum_sorted(msgs, recv, 4, weights=w)
+    assert torch.equal(out, spmm_cuda.scatter_sum_sorted_plain(
+        msgs, recv, 4, weights=w))
+    np.testing.assert_allclose(out.numpy(), [[1, 2.5], [0, 0], [8, 10], [6, 7]])
+
+    out = spmm_cuda.expand_sorted(rows, recv, weights=w)
+    assert torch.equal(out, spmm_cuda.expand_sorted_plain(rows, recv, weights=w))
+
+    out = spmm_cuda.gather_scatter_sum_sorted(rows, idx, recv, row_ptr, 4,
+                                              weights=w)
+    assert torch.equal(out, spmm_cuda.gather_scatter_sum_sorted_plain(
+        rows, idx, recv, 4, weights=w))
+    assert spmm_cuda.LAUNCH_COUNTS == {
+        "scatter_sum_sorted": 0, "gather_scatter_sum_sorted": 0,
+        "expand_sorted": 0}
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_wrappers_branch_on_the_tensor_device_only():
+    """No try/except around a launch, and the plain version is reached only
+    through an ``is_cuda`` test of the data tensor."""
+    src = inspect.getsource(spmm_cuda)
+    assert "except" not in src
+    for fn in (spmm_cuda._scatter_raw, spmm_cuda.gather_scatter_sum_sorted,
+               spmm_cuda._expand_raw):
+        body = inspect.getsource(fn)
+        assert re.search(r"if not \w+\.is_cuda:\n\s+return \w+_plain\(", body)
+        assert body.count("_plain(") == 1
+    assert "torch.cuda.is_available" not in src
+    build_src = inspect.getsource(_build)
+    assert "sm_90a" in build_src and "except" not in build_src
+
+
+def test_row_ptr_is_required_for_a_cuda_tensor():
+    """The host derivation of ``row_ptr`` serves CPU tensors only: a tensor on
+    the card must come with the ``row_ptr`` of graph preparation."""
+    recv = torch.tensor([0, 0, 2], dtype=torch.int32)
+    on_card = types.SimpleNamespace(is_cuda=True)
+    with pytest.raises(ValueError, match="row_ptr is required"):
+        spmm_cuda._row_ptr_or_raise(on_card, recv, 3, None)
+    given = torch.tensor([0, 2, 2, 3], dtype=torch.int32)
+    assert spmm_cuda._row_ptr_or_raise(on_card, recv, 3, given) is given
+    derived = spmm_cuda._row_ptr_or_raise(torch.ones(3, 2), recv, 3, None)
+    assert torch.equal(derived, given)
+
+
+def test_kernels_build_inside_the_checkout():
+    assert _build.build_dir() == ROOT / "build" / "kernels"
+    assert "environ.get(\"KGT" not in inspect.getsource(_build)
+
+
+def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
+    recv = torch.tensor([2, 0, 2, 1], dtype=torch.int32)
+    msgs = torch.ones(4, 3)
+    out = spmm_ops.scatter_sum(msgs, recv, 3)
+    np.testing.assert_allclose(out.numpy(), [[1] * 3, [1] * 3, [2] * 3])
+    mask = torch.tensor([True, True, False, True])
+    out = spmm_ops.scatter_sum(msgs, recv, 3, mask=mask)
+    np.testing.assert_allclose(out.numpy(), [[1] * 3] * 3)
+
+
+@pytest.mark.parametrize(
+    "fn", [kgt_torch.prepare_graph, kgt_torch.GCNConv.__init__,
+           kgt_torch.GNNEncoder.__init__, kgt_torch.Dense.__init__,
+           kgt_torch.MLP.__init__],
+    ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP"])
+def test_entry_points_default_to_the_cuda_device(fn):
+    default = inspect.signature(fn).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+
+
+def test_prepare_graph_without_a_card_raises_instead_of_moving_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        kgt_torch.prepare_graph(np.array([[0, 1], [1, 0]]), 2)
+
+
+def test_timed_steps_refuses_to_time_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.timed_steps(lambda: None)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_roofline_uses_the_cards_constants():
+    assert profiling.H100_BYTES_PER_S == 3.35e12
+    r = profiling.Roofline().add_spmm(1_000_000, 128, 100_000)
+    rep = r.report(1e-3)
+    assert rep["bound_by"] == "bytes"
+    expect = (2 * 2 * 100_000 * 128 + 8 * 1_000_000 + 4 * 100_001) / 3.35e12
+    np.testing.assert_allclose(rep["bound_s"], expect, rtol=1e-12)
+    rep = profiling.Roofline().add_matmul(4096, 4096, 4096).report(
+        1e-3, tensor_cores=True)
+    assert rep["bound_by"] == "operations"
+
+
+def test_native_fallbacks_are_bit_identical():
+    rng = np.random.default_rng(0)
+    n = 50
+    s = rng.integers(0, n, 400).astype(np.int32)
+    r = rng.integers(0, n, 400).astype(np.int32)
+    got = (native.coo_to_csr_perm(r, n), native.gcn_norm_weights(s, r, n),
+           native.in_degree(r, n))
+    native._lib.cache_clear()
+    path, native._LIB_PATH = native._LIB_PATH, "/nonexistent/libgraph_core.so"
+    try:
+        assert not native.available()
+        ref = (native.coo_to_csr_perm(r, n), native.gcn_norm_weights(s, r, n),
+               native.in_degree(r, n))
+    finally:
+        native._LIB_PATH = path
+        native._lib.cache_clear()
+    np.testing.assert_array_equal(got[0][0], ref[0][0])
+    np.testing.assert_array_equal(got[0][1], ref[0][1])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[2], ref[2])
+
+
+def test_graph_ops_host_helpers_match_reference():
+    from keras_geometric_tpu.ops import graph_ops as jgo
+    from keras_geometric_tpu_torch.ops import graph_ops as tgo
+
+    rng = np.random.default_rng(1)
+    s = rng.integers(0, 9, 30).astype(np.int32)
+    r = rng.integers(0, 9, 30).astype(np.int32)
+    a, b = jgo.coo_to_csr(s, r, 9, pad_to=40), tgo.coo_to_csr(s, r, 9, pad_to=40)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert tgo.round_up(13, 8) == jgo.round_up(13, 8) == 16
+    with pytest.raises(ValueError, match="pad_to"):
+        tgo.coo_to_csr(s, r, 9, pad_to=3)
+    with pytest.raises(ValueError, match="rank-2"):
+        tgo.ensure_edge_index(np.zeros(3))
+    with pytest.raises(ValueError, match=r"\[2, E\]"):
+        tgo.ensure_edge_index(np.zeros((3, 3)))
