@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive keras_geometric_tpu_torch on one NVIDIA GPU: build its CUDA kernels,
-hold each against its plain PyTorch version, and train the 2-layer GCN through
-the package's entry points.
+hold each against its plain PyTorch version, and train the 2-layer GCN and the
+2-layer GATv2 through the package's entry points.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -9,23 +9,35 @@ card, nvcc and PyTorch built for CUDA::
     python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failure ends the run with a non-zero
-exit code and without the final line):
+exit code and without the final line; so does a run of a subset of the phases
+(``--phases``), which exits with code 4 once its phases have passed):
 
 1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build;
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
-                F in 128, 40, 16, 7; weighted / unweighted / masked), then
+                F in 128, 40, 16, 7; weighted / unweighted / masked; the
+                attention kernels at (H, F) in (4, 64), (4, 40), (8, 8),
+                (8, 6), (1, 7), with and without a dropout mask), then
                 timings at the shapes the training paths use;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
-                autograd over the plain versions;
+                autograd over the plain versions, and of
+                ``GraphContext.attend`` against autograd over a restatement
+                of it in library ops;
 4. ``train_arxiv_shape``  the slice at full width: 169,343 nodes, 1,166,242
                 symmetric stream edges, 128 features, 256 hidden, 40 classes,
                 bf16 IO / f32 master parameters, Adam;
 5. ``train_directed`` (the general, asymmetric operator) and
    ``train_cora_shape`` (2,708 nodes / 10,556 edges / 1,433 features / 16
                 hidden / 7 classes, dropout 0.5 on layer 1: gather + weighted
-                scatter forward, expand kernel in the backward).
+                scatter forward, expand kernel in the backward);
+6. ``train_gat_arxiv_shape``  the attention slice at full width: 169,343
+                nodes, 1,335,586 directed edges plus self-loops, 128 features,
+                GATv2 4 heads x 64 then 4 heads x 40, bf16 IO / f32 master
+                parameters, Adam;
+7. ``train_gat_citeseer_shape``  3,327 nodes / 9,464 edges / 3,703 features /
+                8 heads x 8 then 8 heads x 6, attention dropout, f32, AdamW;
+                then a short run whose last layer averages its heads.
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -35,7 +47,11 @@ Tolerances. Kernel against plain version, per output element:
 ``|w * message|`` over the element's row (both sides accumulate in f32, in
 another order) and ``u`` one unit in the last place of the stored type: 0 for
 f32, ``2**-7`` for bf16 (both sides round the f32 sum once, and the two
-roundings may fall on neighbouring bf16 values). Training step 1 through
+roundings may fall on neighbouring bf16 values). For the attention kernels
+``S`` is the sum of the absolute values of the element's terms, and for what
+lies behind the softmax's ``exp`` it is multiplied by ``1 + `` the row's
+largest score mass (an error ``d`` in a score scales its ``exp`` by
+``1 + d``). Training step 1 through
 the kernels against the same step through the plain versions: loss within
 ``1e-4`` (f32) / ``2e-2`` (bf16 IO), every gradient within ``2e-4`` / ``5e-2``
 of its largest entry.
@@ -55,21 +71,36 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
-          "train_directed", "train_cora_shape")
+          "train_directed", "train_cora_shape", "train_gat_arxiv_shape",
+          "train_gat_citeseer_shape")
+# Exit code of a run of a subset of the phases that passed: not 0, so that no
+# reader of the exit code takes a partial run for a pass.
+PARTIAL_EXIT_CODE = 4
 
 ARXIV_NODES = 169_343
 ARXIV_EDGES = 1_166_243
 ARXIV_FEATS = 128
 ARXIV_CLASSES = 40
 HIDDEN = 256
+GAT_ARXIV_EDGES = 1_335_586
+GAT_ARXIV_DIMS, GAT_ARXIV_HEADS = (64, 40), 4
+CITESEER = dict(nodes=3_327, pairs=4_732, feats=3_703, classes=6)
+GAT_CITESEER_DIMS, GAT_CITESEER_HEADS = (8, 6), 8
+ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7))  # (H, F)
 
-SOURCE = "keras_geometric_tpu_torch/kernels/csrc/spmm.cu"
-# Line of the pl.pallas_call each kernel replaces, in the reference package's
-# kernels/spmm_pallas.py.
-REPLACES_LINE = {
-    "scatter_sum_sorted": 319,
-    "gather_scatter_sum_sorted": 319,
-    "expand_sorted": 620,
+SOURCES = {
+    "spmm": "keras_geometric_tpu_torch/kernels/csrc/spmm.cu",
+    "attend": "keras_geometric_tpu_torch/kernels/csrc/attend.cu",
+}
+# For each kernel: its CUDA source, and the file (under the reference
+# package's kernels/) and line of the pl.pallas_call it replaces.
+REPLACES = {
+    "scatter_sum_sorted": ("spmm", "spmm_pallas.py", 319),
+    "gather_scatter_sum_sorted": ("spmm", "spmm_pallas.py", 319),
+    "expand_sorted": ("spmm", "spmm_pallas.py", 620),
+    "sddmm_stats_agg_sorted": ("attend", "sddmm_pallas.py", 617),
+    "attend_rho_sorted": ("attend", "attend_pallas.py", 441),
+    "attend_recv_bwd_full_sorted": ("attend", "attend_pallas.py", 737),
 }
 
 
@@ -84,17 +115,32 @@ def check(cond: bool, what: str) -> None:
 
 def replaced_tpu_kernels() -> dict:
     """``file:line`` of the TPU kernel each CUDA kernel replaces: the
-    reference's source is found in the checkout and each line is checked to
+    reference's sources are found in the checkout and each line is checked to
     hold a ``pallas_call``."""
     root = pathlib.Path(__file__).resolve().parent
-    found = sorted(root.glob("*/kernels/spmm_pallas.py"))
-    check(len(found) == 1, "the reference's kernels/spmm_pallas.py not found")
-    lines = found[0].read_text().splitlines()
-    for name, line in REPLACES_LINE.items():
+    out = {}
+    for name, (_, filename, line) in REPLACES.items():
+        found = sorted(root.glob(f"*/kernels/{filename}"))
+        check(len(found) == 1, f"the reference's kernels/{filename} not found")
+        lines = found[0].read_text().splitlines()
         check("pallas_call" in lines[line - 1],
-              f"{name}: no pallas_call at line {line} of {found[0].name}")
-    rel = found[0].relative_to(root).as_posix()
-    return {name: f"{rel}:{line}" for name, line in REPLACES_LINE.items()}
+              f"{name}: no pallas_call at line {line} of {filename}")
+        out[name] = f"{found[0].relative_to(root).as_posix()}:{line}"
+    return out
+
+
+def launch_counts() -> dict:
+    """Every kernel's count of launches, from both wrapper modules."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
+
+    return {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS}
+
+
+def reset_launch_counts() -> None:
+    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
+
+    spmm_cuda.reset_launch_counts()
+    attend_cuda.reset_launch_counts()
 
 
 def nvidia_smi_line() -> str:
@@ -161,12 +207,12 @@ def compare(kernel_out, plain_out, mass, dtype, what):
     return err.max().item()
 
 
-def skewed_graph(device, n=20_000, seed=1):
+def skewed_graph(device, n=20_000, seed=1, hub=20_000):
     """Receiver-sorted stream with one hub row (20,000 edges), every odd row
     empty, and padded slots (weight 0) inside the last row."""
     rng = np.random.default_rng(seed)
     recv = np.concatenate([
-        np.full(20_000, 6), 2 * rng.integers(0, n // 2 - 1, 100_000),
+        np.full(hub, 6), 2 * rng.integers(0, n // 2 - 1, 100_000),
     ])
     recv = np.sort(recv).astype(np.int32)
     e_real = recv.shape[0]
@@ -371,7 +417,8 @@ def time_kernel_cases(device, timer, contexts, replaces):
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
             t_ops = ops / H100_F32_OPS_PER_S * 1e3
             entry = {
-                "name": name, "route": "cuda", "source": SOURCE,
+                "name": name, "route": "cuda",
+                "source": SOURCES[REPLACES[name][0]],
                 "replaces": replaces[name], "path": path,
                 "shape": f"{ctx_name} {layer}: E={e} N={n} F={f} "
                          f"{str(dtype)[6:]} weights {str(w.dtype)[6:]}",
@@ -391,6 +438,343 @@ def time_kernel_cases(device, timer, contexts, replaces):
 
 
 # ---------------------------------------------------------------------------
+# The attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def attend_restated(ctx, ht, att, drop_mask=None, negative_slope=0.2,
+                    eps=1e-10):
+    """``GraphContext.attend`` written with differentiable library ops over
+    the same edge order, validity mask and dropout mask, f32 inside: autograd
+    over this is the oracle for the hand-written backward. For comparison
+    only."""
+    n, (heads, f) = ht.shape[0], att.shape
+    s, r = ctx.senders.long(), ctx.receivers.long()
+    e = s.shape[0]
+    rows = ht.float()
+    hj = rows.index_select(0, s).view(e, heads, f)
+    hi = rows.index_select(0, r).view(e, heads, f)
+    z = torch.nn.functional.leaky_relu(hi + hj, negative_slope)
+    scores = (z * att.float()).sum(-1)
+    scores = scores.masked_fill(~ctx.edge_mask[:, None], float("-inf"))
+    m = torch.full((n, heads), float("-inf"), device=ht.device).scatter_reduce(
+        0, r[:, None].expand(e, heads), scores.detach(), "amax")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ex = torch.exp(scores - m.index_select(0, r))
+    den = torch.zeros(n, heads, device=ht.device).index_add(0, r, ex)
+    alpha = ex / (den.index_select(0, r) + eps)
+    if drop_mask is not None:
+        alpha = alpha * drop_mask.float()
+    out = torch.zeros(n, heads * f, device=ht.device).index_add(
+        0, r, (alpha[:, :, None] * hj).reshape(e, heads * f))
+    return out.to(ht.dtype)
+
+
+def attend_case(graph, ht, att, gout, drop, what):
+    """The three attention kernels against their plain versions on one input,
+    each element held to the tolerance of the module docstring. The backward
+    kernels are fed the plain forward's scores and statistics, so each kernel
+    is held alone. Returns each kernel's largest absolute error."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    send, recv, row_ptr, valid = graph
+    n, d = ht.shape
+    heads, f = att.shape
+    e = send.shape[0]
+    r = recv.long()
+    dev = ht.device
+    kw = dict(edge_valid=valid, drop_mask=drop)
+    out, scores, m, l = A.sddmm_stats_agg_sorted(ht, send, recv, row_ptr, att,
+                                                 **kw)
+    p_out, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(
+        ht, send, recv, row_ptr, att, **kw)
+
+    def per_row(edge_values):  # [E, H] -> [N, H] sum
+        return torch.zeros(n, heads, device=dev).index_add_(0, r, edge_values)
+
+    def widen(per_head):  # [.., H] -> [.., H*F]
+        return per_head.repeat_interleave(f, -1)
+
+    # Sums of absolute values of each element's terms.
+    hj = ht.float().index_select(0, send.long()).view(e, heads, f).abs()
+    hi = ht.float().index_select(0, r).view(e, heads, f).abs()
+    g_e = gout.float().index_select(0, r).view(e, heads, f).abs()
+    z_abs = hi + hj
+    del hi
+    s_mass = (z_abs * att.float().abs()).sum(-1)
+    if valid is not None:
+        s_mass = s_mass * valid[:, None]
+    row_s_mass = torch.zeros(n, heads, device=dev).scatter_reduce(
+        0, r[:, None].expand(e, heads), s_mass, "amax")
+    amp = 1.0 + row_s_mass  # what an error in a score does behind the exp
+    keep = 1.0 if drop is None else drop.float()
+    alpha_keep = torch.exp(p_scores - p_m.index_select(0, r)) / (
+        p_l.index_select(0, r) + 1e-10)
+    alpha = alpha_keep
+    alpha_keep = alpha_keep * keep
+    out_mass = torch.zeros(n, d, device=dev).index_add_(
+        0, r, (alpha_keep[:, :, None] * hj).reshape(e, d)) * widen(amp)
+
+    finite = torch.isfinite(p_scores)
+    check(bool((torch.isfinite(scores) == finite).all()),
+          f"{what}: -inf scores not exactly on the invalid slots")
+    if valid is not None:
+        check(bool((finite == valid[:, None]).all()),
+              f"{what}: plain scores not -inf exactly on the invalid slots")
+    zero = torch.zeros_like(scores)
+    errs = {}
+    errs["sddmm_stats_agg_sorted"] = max(
+        compare(out, p_out, out_mass, out.dtype, f"{what} out"),
+        compare(torch.where(finite, scores, zero),
+                torch.where(finite, p_scores, zero), s_mass, scores.dtype,
+                f"{what} scores"),
+        compare(m, p_m, row_s_mass, m.dtype, f"{what} m"),
+        compare(l, p_l, p_l * amp, l.dtype, f"{what} l"))
+    del out, p_out, out_mass, scores, zero
+
+    graph3 = (send, recv, row_ptr)
+    rho = A.attend_rho_sorted(gout, p_scores, p_m, p_l, ht, *graph3,
+                              drop_mask=drop)
+    p_rho = A.attend_rho_sorted_plain(gout, p_scores, p_m, p_l, ht, *graph3,
+                                      drop_mask=drop)
+    dalpha_abs = (g_e * hj).sum(-1)
+    rho_abs = per_row(alpha_keep * dalpha_abs)
+    errs["attend_rho_sorted"] = compare(rho, p_rho, rho_abs * amp, rho.dtype,
+                                        f"{what} rho")
+
+    dht, datt, v = A.attend_recv_bwd_full_sorted(
+        ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
+    p_dht, p_datt, p_v = A.attend_recv_bwd_full_sorted_plain(
+        ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
+    amp_e = amp.index_select(0, r)
+    ds_mass = alpha * (keep * dalpha_abs + rho_abs.index_select(0, r)) * amp_e
+    d_pre_mass = ds_mass[:, :, None] * att.float().abs()
+    dht_mass = torch.zeros(n, d, device=dev).index_add_(
+        0, r, d_pre_mass.reshape(e, d))
+    v_mass = ((alpha_keep * amp_e)[:, :, None] * g_e + d_pre_mass).reshape(e, d)
+    datt_mass = (z_abs * ds_mass[:, :, None]).sum(0)
+    errs["attend_recv_bwd_full_sorted"] = max(
+        compare(dht, p_dht, dht_mass, dht.dtype, f"{what} dht"),
+        compare(v, p_v, v_mass, v.dtype, f"{what} v"),
+        compare(datt, p_datt, datt_mass, datt.dtype, f"{what} datt"))
+    if valid is not None:
+        check(not v[~valid].any().item(),
+              f"{what}: v must be zero on invalid slots")
+    return errs
+
+
+def attend_inputs(gen, n, heads, f, dtype, num_slots, dropped, device):
+    d = heads * f
+    ht = (0.5 * torch.randn(n, d, generator=gen, device=device)).to(dtype)
+    att = (0.3 * torch.randn(heads, f, generator=gen, device=device)).to(dtype)
+    gout = torch.randn(n, d, generator=gen, device=device).to(dtype)
+    drop = None
+    if dropped:
+        u = torch.rand(num_slots, heads, generator=gen, device=device)
+        drop = torch.where(u < 0.7, 1.0 / 0.7, 0.0).to(dtype)
+    return ht, att, gout, drop
+
+
+def attend_sweep(device, timer):
+    """The attention kernels, every listed (H, F), both types, with and
+    without a dropout mask, on the skewed graph; then what its 20,000-edge
+    hub row costs (the same graph timed with and without that row)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    g = skewed_graph(device)
+    n, e = g["n"], g["e"]
+    graph = (g["idx"], g["recv"], g["row_ptr"], g["mask"])
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = {name: 0.0 for name in A.LAUNCH_COUNTS}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads, f in ATTEND_SHAPES:
+            for dropped in (False, True):
+                ht, att, gout, drop = attend_inputs(
+                    gen, n, heads, f, dtype, e, dropped, device)
+                errs = attend_case(
+                    graph, ht, att, gout, drop,
+                    f"attend {str(dtype)[6:]} H={heads} F={f}"
+                    f"{' dropout' if dropped else ''}")
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
+                cases += len(errs)
+    torch.cuda.synchronize()
+    # Empty rows (every odd row but the last, which holds the padded slots).
+    out, _, m, l = A.sddmm_stats_agg_sorted(
+        ht, g["idx"], g["recv"], g["row_ptr"], att, edge_valid=g["mask"])
+    for name, t in (("out", out), ("m", m), ("l", l)):
+        check(not t[1::2][:-1].any().item(), f"empty rows: {name} must be 0")
+    try:
+        A.sddmm_stats_agg_sorted(ht.double(), g["idx"], g["recv"],
+                                 g["row_ptr"], att.double())
+    except TypeError:
+        pass
+    else:
+        check(False, "float64 data must be refused on a CUDA tensor")
+
+    hub = {}
+    heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+    for label, sg in (("with_hub_row", g),
+                      ("without_hub_row", skewed_graph(device, hub=0))):
+        ht, att, gout, _ = attend_inputs(
+            gen, n, heads, f, torch.bfloat16, sg["e"], False, device)
+        args = (sg["idx"], sg["recv"], sg["row_ptr"])
+        _, scores, m, l = A.sddmm_stats_agg_sorted(
+            ht, *args, att, edge_valid=sg["mask"])
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, *args)
+        hub[label] = {
+            "slots": sg["e"],
+            "sddmm_stats_agg_sorted": timer.cold_ms(
+                lambda: A.sddmm_stats_agg_sorted(
+                    ht, *args, att, edge_valid=sg["mask"]), iters=10),
+            "attend_rho_sorted": timer.cold_ms(
+                lambda: A.attend_rho_sorted(gout, scores, m, l, ht, *args),
+                iters=10),
+            "attend_recv_bwd_full_sorted": timer.cold_ms(
+                lambda: A.attend_recv_bwd_full_sorted(
+                    ht, gout, *args, att, scores, m, l, rho), iters=10),
+        }
+    return cases, worst, hub
+
+
+def time_attend_cases(device, timer, contexts, replaces):
+    """The attention kernels and the sender finish (the fused-gather scatter
+    reading ``v`` through ``bwd_perm``) at the shapes the GATv2 training runs
+    give them: kernel, plain version, bound from bytes and operations. No
+    single PyTorch call computes any of the three attention kernels, so their
+    ``library_ms`` is null; the sender finish is one ``index_add_``."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    entries = []
+    for ctx_name, path, layer, heads, f, dtype, dropped in (
+        ("gat_arxiv", "train_gat_arxiv_shape", "layer 1", GAT_ARXIV_HEADS,
+         GAT_ARXIV_DIMS[0], torch.bfloat16, False),
+        ("gat_arxiv", "train_gat_arxiv_shape", "layer 2", GAT_ARXIV_HEADS,
+         GAT_ARXIV_DIMS[1], torch.bfloat16, False),
+        ("citeseer", "train_gat_citeseer_shape", "layer 1",
+         GAT_CITESEER_HEADS, GAT_CITESEER_DIMS[0], torch.float32, True),
+        ("citeseer", "train_gat_citeseer_shape", "layer 2",
+         GAT_CITESEER_HEADS, GAT_CITESEER_DIMS[1], torch.float32, True),
+    ):
+        ctx = contexts[ctx_name]
+        n, e, d = ctx.num_nodes, ctx.senders.shape[0], heads * f
+        es = 2 if dtype == torch.bfloat16 else 4
+        ht, att, gout, drop = attend_inputs(gen, n, heads, f, dtype, e,
+                                            dropped, device)
+        graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+        errs = attend_case(
+            graph + (ctx.edge_mask,), ht, att, gout, drop,
+            f"attend at {ctx_name} {layer}")
+        torch.cuda.empty_cache()
+        out, scores, m, l = A.sddmm_stats_agg_sorted(
+            ht, *graph, att, edge_valid=ctx.edge_mask, drop_mask=drop)
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph,
+                                  drop_mask=drop)
+        _, _, v = A.attend_recv_bwd_full_sorted(
+            ht, gout, *graph, att, scores, m, l, rho, drop_mask=drop)
+        del out
+        finish_plain = K.gather_scatter_sum_sorted_plain(
+            v, ctx.bwd_perm, ctx.senders_sorted, n)
+        finish_mass = K.gather_scatter_sum_sorted_plain(
+            v.float().abs(), ctx.bwd_perm, ctx.senders_sorted, n)
+        errs["gather_scatter_sum_sorted"] = compare(
+            K.gather_scatter_sum_sorted(v, ctx.bwd_perm, ctx.senders_sorted,
+                                        ctx.row_ptr_bwd, n),
+            finish_plain, finish_mass, dtype,
+            f"sender finish at {ctx_name} {layer}")
+        del finish_plain, finish_mass
+        senders_long = ctx.senders.long()
+
+        stats = 2 * n * heads * 4  # m and l
+        drop_bytes = 0 if drop is None else e * heads * es
+        index = e * 4 + (n + 1) * 4
+        cases = {
+            "sddmm_stats_agg_sorted": dict(
+                kernel=lambda: A.sddmm_stats_agg_sorted(
+                    ht, *graph, att, edge_valid=ctx.edge_mask,
+                    drop_mask=drop),
+                plain=lambda: A.sddmm_stats_agg_sorted_plain(
+                    ht, *graph, att, edge_valid=ctx.edge_mask,
+                    drop_mask=drop),
+                # ht read, out written, senders, row_ptr, validity bytes,
+                # the [E, H] f32 score cache, m, l, att, keep mask.
+                nbytes=2 * n * d * es + index + e + e * heads * 4 + stats
+                + d * es + drop_bytes,
+                ops=8 * e * d, library=None),
+            "attend_rho_sorted": dict(
+                kernel=lambda: A.attend_rho_sorted(
+                    gout, scores, m, l, ht, *graph, drop_mask=drop),
+                plain=lambda: A.attend_rho_sorted_plain(
+                    gout, scores, m, l, ht, *graph, drop_mask=drop),
+                # g and ht read, scores, m, l read, rho written.
+                nbytes=2 * n * d * es + index + e * heads * 4 + stats
+                + n * heads * 4 + drop_bytes,
+                ops=2 * e * d, library=None),
+            "attend_recv_bwd_full_sorted": dict(
+                kernel=lambda: A.attend_recv_bwd_full_sorted(
+                    ht, gout, *graph, att, scores, m, l, rho,
+                    drop_mask=drop),
+                plain=lambda: A.attend_recv_bwd_full_sorted_plain(
+                    ht, gout, *graph, att, scores, m, l, rho,
+                    drop_mask=drop),
+                # ht and g read, dht and the [E, D] v written, scores, m, l,
+                # rho read, att read and datt written.
+                nbytes=3 * n * d * es + e * d * es + index + e * heads * 4
+                + stats + n * heads * 4 + d * (es + 4) + drop_bytes,
+                ops=12 * e * d, library=None),
+            "gather_scatter_sum_sorted": dict(
+                kernel=lambda: K.gather_scatter_sum_sorted(
+                    v, ctx.bwd_perm, ctx.senders_sorted, ctx.row_ptr_bwd, n),
+                plain=lambda: K.gather_scatter_sum_sorted_plain(
+                    v, ctx.bwd_perm, ctx.senders_sorted, n),
+                # every row of v read once, the node rows written.
+                nbytes=e * d * es + n * d * es + index,
+                ops=e * d,
+                library=lambda: torch.zeros(
+                    n, d, dtype=dtype, device=device).index_add_(
+                        0, senders_long, v)),
+        }
+        for name, case in cases.items():
+            ms = timer.cold_ms(case["kernel"], iters=10)
+            plain_ms = timer.cold_ms(case["plain"], iters=5, warmup=1)
+            library_ms = None
+            if case["library"] is not None:
+                library_ms = timer.cold_ms(case["library"], iters=10)
+            t_bytes = case["nbytes"] / H100_BYTES_PER_S * 1e3
+            t_ops = case["ops"] / H100_F32_OPS_PER_S * 1e3
+            entry = {
+                "name": name, "route": "cuda",
+                "source": SOURCES[REPLACES[name][0]],
+                "replaces": replaces[name], "path": path,
+                "shape": f"{ctx_name} {layer}: E={e} N={n} H={heads} F={f} "
+                         f"{str(dtype)[6:]}"
+                         f"{' dropout mask' if dropped else ''}",
+                "launches": 0, "max_abs_err": errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+                "library": ("index_add_" if library_ms is not None else
+                            "none: no single PyTorch call computes this"),
+            }
+            if name != "gather_scatter_sum_sorted":
+                # Every gathered sender row from device memory, none from
+                # cache: E more rows than the ideal count.
+                entry["bound_ms_if_gather_not_reused"] = (
+                    (case["nbytes"] + e * d * es) / H100_BYTES_PER_S * 1e3)
+            entries.append(entry)
+        del v, scores, cases
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # Plain contexts: the same operators through the kernels' plain versions,
 # differentiated by autograd over PyTorch's own ops. For comparison only.
 # ---------------------------------------------------------------------------
@@ -400,6 +784,15 @@ class PlainContext:
     def __init__(self, ctx):
         self.ctx = ctx
         self.self_weight = ctx.self_weight
+        self.senders = ctx.senders
+
+    def full_stream(self):
+        return self
+
+    def attend(self, ht, att, *, negative_slope=0.2, eps=1e-10,
+               drop_mask=None):
+        return attend_restated(self.ctx.full_stream(), ht, att, drop_mask,
+                               negative_slope, eps)
 
     def spmm(self, h):
         from keras_geometric_tpu_torch.kernels import spmm_cuda as K
@@ -480,6 +873,34 @@ def autograd_phase(device):
                       f"value of {op} ({kind}, {dtype}, F={f})")
                 results[f"{op}/{kind}/{str(dtype)[6:]}/F{f}"] = err / max(
                     scale, 1e-6)
+    # GraphContext.attend: the hand-written backward (rho, receiver backward
+    # and sender-finish kernels) against autograd over the restatement. The
+    # restatement computes in f32 from the same (bf16-rounded) inputs, so its
+    # gradients are trustworthy in both types.
+    ctx = contexts["general"]
+    e = ctx.senders.shape[0]
+    for dtype, heads, f in ((torch.float32, 4, 40), (torch.bfloat16, 4, 64),
+                            (torch.float32, 8, 6)):
+        g_tol = 2e-4 if dtype == torch.float32 else 5e-2
+        for dropped in (False, True):
+            ht, att, gout, drop = attend_inputs(gen, ctx.num_nodes, heads, f,
+                                                dtype, e, dropped, device)
+            grads = []
+            for fn in (ctx.attend, PlainContext(ctx).attend):
+                a = ht.detach().clone().requires_grad_(True)
+                b = att.detach().clone().requires_grad_(True)
+                out = fn(a, b, drop_mask=drop)
+                out.backward(gout)
+                grads.append((out.detach(), a.grad, b.grad))
+            tag = (f"attend/{str(dtype)[6:]}/H{heads}F{f}"
+                   f"{'/dropout' if dropped else ''}")
+            for what, k, p in zip(("value", "d ht", "d att"), *grads):
+                scale = max(p.float().abs().max().item(), 1e-6)
+                err = (k.float() - p.float()).abs().max().item()
+                check(math.isfinite(err) and err <= g_tol * scale,
+                      f"{what} of {tag}: max abs err {err:.3e} against "
+                      f"scale {scale:.3e}")
+                results[f"{tag}/{what}"] = err / scale
     torch.cuda.synchronize()
     return results
 
@@ -556,6 +977,66 @@ def cora_workload(device):
     return ctx, dev(x), dev(y), dev(mask)
 
 
+def gat_arxiv_workload(device):
+    """The reference suite's arxiv-sized GATv2 workload, rebuilt with numpy
+    from seed 0: random directed edges plus one self-loop per node."""
+    import keras_geometric_tpu_torch as kgt
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((ARXIV_NODES, ARXIV_FEATS)).astype(np.float32)
+    edges = np.stack([rng.integers(0, ARXIV_NODES, GAT_ARXIV_EDGES),
+                      rng.integers(0, ARXIV_NODES, GAT_ARXIV_EDGES)])
+    y = rng.integers(0, ARXIV_CLASSES, ARXIV_NODES).astype(np.int64)
+    start = time.perf_counter()
+    ctx = kgt.prepare_graph(edges.astype(np.int32), ARXIV_NODES,
+                            add_self_loops=True, device=device)
+    prepare_s = time.perf_counter() - start
+    dev = lambda arr: torch.from_numpy(arr).to(device)
+    mask = np.ones(ARXIV_NODES, bool)
+    return ctx, dev(x), dev(y), dev(mask), prepare_s
+
+
+def citeseer_workload(device):
+    """The canonical attention example's shape: a symmetric citation-sized
+    graph, sparse bag-of-words features, planted labels."""
+    import keras_geometric_tpu_torch as kgt
+
+    rng = np.random.default_rng(0)
+    n, pairs = CITESEER["nodes"], CITESEER["pairs"]
+    feats, classes = CITESEER["feats"], CITESEER["classes"]
+    a = rng.integers(0, n, pairs)
+    b = rng.integers(0, n, pairs)
+    edges = np.stack([np.concatenate([a, b]), np.concatenate([b, a])])
+    x = (rng.random((n, feats)) < 0.01).astype(np.float32)
+    y = (x @ rng.standard_normal((feats, classes))).argmax(1).astype(np.int64)
+    mask = rng.random(n) < 0.5
+    ctx = kgt.prepare_graph(edges, n, add_self_loops=True, device=device)
+    dev = lambda arr: torch.from_numpy(arr).to(device)
+    return ctx, dev(x), dev(y), dev(mask)
+
+
+class MeanHeadsGAT(torch.nn.Module):
+    """A hand-composed GATv2 whose last layer averages its heads
+    (``concat=False``), as the attention paper's output layer does."""
+
+    def __init__(self, in_dim, hidden, classes, heads, dropout, generator,
+                 device):
+        from keras_geometric_tpu_torch import GATv2Conv
+
+        super().__init__()
+        self.conv1 = GATv2Conv.for_context(
+            hidden, input_dim=in_dim, heads=heads, dropout=dropout,
+            generator=generator, device=device)
+        self.conv2 = GATv2Conv.for_context(
+            classes, input_dim=heads * hidden, heads=heads, concat=False,
+            dropout=dropout, generator=generator, device=device)
+
+    def forward(self, x, edge_index=None, *, context=None, generator=None):
+        h = self.conv1(x, context=context, generator=generator)
+        return self.conv2(torch.relu(h), context=context,
+                          generator=generator)
+
+
 def first_step(make_model, make_gen, ctx, x, y, mask, compute_dtype):
     """Loss and gradients of step 1 through the training entry point, with an
     optimizer that leaves the parameters where they are."""
@@ -573,7 +1054,6 @@ def first_step(make_model, make_gen, ctx, x, y, mask, compute_dtype):
 def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
                 falling=lambda l: l[-1] < l[0]):
-    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.training import make_node_classification_step
     from keras_geometric_tpu_torch.utils import timed_steps
 
@@ -603,12 +1083,12 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
         model, optimizer, compute_dtype=compute_dtype, generator=make_gen())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
+    reset_launch_counts()
     losses = [step(x, None, y, mask, context=ctx) for _ in range(steps)]
     step_ms = timed_steps(lambda: step(x, None, y, mask, context=ctx),
                           warmup=2, iters=timed_iters)
     torch.cuda.synchronize()
-    counts = dict(K.LAUNCH_COUNTS)
+    counts = launch_counts()
     total_steps = steps + 2 + timed_iters
     losses = [l.item() for l in losses]
     check(all(math.isfinite(l) for l in losses), f"{name}: loss not finite")
@@ -672,12 +1152,15 @@ def profile_steps(step_fn, iters=10, top=14):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="after the phases, trace a few steps of the "
-                         "arxiv-shaped trainer and print device time by kernel")
+    ap.add_argument("--profile", nargs="?", const="train_arxiv_shape",
+                    default=None, metavar="RUN",
+                    help="after the phases, trace a few steps of the named "
+                         "training run (default train_arxiv_shape) and print "
+                         "device time by kernel")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset (the final line is printed "
-                         "only when every phase ran)")
+                         "only when every phase ran; a subset that passes "
+                         f"exits with code {PARTIAL_EXIT_CODE})")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -691,7 +1174,6 @@ def main() -> int:
 
     import keras_geometric_tpu_torch as kgt
     from keras_geometric_tpu_torch.kernels import _build
-    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
@@ -699,8 +1181,9 @@ def main() -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
 
-    # 1. device + build (always: everything below needs the library)
-    K._library()
+    # 1. device + build (always: everything below needs the libraries). One
+    # compiler per source, side by side.
+    _build.load_libraries(sorted(SOURCES))
     nvcc = subprocess.run([_build._find_nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60)
     emit("device", kind=kind, nvidia_smi=smi, torch=torch.__version__,
@@ -708,28 +1191,38 @@ def main() -> int:
          nvcc=nvcc.stdout.strip().splitlines()[-2:],
          capability=list(torch.cuda.get_device_capability(0)),
          kernel_build_seconds=_build.BUILD_SECONDS,
+         build_wall_seconds=time.perf_counter() - t_start,
          nvcc_flags=list(_build.NVCC_FLAGS), package=kgt.__version__)
 
     timer = Timer(device)
     kernel_entries = []
     path_launches = {}  # training run -> each kernel's launches in that run
     workloads = {}
+    makers = {"cora": cora_workload, "citeseer": citeseer_workload,
+              "gat_arxiv": gat_arxiv_workload,
+              "arxiv": lambda dev: arxiv_workload(dev, True),
+              "directed": lambda dev: arxiv_workload(dev, False)}
 
     def workload(name):
         if name not in workloads:
-            if name == "cora":
-                workloads[name] = cora_workload(device)
-            else:
-                workloads[name] = arxiv_workload(device, name == "arxiv")
+            workloads[name] = makers[name](device)
         return workloads[name]
 
     if "kernels" in phases:
         cases, worst = kernel_sweep(device)
-        contexts = {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0]}
-        kernel_entries = time_kernel_cases(device, timer, contexts,
-                                           replaced_tpu_kernels())
-        emit("kernels", comparisons=cases, worst_abs_err=worst,
-             kernels=sorted(K.LAUNCH_COUNTS),
+        attend_cases, attend_worst, hub = attend_sweep(device, timer)
+        replaces = replaced_tpu_kernels()
+        kernel_entries = time_kernel_cases(
+            device, timer,
+            {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0]},
+            replaces)
+        kernel_entries += time_attend_cases(
+            device, timer,
+            {"gat_arxiv": workload("gat_arxiv")[0],
+             "citeseer": workload("citeseer")[0]}, replaces)
+        emit("kernels", comparisons=cases + attend_cases,
+             worst_abs_err={**worst, **attend_worst},
+             kernels=sorted(launch_counts()), hub_row_ms=hub,
              timed=[{k: e[k] for k in ("name", "shape", "max_abs_err", "ms",
                                        "plain_ms", "library_ms", "bound_ms")}
                     for e in kernel_entries if e["path"]])
@@ -743,66 +1236,136 @@ def main() -> int:
             "gcn", (HIDDEN, ARXIV_CLASSES), input_dim=ARXIV_FEATS,
             generator=gen, device=device)
 
+    def gat_arxiv_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder.for_context(
+            "gatv2", GAT_ARXIV_DIMS, input_dim=ARXIV_FEATS,
+            conv_kwargs={"heads": GAT_ARXIV_HEADS}, generator=gen,
+            device=device)
+
+    def gat_citeseer_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder.for_context(
+            "gatv2", GAT_CITESEER_DIMS, input_dim=CITESEER["feats"],
+            dropout_rate=0.3,
+            conv_kwargs={"heads": GAT_CITESEER_HEADS, "dropout": 0.3},
+            generator=gen, device=device)
+
+    def cora_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return CoraGCN(1_433, 16, 7, 0.5, gen, device)
+
     adam = lambda model: torch.optim.Adam(model.parameters(), lr=1e-2)
+    adamw = lambda lr: (lambda model: torch.optim.AdamW(
+        model.parameters(), lr=lr, weight_decay=5e-4))
     spmm_only = {"gather_scatter_sum_sorted": 3}  # L1 fwd, L2 fwd, L2 bwd
+    # Per GATv2 layer: one fused forward; in the backward one rho, one
+    # receiver-backward and one sender finish (the fused-gather scatter).
+    # Both layers run the whole backward: the input features need no
+    # gradient, but ht = x @ kernel does.
+    gat_two_layers = {"sddmm_stats_agg_sorted": 2, "attend_rho_sorted": 2,
+                      "attend_recv_bwd_full_sorted": 2,
+                      "gather_scatter_sum_sorted": 2}
+    mean_of_ends = lambda l: sum(l[-5:]) < sum(l[:5])
+    # name -> (workload, model, optimizer, compute dtype): what --profile
+    # may name.
+    runs = {
+        "train_arxiv_shape": ("arxiv", arxiv_model, adam, torch.bfloat16),
+        "train_directed": ("directed", arxiv_model, adam, torch.bfloat16),
+        "train_cora_shape": ("cora", cora_model, adamw(0.01), None),
+        "train_gat_arxiv_shape": ("gat_arxiv", gat_arxiv_model, adam,
+                                  torch.bfloat16),
+        "train_gat_citeseer_shape": ("citeseer", gat_citeseer_model,
+                                     adamw(5e-3), None),
+    }
+    if args.profile is not None and args.profile not in runs:
+        ap.error(f"--profile takes one of {sorted(runs)}")
+
+    def train(name, **kwargs):
+        wl, make_model, make_optimizer, compute_dtype = runs[name]
+        ctx, x, y, mask = workload(wl)[:4]
+        path_launches[name] = train_phase(
+            name, device, ctx, x, y, mask, make_model, make_optimizer,
+            compute_dtype, **kwargs)
 
     if "train_arxiv_shape" in phases:
-        ctx, x, y, mask, prepare_s = workload("arxiv")
+        ctx, _, _, _, prepare_s = workload("arxiv")
         check(ctx.num_real_edges == 2 * (ARXIV_EDGES // 2) and
               ctx.num_nodes == 169_472 and ctx.is_symmetric,
               "arxiv-shaped context has the wrong size")
         emit("prepare_arxiv_shape", host_seconds=prepare_s)
-        path_launches["train_arxiv_shape"] = train_phase(
-            "train_arxiv_shape", device, ctx, x, y, mask, arxiv_model, adam,
-            torch.bfloat16, steps=12, per_step=spmm_only)
+        train("train_arxiv_shape", steps=8, per_step=spmm_only,
+              timed_iters=10)
 
     if "train_directed" in phases:
-        ctx, x, y, mask, _ = workload("directed")
-        check(not ctx.is_symmetric, "directed context must not be symmetric")
-        path_launches["train_directed"] = train_phase(
-            "train_directed", device, ctx, x, y, mask, arxiv_model, adam,
-            torch.bfloat16, steps=6, per_step=spmm_only, timed_iters=10)
+        check(not workload("directed")[0].is_symmetric,
+              "directed context must not be symmetric")
+        train("train_directed", steps=4, per_step=spmm_only, timed_iters=10)
     workloads.pop("directed", None)
 
     if "train_cora_shape" in phases:
-        ctx, x, y, mask = workload("cora")
+        # layer 1: weighted scatter forward, expand + sender-sorted scatter
+        # backward; layer 2: spmm forward and backward.
+        train("train_cora_shape", steps=40,
+              per_step={"scatter_sum_sorted": 1, "expand_sorted": 1,
+                        "gather_scatter_sum_sorted": 3},
+              falling=mean_of_ends)
+    workloads.pop("arxiv", None)
+    torch.cuda.empty_cache()
 
-        def cora_model():
+    if "train_gat_arxiv_shape" in phases:
+        ctx, _, _, _, prepare_s = workload("gat_arxiv")
+        check(ctx.num_real_edges == GAT_ARXIV_EDGES + ARXIV_NODES and
+              ctx.num_nodes == ARXIV_NODES and ctx.num_diag == 0,
+              "arxiv-shaped attention context has the wrong size")
+        emit("prepare_gat_arxiv_shape", host_seconds=prepare_s,
+             slots=int(ctx.senders.shape[0]))
+        train("train_gat_arxiv_shape", steps=8, per_step=gat_two_layers,
+              timed_iters=10)
+
+    if "train_gat_citeseer_shape" in phases:
+        train("train_gat_citeseer_shape", steps=40, per_step=gat_two_layers,
+              timed_iters=10, falling=mean_of_ends)
+        # The same graph through a model whose last layer averages its heads
+        # (concat=False); its launches are reported on its own line only.
+        ctx, x, y, mask = workload("citeseer")
+
+        def mean_heads_model():
             gen = torch.Generator(device=device).manual_seed(0)
-            return CoraGCN(x.shape[1], 16, 7, 0.5, gen, device)
+            return MeanHeadsGAT(
+                CITESEER["feats"], GAT_CITESEER_DIMS[0], CITESEER["classes"],
+                GAT_CITESEER_HEADS, 0.3, gen, device)
 
-        path_launches["train_cora_shape"] = train_phase(
-            "train_cora_shape", device, ctx, x, y, mask, cora_model,
-            lambda m: torch.optim.AdamW(m.parameters(), lr=0.01,
-                                        weight_decay=5e-4),
-            None, steps=40,
-            # layer 1: weighted scatter forward, expand + sender-sorted
-            # scatter backward; layer 2: spmm forward and backward.
-            per_step={"scatter_sum_sorted": 1, "expand_sorted": 1,
-                      "gather_scatter_sum_sorted": 3},
-            falling=lambda l: sum(l[-5:]) < sum(l[:5]))
+        train_phase("train_gat_citeseer_shape_mean_heads", device, ctx, x, y,
+                    mask, mean_heads_model, adamw(5e-3), None, steps=20,
+                    per_step=gat_two_layers, timed_iters=5,
+                    falling=mean_of_ends)
 
-    if args.profile:
+    if args.profile is not None:
         from keras_geometric_tpu_torch.training import (
             make_node_classification_step,
         )
 
-        ctx, x, y, mask, _ = workload("arxiv")
-        model = arxiv_model()
+        wl, make_model, make_optimizer, compute_dtype = runs[args.profile]
+        ctx, x, y, mask = workload(wl)[:4]
+        model = make_model()
         step = make_node_classification_step(
-            model, adam(model), compute_dtype=torch.bfloat16)
-        emit("profile_arxiv_shape",
+            model, make_optimizer(model), compute_dtype=compute_dtype,
+            generator=torch.Generator(device=device).manual_seed(7))
+        emit("profile_" + args.profile.removeprefix("train_"),
              **profile_steps(lambda: step(x, None, y, mask, context=ctx)))
 
     if set(phases) != set(PHASES):
-        print(json.dumps({"ok": False, "partial": phases}))
-        return 0
+        # A partial run is no pass: no "ok" key, and a code of its own.
+        print(json.dumps({"partial": phases,
+                          "exit_code": PARTIAL_EXIT_CODE}), flush=True)
+        return PARTIAL_EXIT_CODE
 
     # Each entry carries its kernel's launches in the training run that gives
     # it the entry's shape, and that run must have launched it. Shapes no run
     # reaches are listed apart, with their times and no launches.
     on_path = [e for e in kernel_entries if e["path"]]
-    check({e["name"] for e in on_path} == set(K.LAUNCH_COUNTS),
+    check({e["name"] for e in on_path} == set(launch_counts()),
           "a kernel has no entry at a shape of the training runs")
     for entry in on_path:
         entry["launches"] = path_launches[entry["path"]][entry["name"]]

@@ -3,11 +3,13 @@
 A second package beside the JAX one, which stays as the reference. Ported so
 far: the full-graph GCN training path (graph preparation, the sorted-CSR SpMM
 with hand-written Hopper kernels, ``GCNConv``, ``GNNEncoder``, the training
-step). Entry points run on a CUDA device unless the caller passes another.
+step) and the GATv2 attention path (``GraphContext.attend`` with hand-written
+forward and backward kernels, ``GATv2Conv``, ``GAT``). Entry points run on a CUDA device unless the caller passes another.
 """
 
 from ._version import __version__
-from .models.gnn import GCN, GNNEncoder
+from .models.gnn import GAT, GCN, GNNEncoder
+from .nn.gatv2_conv import GATv2Conv
 from .nn.gcn_conv import GCNConv
 from .nn.module import MLP, Dense
 from .ops.csr import GraphContext, prepare_graph
@@ -20,8 +22,10 @@ __all__ = [
     "Dense",
     "MLP",
     "GCNConv",
+    "GATv2Conv",
     "GNNEncoder",
     "GCN",
+    "GAT",
     "GraphContext",
     "prepare_graph",
     "precompute_propagation",

@@ -23,7 +23,9 @@ def params_from_jax(
     """Nested dict of arrays (anything ``np.asarray`` takes) -> ``state_dict``.
 
     ``model.load_state_dict(params_from_jax(tree))`` loads a ``GCNConv``
-    (``{"kernel", "bias"}``) or a ``GNNEncoder`` (``{"layer_i": {...}}``).
+    (``{"kernel", "bias"}``), a ``GATv2Conv`` (``{"kernel", "att", "bias"}``,
+    ``att`` kept ``[1, H, F]``) or a ``GNNEncoder`` / ``GAT``
+    (``{"layer_i": {...}}``).
     """
     out: dict[str, torch.Tensor] = {}
 

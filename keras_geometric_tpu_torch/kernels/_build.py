@@ -5,7 +5,8 @@ source (a few seconds) and needs none of PyTorch's headers. A library is built
 at first use, from the sources in this package and nothing else, into a build
 directory keyed by a hash of the source and the flags, so an edit rebuilds and
 an unchanged source is reused. A failed build raises with the compiler's
-output: nothing falls back to another implementation.
+output: nothing falls back to another implementation. ``load_libraries``
+builds several sources at once, one ``nvcc`` process each.
 
 The build directory is ``build/kernels`` beside the package (``.gitignore``
 lists ``build/``).
@@ -20,9 +21,11 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "BUILD_SECONDS", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "build_dir", "BUILD_SECONDS",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -79,3 +82,11 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp_path, lib_path)  # atomic: concurrent processes agree
         BUILD_SECONDS[name] = time.perf_counter() - start
     return ctypes.CDLL(str(lib_path))
+
+
+def load_libraries(names) -> list[ctypes.CDLL]:
+    """Build (where missing) and load several libraries, their compilers
+    running side by side; the first failure raises."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(load_library, names))

@@ -1,0 +1,668 @@
+// Fused GATv2 attention kernels for Hopper (sm_90a): forward, rho, and the
+// receiver-side backward, over a receiver-sorted CSR edge stream.
+//
+// They replace three TPU kernels of the JAX package:
+//   sddmm_stats_agg_kernel  <- kernels/sddmm_pallas.py  sddmm_stats_agg_sorted
+//   attend_rho_kernel       <- kernels/attend_pallas.py attend_rho_sorted
+//   attend_recv_bwd_kernel  <- kernels/attend_pallas.py attend_recv_bwd_full_sorted
+//
+// With ht [N, D] the transformed node rows (D = H*F, head h owns columns
+// h*F .. (h+1)*F), att [H, F], and for edge slot e of receiver row r with
+// sender j = senders[e]:
+//   pre[e]   = ht[r] + ht[j]
+//   z[e]     = pre > 0 ? pre : slope * pre
+//   s[e, h]  = sum_f att[h, f] * z[e, h, f]        (-inf where valid[e] == 0)
+//   alpha    = exp(s - m[r, h]) / (l[r, h] + eps)  with m the row's max score
+//                                                  and l = sum exp(s - m)
+// forward : out[r] = sum_e alpha[e] * keep[e] * ht[j]  (keep scales the
+//           numerator only), plus scores [E, H], m, l [N, H] in f32; m is
+//           stored as 0 for a row that saw no finite score.
+// rho     : rho[r, h] = sum_e alpha * keep * dalpha,
+//           dalpha[e, h] = sum_f g[r, h, f] * ht[j, h, f]
+// backward: ds = alpha * (keep * dalpha - rho[r]),
+//           d_pre[e] = ds * att * (pre > 0 ? 1 : slope),
+//           dht[r]   = sum_e d_pre[e]           (receiver part of d ht)
+//           v[e]     = alpha * keep * g[r] + d_pre[e]   (sender cotangent)
+//           datt[h, f] = sum over ALL edges of z[e, h, f] * ds[e, h]
+//
+// The TPU kernels take the gathered sender rows hj = ht[senders] as an
+// [E, D] input and build everything from one-hot matrix products over a
+// boundary-encoded work list, because that machine has no vector gather.
+// Here the sender row is gathered inside each kernel, so hj never exists in
+// device memory, and the work is a few multiply-adds per (edge, column): by
+// bytes and operations all three kernels are bound by bytes (the node arrays
+// once, the index, score and mask streams, and for the backward the [E, D]
+// write of v).
+//
+// Design: a group of `lph` lanes (a power of two, at most a warp) owns one
+// (receiver row, head) pair, walks row_ptr[r] .. row_ptr[r+1] edge by edge,
+// keeps the row's running max, normaliser and output columns in f32
+// registers (the flash-attention recurrence), and reduces over the head's F
+// columns with shuffles inside the group. A lane holds NJ packs of VEC
+// neighbouring columns (pack j of lane t starts at column (j*lph + t)*VEC)
+// and moves each pack with one load or store of up to 16 bytes; VEC is the
+// widest vector that divides F and the pointers' alignment, so any F >= 1
+// works, up to 32 lanes * 8 columns. At F = 64 in bf16 a head takes 8 lanes
+// and a warp the four heads of a row, so wide packs keep several heads busy
+// with each operation a warp issues. A row is a chain of dependent reads
+// (row pointer -> sender index -> sender row -> shuffles), and what hides it
+// is the number of warps in flight: the kernels are built for at least four
+// blocks on a multiprocessor (64 registers a thread) and do not unroll the
+// walk, which measured faster at arxiv-sized graphs than two, four or eight
+// edges in flight per lane with fewer warps. No atomics anywhere. The one reduction that
+// spans rows, datt, is done in two steps: the backward kernel runs a fixed
+// grid whose groups stride over the (row, head) pairs with their head held
+// constant, each group writes its partial datt once, and a second small
+// kernel sums the partials in a fixed order, so datt is bit-reproducible.
+//
+// Everything is accumulated in f32 and rounded once at the store. Offsets
+// into data are 64-bit; indices and row_ptr are int32. row_ptr[0] must be 0
+// and row_ptr[N] the slot count, so that every slot's score is written. The
+// C entry points launch on the given stream, allocate nothing, do not
+// synchronise, and return cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMinBlocksPerSm = 4;  // caps the registers at 64 a thread
+constexpr int kMaxPerLane = 8;    // columns a lane holds at most (VEC * NJ)
+constexpr int kBlocksPerSm = 16;  // fixed grid of the backward kernel
+
+__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+
+__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Storage types: float for f32 data, raw uint16_t bits for bf16 data.
+template <typename S> struct Cvt;
+template <> struct Cvt<float> {
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+  static __device__ __forceinline__ float from_f(float v) { return v; }
+};
+template <> struct Cvt<uint16_t> {
+  static __device__ __forceinline__ float to_f(uint16_t v) {
+    return bf16_bits_to_float(v);
+  }
+  static __device__ __forceinline__ uint16_t from_f(float v) {
+    return float_to_bf16_bits(v);
+  }
+};
+
+// VEC neighbouring values, moved with one load or store.
+template <typename S, int VEC>
+struct alignas(sizeof(S) * VEC) Pack {
+  S v[VEC];
+};
+
+template <typename S, int VEC>
+__device__ __forceinline__ void load_pack(const S* p, float (&out)[VEC]) {
+  const Pack<S, VEC> pack = *reinterpret_cast<const Pack<S, VEC>*>(p);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = Cvt<S>::to_f(pack.v[i]);
+}
+
+template <typename S, int VEC>
+__device__ __forceinline__ void store_pack(S* p, const float (&in)[VEC]) {
+  Pack<S, VEC> pack;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) pack.v[i] = Cvt<S>::from_f(in[i]);
+  *reinterpret_cast<Pack<S, VEC>*>(p) = pack;
+}
+
+// att and the keep mask arrive in f32 or bf16 whatever the data's type.
+__device__ __forceinline__ float load_scalar(const void* p, int is_bf16,
+                                             int64_t i) {
+  if (is_bf16) return bf16_bits_to_float(static_cast<const uint16_t*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ unsigned group_mask(int lph) {
+  if (lph >= 32) return 0xffffffffu;
+  const int first = ((threadIdx.x & 31) / lph) * lph;
+  return ((1u << lph) - 1u) << first;
+}
+
+// Butterfly sum over the group's lanes: every lane ends with the same bits.
+__device__ __forceinline__ float group_sum(float v, int lph, unsigned mask) {
+  for (int off = lph >> 1; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(mask, v, off);
+  }
+  return v;
+}
+
+// What one group needs to know about itself.
+struct Geometry {
+  int lph;      // lanes per (row, head) group
+  int lane;     // this thread's lane in its group
+  int64_t gid;  // group index in the grid
+  unsigned mask;
+};
+
+__device__ __forceinline__ Geometry geometry(int lph) {
+  Geometry q;
+  q.lph = lph;
+  const int sub = threadIdx.x / lph;
+  q.lane = threadIdx.x - sub * lph;
+  q.gid = static_cast<int64_t>(blockIdx.x) * (kThreads / lph) + sub;
+  q.mask = group_mask(lph);
+  return q;
+}
+
+// First column of pack j of this lane; the pack lies inside the head's F
+// columns or wholly outside (F is a multiple of VEC).
+template <int VEC>
+__device__ __forceinline__ int pack_column(const Geometry& q, int j) {
+  return (j * q.lph + q.lane) * VEC;
+}
+
+// This lane's packs of one row's head: zeros outside the head.
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ void load_lane(const S* head, int f,
+                                          const Geometry& q,
+                                          float (&out)[NJ][VEC]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = pack_column<VEC>(q, j);
+    if (c < f) {
+      load_pack<S, VEC>(head + c, out[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) out[j][i] = 0.0f;
+    }
+  }
+}
+
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ void store_lane(S* head, int f, const Geometry& q,
+                                           const float (&in)[NJ][VEC]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = pack_column<VEC>(q, j);
+    if (c < f) store_pack<S, VEC>(head + c, in[j]);
+  }
+}
+
+// This lane's columns of att (f32 or bf16 by its own flag).
+template <int VEC, int NJ>
+__device__ __forceinline__ void load_att(const void* att, int att_bf16,
+                                         int64_t col0, int f,
+                                         const Geometry& q,
+                                         float (&out)[NJ][VEC]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = pack_column<VEC>(q, j);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      out[j][i] = c < f ? load_scalar(att, att_bf16, col0 + c + i) : 0.0f;
+    }
+  }
+}
+
+// One edge slot of a row: this lane's columns of the sender's row and the
+// slot's keep factor (1 without dropout).
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ float load_edge(
+    const S* __restrict__ ht, const int32_t* __restrict__ senders,
+    const void* __restrict__ drop, int drop_bf16, int64_t e, int64_t d,
+    int64_t col0, int heads, int h, int f, const Geometry& q,
+    float (&hj)[NJ][VEC]) {
+  const int64_t src = senders[e];
+  load_lane<S, VEC, NJ>(ht + src * d + col0, f, q, hj);
+  return drop == nullptr ? 1.0f
+                         : load_scalar(drop, drop_bf16, e * heads + h);
+}
+
+// sum over this lane's columns of a[.] * b[.]
+template <int VEC, int NJ>
+__device__ __forceinline__ float lane_dot(const float (&a)[NJ][VEC],
+                                          const float (&b)[NJ][VEC]) {
+  float part = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part += a[j][i] * b[j][i];
+  }
+  return part;
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+sddmm_stats_agg_kernel(const S* __restrict__ ht,
+                       const int32_t* __restrict__ senders,
+                       const int32_t* __restrict__ row_ptr,
+                       const void* __restrict__ att, int att_bf16,
+                       const uint8_t* __restrict__ valid,
+                       const void* __restrict__ drop, int drop_bf16,
+                       S* __restrict__ out, float* __restrict__ scores,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int64_t n_rows, int heads, int f, int lph, float slope,
+                       float eps) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_rows * heads) return;
+  const int64_t row = q.gid / heads;
+  const int h = static_cast<int>(q.gid - row * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float hi_row[NJ][VEC], a[NJ][VEC], o[NJ][VEC];
+  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[j][i] = 0.0f;
+  }
+  float m = -INFINITY, l = 0.0f;
+
+  const int64_t hi = row_ptr[row + 1];
+  for (int64_t e = row_ptr[row]; e < hi; ++e) {
+    float hj[NJ][VEC];
+    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
+                                             d, col0, heads, h, f, q, hj);
+    float part = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float pre = hi_row[j][i] + hj[j][i];
+        part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
+      }
+    }
+    part = group_sum(part, lph, q.mask);
+    const float s =
+        (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
+    if (q.lane == 0) scores[e * heads + h] = s;
+    if (s > -INFINITY) {  // the same on every lane of the group
+      const float m_new = fmaxf(m, s);
+      const float scale = expf(m - m_new);  // 0 while m is still -inf
+      const float p = expf(s - m_new);
+      l = l * scale + p;
+      const float pk = p * keep;  // dropout scales the numerator only
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          o[j][i] = o[j][i] * scale + pk * hj[j][i];
+        }
+      }
+      m = m_new;
+    }
+  }
+
+  if (q.lane == 0) {
+    m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
+    l_out[row * heads + h] = l;
+  }
+  const float denom = l + eps;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[j][i] /= denom;
+  }
+  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, o);
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
+                  const int32_t* __restrict__ senders,
+                  const int32_t* __restrict__ row_ptr,
+                  const float* __restrict__ scores,
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in,
+                  const void* __restrict__ drop, int drop_bf16,
+                  float* __restrict__ rho, int64_t n_rows, int heads, int f,
+                  int lph, float eps) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_rows * heads) return;
+  const int64_t row = q.gid / heads;
+  const int h = static_cast<int>(q.gid - row * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float g_row[NJ][VEC];
+  load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+  const float m = m_in[row * heads + h];
+  const float denom = l_in[row * heads + h] + eps;
+  float acc = 0.0f;
+
+  const int64_t hi = row_ptr[row + 1];
+  for (int64_t e = row_ptr[row]; e < hi; ++e) {
+    float hj[NJ][VEC];
+    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
+                                             d, col0, heads, h, f, q, hj);
+    const float dalpha =
+        group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+    const float alpha =
+        expf(scores[e * heads + h] - m) / denom;  // 0 for an invalid slot
+    acc += alpha * keep * dalpha;
+  }
+  if (q.lane == 0) rho[row * heads + h] = acc;
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
+                       const int32_t* __restrict__ senders,
+                       const int32_t* __restrict__ row_ptr,
+                       const void* __restrict__ att, int att_bf16,
+                       const float* __restrict__ scores,
+                       const float* __restrict__ m_in,
+                       const float* __restrict__ l_in,
+                       const float* __restrict__ rho,
+                       const void* __restrict__ drop, int drop_bf16,
+                       S* __restrict__ dht, S* __restrict__ v,
+                       float* __restrict__ partial, int64_t n_rows, int heads,
+                       int f, int lph, float slope, float eps) {
+  const Geometry q = geometry(lph);
+  // The grid holds a multiple of `heads` groups, so a group that strides over
+  // the (row, head) pairs by the grid's size keeps its head.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int h = static_cast<int>(q.gid % heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float a[NJ][VEC], datt_acc[NJ][VEC];
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) datt_acc[j][i] = 0.0f;
+  }
+
+  for (int64_t item = q.gid; item < n_rows * heads; item += n_groups) {
+    const int64_t row = item / heads;
+    float hi_row[NJ][VEC], g_row[NJ][VEC], acc[NJ][VEC];
+    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+    load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[j][i] = 0.0f;
+    }
+    const float m = m_in[row * heads + h];
+    const float denom = l_in[row * heads + h] + eps;
+    const float rho_row = rho[row * heads + h];
+
+    const int64_t hi = row_ptr[row + 1];
+    for (int64_t e = row_ptr[row]; e < hi; ++e) {
+      float hj[NJ][VEC];
+      const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16,
+                                               e, d, col0, heads, h, f, q, hj);
+      const float dalpha =
+          group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+      const float alpha =
+          expf(scores[e * heads + h] - m) / denom;  // 0 for an invalid slot
+      const float ds = alpha * (keep * dalpha - rho_row);
+      const float alpha_keep = alpha * keep;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float pre = hi_row[j][i] + hj[j][i];
+          const bool pos = pre > 0.0f;
+          const float d_pre = ds * a[j][i] * (pos ? 1.0f : slope);
+          acc[j][i] += d_pre;
+          datt_acc[j][i] += (pos ? pre : slope * pre) * ds;
+          hj[j][i] = alpha_keep * g_row[j][i] + d_pre;  // this lane's v
+        }
+      }
+      store_lane<S, VEC, NJ>(v + e * d + col0, f, q, hj);
+    }
+    store_lane<S, VEC, NJ>(dht + row * d + col0, f, q, acc);
+  }
+
+  float* partial_head = partial + (q.gid / heads) * d + col0;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = pack_column<VEC>(q, j);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (c < f) partial_head[c + i] = datt_acc[j][i];
+    }
+  }
+}
+
+// datt[c] = sum over the partial rows, in a fixed order: one block per
+// column, threads stride over the rows, then a tree in shared memory.
+__global__ void __launch_bounds__(kThreads)
+reduce_partials_kernel(const float* __restrict__ partial,
+                       float* __restrict__ datt, int64_t p_rows, int64_t d) {
+  __shared__ float buf[kThreads];
+  const int64_t c = blockIdx.x;
+  float acc = 0.0f;
+  for (int64_t p = threadIdx.x; p < p_rows; p += kThreads) {
+    acc += partial[p * d + c];
+  }
+  buf[threadIdx.x] = acc;
+  __syncthreads();
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) buf[threadIdx.x] += buf[threadIdx.x + off];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) datt[c] = buf[0];
+}
+
+// How a head's F columns are laid over lanes: packs of `vec` columns, `lph`
+// lanes per head, `nj` packs per lane.
+struct Layout {
+  int vec, lph, nj;
+};
+
+bool aligned_to(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+}
+
+// Widest pack (in elements, at most 16 bytes) that divides F and keeps every
+// row of every data array aligned; then the power of two of lanes that
+// covers the head's packs, at most a warp; then the packs per lane, rounded
+// up to a power of two.
+Layout pick_layout(int64_t f, int elem_size, const void* a, const void* b,
+                   const void* c, const void* d) {
+  Layout lay;
+  lay.vec = 16 / elem_size;
+  while (lay.vec > 1) {
+    const int bytes = lay.vec * elem_size;
+    if (f % lay.vec == 0 && aligned_to(a, bytes) && aligned_to(b, bytes) &&
+        aligned_to(c, bytes) && aligned_to(d, bytes)) {
+      break;
+    }
+    lay.vec /= 2;
+  }
+  const int64_t packs = f / lay.vec;
+  lay.lph = 1;
+  while (lay.lph < packs && lay.lph < 32) lay.lph <<= 1;
+  const int64_t need = (packs + lay.lph - 1) / lay.lph;
+  lay.nj = 1;
+  while (lay.nj < need) lay.nj <<= 1;
+  return lay;
+}
+
+bool shape_ok(int64_t n_rows, int heads, int64_t f) {
+  return n_rows > 0 && heads >= 1 && f >= 1 &&
+         f <= 32 * static_cast<int64_t>(kMaxPerLane) &&
+         n_rows * heads < (static_cast<int64_t>(1) << 31);  // grid.x
+}
+
+unsigned blocks_for_all(int64_t n_rows, int heads, int lph) {
+  const int64_t per_block = kThreads / lph;
+  return static_cast<unsigned>((n_rows * heads + per_block - 1) / per_block);
+}
+
+// The backward kernel's fixed grid: enough blocks to fill the card, no more
+// than the work needs, rounded up to a multiple of `heads`.
+unsigned blocks_for_recv_bwd(int64_t n_rows, int heads, int lph) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  int64_t blocks = static_cast<int64_t>(sms) * kBlocksPerSm;
+  const int64_t all = blocks_for_all(n_rows, heads, lph);
+  if (blocks > all) blocks = all;
+  blocks = (blocks + heads - 1) / heads * heads;
+  return static_cast<unsigned>(blocks);
+}
+
+// Rows of datt partials the backward writes at `lph` lanes per head: one per
+// `heads` groups of its grid.
+int64_t partial_rows(int64_t n_rows, int heads, int lph) {
+  return static_cast<int64_t>(blocks_for_recv_bwd(n_rows, heads, lph)) *
+         (kThreads / lph) / heads;
+}
+
+// Runs LAUNCH(S) with VEC and NJ bound to the layout's compile-time values.
+// Only layouts with VEC * NJ <= kMaxPerLane exist (pick_layout makes no
+// other for F <= 32 * kMaxPerLane).
+#define KGT_CASE(V, N, LAUNCH, S)                 \
+  case (V) * 16 + (N): {                          \
+    constexpr int VEC = (V);                      \
+    constexpr int NJ = (N);                       \
+    LAUNCH(S);                                    \
+  } break;
+#define KGT_CASES_UP_TO_4(LAUNCH, S)                                       \
+  KGT_CASE(4, 1, LAUNCH, S) KGT_CASE(4, 2, LAUNCH, S)                      \
+  KGT_CASE(2, 1, LAUNCH, S) KGT_CASE(2, 2, LAUNCH, S)                      \
+  KGT_CASE(2, 4, LAUNCH, S) KGT_CASE(1, 1, LAUNCH, S)                      \
+  KGT_CASE(1, 2, LAUNCH, S) KGT_CASE(1, 4, LAUNCH, S)                      \
+  KGT_CASE(1, 8, LAUNCH, S)
+#define KGT_DISPATCH(is_bf16, lay, LAUNCH)                                 \
+  if (is_bf16) {                                                           \
+    switch ((lay).vec * 16 + (lay).nj) {                                   \
+      KGT_CASE(8, 1, LAUNCH, uint16_t)                                     \
+      KGT_CASES_UP_TO_4(LAUNCH, uint16_t)                                  \
+      default: return static_cast<int>(cudaErrorInvalidValue);             \
+    }                                                                      \
+  } else {                                                                 \
+    switch ((lay).vec * 16 + (lay).nj) {                                   \
+      KGT_CASES_UP_TO_4(LAUNCH, float)                                     \
+      default: return static_cast<int>(cudaErrorInvalidValue);             \
+    }                                                                      \
+  }
+
+}  // namespace
+
+extern "C" {
+
+// Fused forward. ht/out: f32 (is_bf16 = 0) or bf16, row-major [n_rows,
+// heads*f]. att [heads, f] and drop [n_slots, heads] (null when absent) are
+// f32 or bf16 by their own flags; valid [n_slots] bytes (null: all valid).
+// scores [n_slots, heads], m, l [n_rows, heads]: f32.
+int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
+                               const int32_t* row_ptr, const void* att,
+                               int att_bf16, const uint8_t* valid,
+                               const void* drop, int drop_bf16, void* out,
+                               float* scores, float* m, float* l,
+                               int64_t n_rows, int heads, int64_t f,
+                               float slope, float eps, int is_bf16,
+                               void* stream) {
+  if (ht == nullptr || senders == nullptr || row_ptr == nullptr ||
+      att == nullptr || out == nullptr || scores == nullptr || m == nullptr ||
+      l == nullptr || !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
+  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_FWD(S)                                                          \
+  sddmm_stats_agg_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+      static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
+      drop, drop_bf16, static_cast<S*>(out), scores, m, l, n_rows, heads,   \
+      fi, lay.lph, slope, eps)
+  KGT_DISPATCH(is_bf16, lay, KGT_FWD)
+#undef KGT_FWD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rho [n_rows, heads] f32 from the output cotangent g (same type as ht) and
+// the forward's cached scores, m, l.
+int kgt_attend_rho_sorted(const void* g, const void* ht,
+                          const int32_t* senders, const int32_t* row_ptr,
+                          const float* scores, const float* m, const float* l,
+                          const void* drop, int drop_bf16, float* rho,
+                          int64_t n_rows, int heads, int64_t f, float eps,
+                          int is_bf16, void* stream) {
+  if (g == nullptr || ht == nullptr || senders == nullptr ||
+      row_ptr == nullptr || scores == nullptr || m == nullptr ||
+      l == nullptr || rho == nullptr || !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, g, ht, g, ht);
+  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_RHO(S)                                                         \
+  attend_rho_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                 \
+      static_cast<const S*>(g), static_cast<const S*>(ht), senders,        \
+      row_ptr, scores, m, l, drop, drop_bf16, rho, n_rows, heads, fi,      \
+      lay.lph, eps)
+  KGT_DISPATCH(is_bf16, lay, KGT_RHO)
+#undef KGT_RHO
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the [rows, heads*f] f32 scratch that the backward needs for its
+// datt partials on the current device, for the same data pointers (their
+// alignment decides the layout, and the layout the number of groups); 0 for
+// a shape it does not take.
+int64_t kgt_attend_recv_bwd_partial_rows(const void* ht, const void* g,
+                                         const void* dht, const void* v,
+                                         int64_t n_rows, int heads, int64_t f,
+                                         int is_bf16) {
+  if (!shape_ok(n_rows, heads, f)) return 0;
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht, v);
+  return partial_rows(n_rows, heads, lay.lph);
+}
+
+// Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f] in
+// the data's type, datt [heads*f] f32. partial: scratch of
+// kgt_attend_recv_bwd_partial_rows(...) rows, written before it is read.
+int kgt_attend_recv_bwd_full_sorted(
+    const void* ht, const void* g, const int32_t* senders,
+    const int32_t* row_ptr, const void* att, int att_bf16,
+    const float* scores, const float* m, const float* l, const float* rho,
+    const void* drop, int drop_bf16, void* dht, void* v, float* datt,
+    float* partial, int64_t n_rows, int heads, int64_t f, float slope,
+    float eps, int is_bf16, void* stream) {
+  if (ht == nullptr || g == nullptr || senders == nullptr ||
+      row_ptr == nullptr || att == nullptr || scores == nullptr ||
+      m == nullptr || l == nullptr || rho == nullptr || dht == nullptr ||
+      v == nullptr || datt == nullptr || partial == nullptr ||
+      !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht, v);
+  const unsigned grid = blocks_for_recv_bwd(n_rows, heads, lay.lph);
+  const int64_t p_rows = partial_rows(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_BWD(S)                                                          \
+  attend_recv_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+      static_cast<const S*>(ht), static_cast<const S*>(g), senders,         \
+      row_ptr, att, att_bf16, scores, m, l, rho, drop, drop_bf16,           \
+      static_cast<S*>(dht), static_cast<S*>(v), partial, n_rows, heads, fi, \
+      lay.lph, slope, eps)
+  KGT_DISPATCH(is_bf16, lay, KGT_BWD)
+#undef KGT_BWD
+  const cudaError_t first = cudaGetLastError();
+  if (first != cudaSuccess) return static_cast<int>(first);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  reduce_partials_kernel<<<static_cast<unsigned>(d), kThreads, 0, s>>>(
+      partial, datt, p_rows, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* kgt_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
 """Model compositions: multi-layer GNN encoders."""
 
-from .gnn import GCN, GNNEncoder
+from .gnn import GAT, GCN, GNNEncoder
 
-__all__ = ["GNNEncoder", "GCN"]
+__all__ = ["GNNEncoder", "GCN", "GAT"]

@@ -1,8 +1,8 @@
 """Standard multi-layer GNN model families.
 
 Counterpart of the JAX package's ``models/gnn.py``: the canonical stacks are
-first-class modules so training and benchmarks share one definition. Only the
-GCN family is ported so far; the other three raise.
+first-class modules so training and benchmarks share one definition. The GCN
+and GATv2 families are ported; ``'gin'`` and ``'sage'`` raise.
 """
 
 from __future__ import annotations
@@ -12,26 +12,37 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..nn.gatv2_conv import GATv2Conv
 from ..nn.gcn_conv import GCNConv
 from ..nn.module import dropout, get_activation
 
-__all__ = ["GNNEncoder", "GCN"]
+__all__ = ["GNNEncoder", "GCN", "GAT"]
 
 _UNPORTED = {
     "gin": "ROADMAP M5",
     "sage": "ROADMAP M5",
-    "gatv2": "ROADMAP M6",
 }
+_FAMILIES = {"gcn": GCNConv, "gatv2": GATv2Conv}
+
+
+def _layer_out_dim(layer: nn.Module) -> int:
+    """Width a layer hands to the next one: a GATv2 layer that concatenates
+    its heads is ``heads * output_dim`` wide."""
+    if isinstance(layer, GATv2Conv):
+        return layer.out_features
+    return layer.output_dim
 
 
 class GNNEncoder(nn.Module):
     """A stack of conv layers with inter-layer activation (+ dropout).
 
-    ``conv``: layer family name (``'gcn'``). ``hidden_dims``: output dim of
-    each layer (last entry = output dim). The final layer gets no activation
-    (logits-friendly). Layers are the sub-modules ``layer_0 .. layer_k``, so
-    the state dict mirrors the reference's ``{"layer_i": {"kernel", "bias"}}``
-    parameter tree.
+    ``conv``: layer family name (``'gcn'`` | ``'gatv2'``). ``hidden_dims``:
+    output dim of each layer (for ``'gatv2'`` per head; every layer gets the
+    same ``conv_kwargs``, so with the default ``concat=True`` each layer,
+    the last included, is ``heads * dim`` wide). The final layer gets no
+    activation (logits-friendly). Layers are the sub-modules ``layer_0 ..
+    layer_k``, so the state dict mirrors the reference's ``{"layer_i":
+    {"kernel", "bias", ...}}`` parameter tree.
     """
 
     def __init__(
@@ -56,7 +67,7 @@ class GNNEncoder(nn.Module):
             raise NotImplementedError(
                 f"conv family {conv!r} is not ported yet: {_UNPORTED[conv]}"
             )
-        if conv != "gcn":
+        if conv not in _FAMILIES:
             raise ValueError(f"Unknown conv family: {conv}")
         self.conv = conv
         self.hidden_dims = hidden_dims
@@ -67,12 +78,12 @@ class GNNEncoder(nn.Module):
         self.num_layers = len(hidden_dims)
         dim = input_dim
         for i, out_dim in enumerate(hidden_dims):
-            layer = GCNConv(
+            layer = _FAMILIES[conv](
                 out_dim, input_dim=dim, generator=generator, device=device,
                 dtype=dtype, **dict(conv_kwargs),
             )
             self.add_module(f"layer_{i}", layer)
-            dim = out_dim
+            dim = _layer_out_dim(layer)
 
     @classmethod
     def for_context(
@@ -81,18 +92,21 @@ class GNNEncoder(nn.Module):
         """Encoder preconfigured for ``forward(..., context=...)`` layers.
 
         Folds the family's context requirements into ``conv_kwargs`` (GCN:
-        ``add_self_loops=False, normalize=False``) so training on a prepared
-        graph cannot hit the layer flag trap. User-passed conv_kwargs win.
+        ``add_self_loops=False, normalize=False``; GATv2:
+        ``add_self_loops=False``) so training on a prepared graph cannot hit
+        the layer flag trap. User-passed conv_kwargs win.
         """
         ck = dict(kwargs.pop("conv_kwargs", ()))
         if conv == "gcn":
             ck.setdefault("add_self_loops", False)
             ck.setdefault("normalize", False)
+        elif conv == "gatv2":
+            ck.setdefault("add_self_loops", False)
         return cls(conv, hidden_dims, conv_kwargs=tuple(ck.items()), **kwargs)
 
     @property
     def output_dim(self) -> int:
-        return self.hidden_dims[-1]
+        return _layer_out_dim(self.layers()[-1])
 
     def layers(self) -> list[nn.Module]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
@@ -128,3 +142,10 @@ class GNNEncoder(nn.Module):
 def GCN(hidden_dims: tuple[int, ...], **kwargs) -> GNNEncoder:
     """2-layer-style GCN stack (Kipf & Welling)."""
     return GNNEncoder("gcn", tuple(hidden_dims), **kwargs)
+
+
+def GAT(hidden_dims: tuple[int, ...], heads: int = 8, **kwargs) -> GNNEncoder:
+    """GATv2 stack; every layer has ``heads`` heads and concatenates them."""
+    return GNNEncoder(
+        "gatv2", tuple(hidden_dims), conv_kwargs=(("heads", heads),), **kwargs
+    )

@@ -1,5 +1,6 @@
 """Neural network layers: building blocks and conv layers."""
 
+from .gatv2_conv import GATv2Conv
 from .gcn_conv import GCNConv
 from .module import MLP, Dense, dropout, get_activation, get_initializer
 
@@ -10,4 +11,5 @@ __all__ = [
     "get_activation",
     "get_initializer",
     "GCNConv",
+    "GATv2Conv",
 ]

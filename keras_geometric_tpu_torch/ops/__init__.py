@@ -1,6 +1,6 @@
 """Core sparse/graph compute ops: segment reductions, graph structure, SpMM."""
 
-from . import graph_ops, segment, spmm
+from . import edge_dropout, graph_ops, segment, spmm
 from .csr import GraphContext, prepare_graph
 from .graph_ops import (
     CSRGraph,
@@ -12,9 +12,10 @@ from .graph_ops import (
     sort_edges_by_receiver,
 )
 from .precompute import precompute_propagation
-from .segment import segment_count, segment_sum
+from .segment import segment_count, segment_max, segment_softmax, segment_sum
 
 __all__ = [
+    "edge_dropout",
     "graph_ops",
     "segment",
     "spmm",
@@ -30,4 +31,6 @@ __all__ = [
     "sort_edges_by_receiver",
     "segment_count",
     "segment_sum",
+    "segment_max",
+    "segment_softmax",
 ]

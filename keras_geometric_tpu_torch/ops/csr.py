@@ -12,9 +12,11 @@ builds **both CSR orientations** up front:
 ``prepare_graph`` is host numpy and produces arrays equal, element for
 element, to the reference context's; the kernel tables reduce to one
 ``row_ptr`` per orientation. ``GraphContext.spmm`` runs the fused-gather
-kernel with a custom gradient of the same structure as the reference's.
-The attention ops (``attend``, ``edge_softmax``, ``sddmm_scores``) and the
-banded tiers are not part of this module yet.
+kernel with a custom gradient of the same structure as the reference's, and
+``GraphContext.attend`` the fused GATv2 attention (forward, rho and receiver
+backward kernels, sender finish through the fused-gather scatter). The
+composed attention ops (``edge_softmax``, ``sddmm_scores``) and the banded
+tiers are not part of this module yet.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..kernels import spmm_cuda
+from ..kernels import attend_cuda, spmm_cuda
 
 __all__ = ["GraphContext", "prepare_graph"]
 
@@ -198,6 +200,43 @@ class GraphContext:
             weights=self.edge_weight,
         )
 
+    def attend(
+        self,
+        ht: torch.Tensor,
+        att: torch.Tensor,
+        *,
+        negative_slope: float = 0.2,
+        eps: float = 1e-10,
+        drop_mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """Fused GATv2 attention propagate with a hand-written backward.
+
+        One op for the whole pipeline: ``score = sum_f att*leaky_relu(h_i +
+        h_j)`` per head, max-shifted per-receiver softmax with ``+eps``,
+        optional attention dropout (``drop_mask``: pre-scaled keep mask,
+        ``[E, H]``, applied after normalisation), then the alpha-weighted
+        aggregation. ``ht`` is ``[N, H*F]``, ``att`` is ``[H, F]``, the
+        output ``[N, H*F]``. Padded edge slots take no part. Routes through
+        the full-stream companion on densified contexts.
+
+        The backward runs the rho kernel, then the receiver-backward kernel
+        (receiver part of ``d ht``, ``d att``, per-edge sender cotangent
+        ``v``), then sums ``v`` by sender with the fused-gather scatter over
+        the transposed orientation, which reads ``v`` through ``bwd_perm``:
+        neither the gathered sender rows nor a permuted copy of ``v`` is
+        ever written.
+        """
+        ctx = self.full_stream()
+        if att.ndim != 2:
+            raise ValueError(f"att must be [H, F], got {tuple(att.shape)}")
+        if ht.shape[0] != ctx.num_nodes:
+            raise ValueError(
+                f"ht has {ht.shape[0]} rows, the context {ctx.num_nodes} nodes"
+            )
+        return _Gatv2Attend.apply(
+            ht, att, ctx, float(negative_slope), float(eps), drop_mask
+        )
+
     # -- spmm --------------------------------------------------------------
     def spmm(self, h: torch.Tensor) -> torch.Tensor:
         """Full ``A @ h``: sender rows gathered and weighted-summed into the
@@ -242,6 +281,47 @@ class _GatherRows(torch.autograd.Function):
             graph.row_ptr_bwd, graph.num_nodes,
         )
         return dh, None
+
+
+class _Gatv2Attend(torch.autograd.Function):
+    """Fused attention forward (one kernel; scores, ``m``, ``l`` cached) with
+    the single-sweep sender finish as its backward."""
+
+    @staticmethod
+    def forward(ctx, ht, att, graph, negative_slope, eps, drop_mask):
+        ht = ht.contiguous()
+        att = att.contiguous()
+        out, scores, m, l = attend_cuda.sddmm_stats_agg_sorted(
+            ht, graph.senders, graph.receivers, graph.row_ptr, att,
+            edge_valid=graph.edge_mask, drop_mask=drop_mask,
+            negative_slope=negative_slope, eps=eps,
+        )
+        ctx.save_for_backward(ht, att, scores, m, l)
+        ctx.graph = graph
+        ctx.drop_mask = drop_mask
+        ctx.negative_slope, ctx.eps = negative_slope, eps
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ht, att, scores, m, l = ctx.saved_tensors
+        graph, drop_mask = ctx.graph, ctx.drop_mask
+        g = g.contiguous()
+        rho = attend_cuda.attend_rho_sorted(
+            g, scores, m, l, ht, graph.senders, graph.receivers,
+            graph.row_ptr, eps=ctx.eps, drop_mask=drop_mask,
+        )
+        dht, datt, v = attend_cuda.attend_recv_bwd_full_sorted(
+            ht, g, graph.senders, graph.receivers, graph.row_ptr, att,
+            scores, m, l, rho, eps=ctx.eps,
+            negative_slope=ctx.negative_slope, drop_mask=drop_mask,
+        )
+        dht_send = spmm_cuda.gather_scatter_sum_sorted(
+            v, graph.bwd_perm, graph.senders_sorted, graph.row_ptr_bwd,
+            graph.num_nodes,
+        )
+        return dht + dht_send, datt, None, None, None, None
 
 
 class _SpmmSymmetric(torch.autograd.Function):

@@ -3,6 +3,7 @@ none of it; its kernel wrappers take the plain version only for CPU tensors;
 its entry points default to the CUDA device.
 """
 
+import importlib.util
 import inspect
 import pathlib
 import re
@@ -16,7 +17,7 @@ import torch
 
 import keras_geometric_tpu_torch as kgt_torch
 from keras_geometric_tpu_torch import native
-from keras_geometric_tpu_torch.kernels import _build, spmm_cuda
+from keras_geometric_tpu_torch.kernels import _build, attend_cuda, spmm_cuda
 from keras_geometric_tpu_torch.ops import spmm as spmm_ops
 from keras_geometric_tpu_torch.utils import profiling
 
@@ -35,6 +36,8 @@ MODULES = [
     "ops/segment.py", "ops/graph_ops.py", "ops/spmm.py", "ops/csr.py",
     "ops/precompute.py", "nn/module.py", "nn/gcn_conv.py", "models/gnn.py",
     "training/train.py", "utils/profiling.py",
+    "kernels/attend_cuda.py", "kernels/csrc/attend.cu", "ops/edge_dropout.py",
+    "nn/gatv2_conv.py",
 ]
 
 
@@ -60,7 +63,10 @@ def test_importing_the_port_does_not_import_jax():
         "import keras_geometric_tpu_torch.training, "
         "keras_geometric_tpu_torch.convert, "
         "keras_geometric_tpu_torch.utils, "
-        "keras_geometric_tpu_torch.kernels.spmm_cuda\n"
+        "keras_geometric_tpu_torch.kernels.spmm_cuda, "
+        "keras_geometric_tpu_torch.kernels.attend_cuda, "
+        "keras_geometric_tpu_torch.nn.gatv2_conv, "
+        "keras_geometric_tpu_torch.ops.edge_dropout\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keras_geometric_tpu' or "
         "m.startswith('keras_geometric_tpu.') or m == 'optax']\n"
@@ -121,6 +127,54 @@ def test_wrappers_branch_on_the_tensor_device_only():
     assert "sm_90a" in build_src and "except" not in build_src
 
 
+def test_attend_wrappers_branch_on_the_tensor_device_only():
+    src = inspect.getsource(attend_cuda)
+    assert "except" not in src and "torch.cuda.is_available" not in src
+    for fn in (attend_cuda.sddmm_stats_agg_sorted,
+               attend_cuda.attend_rho_sorted,
+               attend_cuda.attend_recv_bwd_full_sorted):
+        body = inspect.getsource(fn)
+        assert re.search(r"if not ht\.is_cuda:\n\s+return \w+_plain\(", body)
+        assert body.count("_plain(") == 1
+        assert f'LAUNCH_COUNTS["{fn.__name__}"] += 1' in body
+    # GraphContext.attend reaches the kernels through the wrappers only.
+    from keras_geometric_tpu_torch.ops import csr
+    assert "_plain" not in inspect.getsource(csr)
+
+
+def test_attend_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    attend_cuda.reset_launch_counts()
+    recv = torch.tensor([0, 0, 2, 3, 3, 3], dtype=torch.int32)
+    send = torch.tensor([1, 2, 0, 3, 1, 0], dtype=torch.int32)
+    row_ptr = spmm_cuda.row_ptr_from_sorted(recv, 4)
+    valid = torch.tensor([True] * 5 + [False])
+    gen = torch.Generator().manual_seed(0)
+    ht = torch.randn(4, 6, generator=gen)
+    att = torch.randn(2, 3, generator=gen)
+    g = torch.randn(4, 6, generator=gen)
+    graph = (send, recv, row_ptr)
+    got = attend_cuda.sddmm_stats_agg_sorted(ht, *graph, att, edge_valid=valid)
+    ref = attend_cuda.sddmm_stats_agg_sorted_plain(ht, *graph, att,
+                                                   edge_valid=valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    out, scores, m, l = got
+    assert not out[1].any() and m[1].eq(0).all() and l[1].eq(0).all()
+    assert torch.isinf(scores[5]).all() and torch.isfinite(scores[:5]).all()
+    rho = attend_cuda.attend_rho_sorted(g, scores, m, l, ht, *graph)
+    assert torch.equal(rho, attend_cuda.attend_rho_sorted_plain(
+        g, scores, m, l, ht, *graph))
+    got = attend_cuda.attend_recv_bwd_full_sorted(
+        ht, g, *graph, att, scores, m, l, rho)
+    ref = attend_cuda.attend_recv_bwd_full_sorted_plain(
+        ht, g, *graph, att, scores, m, l, rho)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert not got[2][5].any()  # the invalid slot sends nothing back
+    assert attend_cuda.LAUNCH_COUNTS == {
+        "sddmm_stats_agg_sorted": 0, "attend_rho_sorted": 0,
+        "attend_recv_bwd_full_sorted": 0}
+    assert _build.load_library.cache_info().currsize == 0
+
+
 def test_row_ptr_is_required_for_a_cuda_tensor():
     """The host derivation of ``row_ptr`` serves CPU tensors only: a tensor on
     the card must come with the ``row_ptr`` of graph preparation."""
@@ -137,6 +191,11 @@ def test_row_ptr_is_required_for_a_cuda_tensor():
 def test_kernels_build_inside_the_checkout():
     assert _build.build_dir() == ROOT / "build" / "kernels"
     assert "environ.get(\"KGT" not in inspect.getsource(_build)
+    assert _build.CSRC == PORT / "kernels" / "csrc"
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
+        "attend.cu", "spmm.cu"]
+    assert '_build.load_library("attend")' in inspect.getsource(attend_cuda)
+    assert "<torch/" not in (_build.CSRC / "attend.cu").read_text()
 
 
 def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
@@ -152,8 +211,9 @@ def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
 @pytest.mark.parametrize(
     "fn", [kgt_torch.prepare_graph, kgt_torch.GCNConv.__init__,
            kgt_torch.GNNEncoder.__init__, kgt_torch.Dense.__init__,
-           kgt_torch.MLP.__init__],
-    ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP"])
+           kgt_torch.MLP.__init__, kgt_torch.GATv2Conv.__init__],
+    ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP",
+         "GATv2Conv"])
 def test_entry_points_default_to_the_cuda_device(fn):
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
@@ -180,6 +240,40 @@ def test_chip_smoke_fails_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _chip_smoke_module():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_partial_run_is_no_pass():
+    """A run of a subset of the phases ends with a non-zero exit code and
+    prints no ``"ok"`` key: only the full run's last line carries one."""
+    module = _chip_smoke_module()
+    assert module.PARTIAL_EXIT_CODE not in (0, 1, 2, 3)
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert text.count('{"ok"') == 2  # the docstring and the last line
+    assert text.count('{"ok": True') == 1 and '"ok": False' not in text
+    partial = text[text.index("if set(phases) != set(PHASES):"):]
+    partial = partial[:partial.index("return PARTIAL_EXIT_CODE")]
+    assert "print(json.dumps(" in partial and '{"ok"' not in partial
+
+
+def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
+    module = _chip_smoke_module()
+    kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS}
+    assert set(module.REPLACES) == set(kernels) and len(kernels) == 6
+    replaces = module.replaced_tpu_kernels()  # checks each pallas_call line
+    assert replaces["attend_recv_bwd_full_sorted"].endswith(
+        "kernels/attend_pallas.py:737")
+    for name, (lib, _, _) in module.REPLACES.items():
+        assert (ROOT / module.SOURCES[lib]).is_file(), name
+    assert {"train_gat_arxiv_shape", "train_gat_citeseer_shape"} <= set(
+        module.PHASES)
 
 
 def test_roofline_uses_the_cards_constants():
