@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive keras_geometric_tpu_torch on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version, and train the 2-layer GCN and the
-2-layer GATv2 through the package's entry points.
+2-layer GATv2 (fused and composed attention) through the package's entry
+points.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -17,13 +18,16 @@ exit code and without the final line; so does a run of a subset of the phases
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
                 attention kernels at (H, F) in (4, 64), (4, 40), (8, 8),
-                (8, 6), (1, 7), with and without a dropout mask), then
-                timings at the shapes the training paths use;
+                (8, 6), (1, 7), with and without a dropout mask; the
+                composed path's score kernels at the same (H, F), its
+                softmax kernels at K in 1, 4, 8 with a row whose scores are
+                all -inf), then timings at the shapes the training paths use;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
-                autograd over the plain versions, and of
-                ``GraphContext.attend`` against autograd over a restatement
-                of it in library ops;
+                autograd over the plain versions, of ``GraphContext.attend``,
+                ``sddmm_scores`` and ``edge_softmax`` against autograd over
+                restatements of them in library ops; ``return_attention=True``
+                on the CiteSeer-shaped context;
 4. ``train_arxiv_shape``  the slice at full width: 169,343 nodes, 1,166,242
                 symmetric stream edges, 128 features, 256 hidden, 40 classes,
                 bf16 IO / f32 master parameters, Adam;
@@ -37,7 +41,11 @@ exit code and without the final line; so does a run of a subset of the phases
                 parameters, Adam;
 7. ``train_gat_citeseer_shape``  3,327 nodes / 9,464 edges / 3,703 features /
                 8 heads x 8 then 8 heads x 6, attention dropout, f32, AdamW;
-                then a short run whose last layer averages its heads.
+                then a short run whose last layer averages its heads;
+8. ``train_gat_arxiv_shape_composed`` and ``train_gat_citeseer_shape_composed``
+                the same two GATv2 workloads with ``fused_attend=False``:
+                gather, score kernel, softmax kernels, ``alpha * hj``, scatter;
+                step 1 also against the fused model's.
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -51,7 +59,11 @@ roundings may fall on neighbouring bf16 values). For the attention kernels
 ``S`` is the sum of the absolute values of the element's terms, and for what
 lies behind the softmax's ``exp`` it is multiplied by ``1 + `` the row's
 largest score mass (an error ``d`` in a score scales its ``exp`` by
-``1 + d``). Training step 1 through
+``1 + d``). The softmax kernels are held to the same rule with ``S`` the
+element's own value (``m``: its max; alpha: itself; ``l``, a sum of the row's
+``n`` positive terms: ``l`` times ``1 + n * 2**-24 / 2e-5``, which adds the
+worst-case error ``n * 2**-24 * l`` of such a sum: the plain version adds a
+20,000-slot row with atomics in an arbitrary order). Training step 1 through
 the kernels against the same step through the plain versions: loss within
 ``1e-4`` (f32) / ``2e-2`` (bf16 IO), every gradient within ``2e-4`` / ``5e-2``
 of its largest entry.
@@ -72,7 +84,8 @@ import torch
 
 PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_directed", "train_cora_shape", "train_gat_arxiv_shape",
-          "train_gat_citeseer_shape")
+          "train_gat_citeseer_shape", "train_gat_arxiv_shape_composed",
+          "train_gat_citeseer_shape_composed")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -87,10 +100,13 @@ GAT_ARXIV_DIMS, GAT_ARXIV_HEADS = (64, 40), 4
 CITESEER = dict(nodes=3_327, pairs=4_732, feats=3_703, classes=6)
 GAT_CITESEER_DIMS, GAT_CITESEER_HEADS = (8, 6), 8
 ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7))  # (H, F)
+SOFTMAX_HEADS = (1, 4, 8)  # K of the softmax kernels
 
 SOURCES = {
     "spmm": "keras_geometric_tpu_torch/kernels/csrc/spmm.cu",
     "attend": "keras_geometric_tpu_torch/kernels/csrc/attend.cu",
+    "softmax": "keras_geometric_tpu_torch/kernels/csrc/softmax.cu",
+    "sddmm": "keras_geometric_tpu_torch/kernels/csrc/sddmm.cu",
 }
 # For each kernel: its CUDA source, and the file (under the reference
 # package's kernels/) and line of the pl.pallas_call it replaces.
@@ -101,6 +117,10 @@ REPLACES = {
     "sddmm_stats_agg_sorted": ("attend", "sddmm_pallas.py", 617),
     "attend_rho_sorted": ("attend", "attend_pallas.py", 441),
     "attend_recv_bwd_full_sorted": ("attend", "attend_pallas.py", 737),
+    "softmax_stats_sorted": ("softmax", "softmax_pallas.py", 168),
+    "softmax_apply_sorted": ("softmax", "softmax_pallas.py", 282),
+    "sddmm_scores_sorted": ("sddmm", "sddmm_pallas.py", 770),
+    "sddmm_bwd_sorted": ("sddmm", "sddmm_pallas.py", 847),
 }
 
 
@@ -129,18 +149,28 @@ def replaced_tpu_kernels() -> dict:
     return out
 
 
-def launch_counts() -> dict:
-    """Every kernel's count of launches, from both wrapper modules."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
+def kernel_modules() -> tuple:
+    from keras_geometric_tpu_torch.kernels import (
+        attend_cuda,
+        sddmm_cuda,
+        softmax_cuda,
+        spmm_cuda,
+    )
 
-    return {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS}
+    return spmm_cuda, attend_cuda, softmax_cuda, sddmm_cuda
+
+
+def launch_counts() -> dict:
+    """Every kernel's count of launches, from every wrapper module."""
+    counts = {}
+    for module in kernel_modules():
+        counts.update(module.LAUNCH_COUNTS)
+    return counts
 
 
 def reset_launch_counts() -> None:
-    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
-
-    spmm_cuda.reset_launch_counts()
-    attend_cuda.reset_launch_counts()
+    for module in kernel_modules():
+        module.reset_launch_counts()
 
 
 def nvidia_smi_line() -> str:
@@ -455,19 +485,26 @@ def attend_restated(ctx, ht, att, drop_mask=None, negative_slope=0.2,
     hj = rows.index_select(0, s).view(e, heads, f)
     hi = rows.index_select(0, r).view(e, heads, f)
     z = torch.nn.functional.leaky_relu(hi + hj, negative_slope)
-    scores = (z * att.float()).sum(-1)
-    scores = scores.masked_fill(~ctx.edge_mask[:, None], float("-inf"))
-    m = torch.full((n, heads), float("-inf"), device=ht.device).scatter_reduce(
-        0, r[:, None].expand(e, heads), scores.detach(), "amax")
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    ex = torch.exp(scores - m.index_select(0, r))
-    den = torch.zeros(n, heads, device=ht.device).index_add(0, r, ex)
-    alpha = ex / (den.index_select(0, r) + eps)
+    alpha = edge_softmax_restated(ctx, (z * att.float()).sum(-1), eps)
     if drop_mask is not None:
         alpha = alpha * drop_mask.float()
     out = torch.zeros(n, heads * f, device=ht.device).index_add(
         0, r, (alpha[:, :, None] * hj).reshape(e, heads * f))
     return out.to(ht.dtype)
+
+
+def edge_softmax_restated(ctx, scores, eps=1e-10):
+    """``GraphContext.edge_softmax`` in differentiable library ops (padded
+    slots -inf, max shift held constant, f32 inside). For comparison only."""
+    n, (e, k) = ctx.num_nodes, scores.shape
+    r = ctx.receivers.long()
+    s = scores.float().masked_fill(~ctx.edge_mask[:, None], float("-inf"))
+    m = torch.full((n, k), float("-inf"), device=s.device).scatter_reduce(
+        0, r[:, None].expand(e, k), s.detach(), "amax")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ex = torch.exp(s - m.index_select(0, r))
+    den = torch.zeros(n, k, device=s.device).index_add(0, r, ex)
+    return (ex / (den.index_select(0, r) + eps)).to(scores.dtype)
 
 
 def attend_case(graph, ht, att, gout, drop, what):
@@ -775,6 +812,260 @@ def time_attend_cases(device, timer, contexts, replaces):
 
 
 # ---------------------------------------------------------------------------
+# The composed attention path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def softmax_case(recv, row_ptr, n, scores, out_dtype, what):
+    """The statistics and normalisation kernels against their plain versions
+    on one input; the normalisation is fed the plain statistics, so each
+    kernel is held alone. Returns each kernel's largest absolute error and
+    the kernel's ``m``, ``l``."""
+    from keras_geometric_tpu_torch.kernels import softmax_cuda as S
+
+    m, l = S.softmax_stats_sorted(scores, recv, row_ptr, n)
+    p_m, p_l = S.softmax_stats_sorted_plain(scores, recv, n)
+    terms = (row_ptr[1:] - row_ptr[:-1]).float()[:, None]
+    l_mass = p_l * (1.0 + terms * 2.0 ** -24 / RTOL_MASS)
+    errs = {"softmax_stats_sorted": max(
+        compare(m, p_m, p_m.abs(), torch.float32, f"{what} m"),
+        compare(l, p_l, l_mass, torch.float32, f"{what} l"))}
+    alpha = S.softmax_apply_sorted(scores, p_m, p_l, recv, out_dtype=out_dtype)
+    p_alpha = S.softmax_apply_sorted_plain(scores, p_m, p_l, recv,
+                                           out_dtype=out_dtype)
+    errs["softmax_apply_sorted"] = compare(
+        alpha, p_alpha, p_alpha.float(), out_dtype, f"{what} alpha")
+    return errs, m, l, alpha
+
+
+def sddmm_case(recv, ht, hj, att, ds, what):
+    """The score kernel and its backward against their plain versions on one
+    input, each element held to the tolerance of the module docstring."""
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+
+    e = recv.shape[0]
+    heads, f = att.shape
+    z_abs = (ht.float().abs().index_select(0, recv.long())
+             + hj.float().abs()).view(e, heads, f)
+    s_mass = (z_abs * att.float().abs()).sum(-1)
+    errs = {"sddmm_scores_sorted": compare(
+        D.sddmm_scores_sorted(ht, hj, att, recv),
+        D.sddmm_scores_sorted_plain(ht, hj, att, recv), s_mass,
+        torch.float32, f"{what} scores")}
+    d_pre, datt = D.sddmm_bwd_sorted(ht, hj, att, ds, recv)
+    p_d_pre, p_datt = D.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv)
+    datt_mass = (z_abs * ds.abs()[:, :, None]).sum(0)
+    errs["sddmm_bwd_sorted"] = max(
+        compare(d_pre, p_d_pre, p_d_pre.float().abs(), ht.dtype,
+                f"{what} d_pre"),
+        compare(datt, p_datt, datt_mass, att.dtype, f"{what} datt"))
+    return errs
+
+
+def sddmm_inputs(gen, n, e, heads, f, dtype, valid, device):
+    d = heads * f
+    ht = (0.5 * torch.randn(n, d, generator=gen, device=device)).to(dtype)
+    hj = (0.5 * torch.randn(e, d, generator=gen, device=device)).to(dtype)
+    att = (0.3 * torch.randn(heads, f, generator=gen, device=device)).to(dtype)
+    ds = torch.randn(e, heads, generator=gen, device=device)
+    ds = ds.masked_fill(~valid[:, None], 0.0)  # alpha = 0 on padded slots
+    return ht, hj, att, ds
+
+
+def masked_scores(gen, e, k, valid, device):
+    scores = 3.0 * torch.randn(e, k, generator=gen, device=device)
+    return scores.masked_fill(~valid[:, None], float("-inf"))
+
+
+def composed_sweep(device, timer):
+    """The composed path's kernels on the skewed graph: the softmax kernels
+    at every K of ``SOFTMAX_HEADS`` (f32 and bf16 alpha) with one row whose
+    scores are all -inf, the score kernels at every (H, F) of
+    ``ATTEND_SHAPES`` in both types; then each kernel's time with and without
+    the 20,000-slot hub row."""
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.kernels import softmax_cuda as S
+
+    g = skewed_graph(device)
+    n, e, recv, row_ptr = g["n"], g["e"], g["recv"], g["row_ptr"]
+    gen = torch.Generator(device=device).manual_seed(8)
+    worst = {name: 0.0 for name in (*S.LAUNCH_COUNTS, *D.LAUNCH_COUNTS)}
+    cases = 0
+    dead = 8  # a row with slots, every score of which is -inf
+    lo, hi = int(row_ptr[dead]), int(row_ptr[dead + 1])
+    check(hi > lo, "the skewed graph's row 8 must have slots")
+    for k in SOFTMAX_HEADS:
+        scores = masked_scores(gen, e, k, g["mask"], device)
+        scores[lo:hi] = float("-inf")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            errs, m, l, alpha = softmax_case(
+                recv, row_ptr, n, scores, out_dtype,
+                f"softmax K={k} alpha {str(out_dtype)[6:]}")
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            cases += len(errs)
+        torch.cuda.synchronize()
+        # Empty rows, the all -inf row and the padded slots: exact zeros.
+        for name, t in (("m", m), ("l", l)):
+            check(not t[1::2][:-1].any().item() and not t[dead].any().item(),
+                  f"softmax K={k}: {name} of rows without a finite score")
+        alpha = S.softmax_apply_sorted(scores, m, l, recv)
+        check(not alpha[lo:hi].any().item() and
+              not alpha[~g["mask"]].any().item(),
+              f"softmax K={k}: alpha of -inf slots must be 0")
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads, f in ATTEND_SHAPES:
+            ht, hj, att, ds = sddmm_inputs(gen, n, e, heads, f, dtype,
+                                           g["mask"], device)
+            errs = sddmm_case(recv, ht, hj, att, ds,
+                              f"sddmm {str(dtype)[6:]} H={heads} F={f}")
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            cases += len(errs)
+    torch.cuda.synchronize()
+    try:
+        D.sddmm_scores_sorted(ht.double(), hj.double(), att, recv)
+    except TypeError:
+        pass
+    else:
+        check(False, "float64 data must be refused on a CUDA tensor")
+
+    hub = {}
+    heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+    for label, sg in (("with_hub_row", g),
+                      ("without_hub_row", skewed_graph(device, hub=0))):
+        sn, se, srecv, sptr = sg["n"], sg["e"], sg["recv"], sg["row_ptr"]
+        ht, hj, att, ds = sddmm_inputs(gen, sn, se, heads, f, torch.bfloat16,
+                                       sg["mask"], device)
+        scores = masked_scores(gen, se, heads, sg["mask"], device)
+        m, l = S.softmax_stats_sorted(scores, srecv, sptr, sn)
+        hub[label] = {
+            "slots": se,
+            "softmax_stats_sorted": timer.cold_ms(
+                lambda: S.softmax_stats_sorted(scores, srecv, sptr, sn),
+                iters=10),
+            "softmax_apply_sorted": timer.cold_ms(
+                lambda: S.softmax_apply_sorted(scores, m, l, srecv),
+                iters=10),
+            "sddmm_scores_sorted": timer.cold_ms(
+                lambda: D.sddmm_scores_sorted(ht, hj, att, srecv), iters=10),
+            "sddmm_bwd_sorted": timer.cold_ms(
+                lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, srecv),
+                iters=10),
+        }
+    return cases, worst, hub
+
+
+def time_composed_cases(device, timer, contexts, replaces):
+    """The composed path's four kernels at the shapes its GATv2 training runs
+    give them: kernel, plain version, bound from bytes and operations. No
+    single PyTorch call computes any of them (``torch.segment_reduce`` gives
+    a row's max but not its sum of exponentials), so ``library_ms`` is
+    null."""
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.kernels import softmax_cuda as S
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    entries = []
+    for ctx_name, path, layer, heads, f, dtype in (
+        ("gat_arxiv", "train_gat_arxiv_shape_composed", "layer 1",
+         GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0], torch.bfloat16),
+        ("gat_arxiv", "train_gat_arxiv_shape_composed", "layer 2",
+         GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[1], torch.bfloat16),
+        ("citeseer", "train_gat_citeseer_shape_composed", "layer 1",
+         GAT_CITESEER_HEADS, GAT_CITESEER_DIMS[0], torch.float32),
+        ("citeseer", "train_gat_citeseer_shape_composed", "layer 2",
+         GAT_CITESEER_HEADS, GAT_CITESEER_DIMS[1], torch.float32),
+    ):
+        ctx = contexts[ctx_name]
+        n, e, d = ctx.num_nodes, ctx.senders.shape[0], heads * f
+        recv, row_ptr, valid = ctx.receivers, ctx.row_ptr, ctx.edge_mask
+        es = 2 if dtype == torch.bfloat16 else 4
+        ht = (0.5 * torch.randn(n, d, generator=gen, device=device)).to(dtype)
+        att = (0.3 * torch.randn(heads, f, generator=gen,
+                                 device=device)).to(dtype)
+        hj = ht.index_select(0, ctx.senders)  # the gather the path runs
+        ds = torch.randn(e, heads, generator=gen, device=device).masked_fill(
+            ~valid[:, None], 0.0)
+        scores = D.sddmm_scores_sorted(ht, hj, att, recv).masked_fill(
+            ~valid[:, None], float("-inf"))
+        errs, m, l, _ = softmax_case(recv, row_ptr, n, scores, torch.float32,
+                                     f"softmax at {ctx_name} {layer}")
+        errs.update(sddmm_case(recv, ht, hj, att, ds,
+                               f"sddmm at {ctx_name} {layer}"))
+        torch.cuda.empty_cache()
+        index = e * 4
+        score_bytes = e * heads * 4
+        stats = 2 * n * heads * 4
+        cases = {
+            "softmax_stats_sorted": dict(
+                kernel=lambda: S.softmax_stats_sorted(scores, recv, row_ptr,
+                                                      n),
+                plain=lambda: S.softmax_stats_sorted_plain(scores, recv, n),
+                # scores read, row_ptr read, m and l written
+                nbytes=score_bytes + (n + 1) * 4 + stats,
+                no_reuse=None, ops=6 * e * heads),
+            "softmax_apply_sorted": dict(
+                kernel=lambda: S.softmax_apply_sorted(scores, m, l, recv),
+                plain=lambda: S.softmax_apply_sorted_plain(scores, m, l,
+                                                           recv),
+                # scores and receivers read, m and l read, alpha written
+                nbytes=2 * score_bytes + index + stats,
+                no_reuse=2 * score_bytes + index + 2 * e * heads * 4,
+                ops=3 * e * heads),
+            "sddmm_scores_sorted": dict(
+                kernel=lambda: D.sddmm_scores_sorted(ht, hj, att, recv),
+                plain=lambda: D.sddmm_scores_sorted_plain(ht, hj, att, recv),
+                # ht and hj read, receivers, att, scores written
+                nbytes=n * d * es + e * d * es + index + d * es
+                + score_bytes,
+                no_reuse=2 * e * d * es + index + d * es + score_bytes,
+                ops=4 * e * d),
+            "sddmm_bwd_sorted": dict(
+                kernel=lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, recv),
+                plain=lambda: D.sddmm_bwd_sorted_plain(ht, hj, att, ds,
+                                                       recv),
+                # ht, hj, receivers, att, ds read; d_pre and datt written
+                nbytes=n * d * es + 2 * e * d * es + index + d * es
+                + score_bytes + d * 4,
+                no_reuse=3 * e * d * es + index + d * es + score_bytes
+                + d * 4,
+                ops=6 * e * d),
+        }
+        for name, case in cases.items():
+            ms = timer.cold_ms(case["kernel"], iters=10)
+            plain_ms = timer.cold_ms(case["plain"], iters=5, warmup=1)
+            t_bytes = case["nbytes"] / H100_BYTES_PER_S * 1e3
+            t_ops = case["ops"] / H100_F32_OPS_PER_S * 1e3
+            entry = {
+                "name": name, "route": "cuda",
+                "source": SOURCES[REPLACES[name][0]],
+                "replaces": replaces[name], "path": path,
+                "shape": f"{ctx_name} {layer}: E={e} N={n} H={heads} F={f} "
+                         f"{str(dtype)[6:]}",
+                "launches": 0, "max_abs_err": errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+                "library": "none: no single PyTorch call computes this",
+            }
+            if case["no_reuse"] is not None:
+                # Every row read per slot from device memory, none from
+                # cache (ht rows for the score kernels, m and l rows for
+                # the normalisation).
+                entry["bound_ms_if_gather_not_reused"] = (
+                    case["no_reuse"] / H100_BYTES_PER_S * 1e3)
+            entries.append(entry)
+        del hj, scores, cases
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # Plain contexts: the same operators through the kernels' plain versions,
 # differentiated by autograd over PyTorch's own ops. For comparison only.
 # ---------------------------------------------------------------------------
@@ -803,7 +1094,26 @@ class PlainContext:
             self_weight=c.self_weight)
 
     def gather(self, h):
-        return h.index_select(0, self.ctx.senders)
+        # f32 inside: autograd's index_select backward sums in the data's type
+        return h.float().index_select(0, self.ctx.senders).to(h.dtype)
+
+    def sddmm_scores(self, ht, hj, att, *, negative_slope=0.2):
+        from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+
+        return D.sddmm_scores_sorted_plain(
+            ht, hj, att, self.ctx.full_stream().receivers,
+            negative_slope=negative_slope)
+
+    def edge_softmax(self, scores, *, eps=1e-10):
+        return edge_softmax_restated(self.ctx.full_stream(), scores, eps)
+
+    def scatter(self, messages, *, masked=False):
+        from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+        c = self.ctx
+        return K.scatter_sum_sorted_plain(
+            messages, c.receivers, c.num_nodes,
+            mask=c.edge_mask if masked else None)
 
     def scatter_weighted(self, messages):
         from keras_geometric_tpu_torch.kernels import spmm_cuda as K
@@ -901,6 +1211,86 @@ def autograd_phase(device):
                       f"{what} of {tag}: max abs err {err:.3e} against "
                       f"scale {scale:.3e}")
                 results[f"{tag}/{what}"] = err / scale
+    torch.cuda.synchronize()
+    return results
+
+
+def composed_autograd_phase(device, citeseer):
+    """``GraphContext.sddmm_scores`` (d ht, d hj, d att) and
+    ``GraphContext.edge_softmax`` through the kernels against autograd over
+    their restatements in library ops; then ``return_attention=True`` on the
+    CiteSeer-shaped context: alpha is 0 on padded slots, sums to 1 on every
+    row with an edge, and ``out`` is the fused path's."""
+    import keras_geometric_tpu_torch as kgt
+
+    rng = np.random.default_rng(10)
+    n = 20_000
+    edges = np.stack([np.minimum(rng.zipf(1.6, 120_000) - 1, n - 1),
+                      rng.integers(0, n, 120_000)])
+    ctx = kgt.prepare_graph(edges, n, add_self_loops=True, device=device)
+    plain = PlainContext(ctx)
+    e = ctx.senders.shape[0]
+    gen = torch.Generator(device=device).manual_seed(11)
+    results = {}
+    for dtype, heads, f in ((torch.float32, 4, 40), (torch.bfloat16, 4, 64),
+                            (torch.float32, 8, 6)):
+        g_tol = 2e-4 if dtype == torch.float32 else 5e-2
+        ht, hj, att, _ = sddmm_inputs(gen, n, e, heads, f, dtype,
+                                      ctx.edge_mask, device)
+        grads = []
+        for fn in (ctx.sddmm_scores, plain.sddmm_scores):
+            args = [t.detach().clone().requires_grad_(True)
+                    for t in (ht, hj, att)]
+            out = fn(*args)
+            (torch.tanh(out.float()) * 0.5).sum().backward()
+            grads.append((out.detach(), *(a.grad for a in args)))
+        tag = f"sddmm_scores/{str(dtype)[6:]}/H{heads}F{f}"
+        for what, k, p in zip(("value", "d ht", "d hj", "d att"), *grads):
+            scale = max(p.float().abs().max().item(), 1e-6)
+            err = (k.float() - p.float()).abs().max().item()
+            check(math.isfinite(err) and err <= g_tol * scale,
+                  f"{what} of {tag}: max abs err {err:.3e} against scale "
+                  f"{scale:.3e}")
+            results[f"{tag}/{what}"] = err / scale
+    for k in SOFTMAX_HEADS:
+        scores = masked_scores(gen, e, k, ctx.edge_mask, device)
+        k_out, k_grad = grad_of(ctx.edge_softmax, scores)
+        p_out, p_grad = grad_of(plain.edge_softmax, scores)
+        for what, a, b in (("value", k_out, p_out), ("d scores", k_grad,
+                                                     p_grad)):
+            scale = max(b.abs().max().item(), 1e-6)
+            err = (a - b).abs().max().item()
+            check(math.isfinite(err) and err <= 2e-4 * scale,
+                  f"{what} of edge_softmax K={k}: max abs err {err:.3e} "
+                  f"against scale {scale:.3e}")
+            results[f"edge_softmax/K{k}/{what}"] = err / scale
+
+    ctx, x = citeseer[0], citeseer[1]
+    layer = kgt.GATv2Conv.for_context(
+        GAT_CITESEER_DIMS[0], input_dim=CITESEER["feats"],
+        heads=GAT_CITESEER_HEADS,
+        generator=torch.Generator(device=device).manual_seed(0),
+        device=device).eval()
+    with torch.no_grad():
+        fused = layer(x, context=ctx)
+        out, alpha = layer(x, context=ctx, return_attention=True)
+    check(alpha.shape == (ctx.senders.shape[0], GAT_CITESEER_HEADS) and
+          alpha.dtype == torch.float32, "return_attention: alpha's shape")
+    check(not alpha[~ctx.edge_mask].any().item(),
+          "return_attention: alpha must be 0 on padded slots")
+    sums = torch.zeros(ctx.num_nodes, GAT_CITESEER_HEADS,
+                       device=device).index_add_(0, ctx.receivers.long(),
+                                                 alpha)
+    rows = ctx.in_degree > 0
+    sum_err = (sums[rows] - 1.0).abs().max().item()
+    check(sum_err <= 1e-5, f"return_attention: rows sum to 1 within "
+          f"{sum_err:.3e}")
+    scale = fused.abs().max().item()
+    out_err = (out - fused).abs().max().item()
+    check(out_err <= 2e-4 * scale, f"return_attention: out differs from the "
+          f"fused path's by {out_err:.3e} (scale {scale:.3e})")
+    results["return_attention/row_sum_err"] = sum_err
+    results["return_attention/out_vs_fused"] = out_err / scale
     torch.cuda.synchronize()
     return results
 
@@ -1053,7 +1443,10 @@ def first_step(make_model, make_gen, ctx, x, y, mask, compute_dtype):
 
 def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
-                falling=lambda l: l[-1] < l[0]):
+                falling=lambda l: l[-1] < l[0], same_as=None):
+    """``same_as``: a model that computes the same function by another path
+    (built with the same initial parameters); its step-1 loss is held to the
+    same tolerance as the plain path's."""
     from keras_geometric_tpu_torch.training import make_node_classification_step
     from keras_geometric_tpu_torch.utils import timed_steps
 
@@ -1066,6 +1459,13 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     l_tol, g_tol = (1e-4, 2e-4) if compute_dtype is None else (2e-2, 5e-2)
     check(math.isfinite(k_loss) and abs(k_loss - p_loss) <= l_tol,
           f"{name}: step-1 loss {k_loss} vs plain {p_loss}")
+    other_loss = None
+    if same_as is not None:
+        other_loss, _ = first_step(same_as, make_gen, ctx, x, y, mask,
+                                   compute_dtype)
+        check(abs(k_loss - other_loss) <= l_tol,
+              f"{name}: step-1 loss {k_loss} vs the other path's "
+              f"{other_loss}")
     grad_err = 0.0
     for key, pg in p_grads.items():
         scale = pg.abs().max().item()
@@ -1099,7 +1499,8 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     logits_ok = all(torch.isfinite(p).all().item() for p in model.parameters())
     check(logits_ok, f"{name}: parameters not finite after training")
     emit(name, steps=total_steps, losses=losses, step1_loss=k_loss,
-         step1_loss_plain=p_loss, step1_grad_rel_err=grad_err,
+         step1_loss_plain=p_loss, step1_loss_other_path=other_loss,
+         step1_grad_rel_err=grad_err,
          launches_per_step=per_step, launches=counts, step_ms=step_ms,
          peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
          nodes=ctx.num_nodes, stream_edges=ctx.num_real_edges,
@@ -1216,19 +1617,26 @@ def main() -> int:
             device, timer,
             {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0]},
             replaces)
-        kernel_entries += time_attend_cases(
-            device, timer,
-            {"gat_arxiv": workload("gat_arxiv")[0],
-             "citeseer": workload("citeseer")[0]}, replaces)
-        emit("kernels", comparisons=cases + attend_cases,
-             worst_abs_err={**worst, **attend_worst},
-             kernels=sorted(launch_counts()), hub_row_ms=hub,
+        attention_contexts = {"gat_arxiv": workload("gat_arxiv")[0],
+                              "citeseer": workload("citeseer")[0]}
+        kernel_entries += time_attend_cases(device, timer, attention_contexts,
+                                            replaces)
+        composed_cases, composed_worst, composed_hub = composed_sweep(
+            device, timer)
+        kernel_entries += time_composed_cases(device, timer,
+                                              attention_contexts, replaces)
+        emit("kernels", comparisons=cases + attend_cases + composed_cases,
+             worst_abs_err={**worst, **attend_worst, **composed_worst},
+             kernels=sorted(launch_counts()),
+             hub_row_ms={**hub, "composed": composed_hub},
              timed=[{k: e[k] for k in ("name", "shape", "max_abs_err", "ms",
                                        "plain_ms", "library_ms", "bound_ms")}
                     for e in kernel_entries if e["path"]])
 
     if "autograd" in phases:
-        emit("autograd", grad_rel_err=autograd_phase(device))
+        emit("autograd", grad_rel_err={
+            **autograd_phase(device),
+            **composed_autograd_phase(device, workload("citeseer"))})
 
     def arxiv_model():
         gen = torch.Generator(device=device).manual_seed(0)
@@ -1236,19 +1644,21 @@ def main() -> int:
             "gcn", (HIDDEN, ARXIV_CLASSES), input_dim=ARXIV_FEATS,
             generator=gen, device=device)
 
-    def gat_arxiv_model():
+    def gat_arxiv_model(fused_attend=True):
         gen = torch.Generator(device=device).manual_seed(0)
         return kgt.GNNEncoder.for_context(
             "gatv2", GAT_ARXIV_DIMS, input_dim=ARXIV_FEATS,
-            conv_kwargs={"heads": GAT_ARXIV_HEADS}, generator=gen,
-            device=device)
+            conv_kwargs={"heads": GAT_ARXIV_HEADS,
+                         "fused_attend": fused_attend},
+            generator=gen, device=device)
 
-    def gat_citeseer_model():
+    def gat_citeseer_model(fused_attend=True):
         gen = torch.Generator(device=device).manual_seed(0)
         return kgt.GNNEncoder.for_context(
             "gatv2", GAT_CITESEER_DIMS, input_dim=CITESEER["feats"],
             dropout_rate=0.3,
-            conv_kwargs={"heads": GAT_CITESEER_HEADS, "dropout": 0.3},
+            conv_kwargs={"heads": GAT_CITESEER_HEADS, "dropout": 0.3,
+                         "fused_attend": fused_attend},
             generator=gen, device=device)
 
     def cora_model():
@@ -1266,6 +1676,16 @@ def main() -> int:
     gat_two_layers = {"sddmm_stats_agg_sorted": 2, "attend_rho_sorted": 2,
                       "attend_recv_bwd_full_sorted": 2,
                       "gather_scatter_sum_sorted": 2}
+    # Per composed GATv2 layer, read from GATv2Conv and ops/csr.py: forward
+    # one score kernel, the two softmax kernels and the messages scatter;
+    # backward the messages scatter's VJP (expand), the softmax's rho
+    # (scatter over [E, H]) and rho_e (expand), the score backward kernel
+    # and its d ht (scatter), and the gather's VJP (fused-gather scatter).
+    gat_composed_two_layers = {
+        "sddmm_scores_sorted": 2, "softmax_stats_sorted": 2,
+        "softmax_apply_sorted": 2, "sddmm_bwd_sorted": 2,
+        "scatter_sum_sorted": 6, "expand_sorted": 4,
+        "gather_scatter_sum_sorted": 2}
     mean_of_ends = lambda l: sum(l[-5:]) < sum(l[:5])
     # name -> (workload, model, optimizer, compute dtype): what --profile
     # may name.
@@ -1277,6 +1697,12 @@ def main() -> int:
                                   torch.bfloat16),
         "train_gat_citeseer_shape": ("citeseer", gat_citeseer_model,
                                      adamw(5e-3), None),
+        "train_gat_arxiv_shape_composed": (
+            "gat_arxiv", lambda: gat_arxiv_model(fused_attend=False), adam,
+            torch.bfloat16),
+        "train_gat_citeseer_shape_composed": (
+            "citeseer", lambda: gat_citeseer_model(fused_attend=False),
+            adamw(5e-3), None),
     }
     if args.profile is not None and args.profile not in runs:
         ap.error(f"--profile takes one of {sorted(runs)}")
@@ -1340,6 +1766,18 @@ def main() -> int:
                     mask, mean_heads_model, adamw(5e-3), None, steps=20,
                     per_step=gat_two_layers, timed_iters=5,
                     falling=mean_of_ends)
+
+    # The composed path: the same workloads and initial parameters as the
+    # fused runs above, so step 1 is also held against the fused model.
+    if "train_gat_arxiv_shape_composed" in phases:
+        train("train_gat_arxiv_shape_composed", steps=8,
+              per_step=gat_composed_two_layers, timed_iters=10,
+              same_as=gat_arxiv_model)
+
+    if "train_gat_citeseer_shape_composed" in phases:
+        train("train_gat_citeseer_shape_composed", steps=40,
+              per_step=gat_composed_two_layers, timed_iters=10,
+              falling=mean_of_ends, same_as=gat_citeseer_model)
 
     if args.profile is not None:
         from keras_geometric_tpu_torch.training import (

@@ -3,8 +3,12 @@
 A second package beside the JAX one, which stays as the reference. Ported so
 far: the full-graph GCN training path (graph preparation, the sorted-CSR SpMM
 with hand-written Hopper kernels, ``GCNConv``, ``GNNEncoder``, the training
-step) and the GATv2 attention path (``GraphContext.attend`` with hand-written
-forward and backward kernels, ``GATv2Conv``, ``GAT``). Entry points run on a CUDA device unless the caller passes another.
+step) and the GATv2 attention path, fused (``GraphContext.attend`` with
+hand-written forward and backward kernels) and composed
+(``GraphContext.sddmm_scores`` / ``edge_softmax`` with their own kernels,
+``GATv2Conv(fused_attend=False)``, ``return_attention=True``), with
+``GATv2Conv`` and ``GAT``. Entry points run on a CUDA device unless the
+caller passes another.
 """
 
 from ._version import __version__

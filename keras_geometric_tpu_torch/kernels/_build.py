@@ -3,8 +3,8 @@
 The kernels have a plain C interface, so the build is one ``nvcc`` call per
 source (a few seconds) and needs none of PyTorch's headers. A library is built
 at first use, from the sources in this package and nothing else, into a build
-directory keyed by a hash of the source and the flags, so an edit rebuilds and
-an unchanged source is reused. A failed build raises with the compiler's
+directory keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edit rebuilds and an unchanged source is reused. A failed build raises with the compiler's
 output: nothing falls back to another implementation. ``load_libraries``
 builds several sources at once, one ``nvcc`` process each.
 
@@ -62,7 +62,8 @@ def _find_nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, and load it."""
     source = CSRC / f"{name}.cu"
-    text = source.read_bytes()
+    text = source.read_bytes() + b"".join(
+        header.read_bytes() for header in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir()
     lib_path = out_dir / f"libkgt_{name}_{digest}.so"

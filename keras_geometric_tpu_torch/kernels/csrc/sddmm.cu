@@ -1,0 +1,200 @@
+// GATv2 attention scores and their backward for Hopper (sm_90a), over a
+// receiver-sorted edge stream with the gathered sender rows materialised.
+//
+// They replace two TPU kernels of the JAX package:
+//   sddmm_scores_kernel <- kernels/sddmm_pallas.py sddmm_scores_sorted
+//   sddmm_bwd_kernel    <- kernels/sddmm_pallas.py sddmm_bwd_sorted
+//
+// With ht [N, D] the transformed node rows (D = H*F, head h owns columns
+// h*F .. (h+1)*F), hj [E, D] the sender rows in slot order, att [H, F], and
+// for slot e with receiver r = recv[e]:
+//   pre[e]   = ht[r] + hj[e]
+//   z[e]     = pre > 0 ? pre : slope * pre
+//   s[e, h]  = sum_f att[h, f] * z[e, h, f]                  (f32)
+// backward, from ds [E, H] f32:
+//   d_pre[e, hF+f] = ds[e, h] * att[h, f] * (pre > 0 ? 1 : slope)
+//                                           (stored in hj's type)
+//   datt[h, f]     = sum over ALL slots of z[e, hF+f] * ds[e, h]
+//                                           (f32 sum, cast by the caller)
+// d_pre is the cotangent of both endpoints (pre is symmetric in hi and hj):
+// the caller returns it as d hj and scatters it by receiver for d ht.
+//
+// The TPU kernels expand the receiver rows with one-hot matrix products over
+// a boundary-encoded work list and reduce each head through a block-diagonal
+// selector matrix, because that machine has no vector gather. Here both
+// kernels are edge-parallel: a sub-warp group (lanes.cuh) owns one
+// (slot, head) pair, reads the head's F-segment of ht[recv[e]] (neighbouring
+// slots share a receiver, so the row comes from L1/L2) and of hj[e], and
+// works in f32 registers. Both are bound by bytes: the [E, D] stream of hj
+// (and, backward, the [E, D] write of d_pre) is most of what they move; the
+// work is a few multiply-adds per (slot, column).
+//
+// The forward gives each group one pair and reduces over the head's columns
+// with shuffles inside the group. The backward runs a fixed grid whose
+// groups stride over the (slot, head) pairs with their head held constant,
+// keep their datt partial in registers and write it once; a second small
+// kernel sums the partials in a fixed order. No atomics, so datt is
+// bit-reproducible. Padded slots are computed like any other: their ds is 0
+// (alpha is 0 there), so they add nothing to d_pre or datt.
+//
+// Offsets into data are 64-bit; indices are int32. The C entry points
+// launch on the given stream, allocate nothing, do not synchronise, and
+// return cudaGetLastError().
+
+#include "lanes.cuh"
+
+namespace {
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+sddmm_scores_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
+                    const int32_t* __restrict__ recv,
+                    const void* __restrict__ att, int att_bf16,
+                    float* __restrict__ scores, int64_t n_slots, int heads,
+                    int f, int lph, float slope) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_slots * heads) return;
+  const int64_t e = q.gid / heads;
+  const int h = static_cast<int>(q.gid - e * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float hi_row[NJ][VEC], hj_row[NJ][VEC], a[NJ][VEC];
+  load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, f, q,
+                        hi_row);
+  load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, hj_row);
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  float part = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float pre = hi_row[j][i] + hj_row[j][i];
+      part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
+    }
+  }
+  part = group_sum(part, lph, q.mask);
+  if (q.lane == 0) scores[q.gid] = part;
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+sddmm_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
+                 const int32_t* __restrict__ recv,
+                 const void* __restrict__ att, int att_bf16,
+                 const float* __restrict__ ds, S* __restrict__ d_pre,
+                 float* __restrict__ partial, int64_t n_slots, int heads,
+                 int f, int lph, float slope) {
+  const Geometry q = geometry(lph);
+  // The grid holds a multiple of `heads` groups, so a group that strides over
+  // the (slot, head) pairs by the grid's size keeps its head.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int h = static_cast<int>(q.gid % heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float a[NJ][VEC], datt_acc[NJ][VEC];
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  zero_lane<VEC, NJ>(datt_acc);
+
+  for (int64_t item = q.gid; item < n_slots * heads; item += n_groups) {
+    const int64_t e = item / heads;
+    float hi_row[NJ][VEC], row[NJ][VEC];
+    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, f,
+                          q, hi_row);
+    load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, row);
+    const float g = ds[item];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float pre = hi_row[j][i] + row[j][i];
+        const bool pos = pre > 0.0f;
+        datt_acc[j][i] += (pos ? pre : slope * pre) * g;
+        row[j][i] = g * a[j][i] * (pos ? 1.0f : slope);  // this lane's d_pre
+      }
+    }
+    store_lane<S, VEC, NJ>(d_pre + e * d + col0, f, q, row);
+  }
+  store_partial<VEC, NJ>(partial, heads, d, col0, f, q, datt_acc);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scores [n_slots, heads] f32. ht [n_rows, heads*f] and hj [n_slots,
+// heads*f]: both f32 (is_bf16 = 0) or both bf16. recv [n_slots] int32 rows
+// of ht; att [heads, f] f32 or bf16 by its own flag.
+int kgt_sddmm_scores_sorted(const void* ht, const void* hj,
+                            const int32_t* recv, const void* att,
+                            int att_bf16, float* scores, int64_t n_slots,
+                            int heads, int64_t f, float slope, int is_bf16,
+                            void* stream) {
+  if (ht == nullptr || hj == nullptr || recv == nullptr || att == nullptr ||
+      scores == nullptr || !shape_ok(n_slots, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, ht, hj);
+  const unsigned grid = blocks_for_all(n_slots, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_SCORES(S)                                                       \
+  sddmm_scores_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                \
+      static_cast<const S*>(ht), static_cast<const S*>(hj), recv, att,      \
+      att_bf16, scores, n_slots, heads, fi, lay.lph, slope)
+  KGT_DISPATCH(is_bf16, lay, KGT_SCORES)
+#undef KGT_SCORES
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the [rows, heads*f] f32 scratch that the backward needs for its
+// datt partials on the current device, for the same data pointers (their
+// alignment decides the layout, and the layout the number of groups); 0 for
+// a shape it does not take.
+int64_t kgt_sddmm_bwd_partial_rows(const void* ht, const void* hj,
+                                   const void* d_pre, int64_t n_slots,
+                                   int heads, int64_t f, int is_bf16) {
+  if (!shape_ok(n_slots, heads, f)) return 0;
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
+  return partial_rows(n_slots, heads, lay.lph);
+}
+
+// Backward: d_pre [n_slots, heads*f] in the data's type, datt [heads*f] f32,
+// from ds [n_slots, heads] f32. partial: scratch of
+// kgt_sddmm_bwd_partial_rows(...) rows, written before it is read.
+int kgt_sddmm_bwd_sorted(const void* ht, const void* hj, const int32_t* recv,
+                         const void* att, int att_bf16, const float* ds,
+                         void* d_pre, float* datt, float* partial,
+                         int64_t n_slots, int heads, int64_t f, float slope,
+                         int is_bf16, void* stream) {
+  if (ht == nullptr || hj == nullptr || recv == nullptr || att == nullptr ||
+      ds == nullptr || d_pre == nullptr || datt == nullptr ||
+      partial == nullptr || !shape_ok(n_slots, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
+  const unsigned grid = blocks_for_fixed_grid(n_slots, heads, lay.lph);
+  const int64_t p_rows = partial_rows(n_slots, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_BWD(S)                                                          \
+  sddmm_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                   \
+      static_cast<const S*>(ht), static_cast<const S*>(hj), recv, att,      \
+      att_bf16, ds, static_cast<S*>(d_pre), partial, n_slots, heads, fi,    \
+      lay.lph, slope)
+  KGT_DISPATCH(is_bf16, lay, KGT_BWD)
+#undef KGT_BWD
+  const cudaError_t first = cudaGetLastError();
+  if (first != cudaSuccess) return static_cast<int>(first);
+  return static_cast<int>(
+      reduce_partials(partial, datt, p_rows, static_cast<int64_t>(heads) * f,
+                      s));
+}
+
+const char* kgt_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,211 @@
+"""GATv2 attention scores and their backward on Hopper (the composed path).
+
+Counterpart of the JAX package's ``sddmm_scores_sorted`` and
+``sddmm_bwd_sorted`` (``kernels/sddmm_pallas.py``). The kernels are CUDA C++
+(``csrc/sddmm.cu``, built by ``_build.py`` at first use); this module holds
+their wrappers, their plain PyTorch versions, their launch counters and their
+argument checks. ``ops/csr.py`` wires them into ``GraphContext.sddmm_scores``.
+
+As in the reference, the kernels take the materialised sender rows
+``hj = ht[senders]`` (``[E, H*F]``, receiver-sorted slot order): on the
+composed path ``hj`` exists anyway, because the messages are ``alpha * hj``.
+In place of the reference's TPU work-list tables they take ``receivers``.
+
+Source notes, one per kernel (both are bound by bytes):
+
+- ``sddmm_scores_sorted``: ``s[e, h] = sum_f att[h, f] *
+  leaky_relu(ht[recv e] + hj[e])[hF + f]`` in f32. Reads ``hj`` once (most of
+  its bytes), ``ht`` rows that neighbouring slots share, writes ``[E, H]``.
+  A sub-warp group per (slot, head), packs of up to 16 bytes per lane, the
+  head's sum by shuffles.
+- ``sddmm_bwd_sorted``: ``d_pre [E, H*F]`` (in ``hj``'s type) and ``datt``
+  from ``ds [E, H]``. Reads ``hj`` and writes ``d_pre``; ``datt`` goes
+  through per-group partials of a fixed grid and a second small kernel that
+  sums them in a fixed order: no atomics, so it is bit-reproducible.
+
+A wrapper takes the plain version only for a tensor that lies on the CPU. For
+a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .attend_cuda import MAX_HEAD_WIDTH, _check_like, _scalar_matrix_arg
+from .spmm_cuda import _check_data, _check_index, _raise_on_error
+
+__all__ = [
+    "sddmm_scores_sorted",
+    "sddmm_bwd_sorted",
+    "sddmm_scores_sorted_plain",
+    "sddmm_bwd_sorted_plain",
+    "LAUNCH_COUNTS",
+    "reset_launch_counts",
+]
+
+# One plain integer per kernel entry, incremented where the kernel is
+# launched and nowhere else.
+LAUNCH_COUNTS = {
+    "sddmm_scores_sorted": 0,
+    "sddmm_bwd_sorted": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: the same functions with library ops, f32 inside,
+# rounded once. Used for CPU tensors and as the yardstick the kernels are
+# held against on the card.
+# ---------------------------------------------------------------------------
+
+
+def _pre(ht, hj, att, receivers):
+    e = hj.shape[0]
+    heads, f = att.shape
+    hi = ht.float().index_select(0, receivers.long())
+    return (hi + hj.float()).view(e, heads, f)
+
+
+def sddmm_scores_sorted_plain(ht, hj, att, receivers, *,
+                              negative_slope=0.2):
+    pre = _pre(ht, hj, att, receivers)
+    z = torch.where(pre > 0, pre, negative_slope * pre)
+    return (z * att.float()[None]).sum(-1)
+
+
+def sddmm_bwd_sorted_plain(ht, hj, att, dscores, receivers, *,
+                           negative_slope=0.2):
+    pre = _pre(ht, hj, att, receivers)
+    pos = pre > 0
+    ds = dscores.float()[:, :, None]
+    d_pre = ds * att.float()[None] * torch.where(pos, 1.0, negative_slope)
+    z = torch.where(pos, pre, negative_slope * pre)
+    datt = (z * ds).sum(0)
+    return d_pre.reshape(hj.shape).to(hj.dtype), datt.to(att.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("sddmm")
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    lib.kgt_sddmm_scores_sorted.argtypes = [
+        vp, vp, vp, vp, i32, vp, i64, i32, i64, f32, i32, vp,
+    ]
+    lib.kgt_sddmm_scores_sorted.restype = i32
+    lib.kgt_sddmm_bwd_partial_rows.argtypes = [vp, vp, vp, i64, i32, i64, i32]
+    lib.kgt_sddmm_bwd_partial_rows.restype = i64
+    lib.kgt_sddmm_bwd_sorted.argtypes = [
+        vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32, i32, vp,
+    ]
+    lib.kgt_sddmm_bwd_sorted.restype = i32
+    lib.kgt_cuda_error_string.argtypes = [i32]
+    lib.kgt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operands(ht, hj, att, receivers):
+    """Shared checks; returns ``(heads, f, num_slots)``."""
+    _check_data("ht", ht)
+    _check_data("hj", hj)
+    if hj.dtype != ht.dtype:
+        raise TypeError(f"hj must be {ht.dtype} like ht, got {hj.dtype}")
+    if hj.device != ht.device:
+        raise ValueError(f"hj lies on {hj.device}, ht on {ht.device}")
+    d = ht.shape[1]
+    if hj.shape[1] != d:
+        raise ValueError(f"hj must be [E, {d}], got {tuple(hj.shape)}")
+    if att.ndim != 2 or att.shape[0] * att.shape[1] != d:
+        raise ValueError(
+            f"att must be [H, F] with H*F = {d}, got {tuple(att.shape)}")
+    heads, f = att.shape
+    if f > MAX_HEAD_WIDTH:
+        raise ValueError(
+            f"the attention kernels take at most {MAX_HEAD_WIDTH} columns "
+            f"per head, got F = {f}")
+    e = hj.shape[0]
+    if e * heads >= 2**31:
+        raise ValueError("E*H must stay below 2**31 (int32 indices)")
+    _check_index("receivers", receivers, e, ht.device)
+    return heads, f, e
+
+
+def sddmm_scores_sorted(ht, hj, att, receivers, *, negative_slope=0.2):
+    """GATv2 scores ``[E, H]`` f32 over receiver-sorted slots.
+
+    ``ht`` ``[N, H*F]`` and ``hj`` ``[E, H*F]`` (both f32 or both bf16),
+    ``att`` ``[H, F]`` (f32 or bf16), ``receivers`` ``[E]`` int32 (the rows
+    of ``ht`` each slot adds to its sender row). Padded slots are computed
+    like any other; the caller masks them. Not differentiable by itself;
+    ``GraphContext.sddmm_scores`` wraps it with its backward.
+    """
+    if not ht.is_cuda:
+        return sddmm_scores_sorted_plain(ht, hj, att, receivers,
+                                         negative_slope=negative_slope)
+    device = ht.device
+    heads, f, e = _check_operands(ht, hj, att, receivers)
+    att_ptr, att_bf16 = _scalar_matrix_arg("att", att, (heads, f), device)
+    scores = torch.empty(e, heads, dtype=torch.float32, device=device)
+    if hj.numel() == 0:
+        return scores
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.kgt_sddmm_scores_sorted(
+            ht.data_ptr(), hj.data_ptr(), receivers.data_ptr(), att_ptr,
+            att_bf16, scores.data_ptr(), e, heads, f, float(negative_slope),
+            int(ht.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "sddmm_scores_sorted")
+    LAUNCH_COUNTS["sddmm_scores_sorted"] += 1
+    return scores
+
+
+def sddmm_bwd_sorted(ht, hj, att, dscores, receivers, *, negative_slope=0.2):
+    """Backward of :func:`sddmm_scores_sorted` with respect to the
+    pre-activation and ``att``: returns ``(d_pre [E, H*F] in hj's type,
+    datt [H, F] in att's type)``. ``dscores`` is ``[E, H]`` f32. ``d_pre`` is
+    the cotangent of both endpoints' rows: the caller returns it as ``d hj``
+    and sums it by receiver for ``d ht``.
+    """
+    if not ht.is_cuda:
+        return sddmm_bwd_sorted_plain(ht, hj, att, dscores, receivers,
+                                      negative_slope=negative_slope)
+    device = ht.device
+    heads, f, e = _check_operands(ht, hj, att, receivers)
+    att_ptr, att_bf16 = _scalar_matrix_arg("att", att, (heads, f), device)
+    _check_like("dscores", dscores, (e, heads), torch.float32, device)
+    d_pre = torch.empty_like(hj)
+    datt = torch.empty(heads, f, dtype=torch.float32, device=device)
+    if hj.numel() == 0:
+        return d_pre, datt.zero_().to(att.dtype)
+    lib = _library()
+    is_bf16 = int(ht.dtype == torch.bfloat16)
+    with torch.cuda.device(device):
+        partial_rows = lib.kgt_sddmm_bwd_partial_rows(
+            ht.data_ptr(), hj.data_ptr(), d_pre.data_ptr(), e, heads, f,
+            is_bf16)
+        partial = torch.empty(partial_rows, heads * f, dtype=torch.float32,
+                              device=device)
+        code = lib.kgt_sddmm_bwd_sorted(
+            ht.data_ptr(), hj.data_ptr(), receivers.data_ptr(), att_ptr,
+            att_bf16, dscores.data_ptr(), d_pre.data_ptr(), datt.data_ptr(),
+            partial.data_ptr(), e, heads, f, float(negative_slope), is_bf16,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "sddmm_bwd_sorted")
+    LAUNCH_COUNTS["sddmm_bwd_sorted"] += 1
+    return d_pre, datt.to(att.dtype)

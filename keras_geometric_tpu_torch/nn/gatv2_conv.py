@@ -19,7 +19,9 @@ is the reference's:
 On a plain ``edge_index`` the layer runs library ops (``ops/segment.py``).
 With a :class:`~keras_geometric_tpu_torch.ops.csr.GraphContext` it runs the
 fused attention op ``GraphContext.attend`` (hand-written kernels, forward and
-backward).
+backward), or, with ``fused_attend=False`` or ``return_attention=True``, the
+composed path: ``gather`` -> ``sddmm_scores`` -> ``edge_softmax`` -> dropout
+on ``alpha`` -> ``alpha * hj`` -> ``scatter``, each op with its own kernels.
 """
 
 from __future__ import annotations
@@ -71,8 +73,10 @@ class GATv2Conv(nn.Module):
         self.dropout = dropout
         self.use_bias = use_bias
         self.add_self_loops = add_self_loops
-        # Context-path strategy: True runs the fused attend op. False selects
-        # the composed edge-softmax path, which is not ported yet.
+        # Context-path strategy: True runs the fused attend op, whose backward
+        # never forms the [E, H*F] sender rows. False selects the composed
+        # path (score, softmax and scatter ops), which return_attention=True
+        # takes too, since only it forms alpha.
         self.fused_attend = fused_attend
         h, f = heads, output_dim
 
@@ -196,28 +200,40 @@ class GATv2Conv(nn.Module):
                 "the GraphContext path: a context is built for one node "
                 "set; use the plain edge_index path instead."
             )
-        if not self.fused_attend or return_attention:
-            raise NotImplementedError(
-                "the composed attention path on a GraphContext "
-                "(fused_attend=False, return_attention=True) is not ported "
-                "yet: ROADMAP M6b"
-            )
         # Densified contexts: per-edge attention needs every edge, so use the
         # attached full-stream companion.
         context = context.full_stream()
         n = x.shape[0]
         h, f = self.heads, self.output_dim
         ht = x @ self.kernel  # [N, H*F]
-        if self.training and self.dropout > 0:
-            if drop_mask is None:
-                drop_mask = edge_dropout.keep_mask_at(
-                    generator, None, h, self.dropout, ht.dtype,
-                    num_edges=int(context.senders.shape[0]),
-                    device=ht.device)
-        else:
+        fused = self.fused_attend and not return_attention
+        if not (self.training and self.dropout > 0):
             drop_mask = None
-        agg = context.attend(
-            ht, self.att.reshape(h, f), negative_slope=self.negative_slope,
-            eps=1e-10, drop_mask=drop_mask,
+        elif drop_mask is None:
+            # The fused kernels read the mask in ht's type; the composed path
+            # multiplies it into alpha, which is f32.
+            drop_mask = edge_dropout.keep_mask_at(
+                generator, None, h, self.dropout,
+                ht.dtype if fused else torch.float32,
+                num_edges=int(context.senders.shape[0]), device=ht.device)
+        if fused:
+            agg = context.attend(
+                ht, self.att.reshape(h, f),
+                negative_slope=self.negative_slope, eps=1e-10,
+                drop_mask=drop_mask,
+            )
+            return self._merge_heads(agg.reshape(n, h, f))
+        h_j = context.gather(ht)  # [E, H*F]
+        scores = context.sddmm_scores(
+            ht, h_j, self.att.reshape(h, f),
+            negative_slope=self.negative_slope,
         )
-        return self._merge_heads(agg.reshape(n, h, f))
+        alpha = context.edge_softmax(scores, eps=1e-10)  # [E, H], 0 on pads
+        if drop_mask is not None:
+            alpha = alpha * drop_mask
+        messages = (
+            alpha[:, :, None].to(h_j.dtype) * h_j.view(-1, h, f)
+        ).reshape(-1, h * f)
+        agg = context.scatter(messages).reshape(n, h, f)
+        out = self._merge_heads(agg)
+        return (out, alpha) if return_attention else out

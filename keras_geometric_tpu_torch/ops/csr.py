@@ -12,11 +12,12 @@ builds **both CSR orientations** up front:
 ``prepare_graph`` is host numpy and produces arrays equal, element for
 element, to the reference context's; the kernel tables reduce to one
 ``row_ptr`` per orientation. ``GraphContext.spmm`` runs the fused-gather
-kernel with a custom gradient of the same structure as the reference's, and
+kernel with a custom gradient of the same structure as the reference's,
 ``GraphContext.attend`` the fused GATv2 attention (forward, rho and receiver
-backward kernels, sender finish through the fused-gather scatter). The
-composed attention ops (``edge_softmax``, ``sddmm_scores``) and the banded
-tiers are not part of this module yet.
+backward kernels, sender finish through the fused-gather scatter), and
+``GraphContext.sddmm_scores`` / ``GraphContext.edge_softmax`` the composed
+attention path (score and softmax kernels, each with the reference's
+backward). The banded tiers are not part of this module yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..kernels import attend_cuda, spmm_cuda
+from ..kernels import attend_cuda, sddmm_cuda, softmax_cuda, spmm_cuda
 
 __all__ = ["GraphContext", "prepare_graph"]
 
@@ -237,6 +238,61 @@ class GraphContext:
             ht, att, ctx, float(negative_slope), float(eps), drop_mask
         )
 
+    def edge_softmax(self, scores: torch.Tensor, *, eps: float = 1e-10):
+        """Per-receiver softmax of ``[E, K]`` edge scores, max-shifted with
+        ``+eps`` in the denominator (the reference's ``_softmax_by_target``).
+
+        Two kernels: the online max / sum-exp statistics per receiver row and
+        the edge-parallel normalisation. Padded slots are set to ``-inf``
+        first, so they get weight 0 and gradient 0. The result is in the
+        scores' type. The backward applies the exact softmax Jacobian
+        ``ds = alpha * (dalpha - sum_row(alpha * dalpha))`` with one sorted
+        scatter and one sorted expand; the subgradient through the max shift
+        (relative size ~eps) is dropped, as in the reference. Routes through
+        the full-stream companion on densified contexts.
+        """
+        ctx = self.full_stream()
+        if scores.ndim != 2 or scores.shape[0] != ctx.receivers.shape[0]:
+            raise ValueError(
+                f"scores must be [{ctx.receivers.shape[0]}, K], got "
+                f"{tuple(scores.shape)}"
+            )
+        return _EdgeSoftmax.apply(scores, ctx, float(eps))
+
+    def sddmm_scores(
+        self,
+        ht: torch.Tensor,
+        hj: torch.Tensor,
+        att: torch.Tensor,
+        *,
+        negative_slope: float = 0.2,
+    ) -> torch.Tensor:
+        """GATv2 attention scores ``[E, H]`` (f32) with a kernel forward and
+        backward: ``s[e, h] = sum_f att[h, f] * leaky_relu(ht[recv e] +
+        hj[e])[h*F + f]``.
+
+        ``hj`` must be the receiver-sorted gathered sender rows
+        (``self.gather(ht)``); its cotangent flows back through the caller's
+        gather. The backward kernel gives ``d_pre`` (``d hj``, in ``hj``'s
+        type) and ``d att``; ``d ht`` is ``d_pre`` summed by receiver with the
+        sorted scatter. Padded slots return scores computed like any other:
+        mask downstream (``edge_softmax`` does). Routes through the
+        full-stream companion on densified contexts.
+        """
+        ctx = self.full_stream()
+        if att.ndim != 2:
+            raise ValueError(f"att must be [H, F], got {tuple(att.shape)}")
+        if ht.shape[0] != ctx.num_nodes:
+            raise ValueError(
+                f"ht has {ht.shape[0]} rows, the context {ctx.num_nodes} nodes"
+            )
+        if hj.shape[0] != ctx.receivers.shape[0]:
+            raise ValueError(
+                f"hj has {hj.shape[0]} rows, the context's stream "
+                f"{ctx.receivers.shape[0]} slots"
+            )
+        return _Sddmm.apply(ht, hj, att, ctx, float(negative_slope))
+
     # -- spmm --------------------------------------------------------------
     def spmm(self, h: torch.Tensor) -> torch.Tensor:
         """Full ``A @ h``: sender rows gathered and weighted-summed into the
@@ -322,6 +378,67 @@ class _Gatv2Attend(torch.autograd.Function):
             graph.num_nodes,
         )
         return dht + dht_send, datt, None, None, None, None
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    """Masked slots to ``-inf``, then the statistics and normalisation
+    kernels; backward ``prod - alpha * expand(scatter(prod))`` with
+    ``prod = alpha * dalpha`` (padded slots: alpha is 0, so is their
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, scores, graph, eps):
+        s = scores.float()
+        if graph.edge_mask is not None:
+            s = s.masked_fill(~graph.edge_mask[:, None], float("-inf"))
+        s = s.contiguous()
+        m, l = softmax_cuda.softmax_stats_sorted(
+            s, graph.receivers, graph.row_ptr, graph.num_nodes)
+        alpha = softmax_cuda.softmax_apply_sorted(
+            s, m, l, graph.receivers, eps=eps, out_dtype=scores.dtype)
+        ctx.save_for_backward(alpha)
+        ctx.graph = graph
+        return alpha
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dalpha):
+        (alpha,) = ctx.saved_tensors
+        graph = ctx.graph
+        prod = (alpha * dalpha).contiguous()
+        rho = spmm_cuda.scatter_sum_sorted(
+            prod, graph.receivers, graph.num_nodes, row_ptr=graph.row_ptr)
+        rho_e = spmm_cuda.expand_sorted(
+            rho, graph.receivers, row_ptr=graph.row_ptr)
+        return prod - alpha * rho_e, None, None
+
+
+class _Sddmm(torch.autograd.Function):
+    """Score kernel forward; backward: the score-backward kernel (``d_pre``,
+    ``d att``), then ``d ht`` as ``d_pre`` summed by receiver with the sorted
+    scatter. ``d hj = d_pre`` returns to the caller's gather."""
+
+    @staticmethod
+    def forward(ctx, ht, hj, att, graph, negative_slope):
+        ht, hj, att = ht.contiguous(), hj.contiguous(), att.contiguous()
+        scores = sddmm_cuda.sddmm_scores_sorted(
+            ht, hj, att, graph.receivers, negative_slope=negative_slope)
+        ctx.save_for_backward(ht, hj, att)
+        ctx.graph = graph
+        ctx.negative_slope = negative_slope
+        return scores
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ht, hj, att = ctx.saved_tensors
+        graph = ctx.graph
+        d_pre, datt = sddmm_cuda.sddmm_bwd_sorted(
+            ht, hj, att, g.float().contiguous(), graph.receivers,
+            negative_slope=ctx.negative_slope)
+        dht = spmm_cuda.scatter_sum_sorted(
+            d_pre, graph.receivers, graph.num_nodes, row_ptr=graph.row_ptr)
+        return dht.to(ht.dtype), d_pre, datt, None, None
 
 
 class _SpmmSymmetric(torch.autograd.Function):

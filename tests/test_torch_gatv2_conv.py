@@ -362,12 +362,18 @@ def test_context_path_rejections():
     assert layer.add_self_loops is False
     with pytest.raises(ValueError, match="bipartite"):
         layer((xt, xt), context=tc)
-    with pytest.raises(NotImplementedError, match="M6b"):
-        layer(xt, context=tc, return_attention=True)
+    # The composed path runs on a context (return_attention=True takes it
+    # from a fused layer too) and computes what the fused path does.
+    out, alpha = layer(xt, context=tc, return_attention=True)
+    assert alpha.shape == (int(tc.senders.shape[0]), 2)
     composed = kgt_torch.GATv2Conv.for_context(
         6, input_dim=F_IN, heads=2, fused_attend=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="M6b"):
-        composed(xt, context=tc)
+    composed.load_state_dict(layer.state_dict())
+    np.testing.assert_allclose(_np(composed(xt, context=tc)),
+                               _np(layer(xt, context=tc)), **PLAIN)
+    np.testing.assert_allclose(_np(out), _np(layer(xt, context=tc)), **PLAIN)
+    with pytest.raises(ValueError, match="bipartite"):
+        composed((xt, xt), context=tc)
     kept = kgt_torch.GATv2Conv.for_context(6, input_dim=F_IN,
                                            add_self_loops=True, device="cpu")
     assert kept.add_self_loops is True  # explicitly passed flags win

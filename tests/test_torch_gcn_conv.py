@@ -360,16 +360,24 @@ def test_gnn_encoder_no_context_and_final_activation():
 @pytest.mark.parametrize("family,item", [("gin", "M5"), ("sage", "M5"),
                                          ("gatv2", "M6")])
 def test_unported_families_raise(family, item):
-    """'gin' and 'sage' are not ported; of 'gatv2' the fused attention is, and
-    what still raises is the composed attention path on a context."""
+    """'gin' and 'sage' are not ported. 'gatv2' is, both attention paths of
+    ROADMAP M6: the composed one (``fused_attend=False``) now runs on a
+    context and gives the fused encoder's output."""
     if family == "gatv2":
-        enc = kgt_torch.GNNEncoder.for_context(
-            family, (4,), input_dim=3, conv_kwargs={"fused_attend": False},
-            device="cpu")
         ctx = kgt_torch.prepare_graph(np.array([[0, 1], [1, 0]]), 2,
                                       add_self_loops=True, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            enc(torch.zeros(2, 3), context=ctx)
+        x = torch.arange(6, dtype=torch.float32).reshape(2, 3) / 6
+        outs = []
+        for fused in (True, False):
+            enc = kgt_torch.GNNEncoder.for_context(
+                family, (4,), input_dim=3,
+                conv_kwargs={"fused_attend": fused},
+                generator=torch.Generator().manual_seed(0), device="cpu")
+            assert enc.layer_0.fused_attend is fused
+            outs.append(enc(x, context=ctx))
+        np.testing.assert_allclose(outs[1].detach().numpy(),
+                                   outs[0].detach().numpy(), rtol=1e-6,
+                                   atol=1e-6)
         return
     with pytest.raises(NotImplementedError, match=item):
         kgt_torch.GNNEncoder(family, (4,), input_dim=3, device="cpu")

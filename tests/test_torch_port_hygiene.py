@@ -17,7 +17,13 @@ import torch
 
 import keras_geometric_tpu_torch as kgt_torch
 from keras_geometric_tpu_torch import native
-from keras_geometric_tpu_torch.kernels import _build, attend_cuda, spmm_cuda
+from keras_geometric_tpu_torch.kernels import (
+    _build,
+    attend_cuda,
+    sddmm_cuda,
+    softmax_cuda,
+    spmm_cuda,
+)
 from keras_geometric_tpu_torch.ops import spmm as spmm_ops
 from keras_geometric_tpu_torch.utils import profiling
 
@@ -38,6 +44,8 @@ MODULES = [
     "training/train.py", "utils/profiling.py",
     "kernels/attend_cuda.py", "kernels/csrc/attend.cu", "ops/edge_dropout.py",
     "nn/gatv2_conv.py",
+    "kernels/softmax_cuda.py", "kernels/csrc/softmax.cu",
+    "kernels/sddmm_cuda.py", "kernels/csrc/sddmm.cu", "kernels/csrc/lanes.cuh",
 ]
 
 
@@ -65,6 +73,8 @@ def test_importing_the_port_does_not_import_jax():
         "keras_geometric_tpu_torch.utils, "
         "keras_geometric_tpu_torch.kernels.spmm_cuda, "
         "keras_geometric_tpu_torch.kernels.attend_cuda, "
+        "keras_geometric_tpu_torch.kernels.softmax_cuda, "
+        "keras_geometric_tpu_torch.kernels.sddmm_cuda, "
         "keras_geometric_tpu_torch.nn.gatv2_conv, "
         "keras_geometric_tpu_torch.ops.edge_dropout\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -175,6 +185,52 @@ def test_attend_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert _build.load_library.cache_info().currsize == 0
 
 
+@pytest.mark.parametrize("module,fns,data", [
+    (softmax_cuda, ("softmax_stats_sorted", "softmax_apply_sorted"),
+     "scores"),
+    (sddmm_cuda, ("sddmm_scores_sorted", "sddmm_bwd_sorted"), "ht"),
+], ids=["softmax", "sddmm"])
+def test_composed_wrappers_branch_on_the_tensor_device_only(module, fns,
+                                                             data):
+    src = inspect.getsource(module)
+    assert "except" not in src and "torch.cuda.is_available" not in src
+    for name in fns:
+        body = inspect.getsource(getattr(module, name))
+        assert re.search(
+            rf"if not {data}\.is_cuda:\n\s+return \w+_plain\(", body)
+        assert body.count("_plain(") == 1
+        assert f'LAUNCH_COUNTS["{name}"] += 1' in body
+
+
+def test_composed_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    softmax_cuda.reset_launch_counts()
+    sddmm_cuda.reset_launch_counts()
+    recv = torch.tensor([0, 0, 2, 3, 3, 3], dtype=torch.int32)
+    row_ptr = spmm_cuda.row_ptr_from_sorted(recv, 4)
+    gen = torch.Generator().manual_seed(0)
+    scores = torch.randn(6, 2, generator=gen)
+    scores[5] = float("-inf")  # a padded slot
+    m, l = softmax_cuda.softmax_stats_sorted(scores, recv, row_ptr, 4)
+    ref = softmax_cuda.softmax_stats_sorted_plain(scores, recv, 4)
+    assert torch.equal(m, ref[0]) and torch.equal(l, ref[1])
+    assert not m[1].any() and not l[1].any()  # the empty row
+    alpha = softmax_cuda.softmax_apply_sorted(scores, m, l, recv)
+    assert torch.equal(alpha, softmax_cuda.softmax_apply_sorted_plain(
+        scores, m, l, recv))
+    assert not alpha[5].any()
+    ht, hj = torch.randn(4, 6, generator=gen), torch.randn(6, 6, generator=gen)
+    att, ds = torch.randn(2, 3, generator=gen), torch.randn(6, 2, generator=gen)
+    assert torch.equal(
+        sddmm_cuda.sddmm_scores_sorted(ht, hj, att, recv),
+        sddmm_cuda.sddmm_scores_sorted_plain(ht, hj, att, recv))
+    got = sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv)
+    want = sddmm_cuda.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not any(softmax_cuda.LAUNCH_COUNTS.values())
+    assert not any(sddmm_cuda.LAUNCH_COUNTS.values())
+    assert _build.load_library.cache_info().currsize == 0
+
+
 def test_row_ptr_is_required_for_a_cuda_tensor():
     """The host derivation of ``row_ptr`` serves CPU tensors only: a tensor on
     the card must come with the ``row_ptr`` of graph preparation."""
@@ -193,9 +249,16 @@ def test_kernels_build_inside_the_checkout():
     assert "environ.get(\"KGT" not in inspect.getsource(_build)
     assert _build.CSRC == PORT / "kernels" / "csrc"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "attend.cu", "spmm.cu"]
+        "attend.cu", "sddmm.cu", "softmax.cu", "spmm.cu"]
     assert '_build.load_library("attend")' in inspect.getsource(attend_cuda)
-    assert "<torch/" not in (_build.CSRC / "attend.cu").read_text()
+    assert '_build.load_library("softmax")' in inspect.getsource(softmax_cuda)
+    assert '_build.load_library("sddmm")' in inspect.getsource(sddmm_cuda)
+    for source in _build.CSRC.iterdir():
+        assert "<torch/" not in source.read_text(), source.name
+    # The shared header is part of every library's build key.
+    assert 'CSRC.glob("*.cuh")' in inspect.getsource(_build.load_library)
+    for name in ("attend.cu", "sddmm.cu", "softmax.cu"):
+        assert '#include "lanes.cuh"' in (_build.CSRC / name).read_text()
 
 
 def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
@@ -265,15 +328,19 @@ def test_chip_smoke_partial_run_is_no_pass():
 
 def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     module = _chip_smoke_module()
-    kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS}
-    assert set(module.REPLACES) == set(kernels) and len(kernels) == 6
+    kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS,
+               **softmax_cuda.LAUNCH_COUNTS, **sddmm_cuda.LAUNCH_COUNTS}
+    assert set(module.REPLACES) == set(kernels) and len(kernels) == 10
+    assert set(module.launch_counts()) == set(kernels)
     replaces = module.replaced_tpu_kernels()  # checks each pallas_call line
     assert replaces["attend_recv_bwd_full_sorted"].endswith(
         "kernels/attend_pallas.py:737")
     for name, (lib, _, _) in module.REPLACES.items():
         assert (ROOT / module.SOURCES[lib]).is_file(), name
-    assert {"train_gat_arxiv_shape", "train_gat_citeseer_shape"} <= set(
-        module.PHASES)
+    assert {"train_gat_arxiv_shape", "train_gat_citeseer_shape",
+            "train_gat_arxiv_shape_composed",
+            "train_gat_citeseer_shape_composed"} <= set(module.PHASES)
+    assert replaces["sddmm_bwd_sorted"].endswith("kernels/sddmm_pallas.py:847")
 
 
 def test_roofline_uses_the_cards_constants():
