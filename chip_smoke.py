@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive keras_geometric_tpu_torch on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version, and train the 2-layer GCN and the
-2-layer GATv2 (fused and composed attention) through the package's entry
-points.
+2-layer GATv2 (fused and composed attention, and both on the locality tier)
+through the package's entry points.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -21,13 +21,20 @@ exit code and without the final line; so does a run of a subset of the phases
                 (8, 6), (1, 7), with and without a dropout mask; the
                 composed path's score kernels at the same (H, F), its
                 softmax kernels at K in 1, 4, 8 with a row whose scores are
-                all -inf), then timings at the shapes the training paths use;
+                all -inf), the band SpMM at F in 1, 7, 40, 128, 256 and
+                W in 256, 512, 1024 (symmetric and transposed plans, a row
+                block with an empty band, the clamped last block), the window
+                scatter at F in 8, 40, 160, 256 (a window with no item, an
+                all -1 table, two launches bit for bit), then timings at the
+                shapes the training paths use;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
                 autograd over the plain versions, of ``GraphContext.attend``,
                 ``sddmm_scores`` and ``edge_softmax`` against autograd over
                 restatements of them in library ops; ``return_attention=True``
-                on the CiteSeer-shaped context;
+                on the CiteSeer-shaped context; ``spmm`` on a symmetric and a
+                directed band context and ``attend`` on an ``attend_window``
+                context against autograd over the plain versions;
 4. ``train_arxiv_shape``  the slice at full width: 169,343 nodes, 1,166,242
                 symmetric stream edges, 128 features, 256 hidden, 40 classes,
                 bf16 IO / f32 master parameters, Adam;
@@ -45,7 +52,15 @@ exit code and without the final line; so does a run of a subset of the phases
 8. ``train_gat_arxiv_shape_composed`` and ``train_gat_citeseer_shape_composed``
                 the same two GATv2 workloads with ``fused_attend=False``:
                 gather, score kernel, softmax kernels, ``alpha * hj``, scatter;
-                step 1 also against the fused model's.
+                step 1 also against the fused model's;
+9. ``train_skewed_arxiv_shape``  the locality tier: a scrambled community
+                graph of 169,343 nodes and 1,166,242 edges relabelled by the
+                LPA cluster order, ``band_window=1024``, the GCN of run 4;
+                step 1 also against the same graph without the band; then
+                ``precompute_propagation`` on both contexts;
+10. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
+                ``attend_window=1024``, the GATv2 of run 6; step 1 also against
+                the same graph without the window tables.
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -72,6 +87,7 @@ of its largest entry.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -85,7 +101,8 @@ import torch
 PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_directed", "train_cora_shape", "train_gat_arxiv_shape",
           "train_gat_citeseer_shape", "train_gat_arxiv_shape_composed",
-          "train_gat_citeseer_shape_composed")
+          "train_gat_citeseer_shape_composed", "train_skewed_arxiv_shape",
+          "train_gat_skewed_arxiv_shape")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -101,12 +118,18 @@ CITESEER = dict(nodes=3_327, pairs=4_732, feats=3_703, classes=6)
 GAT_CITESEER_DIMS, GAT_CITESEER_HEADS = (8, 6), 8
 ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7))  # (H, F)
 SOFTMAX_HEADS = (1, 4, 8)  # K of the softmax kernels
+SKEWED_EDGES = 2 * (ARXIV_EDGES // 2)  # the community graph's edge count
+BAND_WINDOW = ATTEND_WINDOW = 1024
+BAND_WIDTHS = (1, 7, 40, 128, 256)  # F of the band kernel sweep
+BAND_WINDOWS = (256, 512, 1024)
+SCATTER_WIDTHS = (8, 40, 160, 256)  # F of the window scatter sweep
 
 SOURCES = {
     "spmm": "keras_geometric_tpu_torch/kernels/csrc/spmm.cu",
     "attend": "keras_geometric_tpu_torch/kernels/csrc/attend.cu",
     "softmax": "keras_geometric_tpu_torch/kernels/csrc/softmax.cu",
     "sddmm": "keras_geometric_tpu_torch/kernels/csrc/sddmm.cu",
+    "band": "keras_geometric_tpu_torch/kernels/csrc/band.cu",
 }
 # For each kernel: its CUDA source, and the file (under the reference
 # package's kernels/) and line of the pl.pallas_call it replaces.
@@ -121,6 +144,8 @@ REPLACES = {
     "softmax_apply_sorted": ("softmax", "softmax_pallas.py", 282),
     "sddmm_scores_sorted": ("sddmm", "sddmm_pallas.py", 770),
     "sddmm_bwd_sorted": ("sddmm", "sddmm_pallas.py", 847),
+    "band_spmm": ("band", "band_pallas.py", 393),
+    "window_scatter_sum": ("band", "band_pallas.py", 249),
 }
 
 
@@ -152,12 +177,13 @@ def replaced_tpu_kernels() -> dict:
 def kernel_modules() -> tuple:
     from keras_geometric_tpu_torch.kernels import (
         attend_cuda,
+        band_cuda,
         sddmm_cuda,
         softmax_cuda,
         spmm_cuda,
     )
 
-    return spmm_cuda, attend_cuda, softmax_cuda, sddmm_cuda
+    return spmm_cuda, attend_cuda, softmax_cuda, sddmm_cuda, band_cuda
 
 
 def launch_counts() -> dict:
@@ -359,8 +385,10 @@ def time_kernel_cases(device, timer, contexts, replaces):
     """Kernel, plain version and library call at the layer-1 and layer-2
     shapes, each with its bound from bytes and operations. ``path`` names the
     training run that gives the kernel that shape, None where none does (the
-    arxiv-shaped runs never form messages, so they launch neither the
-    messages form nor expand)."""
+    arxiv-shaped GCN runs never form messages, so they launch neither the
+    messages form nor expand; the composed GATv2 run launches both, without
+    weights: the ``[E, H*F]`` messages and their gradient, and the softmax
+    backward's ``[E, 4]`` f32 row sums and their expansion)."""
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BYTES_PER_S,
@@ -371,22 +399,33 @@ def time_kernel_cases(device, timer, contexts, replaces):
     entries = []
     on_arxiv = {"gather_scatter_sum_sorted": "train_arxiv_shape",
                 "scatter_sum_sorted": None, "expand_sorted": None}
-    for ctx_name, layer, f, dtype, kernels in (
-        ("arxiv", "layer 1", ARXIV_FEATS, torch.bfloat16, on_arxiv),
-        ("arxiv", "layer 2", ARXIV_CLASSES, torch.bfloat16, on_arxiv),
+    composed = {"scatter_sum_sorted": "train_gat_arxiv_shape_composed",
+                "expand_sorted": "train_gat_arxiv_shape_composed"}
+    gat_width = [GAT_ARXIV_HEADS * d for d in GAT_ARXIV_DIMS]
+    for ctx_name, layer, f, dtype, kernels, weighted in (
+        ("arxiv", "layer 1", ARXIV_FEATS, torch.bfloat16, on_arxiv, True),
+        ("arxiv", "layer 2", ARXIV_CLASSES, torch.bfloat16, on_arxiv, True),
         ("cora", "layer 2", 7, torch.float32,
-         {"gather_scatter_sum_sorted": "train_cora_shape"}),
+         {"gather_scatter_sum_sorted": "train_cora_shape"}, True),
         ("cora", "layer 1", 16, torch.float32,
          {"scatter_sum_sorted": "train_cora_shape",
-          "expand_sorted": "train_cora_shape"}),
+          "expand_sorted": "train_cora_shape"}, True),
+        ("gat_arxiv", "layer 1 messages", gat_width[0], torch.bfloat16,
+         composed, False),
+        ("gat_arxiv", "layer 2 messages", gat_width[1], torch.bfloat16,
+         composed, False),
+        ("gat_arxiv", "softmax row sums", GAT_ARXIV_HEADS, torch.float32,
+         composed, False),
     ):
         ctx = contexts[ctx_name]
         n, e = ctx.num_nodes, ctx.receivers.shape[0]
         es = 2 if dtype == torch.bfloat16 else 4
-        ws = ctx.edge_weight.element_size()
         h = torch.randn(n, f, generator=gen, device=device).to(dtype)
         msgs = torch.randn(e, f, generator=gen, device=device).to(dtype)
-        w, sw = ctx.edge_weight, ctx.self_weight
+        w, sw = (ctx.edge_weight if weighted else None), ctx.self_weight
+        ws = 0 if w is None else w.element_size()
+        w_abs = None if w is None else w.float().abs()
+        w_lib = torch.ones(e, device=device) if w is None else w
         edge_ids = torch.arange(e, device=device)
         for name, path in kernels.items():
             if name == "gather_scatter_sum_sorted":
@@ -418,8 +457,8 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 plain = lambda: K.scatter_sum_sorted_plain(
                     msgs, ctx.receivers, n, weights=w)
                 mass = K.scatter_sum_sorted_plain(
-                    msgs.float().abs(), ctx.receivers, n, weights=w.float())
-                lib = (ctx.receivers, edge_ids, w, (n, e), msgs)
+                    msgs.float().abs(), ctx.receivers, n, weights=w_abs)
+                lib = (ctx.receivers, edge_ids, w_lib, (n, e), msgs)
                 nbytes = e * f * es + n * f * es + e * ws + (n + 1) * 4
                 no_reuse = None
                 ops = 2 * e * f
@@ -429,7 +468,7 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 plain = lambda: K.expand_sorted_plain(
                     h, ctx.receivers, weights=w)
                 mass = None
-                lib = (edge_ids, ctx.receivers, w, (e, n), h)
+                lib = (edge_ids, ctx.receivers, w_lib, (e, n), h)
                 nbytes = n * f * es + e * f * es + e * (4 + ws)
                 no_reuse = None
                 ops = e * f
@@ -451,7 +490,8 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 "source": SOURCES[REPLACES[name][0]],
                 "replaces": replaces[name], "path": path,
                 "shape": f"{ctx_name} {layer}: E={e} N={n} F={f} "
-                         f"{str(dtype)[6:]} weights {str(w.dtype)[6:]}",
+                         f"{str(dtype)[6:]} weights "
+                         f"{'none' if w is None else str(w.dtype)[6:]}",
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1066,6 +1106,325 @@ def time_composed_cases(device, timer, contexts, replaces):
 
 
 # ---------------------------------------------------------------------------
+# The locality tier's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def band_mass(x, band, base_idx, window, row_block):
+    """Sum of ``|band * x|`` over each output element's terms."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+
+    return B.band_matmul_plain(x.float().abs(), band.float().abs(), base_idx,
+                               window, row_block)
+
+
+def band_sweep(device):
+    """The band kernel at every F of ``BAND_WIDTHS``, both types, every window
+    of ``BAND_WINDOWS``, over a symmetric and a directed plan (its transposed
+    plan too) of a local graph with one row block whose band is empty; the
+    window scatter at every F of ``SCATTER_WIDTHS``, both types, with a
+    window that no chunk chose, an all -1 table and two launches compared
+    bit for bit. Returns the number of comparisons and each kernel's worst
+    error."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=device).manual_seed(12)
+    n, half, empty = 8_192, 60_000, 2_048  # rows [2048, 2304) get no edge
+    worst = {name: 0.0 for name in B.LAUNCH_COUNTS}
+    cases = 0
+    for window in BAND_WINDOWS:
+        r = rng.integers(0, n, half)
+        r = np.where((r >= empty) & (r < empty + 256), r + 256, r)
+        s = np.clip(r + rng.integers(-window // 2, window // 2, half), 0,
+                    n - 1)
+        s = np.where((s >= empty) & (s < empty + 256), s - 256, s)
+        w = rng.uniform(0.05, 1.0, half).astype(np.float32)
+        sym, _ = B.build_band_plan(np.concatenate([s, r]),
+                                   np.concatenate([r, s]),
+                                   np.concatenate([w, w]), n, window=window)
+        fwd, local = B.build_band_plan(s, r, w, n, window=window)
+        bwd, _ = B.build_band_plan(r, s, w, n, window=window)
+        check(0 < local.sum() < local.shape[0],
+              f"band sweep W={window}: the band must hold some edges")
+        last_base = int(sym.base_idx[-1]) * (window // 2)
+        check(last_base + window == n,
+              f"band sweep W={window}: the last block's window must end at "
+              f"n_pad (clamped)")
+        for kind, plan in (("symmetric", sym), ("directed", fwd),
+                           ("transposed", bwd)):
+            base_idx = plan.base_idx.to(device)
+            for dtype in (torch.float32, torch.bfloat16):
+                band = plan.band.to(device, dtype)
+                for f in BAND_WIDTHS:
+                    x = torch.randn(n, f, generator=gen, device=device).to(
+                        dtype)
+                    args = (band, base_idx, window, plan.row_block)
+                    out = B.band_matmul(x, *args)
+                    ref = B.band_matmul_plain(x, *args)
+                    worst["band_spmm"] = max(worst["band_spmm"], compare(
+                        out, ref, band_mass(x, *args), dtype,
+                        f"band_spmm {kind} W={window} {str(dtype)[6:]} "
+                        f"F={f}"))
+                    check(not out[empty:empty + 256].any().item(),
+                          f"band_spmm W={window}: the empty block's rows")
+                    cases += 1
+    torch.cuda.synchronize()
+
+    # Window scatter: senders near their receivers, window 3 never chosen.
+    window, chunk = ATTEND_WINDOW, 2048
+    e = 200_000
+    recv = np.sort(rng.integers(0, n, e))
+    send = np.clip(recv + rng.integers(-300, 300, e), 0, n - 1)
+    far = rng.random(e) < 0.3
+    send[far] = rng.integers(0, n, int(far.sum()))
+    send = np.where(send // window == 3, send + window, send)
+    e_pad = -(-e // chunk) * chunk
+    send = np.concatenate([send, np.full(e_pad - e, n - 1)])
+    plan, _, tab = B.build_window_scatter_plan(
+        send, n, np.arange(e_pad) < e, window=window, edge_chunk=chunk)
+    check(plan.work_chunk[plan.work_win == 3].tolist() == [0],
+          "window scatter sweep: window 3 must be visited once, to zero it")
+    plan = dataclasses.replace(plan, win_ptr=plan.win_ptr.to(device),
+                               item_chunk=plan.item_chunk.to(device))
+    tab = torch.from_numpy(tab).to(device)
+    none = torch.full_like(tab, -1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for f in SCATTER_WIDTHS:
+            v = torch.randn(e_pad, f, generator=gen, device=device).to(dtype)
+            out = B.window_scatter_sum(v, tab, plan)
+            again = B.window_scatter_sum(v, tab, plan)
+            ref = B.window_scatter_sum_plain(v, tab, plan)
+            mass = B.window_scatter_sum_plain(v.float().abs(), tab, plan)
+            tag = f"window_scatter_sum {str(dtype)[6:]} F={f}"
+            worst["window_scatter_sum"] = max(
+                worst["window_scatter_sum"],
+                compare(out, ref, mass, dtype, tag))
+            check(torch.equal(out, again), f"{tag}: two launches differ")
+            check(not out[3 * window:4 * window].any().item(),
+                  f"{tag}: the unchosen window's rows must be zero")
+            check(not B.window_scatter_sum(v, none, plan).any().item(),
+                  f"{tag}: an all -1 table must give zeros")
+            cases += 1
+    torch.cuda.synchronize()
+    try:
+        B.band_matmul(x.double(), band.double(), base_idx, BAND_WINDOWS[-1],
+                      256)
+    except TypeError:
+        pass
+    else:
+        check(False, "float64 data must be refused on a CUDA tensor")
+    return cases, worst
+
+
+def time_band_cases(device, timer, contexts, replaces):
+    """The band kernel at the banded GCN run's shapes (layer 1 forward at
+    F = 128, layer 2 forward and backward at F = 40, bf16) and the window
+    scatter at the banded GATv2 run's (H*F = 256 and 160, bf16): kernel,
+    plain version, library call, bound from bytes and operations. The band's
+    library call is ``torch.bmm`` over the row blocks with the ``x`` windows
+    gathered beforehand (not timed); the scatter's is ``index_add_`` over
+    the eligible slots, their rows gathered beforehand (not timed). Each
+    entry also times, on the same reordered graph, the tier's whole share of
+    the operator (band + residual fused gather; window scatter + residual
+    finish) and what it replaces on the context without the tier (the fused
+    gather over every edge; the finish over ``bwd_perm``)."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BF16_TENSOR_OPS_PER_S,
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    entries = []
+
+    def entry(name, path, shape, err, kernel, plain, library, nbytes, ops,
+              peak):
+        ms = timer.cold_ms(kernel, iters=10)
+        plain_ms = timer.cold_ms(plain, iters=5, warmup=1)
+        library_ms = timer.cold_ms(library, iters=10)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        return {
+            "name": name, "route": "cuda",
+            "source": SOURCES[REPLACES[name][0]],
+            "replaces": replaces[name], "path": path, "shape": shape,
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "library": ("torch.bmm over the row blocks, x windows gathered "
+                        "beforehand" if name == "band_spmm" else
+                        "index_add_ over the eligible slots, their rows "
+                        "gathered beforehand"),
+        }
+
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    ctx, plain_ctx = contexts["skewed"], contexts["skewed_plain"]
+    plan = ctx.band
+    n, window, rb = plan.n_pad, plan.window, plan.row_block
+    nb = n // rb
+    for layer, f in (("layer 1", ARXIV_FEATS), ("layers 2 and backward",
+                                                ARXIV_CLASSES)):
+        x = torch.randn(n, f, generator=gen, device=device).to(torch.bfloat16)
+        args = (plan.band, plan.base_idx, window, rb)
+        err = compare(B.band_matmul(x, *args), B.band_matmul_plain(x, *args),
+                      band_mass(x, *args), torch.bfloat16,
+                      f"band_spmm at skewed {layer}")
+        rows = (plan.base_idx.long() * (window // 2))[:, None] + torch.arange(
+            window, device=device)
+        windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
+        band3 = plan.band.view(nb, rb, window)
+        entries.append(entry(
+            "band_spmm", "train_skewed_arxiv_shape",
+            f"skewed {layer}: n_pad={n} W={window} F={f} bf16 "
+            f"band edges={plan.num_edges}", err,
+            lambda: B.band_matmul(x, *args),
+            lambda: B.band_matmul_plain(x, *args),
+            lambda: torch.bmm(band3, windows),
+            # band once, x once, out once, base_idx
+            n * window * 2 + 2 * n * f * 2 + nb * 4,
+            2 * n * window * f, H100_BF16_TENSOR_OPS_PER_S))
+
+        def residual(c):
+            return K.gather_scatter_sum_sorted(
+                x, c.senders, c.receivers, c.row_ptr, n,
+                weights=c.edge_weight, self_weight=c.self_weight)
+
+        entries[-1]["tier_ms"] = timer.cold_ms(
+            lambda: (B.band_matmul(x, *args), residual(ctx)), iters=10)
+        entries[-1]["without_tier_ms"] = timer.cold_ms(
+            lambda: residual(plain_ctx), iters=10)
+        entries[-1]["without_tier"] = ("the fused gather over every edge of "
+                                       "the same graph, no band")
+        del windows
+    ctx, plain_ctx = contexts["gat_skewed"], contexts["gat_skewed_plain"]
+    plan, tab = ctx.attw_plan, ctx.attw_sender
+    sel = tab >= 0
+    eligible = int(sel.sum())
+    sel_senders = tab[sel].long()
+    e = tab.shape[0]
+    for layer, d in (("layer 1", GAT_ARXIV_HEADS * GAT_ARXIV_DIMS[0]),
+                     ("layer 2", GAT_ARXIV_HEADS * GAT_ARXIV_DIMS[1])):
+        v = torch.randn(e, d, generator=gen, device=device).to(torch.bfloat16)
+        err = compare(B.window_scatter_sum(v, tab, plan),
+                      B.window_scatter_sum_plain(v, tab, plan),
+                      B.window_scatter_sum_plain(v.float().abs(), tab, plan),
+                      torch.bfloat16, f"window_scatter_sum at gat_skewed "
+                      f"{layer}")
+        v_sel = v[sel]
+        out_rows = plan.num_windows * plan.window
+        entries.append(entry(
+            "window_scatter_sum", "train_gat_skewed_arxiv_shape",
+            f"gat_skewed {layer}: E_pad={e} eligible={eligible} "
+            f"windows={plan.num_windows} W={plan.window} items="
+            f"{plan.num_work} H*F={d} bf16", err,
+            lambda: B.window_scatter_sum(v, tab, plan),
+            lambda: B.window_scatter_sum_plain(v, tab, plan),
+            lambda: torch.zeros(out_rows, d, dtype=v.dtype,
+                                device=device).index_add_(0, sel_senders,
+                                                          v_sel),
+            # eligible rows of v once, sender_tab, out once, the item tables
+            eligible * d * 2 + e * 4 + out_rows * d * 2
+            + (plan.num_windows + 1 + plan.num_work) * 4,
+            eligible * d, H100_F32_OPS_PER_S))
+        # v over the plain context's slots (same count up to the padding).
+        v_plain = v[: plain_ctx.senders.shape[0]]
+        entries[-1]["tier_ms"] = timer.cold_ms(
+            lambda: (B.window_scatter_sum(v, tab, plan),
+                     K.gather_scatter_sum_sorted(
+                         v, ctx.attw_perm_res, ctx.attw_senders_res,
+                         ctx.attw_res_row_ptr, ctx.num_nodes,
+                         weights=ctx.attw_res_weight)), iters=10)
+        entries[-1]["without_tier_ms"] = timer.cold_ms(
+            lambda: K.gather_scatter_sum_sorted(
+                v_plain, plain_ctx.bwd_perm, plain_ctx.senders_sorted,
+                plain_ctx.row_ptr_bwd, plain_ctx.num_nodes), iters=10)
+        entries[-1]["without_tier"] = ("the sender finish over bwd_perm on "
+                                       "the same graph, no window tables")
+        del v, v_sel, v_plain
+    torch.cuda.empty_cache()
+    return entries
+
+
+def band_autograd_phase(device):
+    """``GraphContext.spmm`` on a symmetric (densified) and a directed band
+    context, and ``GraphContext.attend`` on an ``attend_window`` context, each
+    against autograd over the plain versions (the band's plain product
+    differentiated by autograd, so the transposed plan is not used there)."""
+    import keras_geometric_tpu_torch as kgt
+    from keras_geometric_tpu_torch.data.datasets import community_graph
+    from keras_geometric_tpu_torch.ops import reorder
+
+    n = 20_000
+    ei = community_graph(n, 240_000, community_size=256, seed=3)
+    s, r = ei[0].astype(np.int64), ei[1].astype(np.int64)
+    inv = reorder.invert_order(reorder.cluster_order(s, r, n))
+    sym = np.stack([inv[s], inv[r]])
+    directed = sym[:, : sym.shape[1] // 2]  # one direction of each pair
+    contexts = {
+        "symmetric": kgt.prepare_graph(
+            sym, n, add_self_loops=True, gcn_normalize=True, symmetric=True,
+            densify_self_loops=True, pad_nodes=True, band_window=BAND_WINDOW,
+            attend_full_stream=False, device=device),
+        "directed": kgt.prepare_graph(
+            directed, n, add_self_loops=True, gcn_normalize=True,
+            pad_nodes=True, band_window=512, attend_full_stream=False,
+            device=device),
+    }
+    gen = torch.Generator(device=device).manual_seed(14)
+    results = {}
+    for kind, ctx in contexts.items():
+        check(ctx.num_band_edges > ctx.num_real_edges,
+              f"band autograd ({kind}): the band must hold most edges")
+        for dtype, f in ((torch.float32, 40), (torch.bfloat16, 128)):
+            g_tol = 2e-4 if dtype == torch.float32 else 5e-2
+            c = ctx.with_weight_dtype(dtype)
+            h = torch.randn(c.num_nodes, f, generator=gen,
+                            device=device).to(dtype)
+            k_out, k_grad = grad_of(c.spmm, h)
+            p_out, p_grad = grad_of(PlainContext(c).spmm, h)
+            tag = f"band spmm/{kind}/{str(dtype)[6:]}/F{f}"
+            for what, k, p in (("value", k_out, p_out),
+                               ("gradient", k_grad, p_grad)):
+                scale = max(p.float().abs().max().item(), 1e-6)
+                err = (k.float() - p.float()).abs().max().item()
+                check(math.isfinite(err) and err <= g_tol * scale,
+                      f"{what} of {tag}: max abs err {err:.3e} against "
+                      f"scale {scale:.3e}")
+                results[f"{tag}/{what}"] = err / scale
+    ctx = kgt.prepare_graph(sym, n, add_self_loops=True, pad_nodes=True,
+                            attend_window=ATTEND_WINDOW, edge_chunk=512,
+                            device=device)
+    check(2 * ctx.attw_plan.num_band_edges > ctx.num_real_edges,
+          "attend_window context: most slots must be window-eligible")
+    e = ctx.senders.shape[0]
+    for dtype, heads, f in ((torch.float32, 4, 40), (torch.bfloat16, 4, 64)):
+        g_tol = 2e-4 if dtype == torch.float32 else 5e-2
+        ht, att, gout, _ = attend_inputs(gen, ctx.num_nodes, heads, f, dtype,
+                                         e, False, device)
+        grads = []
+        for fn in (ctx.attend, PlainContext(ctx).attend):
+            a = ht.detach().clone().requires_grad_(True)
+            b = att.detach().clone().requires_grad_(True)
+            out = fn(a, b)
+            out.backward(gout)
+            grads.append((out.detach(), a.grad, b.grad))
+        tag = f"attend_window/{str(dtype)[6:]}/H{heads}F{f}"
+        for what, k, p in zip(("value", "d ht", "d att"), *grads):
+            scale = max(p.float().abs().max().item(), 1e-6)
+            err = (k.float() - p.float()).abs().max().item()
+            check(math.isfinite(err) and err <= g_tol * scale,
+                  f"{what} of {tag}: max abs err {err:.3e} against scale "
+                  f"{scale:.3e}")
+            results[f"{tag}/{what}"] = err / scale
+    torch.cuda.synchronize()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Plain contexts: the same operators through the kernels' plain versions,
 # differentiated by autograd over PyTorch's own ops. For comparison only.
 # ---------------------------------------------------------------------------
@@ -1086,12 +1445,18 @@ class PlainContext:
                                negative_slope, eps)
 
     def spmm(self, h):
+        from keras_geometric_tpu_torch.kernels import band_cuda as B
         from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
         c = self.ctx
-        return K.gather_scatter_sum_sorted_plain(
+        out = K.gather_scatter_sum_sorted_plain(
             h, c.senders, c.receivers, c.num_nodes, weights=c.edge_weight,
             self_weight=c.self_weight)
+        if c.band is not None:  # the band's product, differentiated by autograd
+            out = out + B.band_matmul_plain(
+                h, c.band.band, c.band.base_idx, c.band.window,
+                c.band.row_block)
+        return out
 
     def gather(self, h):
         # f32 inside: autograd's index_select backward sums in the data's type
@@ -1386,6 +1751,50 @@ def gat_arxiv_workload(device):
     return ctx, dev(x), dev(y), dev(mask), prepare_s
 
 
+def skewed_graph_edges():
+    """bench.py's skewed workload, rebuilt with numpy from seed 0: a
+    scrambled community graph of arxiv's size, relabelled by the LPA cluster
+    order, with features and labels following the relabelling."""
+    from keras_geometric_tpu_torch.data.datasets import community_graph
+    from keras_geometric_tpu_torch.ops import reorder
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((ARXIV_NODES, ARXIV_FEATS)).astype(np.float32)
+    start = time.perf_counter()
+    ei = community_graph(ARXIV_NODES, SKEWED_EDGES, seed=0)
+    generate_s = time.perf_counter() - start
+    s, r = ei[0].astype(np.int64), ei[1].astype(np.int64)
+    start = time.perf_counter()
+    order = reorder.cluster_order(s, r, ARXIV_NODES)
+    order_s = time.perf_counter() - start
+    inv = reorder.invert_order(order)
+    y = rng.integers(0, ARXIV_CLASSES, ARXIV_NODES).astype(np.int64)
+    edges = np.stack([inv[s], inv[r]])
+    return dict(edges=edges, x=x[order], y=y[order], generate_s=generate_s,
+                cluster_order_s=order_s,
+                coverage=reorder.band_coverage(edges[0], edges[1],
+                                               windows=(BAND_WINDOW,)),
+                coverage_scrambled=reorder.band_coverage(
+                    s, r, windows=(BAND_WINDOW,)))
+
+
+def prepared_on(device, graph, **kwargs):
+    """``prepare_graph`` over the skewed graph, with its host seconds, and
+    the features, labels and loss mask padded to the context's node count."""
+    import keras_geometric_tpu_torch as kgt
+
+    start = time.perf_counter()
+    ctx = kgt.prepare_graph(graph["edges"], ARXIV_NODES, device=device,
+                            **kwargs)
+    prepare_s = time.perf_counter() - start
+    n_pad = ctx.num_nodes
+    x = np.pad(graph["x"], ((0, n_pad - ARXIV_NODES), (0, 0)))
+    y = np.pad(graph["y"], (0, n_pad - ARXIV_NODES))
+    mask = np.arange(n_pad) < ARXIV_NODES
+    dev = lambda arr: torch.from_numpy(arr).to(device)
+    return ctx, dev(x), dev(y), dev(mask), prepare_s
+
+
 def citeseer_workload(device):
     """The canonical attention example's shape: a symmetric citation-sized
     graph, sparse bag-of-words features, planted labels."""
@@ -1443,10 +1852,15 @@ def first_step(make_model, make_gen, ctx, x, y, mask, compute_dtype):
 
 def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
-                falling=lambda l: l[-1] < l[0], same_as=None):
+                falling=lambda l: l[-1] < l[0], same_as=None,
+                same_graph=None, extra=None):
     """``same_as``: a model that computes the same function by another path
     (built with the same initial parameters); its step-1 loss is held to the
-    same tolerance as the plain path's."""
+    same tolerance as the plain path's. ``same_graph``: ``(ctx, x, y,
+    mask)`` of the same graph prepared another way (without the locality
+    tier); step 1 there is held to the same tolerances, loss and gradients,
+    and its steps are timed after the run that counts. ``extra``: fields
+    added to the phase's line."""
     from keras_geometric_tpu_torch.training import make_node_classification_step
     from keras_geometric_tpu_torch.utils import timed_steps
 
@@ -1459,7 +1873,21 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     l_tol, g_tol = (1e-4, 2e-4) if compute_dtype is None else (2e-2, 5e-2)
     check(math.isfinite(k_loss) and abs(k_loss - p_loss) <= l_tol,
           f"{name}: step-1 loss {k_loss} vs plain {p_loss}")
-    other_loss = None
+    other_loss = same_graph_loss = None
+    if same_graph is not None:
+        same_graph_loss, s_grads = first_step(make_model, make_gen,
+                                              *same_graph, compute_dtype)
+        check(abs(k_loss - same_graph_loss) <= l_tol,
+              f"{name}: step-1 loss {k_loss} vs the same graph's without "
+              f"the locality tier {same_graph_loss}")
+        for key, sg in s_grads.items():
+            scale = sg.abs().max().item()
+            err = (k_grads[key] - sg).abs().max().item()
+            check(math.isfinite(err) and err <= g_tol * max(scale, 1e-12),
+                  f"{name}: step-1 gradient of {key} vs the same graph's "
+                  f"without the locality tier: err {err:.3e} against scale "
+                  f"{scale:.3e}")
+        del s_grads
     if same_as is not None:
         other_loss, _ = first_step(same_as, make_gen, ctx, x, y, mask,
                                    compute_dtype)
@@ -1498,13 +1926,32 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
           f"{name}: launch counts {counts}, expected {expected}")
     logits_ok = all(torch.isfinite(p).all().item() for p in model.parameters())
     check(logits_ok, f"{name}: parameters not finite after training")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    same_graph_ms = same_graph_peak_mb = None
+    if same_graph is not None:
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model()
+        step = make_node_classification_step(
+            model, make_optimizer(model), compute_dtype=compute_dtype,
+            generator=make_gen())
+        s_ctx, s_x, s_y, s_mask = same_graph
+        same_graph_ms = timed_steps(
+            lambda: step(s_x, None, s_y, s_mask, context=s_ctx), warmup=2,
+            iters=timed_iters)
+        same_graph_peak_mb = torch.cuda.max_memory_allocated() / 2**20
     emit(name, steps=total_steps, losses=losses, step1_loss=k_loss,
          step1_loss_plain=p_loss, step1_loss_other_path=other_loss,
+         step1_loss_without_locality_tier=same_graph_loss,
          step1_grad_rel_err=grad_err,
          launches_per_step=per_step, launches=counts, step_ms=step_ms,
-         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
+         step_ms_without_locality_tier=same_graph_ms,
+         peak_memory_mb=peak_mb,
+         peak_memory_mb_without_locality_tier=same_graph_peak_mb,
          nodes=ctx.num_nodes, stream_edges=ctx.num_real_edges,
-         compute_dtype=str(compute_dtype or torch.float32)[6:])
+         compute_dtype=str(compute_dtype or torch.float32)[6:],
+         **(extra or {}))
     return counts
 
 
@@ -1599,10 +2046,30 @@ def main() -> int:
     kernel_entries = []
     path_launches = {}  # training run -> each kernel's launches in that run
     workloads = {}
+    gcn_kw = dict(add_self_loops=True, gcn_normalize=True, symmetric=True,
+                  densify_self_loops=True, pad_nodes=True,
+                  attend_full_stream=False)
+    gat_kw = dict(add_self_loops=True, edge_chunk=512, pad_nodes=True)
+
+    def gcn_bf16(prepared):
+        ctx, *rest = prepared
+        return (ctx.with_weight_dtype(torch.bfloat16), *rest)
+
     makers = {"cora": cora_workload, "citeseer": citeseer_workload,
               "gat_arxiv": gat_arxiv_workload,
               "arxiv": lambda dev: arxiv_workload(dev, True),
-              "directed": lambda dev: arxiv_workload(dev, False)}
+              "directed": lambda dev: arxiv_workload(dev, False),
+              "skewed_graph": lambda dev: skewed_graph_edges(),
+              "skewed": lambda dev: gcn_bf16(prepared_on(
+                  dev, workload("skewed_graph"), band_window=BAND_WINDOW,
+                  **gcn_kw)),
+              "skewed_plain": lambda dev: gcn_bf16(prepared_on(
+                  dev, workload("skewed_graph"), **gcn_kw)),
+              "gat_skewed": lambda dev: prepared_on(
+                  dev, workload("skewed_graph"), attend_window=ATTEND_WINDOW,
+                  **gat_kw),
+              "gat_skewed_plain": lambda dev: prepared_on(
+                  dev, workload("skewed_graph"), **gat_kw)}
 
     def workload(name):
         if name not in workloads:
@@ -1615,7 +2082,8 @@ def main() -> int:
         replaces = replaced_tpu_kernels()
         kernel_entries = time_kernel_cases(
             device, timer,
-            {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0]},
+            {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0],
+             "gat_arxiv": workload("gat_arxiv")[0]},
             replaces)
         attention_contexts = {"gat_arxiv": workload("gat_arxiv")[0],
                               "citeseer": workload("citeseer")[0]}
@@ -1625,18 +2093,27 @@ def main() -> int:
             device, timer)
         kernel_entries += time_composed_cases(device, timer,
                                               attention_contexts, replaces)
-        emit("kernels", comparisons=cases + attend_cases + composed_cases,
-             worst_abs_err={**worst, **attend_worst, **composed_worst},
+        band_cases, band_worst = band_sweep(device)
+        kernel_entries += time_band_cases(
+            device, timer, {name: workload(name)[0] for name in (
+                "skewed", "skewed_plain", "gat_skewed", "gat_skewed_plain")},
+            replaces)
+        emit("kernels", comparisons=cases + attend_cases + composed_cases
+             + band_cases,
+             worst_abs_err={**worst, **attend_worst, **composed_worst,
+                            **band_worst},
              kernels=sorted(launch_counts()),
              hub_row_ms={**hub, "composed": composed_hub},
              timed=[{k: e[k] for k in ("name", "shape", "max_abs_err", "ms",
-                                       "plain_ms", "library_ms", "bound_ms")}
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "tier_ms", "without_tier_ms") if k in e}
                     for e in kernel_entries if e["path"]])
 
     if "autograd" in phases:
         emit("autograd", grad_rel_err={
             **autograd_phase(device),
-            **composed_autograd_phase(device, workload("citeseer"))})
+            **composed_autograd_phase(device, workload("citeseer")),
+            **band_autograd_phase(device)})
 
     def arxiv_model():
         gen = torch.Generator(device=device).manual_seed(0)
@@ -1703,6 +2180,10 @@ def main() -> int:
         "train_gat_citeseer_shape_composed": (
             "citeseer", lambda: gat_citeseer_model(fused_attend=False),
             adamw(5e-3), None),
+        "train_skewed_arxiv_shape": ("skewed", arxiv_model, adam,
+                                     torch.bfloat16),
+        "train_gat_skewed_arxiv_shape": ("gat_skewed", gat_arxiv_model, adam,
+                                         torch.bfloat16),
     }
     if args.profile is not None and args.profile not in runs:
         ap.error(f"--profile takes one of {sorted(runs)}")
@@ -1778,6 +2259,82 @@ def main() -> int:
         train("train_gat_citeseer_shape_composed", steps=40,
               per_step=gat_composed_two_layers, timed_iters=10,
               falling=mean_of_ends, same_as=gat_citeseer_model)
+
+    # The locality tier. Layer 1 propagates first (F = 128, no backward: x
+    # needs no gradient), layer 2 runs at F = 40 forward and backward: the
+    # band kernel and the residual's fused-gather scatter three times each.
+    if "train_skewed_arxiv_shape" in phases:
+        graph = workload("skewed_graph")
+        ctx, x, _, _, prepare_s = workload("skewed")
+        plain_ctx = workload("skewed_plain")[0]
+        stream = ctx.num_band_edges + ctx.num_real_edges
+        check(ctx.num_nodes == plain_ctx.num_nodes == 169_472 and
+              stream == plain_ctx.num_real_edges and ctx.is_symmetric and
+              ctx.band.band.dtype == torch.bfloat16,
+              "skewed context has the wrong size or type")
+        locality = dict(
+            band_edges=ctx.num_band_edges, residual_edges=ctx.num_real_edges,
+            banded_fraction=ctx.num_band_edges / stream,
+            band_mb=ctx.band.band.numel() * ctx.band.band.element_size()
+            / 2**20)
+        emit("prepare_skewed_arxiv_shape", edges=int(graph["edges"].shape[1]),
+             generate_seconds=graph["generate_s"],
+             cluster_order_seconds=graph["cluster_order_s"],
+             band_coverage_scrambled=graph["coverage_scrambled"],
+             band_coverage_reordered=graph["coverage"],
+             prepare_graph_seconds_with_band=prepare_s,
+             prepare_graph_seconds_without=workload("skewed_plain")[4],
+             **locality)
+        train("train_skewed_arxiv_shape", steps=8,
+              per_step={"band_spmm": 3, "gather_scatter_sum_sorted": 3},
+              timed_iters=10, same_graph=workload("skewed_plain")[:4],
+              extra=locality)
+        # bench.py's best_* hoisting: S @ x once, on both contexts.
+        from keras_geometric_tpu_torch.utils import timed_steps
+
+        xb = x.to(torch.bfloat16)
+        banded = kgt.precompute_propagation(ctx, xb)
+        plain = kgt.precompute_propagation(plain_ctx, xb)
+        scale = plain.float().abs().max().item()
+        err = (banded.float() - plain.float()).abs().max().item()
+        check(bool(torch.isfinite(banded).all()) and err <= 2e-2 * scale,
+              f"precompute_propagation on the band context: max abs err "
+              f"{err:.3e} against scale {scale:.3e}")
+        emit("precompute_skewed_arxiv_shape", max_abs_err=err, scale=scale,
+             ms_with_band=timed_steps(
+                 lambda: kgt.precompute_propagation(ctx, xb), iters=10),
+             ms_without=timed_steps(
+                 lambda: kgt.precompute_propagation(plain_ctx, xb),
+                 iters=10))
+        del xb, banded, plain
+    workloads.pop("skewed_plain", None)
+    if args.profile != "train_skewed_arxiv_shape":
+        workloads.pop("skewed", None)
+    torch.cuda.empty_cache()
+
+    # Per GATv2 layer as in train_gat_arxiv_shape, but the sender finish is
+    # the window scatter plus the fused-gather scatter over the residual.
+    if "train_gat_skewed_arxiv_shape" in phases:
+        ctx, _, _, _, prepare_s = workload("gat_skewed")
+        plain_ctx = workload("gat_skewed_plain")[0]
+        plan = ctx.attw_plan
+        check(ctx.num_real_edges == plain_ctx.num_real_edges and
+              ctx.num_nodes == 169_984 and ctx.senders.shape[0] % 2048 == 0,
+              "skewed attention context has the wrong size")
+        locality = dict(
+            slots=int(ctx.senders.shape[0]), windows=plan.num_windows,
+            work_items=plan.num_work, eligible_slots=plan.num_band_edges,
+            window_eligible_fraction=plan.num_band_edges / ctx.num_real_edges,
+            residual_slots=int(ctx.attw_perm_res.shape[0]))
+        emit("prepare_gat_skewed_arxiv_shape",
+             prepare_graph_seconds_with_window=prepare_s,
+             prepare_graph_seconds_without=workload("gat_skewed_plain")[4],
+             **locality)
+        train("train_gat_skewed_arxiv_shape", steps=8,
+              per_step={**gat_two_layers, "window_scatter_sum": 2},
+              timed_iters=10, same_graph=workload("gat_skewed_plain")[:4],
+              extra=locality)
+    workloads.pop("gat_skewed_plain", None)
 
     if args.profile is not None:
         from keras_geometric_tpu_torch.training import (

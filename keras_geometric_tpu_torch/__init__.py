@@ -7,8 +7,10 @@ step) and the GATv2 attention path, fused (``GraphContext.attend`` with
 hand-written forward and backward kernels) and composed
 (``GraphContext.sddmm_scores`` / ``edge_softmax`` with their own kernels,
 ``GATv2Conv(fused_attend=False)``, ``return_attention=True``), with
-``GATv2Conv`` and ``GAT``. Entry points run on a CUDA device unless the
-caller passes another.
+``GATv2Conv`` and ``GAT``; and the locality tier (``ops/reorder.py``, the
+community graph generator, ``prepare_graph(band_window=..., attend_window=...)``
+with hand-written band SpMM and window scatter kernels). Entry points run on
+a CUDA device unless the caller passes another.
 """
 
 from ._version import __version__

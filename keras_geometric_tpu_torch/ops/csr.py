@@ -17,7 +17,14 @@ kernel with a custom gradient of the same structure as the reference's,
 backward kernels, sender finish through the fused-gather scatter), and
 ``GraphContext.sddmm_scores`` / ``GraphContext.edge_softmax`` the composed
 attention path (score and softmax kernels, each with the reference's
-backward). The banded tiers are not part of this module yet.
+backward).
+
+The locality tier (``kernels/band_cuda.py``, after a reordering from
+``ops/reorder.py``): ``prepare_graph(band_window=W)`` moves the edges that fit
+a ``W``-row window into a dense band, and ``spmm`` sums the band kernel's
+product and the residual stream's; ``prepare_graph(attend_window=W)`` lets
+``attend``'s backward sum most sender cotangents window by window (the window
+scatter kernel) and only the rest through the fused-gather scatter.
 """
 
 from __future__ import annotations
@@ -28,7 +35,13 @@ import numpy as np
 import torch
 
 from .. import native
-from ..kernels import attend_cuda, sddmm_cuda, softmax_cuda, spmm_cuda
+from ..kernels import (
+    attend_cuda,
+    band_cuda,
+    sddmm_cuda,
+    softmax_cuda,
+    spmm_cuda,
+)
 
 __all__ = ["GraphContext", "prepare_graph"]
 
@@ -68,35 +81,47 @@ class GraphContext:
     # Edge validity in SENDER-sorted order (1.0 real / 0.0 padded); None when
     # no padded slots exist.
     edge_mask_ss: torch.Tensor | None = None
-    # Full-stream companion: a densified context's stream lacks the
-    # self-loops, so per-edge ops route through a second context that holds
-    # every edge (prepare_graph(attend_full_stream=True)).
+    # Banded tier (prepare_graph(band_window=...)): the edges that fit the
+    # window live in a dense [n_pad, W] band and are ABSENT from the CSR
+    # stream above, which holds only the residual. band_bwd is the transposed
+    # orientation's plan (None when is_symmetric: the band is then its own
+    # transpose). spmm()/spmm_mean() sum both tiers; per-edge ops route to
+    # the full-stream companion below.
+    band: band_cuda.BandPlan | None = None
+    band_bwd: band_cuda.BandPlan | None = None
+    num_band_edges: int = 0
+    # Full-stream companion: a banded or densified context's stream lacks the
+    # band edges or the self-loops, so per-edge ops route through a second
+    # context that holds every edge (prepare_graph(attend_full_stream=True),
+    # the default for band contexts).
     full: "GraphContext | None" = None
+    # Banded attention backward (prepare_graph(attend_window=W)): the sender
+    # cotangents of the slots whose sender lies in their edge chunk's window
+    # are summed by the window scatter kernel; the residual slots, listed in
+    # sender-sorted order, by the fused-gather scatter.
+    attw_plan: band_cuda.WindowScatterPlan | None = None
+    attw_sender: torch.Tensor | None = None  # [E_pad] int32, -1 off-window
+    attw_perm_res: torch.Tensor | None = None  # [Er_pad] int32 slot of v
+    attw_res_weight: torch.Tensor | None = None  # [Er_pad] f32 1 / 0 (pad)
+    attw_senders_res: torch.Tensor | None = None  # [Er_pad] int32, sorted
+    attw_res_row_ptr: torch.Tensor | None = None  # [N+1] over the above
 
     # -- placement ---------------------------------------------------------
     def _replace(self, **changes) -> "GraphContext":
         return dataclasses.replace(self, **changes)
 
-    def _map_tensors(self, fn) -> "GraphContext":
-        changes = {}
-        for field in dataclasses.fields(self):
-            value = getattr(self, field.name)
-            if isinstance(value, torch.Tensor):
-                changes[field.name] = fn(field.name, value)
-            elif isinstance(value, GraphContext):
-                changes[field.name] = value._map_tensors(fn)
-        return self._replace(**changes)
-
     def to(self, device) -> "GraphContext":
-        """The same context with every array on ``device``."""
-        return self._map_tensors(lambda _name, t: t.to(device))
+        """The same context with every array on ``device`` (the band and
+        window plans and the companion included)."""
+        return _map_tensors(self, lambda _name, t: t.to(device))
 
     def with_weight_dtype(self, dtype: torch.dtype) -> "GraphContext":
-        """Edge, sender-sorted edge and self weights cast to ``dtype`` (the
-        bf16-IO training setup keeps them in the data's type)."""
-        names = ("edge_weight", "edge_weight_ss", "self_weight")
-        return self._map_tensors(
-            lambda name, t: t.to(dtype) if name in names else t
+        """Edge, sender-sorted edge and self weights, and the band, cast to
+        ``dtype``: the bf16-IO training setup keeps them in the data's type,
+        so the band is stored once in bf16 and not cast on every call."""
+        names = ("edge_weight", "edge_weight_ss", "self_weight", "band")
+        return _map_tensors(
+            self, lambda name, t: t.to(dtype) if name in names else t
         )
 
     @property
@@ -111,21 +136,23 @@ class GraphContext:
             if self.num_real_edges >= 0
             else int(self.senders.shape[0])
         )
-        return base + self.num_diag
+        return base + self.num_diag + self.num_band_edges
 
     def full_stream(self) -> "GraphContext":
         """The context to use for per-edge ops: ``self`` when the CSR stream
-        already holds every edge; the attached ``full`` companion when
-        densify moved the self-loops out of the stream."""
-        if self.num_diag == 0:
+        already holds every edge; the attached ``full`` companion when band
+        or densify moved edges out of the stream."""
+        if self.band is None and self.num_diag == 0:
             return self
         if self.full is not None:
             return self.full
         raise ValueError(
             "This context's CSR stream is incomplete for per-edge ops "
-            "(densify_self_loops=True moves self-loops out). Prepare "
-            "with attend_full_stream=True to attach a full-stream "
-            "companion, or prepare without densify."
+            "(band_window= moves band edges out of the stream; "
+            "densify_self_loops=True moves self-loops out). Prepare "
+            "with attend_full_stream=True (the default with band_window=) "
+            "to attach a full-stream companion, or prepare without "
+            "band/densify."
         )
 
     @property
@@ -146,9 +173,9 @@ class GraphContext:
         loudly, not through a shape mismatch further down."""
         if messages.shape[0] != self.receivers.shape[0]:
             hint = ""
-            if self.num_diag:
+            if self.band is not None or self.num_diag:
                 hint = (
-                    " This context is densified: its CSR stream "
+                    " This context is banded/densified: its CSR stream "
                     "holds only residual edges, while per-edge ops "
                     "(gather) route through the full-stream companion; "
                     "scatter through ctx.full_stream() for messages "
@@ -225,7 +252,9 @@ class GraphContext:
         ``v``), then sums ``v`` by sender with the fused-gather scatter over
         the transposed orientation, which reads ``v`` through ``bwd_perm``:
         neither the gathered sender rows nor a permuted copy of ``v`` is
-        ever written.
+        ever written. On an ``attend_window`` context the window scatter
+        kernel sums the window-eligible slots and the fused-gather scatter
+        only the residual ones (through ``attw_perm_res``).
         """
         ctx = self.full_stream()
         if att.ndim != 2:
@@ -302,7 +331,22 @@ class GraphContext:
         normalization on an undirected graph) the gradient is the same
         operator; otherwise it is the same kernel over the transposed
         orientation. Neither forms an ``[E, F]`` array.
+
+        With a banded tier (``band_window=``), ``A = B + R``: the band part
+        runs the band kernel and the residual the path above; both splits
+        are transpose-stable, so the gradients add.
         """
+        if self.band is not None:
+            out = band_cuda.band_spmm(
+                h, self.band, None if self.is_symmetric else self.band_bwd)
+            if self.num_real_edges > 0:
+                out = out + self._csr_spmm(h)
+            elif self.self_weight is not None:
+                out = out + h * self.self_weight[:, None].to(h.dtype)
+            return out
+        return self._csr_spmm(h)
+
+    def _csr_spmm(self, h: torch.Tensor) -> torch.Tensor:
         if self.is_symmetric:
             return _SpmmSymmetric.apply(h, self)
         if self.receivers_ss is not None and self.edge_weight is not None:
@@ -373,6 +417,19 @@ class _Gatv2Attend(torch.autograd.Function):
             scores, m, l, rho, eps=ctx.eps,
             negative_slope=ctx.negative_slope, drop_mask=drop_mask,
         )
+        if graph.attw_plan is not None:
+            # Banded finish: the window-eligible slots straight from the
+            # receiver-sorted v, the residual ones read through their
+            # sender-sorted list (weight 0 on its padded entries).
+            dht_band = band_cuda.window_scatter_sum(
+                v, graph.attw_sender, graph.attw_plan)
+            dht_res = spmm_cuda.gather_scatter_sum_sorted(
+                v, graph.attw_perm_res, graph.attw_senders_res,
+                graph.attw_res_row_ptr, graph.num_nodes,
+                weights=graph.attw_res_weight,
+            )
+            return (dht + dht_band[: graph.num_nodes] + dht_res, datt, None,
+                    None, None, None)
         dht_send = spmm_cuda.gather_scatter_sum_sorted(
             v, graph.bwd_perm, graph.senders_sorted, graph.row_ptr_bwd,
             graph.num_nodes,
@@ -497,6 +554,19 @@ class _SpmmGeneralTransposed(torch.autograd.Function):
         return _SpmmGeneral.apply(gg, ctx.graph), None
 
 
+def _map_tensors(obj, fn):
+    """``obj`` (a context or a plan) with ``fn(field name, tensor)`` applied
+    to each tensor field, descending into nested contexts and plans."""
+    changes = {}
+    for field in dataclasses.fields(obj):
+        value = getattr(obj, field.name)
+        if isinstance(value, torch.Tensor):
+            changes[field.name] = fn(field.name, value)
+        elif dataclasses.is_dataclass(value):
+            changes[field.name] = _map_tensors(value, fn)
+    return dataclasses.replace(obj, **changes)
+
+
 def _row_ptr(sorted_ids: np.ndarray, num_nodes: int) -> np.ndarray:
     return np.searchsorted(
         sorted_ids, np.arange(num_nodes + 1), side="left"
@@ -517,9 +587,11 @@ def prepare_graph(
     expand_row_block: int = 128,
     pad_nodes: bool = False,
     band_window: int | None = None,
+    band_row_block: int = 256,
     pad_to: int | None = None,
     attend_full_stream: bool | None = None,
     attend_window: int | None = None,
+    attend_window_chunk: int = 2048,
     device: torch.device | str = torch.device("cuda"),
 ) -> GraphContext:
     """One-time host preprocessing into a :class:`GraphContext` on ``device``.
@@ -534,30 +606,36 @@ def prepare_graph(
     the kernel's epilogue. Only valid for linear per-edge messages.
 
     ``pad_nodes=True`` rounds ``num_nodes`` up to a multiple of
-    ``max(scatter_row_block, expand_row_block)`` (256 by default): node arrays
-    are then supplied and returned with that many rows. Padded rows have no
-    edges and zero self-weight. The edge axis is padded to a multiple of
-    ``edge_chunk``; padded slots point at node ``num_nodes - 1`` in both
-    orientations and carry weight 0, so every weighted op ignores them.
-    (These grains keep the prepared arrays equal to the reference context's;
-    the kernels themselves take any size.)
+    ``max(scatter_row_block, expand_row_block)`` (256 by default), and of the
+    locality tiers' grains below: node arrays are then supplied and returned
+    with that many rows. Padded rows have no edges and zero self-weight. The
+    edge axis is padded to a multiple of ``edge_chunk``; padded slots point
+    at node ``num_nodes - 1`` in both orientations and carry weight 0, so
+    every weighted op ignores them. (These grains keep the prepared arrays
+    equal to the reference context's; the kernels themselves take any size.)
 
-    ``attend_full_stream=True`` attaches a companion context holding every
-    edge to a densified one, for per-edge ops. ``pad_to`` forces the padded
-    node count (keeps the companion's shapes aligned).
+    ``band_window=W`` (requires ``pad_nodes=True``; ``W`` a multiple of 256)
+    enables the banded tier: the edges that fit a ``W``-row window in both
+    orientations are stored as a dense band (``kernels/band_cuda.py``) and
+    removed from the CSR stream. It pays only after a locality reordering
+    (``ops/reorder.py``); on a random numbering nearly every edge stays in
+    the residual. ``band_row_block`` is the band's row block.
 
-    ``band_window=`` and ``attend_window=`` (the locality tiers) are not
-    ported yet.
+    ``attend_full_stream``: banded or densified contexts have an incomplete
+    CSR stream, so per-edge ops (gather, attend, edge_softmax, sddmm) need a
+    companion context holding every edge (``ctx.full``), built here with the
+    same padded node count. Default: True for band contexts, False
+    otherwise. ``pad_to`` forces the padded node count (keeps the
+    companion's shapes aligned).
+
+    ``attend_window=W`` (requires ``pad_nodes=True``) builds the banded
+    attention backward's tables on the context whose stream holds every edge
+    (this one, or the companion): each receiver-sorted chunk of
+    ``attend_window_chunk`` slots gets the ``W``-aligned node window holding
+    most of its senders, and those slots' sender cotangents are summed by
+    the window scatter kernel instead of the fused-gather scatter. The
+    stream is then padded to ``attend_window_chunk``. Exact either way.
     """
-    if band_window is not None:
-        raise NotImplementedError(
-            "band_window= (banded-dense tier) is not ported yet: ROADMAP M9"
-        )
-    if attend_window is not None:
-        raise NotImplementedError(
-            "attend_window= (banded attention backward) is not ported yet: "
-            "ROADMAP M9"
-        )
     edge_index = np.asarray(edge_index)
     if edge_index.shape[0] != 2:
         edge_index = edge_index.T
@@ -567,14 +645,27 @@ def prepare_graph(
     orig_edge_weight = (
         None if edge_weight is None else np.asarray(edge_weight).copy()
     )
+    if attend_full_stream is None:
+        attend_full_stream = band_window is not None
     num_real_nodes = num_nodes
-    grain = max(scatter_row_block, expand_row_block)
+    if band_window is not None and not pad_nodes:
+        raise ValueError("band_window requires pad_nodes=True")
+    if attend_window is not None and not pad_nodes:
+        raise ValueError("attend_window requires pad_nodes=True")
+    base_grain = max(scatter_row_block, expand_row_block)
     if pad_nodes:
+        grain = base_grain
+        if band_window is not None:
+            grain = max(grain, band_window // 2, band_row_block)
+        if attend_window is not None:
+            grain = max(grain, attend_window)
         num_nodes = -(-num_nodes // grain) * grain
+        if band_window is not None:
+            num_nodes = max(num_nodes, band_window)
     if pad_to is not None:
         if not pad_nodes:
             raise ValueError("pad_to requires pad_nodes=True")
-        if pad_to < num_nodes or pad_to % grain:
+        if pad_to < num_nodes or pad_to % base_grain:
             raise ValueError(
                 f"pad_to={pad_to} incompatible with computed padded "
                 f"node count {num_nodes}"
@@ -631,8 +722,8 @@ def prepare_graph(
                 [np.asarray(edge_weight), np.ones(num_real_nodes, np.float32)]
             )
 
-    # Resolve per-edge weights BEFORE any sort: the GCN norm is a per-edge
-    # function of endpoint degrees, hence order-independent.
+    # Resolve per-edge weights BEFORE any split or sort: the GCN norm is a
+    # per-edge function of endpoint degrees, hence order-independent.
     w_resolved = None
     if gcn_normalize:
         if densified_norm is not None:
@@ -645,7 +736,41 @@ def prepare_graph(
         ew = np.asarray(edge_weight, np.float32)
         w_resolved = ew if w_resolved is None else w_resolved * ew
 
+    # Full-stream in-degree (spmm_mean semantics), before any band split.
     in_degree = np.bincount(r, minlength=num_nodes).astype(np.float32)
+
+    band_plan = band_plan_bwd = None
+    if band_window is not None:
+        # Keep the CSR stream non-empty: on an all-local graph the first edge
+        # (and, for symmetry of the band, its mirror) stays in the residual.
+        exclude = None
+        band_plan, local = band_cuda.build_band_plan(
+            s, r, w_resolved, num_nodes,
+            window=band_window, row_block=band_row_block,
+        )
+        if local.all():
+            # All copies of the first edge and of its mirror, so the band
+            # stays exactly symmetric under multi-edges.
+            exclude = (s == s[0]) & (r == r[0])
+            if symmetric:
+                exclude |= (s == r[0]) & (r == s[0])
+            band_plan, local = band_cuda.build_band_plan(
+                s, r, w_resolved, num_nodes,
+                window=band_window, row_block=band_row_block,
+                exclude=exclude,
+            )
+        if not symmetric:
+            # The fit criterion is endpoint-symmetric, so the transposed
+            # orientation bands exactly the same edge subset.
+            band_plan_bwd, _ = band_cuda.build_band_plan(
+                r, s, w_resolved, num_nodes,
+                window=band_window, row_block=band_row_block,
+                exclude=exclude,
+            )
+        keep = ~local
+        s, r = s[keep], r[keep]
+        if w_resolved is not None:
+            w_resolved = w_resolved[keep]
 
     perm_r, _ = native.coo_to_csr_perm(r.astype(np.int32), num_nodes)
     s_sorted_by_r = s[perm_r].astype(np.int32)
@@ -656,7 +781,11 @@ def prepare_graph(
     else:
         w = np.asarray(w_resolved, np.float32)[perm_r]
 
-    e_pad = ((e_real + edge_chunk - 1) // edge_chunk) * edge_chunk
+    # With attend_window tables on this context the stream is padded to the
+    # window scatter's (coarser) chunk grain.
+    attw_here = attend_window is not None and band_plan is None and num_diag == 0
+    e_grain = max(edge_chunk, attend_window_chunk) if attw_here else edge_chunk
+    e_pad = ((e_real + e_grain - 1) // e_grain) * e_grain
     pad = e_pad - e_real
     last = max(num_nodes - 1, 0)
     s_p = np.concatenate([s_sorted_by_r, np.full(pad, last, np.int32)])
@@ -669,10 +798,8 @@ def prepare_graph(
     receivers_ss = r_p[perm_s]
     weight_ss = w_p[perm_s]
 
-    if attend_full_stream is None:
-        attend_full_stream = False
     full_ctx = None
-    if attend_full_stream and num_diag > 0:
+    if attend_full_stream and (band_plan is not None or num_diag > 0):
         full_ctx = prepare_graph(
             np.stack([orig_s, orig_r]),
             num_real_nodes,
@@ -685,12 +812,56 @@ def prepare_graph(
             scatter_row_block=scatter_row_block,
             expand_row_block=expand_row_block,
             pad_nodes=pad_nodes,
+            band_window=None,
             pad_to=num_nodes if pad_nodes else None,
+            attend_window=attend_window,
+            attend_window_chunk=attend_window_chunk,
             device=device,
         )
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # Banded attention backward tables, on the context whose stream holds
+    # every edge: this one when no band/densify split happened, otherwise
+    # the companion above (through the recursive call).
+    attw = {}
+    if attw_here:
+        eligible = np.arange(e_pad) < e_real
+        plan, band_mask, sender_tab = band_cuda.build_window_scatter_plan(
+            s_p, num_nodes, eligible,
+            window=attend_window, edge_chunk=attend_window_chunk,
+        )
+        idx_res = np.nonzero(eligible & ~band_mask)[0]
+        order_res = np.argsort(s_p[idx_res], kind="stable")
+        perm_res = idx_res[order_res].astype(np.int32)
+        er = perm_res.shape[0]
+        er_pad = max(
+            ((er + edge_chunk - 1) // edge_chunk) * edge_chunk, edge_chunk
+        )
+        padr = er_pad - er
+        # Padded residual entries point at slot 0 with weight 0: neutral
+        # whatever v holds there.
+        perm_res = np.concatenate([perm_res, np.zeros(padr, np.int32)])
+        res_weight = np.concatenate(
+            [np.ones(er, np.float32), np.zeros(padr, np.float32)]
+        )
+        senders_res = np.concatenate(
+            [s_p[perm_res[:er]], np.full(padr, last, np.int32)]
+        )
+        attw = dict(
+            attw_plan=_map_tensors(plan, lambda _name, t: t.to(device)),
+            attw_sender=dev(sender_tab),
+            attw_perm_res=dev(perm_res),
+            attw_res_weight=dev(res_weight),
+            attw_senders_res=dev(senders_res),
+            attw_res_row_ptr=dev(_row_ptr(senders_res, num_nodes)),
+        )
+
+    def dev_plan(plan):
+        if plan is None:
+            return None
+        return _map_tensors(plan, lambda _name, t: t.to(device))
 
     return GraphContext(
         senders=dev(s_p),
@@ -714,5 +885,9 @@ def prepare_graph(
         edge_mask_ss=(
             None if pad == 0 else dev((perm_s < e_real).astype(np.float32))
         ),
+        band=dev_plan(band_plan),
+        band_bwd=dev_plan(band_plan_bwd),
+        num_band_edges=0 if band_plan is None else band_plan.num_edges,
         full=full_ctx,
+        **attw,
     )

@@ -133,9 +133,12 @@ def test_prepare_graph_directed_arrays_equal():
 
 def test_prepare_graph_rejections():
     n, ei = _edges(1)
-    for kw in (dict(band_window=64, pad_nodes=True),
-               dict(attend_window=64, pad_nodes=True)):
-        with pytest.raises(NotImplementedError, match="M9"):
+    # The locality tiers' arguments are checked as in the reference.
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tcsr.prepare_graph(ei, n, band_window=64, pad_nodes=True,
+                           device="cpu")
+    for kw in (dict(band_window=256), dict(attend_window=64)):
+        with pytest.raises(ValueError, match="requires pad_nodes"):
             tcsr.prepare_graph(ei, n, device="cpu", **kw)
     with pytest.raises(ValueError, match="not symmetric"):
         tcsr.prepare_graph(np.array([[0, 1], [1, 2]]), 3, symmetric=True,

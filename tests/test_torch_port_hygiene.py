@@ -20,6 +20,7 @@ from keras_geometric_tpu_torch import native
 from keras_geometric_tpu_torch.kernels import (
     _build,
     attend_cuda,
+    band_cuda,
     sddmm_cuda,
     softmax_cuda,
     spmm_cuda,
@@ -46,6 +47,9 @@ MODULES = [
     "nn/gatv2_conv.py",
     "kernels/softmax_cuda.py", "kernels/csrc/softmax.cu",
     "kernels/sddmm_cuda.py", "kernels/csrc/sddmm.cu", "kernels/csrc/lanes.cuh",
+    "kernels/band_cuda.py", "kernels/csrc/band.cu", "ops/reorder.py",
+    "data/__init__.py", "data/datasets/__init__.py",
+    "data/datasets/synthetic.py",
 ]
 
 
@@ -76,7 +80,10 @@ def test_importing_the_port_does_not_import_jax():
         "keras_geometric_tpu_torch.kernels.softmax_cuda, "
         "keras_geometric_tpu_torch.kernels.sddmm_cuda, "
         "keras_geometric_tpu_torch.nn.gatv2_conv, "
-        "keras_geometric_tpu_torch.ops.edge_dropout\n"
+        "keras_geometric_tpu_torch.ops.edge_dropout, "
+        "keras_geometric_tpu_torch.kernels.band_cuda, "
+        "keras_geometric_tpu_torch.ops.reorder, "
+        "keras_geometric_tpu_torch.data.datasets\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keras_geometric_tpu' or "
         "m.startswith('keras_geometric_tpu.') or m == 'optax']\n"
@@ -231,6 +238,46 @@ def test_composed_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert _build.load_library.cache_info().currsize == 0
 
 
+def test_band_wrappers_branch_on_the_tensor_device_only():
+    src = inspect.getsource(band_cuda)
+    assert "except" not in src and "torch.cuda.is_available" not in src
+    for fn, data, counter in (
+            (band_cuda.band_matmul, "x", "band_spmm"),
+            (band_cuda.window_scatter_sum, "messages", "window_scatter_sum")):
+        body = inspect.getsource(fn)
+        assert re.search(
+            rf"if not {data}\.is_cuda:\n\s+return \w+_plain\(", body)
+        assert body.count("_plain(") == 1
+        assert f'LAUNCH_COUNTS["{counter}"] += 1' in body
+    # The autograd wrapper reaches the kernel through the wrapper only.
+    assert "_plain" not in inspect.getsource(band_cuda._BandSpmm)
+
+
+def test_band_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    band_cuda.reset_launch_counts()
+    s = np.array([0, 1, 2, 3, 300, 301])
+    r = np.array([1, 0, 3, 2, 301, 300])
+    plan, local = band_cuda.build_band_plan(s, r, None, 512, window=256)
+    assert local.all()
+    x = torch.arange(1024, dtype=torch.float32).reshape(512, 2)
+    y = band_cuda.band_spmm(x, plan)
+    assert torch.equal(y, band_cuda.band_matmul_plain(
+        x, plan.band, plan.base_idx, 256, 256))
+    np.testing.assert_allclose(y[:4].numpy(), [[2, 3], [0, 1], [6, 7],
+                                               [4, 5]])
+    senders = np.array([1, 1, 300, 5, 0, 0, 0, 0])
+    wplan, _, tab = band_cuda.build_window_scatter_plan(
+        senders, 512, np.arange(8) < 4, window=256, edge_chunk=4)
+    v = torch.ones(8, 3)
+    out = band_cuda.window_scatter_sum(v, torch.from_numpy(tab), wplan)
+    assert torch.equal(out, band_cuda.window_scatter_sum_plain(
+        v, torch.from_numpy(tab), wplan))
+    assert out[1].tolist() == [2, 2, 2] and out.sum().item() == 9
+    assert band_cuda.LAUNCH_COUNTS == {"band_spmm": 0,
+                                       "window_scatter_sum": 0}
+    assert _build.load_library.cache_info().currsize == 0
+
+
 def test_row_ptr_is_required_for_a_cuda_tensor():
     """The host derivation of ``row_ptr`` serves CPU tensors only: a tensor on
     the card must come with the ``row_ptr`` of graph preparation."""
@@ -249,8 +296,9 @@ def test_kernels_build_inside_the_checkout():
     assert "environ.get(\"KGT" not in inspect.getsource(_build)
     assert _build.CSRC == PORT / "kernels" / "csrc"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "attend.cu", "sddmm.cu", "softmax.cu", "spmm.cu"]
+        "attend.cu", "band.cu", "sddmm.cu", "softmax.cu", "spmm.cu"]
     assert '_build.load_library("attend")' in inspect.getsource(attend_cuda)
+    assert '_build.load_library("band")' in inspect.getsource(band_cuda)
     assert '_build.load_library("softmax")' in inspect.getsource(softmax_cuda)
     assert '_build.load_library("sddmm")' in inspect.getsource(sddmm_cuda)
     for source in _build.CSRC.iterdir():
@@ -329,8 +377,9 @@ def test_chip_smoke_partial_run_is_no_pass():
 def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     module = _chip_smoke_module()
     kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS,
-               **softmax_cuda.LAUNCH_COUNTS, **sddmm_cuda.LAUNCH_COUNTS}
-    assert set(module.REPLACES) == set(kernels) and len(kernels) == 10
+               **softmax_cuda.LAUNCH_COUNTS, **sddmm_cuda.LAUNCH_COUNTS,
+               **band_cuda.LAUNCH_COUNTS}
+    assert set(module.REPLACES) == set(kernels) and len(kernels) == 12
     assert set(module.launch_counts()) == set(kernels)
     replaces = module.replaced_tpu_kernels()  # checks each pallas_call line
     assert replaces["attend_recv_bwd_full_sorted"].endswith(
@@ -341,6 +390,11 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
             "train_gat_arxiv_shape_composed",
             "train_gat_citeseer_shape_composed"} <= set(module.PHASES)
     assert replaces["sddmm_bwd_sorted"].endswith("kernels/sddmm_pallas.py:847")
+    assert replaces["band_spmm"].endswith("kernels/band_pallas.py:393")
+    assert replaces["window_scatter_sum"].endswith(
+        "kernels/band_pallas.py:249")
+    assert {"train_skewed_arxiv_shape",
+            "train_gat_skewed_arxiv_shape"} <= set(module.PHASES)
 
 
 def test_roofline_uses_the_cards_constants():
