@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive keras_geometric_tpu_torch on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version, and train the 2-layer GCN and the
-2-layer GATv2 (fused and composed attention, and both on the locality tier)
+2-layer GATv2 (fused and composed attention, the fused attention's other
+backward and score-cache modes, and both models on the locality tier)
 through the package's entry points.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
@@ -25,13 +26,26 @@ exit code and without the final line; so does a run of a subset of the phases
                 W in 256, 512, 1024 (symmetric and transposed plans, a row
                 block with an empty band, the clamped last block), the window
                 scatter at F in 8, 40, 160, 256 (a window with no item, an
-                all -1 table, two launches bit for bit), then timings at the
-                shapes the training paths use;
+                all -1 table, two launches bit for bit); the attention
+                kernels' other modes (the forward without its scores, rho
+                and the receiver backward recomputing them, the receiver
+                backward without ``v``), the sender backward, the
+                score-and-statistics kernel and the aggregation at the same
+                (H, F) on a graph that adds a 20,000-slot hub sender, an
+                empty and an all-invalid sender row and the padded tail in
+                sender order, each mode also bit for bit against the cached
+                launch, the score-and-statistics kernel against the
+                forward's scores, ``m``, ``l``, and two sender-backward
+                launches against each other; then timings at the shapes the
+                training paths use;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
                 autograd over the plain versions, of ``GraphContext.attend``,
                 ``sddmm_scores`` and ``edge_softmax`` against autograd over
-                restatements of them in library ops; ``return_attention=True``
+                restatements of them in library ops (``attend`` in every
+                combination of ``ATTEND_BWD_MODE`` and ``ATTEND_SCORE_CACHE``,
+                with and without dropout, and the send mode's fallback for a
+                mask without its sender-order twin); ``return_attention=True``
                 on the CiteSeer-shaped context; ``spmm`` on a symmetric and a
                 directed band context and ``attend`` on an ``attend_window``
                 context against autograd over the plain versions;
@@ -53,12 +67,25 @@ exit code and without the final line; so does a run of a subset of the phases
                 the same two GATv2 workloads with ``fused_attend=False``:
                 gather, score kernel, softmax kernels, ``alpha * hj``, scatter;
                 step 1 also against the fused model's;
-9. ``train_skewed_arxiv_shape``  the locality tier: a scrambled community
+9. ``train_gat_arxiv_shape_send``, ``_nocache``, ``_send_nocache`` and
+   ``train_gat_citeseer_shape_send``  the fused GATv2 runs with the
+                attention's module constants set (``ATTEND_BWD_MODE =
+                "send"``: the sender backward kernel in place of ``v`` and
+                its fused-gather finish; ``ATTEND_SCORE_CACHE = False``: the
+                scores recomputed in the backward) and restored after; step
+                1 also against the default modes' (the same loss, gradients
+                within the tolerance below); the CiteSeer run draws the
+                dropout mask pair the sender backward reads;
+10. ``attend_two_pass_arxiv_shape``  the two-pass forward (score-and-
+                statistics kernel, then the aggregation) at both arxiv-shaped
+                GATv2 layers against the one-pass forward: scores, ``m``,
+                ``l`` bit for bit, the output under the kernel tolerance;
+11. ``train_skewed_arxiv_shape``  the locality tier: a scrambled community
                 graph of 169,343 nodes and 1,166,242 edges relabelled by the
                 LPA cluster order, ``band_window=1024``, the GCN of run 4;
                 step 1 also against the same graph without the band; then
                 ``precompute_propagation`` on both contexts;
-10. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
+12. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
                 ``attend_window=1024``, the GATv2 of run 6; step 1 also against
                 the same graph without the window tables.
 
@@ -87,6 +114,7 @@ of its largest entry.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -101,8 +129,11 @@ import torch
 PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_directed", "train_cora_shape", "train_gat_arxiv_shape",
           "train_gat_citeseer_shape", "train_gat_arxiv_shape_composed",
-          "train_gat_citeseer_shape_composed", "train_skewed_arxiv_shape",
-          "train_gat_skewed_arxiv_shape")
+          "train_gat_citeseer_shape_composed", "train_gat_arxiv_shape_send",
+          "train_gat_arxiv_shape_nocache",
+          "train_gat_arxiv_shape_send_nocache",
+          "train_gat_citeseer_shape_send", "attend_two_pass_arxiv_shape",
+          "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -138,12 +169,15 @@ REPLACES = {
     "gather_scatter_sum_sorted": ("spmm", "spmm_pallas.py", 319),
     "expand_sorted": ("spmm", "spmm_pallas.py", 620),
     "sddmm_stats_agg_sorted": ("attend", "sddmm_pallas.py", 617),
+    "attend_aggregate_sorted": ("attend", "attend_pallas.py", 205),
     "attend_rho_sorted": ("attend", "attend_pallas.py", 441),
     "attend_recv_bwd_full_sorted": ("attend", "attend_pallas.py", 737),
+    "attend_send_bwd_sorted": ("attend", "attend_pallas.py", 958),
     "softmax_stats_sorted": ("softmax", "softmax_pallas.py", 168),
     "softmax_apply_sorted": ("softmax", "softmax_pallas.py", 282),
     "sddmm_scores_sorted": ("sddmm", "sddmm_pallas.py", 770),
     "sddmm_bwd_sorted": ("sddmm", "sddmm_pallas.py", 847),
+    "sddmm_stats_sorted": ("sddmm", "sddmm_pallas.py", 316),
     "band_spmm": ("band", "band_pallas.py", 393),
     "window_scatter_sum": ("band", "band_pallas.py", 249),
 }
@@ -192,6 +226,14 @@ def launch_counts() -> dict:
     for module in kernel_modules():
         counts.update(module.LAUNCH_COUNTS)
     return counts
+
+
+def mode_launch_counts() -> dict:
+    """Launches of the attention kernels in their other modes (counted
+    beside their kernel's own count)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda
+
+    return dict(attend_cuda.MODE_LAUNCH_COUNTS)
 
 
 def reset_launch_counts() -> None:
@@ -547,24 +589,20 @@ def edge_softmax_restated(ctx, scores, eps=1e-10):
     return (ex / (den.index_select(0, r) + eps)).to(scores.dtype)
 
 
-def attend_case(graph, ht, att, gout, drop, what):
-    """The three attention kernels against their plain versions on one input,
-    each element held to the tolerance of the module docstring. The backward
-    kernels are fed the plain forward's scores and statistics, so each kernel
-    is held alone. Returns each kernel's largest absolute error."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda as A
-
-    send, recv, row_ptr, valid = graph
+def attend_masses(graph, ht, att, gout, drop, p_scores, p_m, p_l):
+    """Sums of the absolute values of each output element's terms, for the
+    tolerance of the module docstring, from the plain forward's scores and
+    statistics: ``s`` (a slot's score), ``row_s`` (the row's largest),
+    ``amp`` (``1 +`` that: what an error in a score does behind the exp),
+    ``out`` (times ``amp``), ``out_terms`` (without), ``rho``, ``dht``
+    (receiver part), ``v`` (per slot) and ``datt``; with ``alpha``,
+    ``alpha_keep`` and ``keep``."""
+    send, recv, _, valid = graph
     n, d = ht.shape
     heads, f = att.shape
     e = send.shape[0]
     r = recv.long()
     dev = ht.device
-    kw = dict(edge_valid=valid, drop_mask=drop)
-    out, scores, m, l = A.sddmm_stats_agg_sorted(ht, send, recv, row_ptr, att,
-                                                 **kw)
-    p_out, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(
-        ht, send, recv, row_ptr, att, **kw)
 
     def per_row(edge_values):  # [E, H] -> [N, H] sum
         return torch.zeros(n, heads, device=dev).index_add_(0, r, edge_values)
@@ -572,7 +610,6 @@ def attend_case(graph, ht, att, gout, drop, what):
     def widen(per_head):  # [.., H] -> [.., H*F]
         return per_head.repeat_interleave(f, -1)
 
-    # Sums of absolute values of each element's terms.
     hj = ht.float().index_select(0, send.long()).view(e, heads, f).abs()
     hi = ht.float().index_select(0, r).view(e, heads, f).abs()
     g_e = gout.float().index_select(0, r).view(e, heads, f).abs()
@@ -583,14 +620,44 @@ def attend_case(graph, ht, att, gout, drop, what):
         s_mass = s_mass * valid[:, None]
     row_s_mass = torch.zeros(n, heads, device=dev).scatter_reduce(
         0, r[:, None].expand(e, heads), s_mass, "amax")
-    amp = 1.0 + row_s_mass  # what an error in a score does behind the exp
+    amp = 1.0 + row_s_mass
     keep = 1.0 if drop is None else drop.float()
-    alpha_keep = torch.exp(p_scores - p_m.index_select(0, r)) / (
+    alpha = torch.exp(p_scores - p_m.index_select(0, r)) / (
         p_l.index_select(0, r) + 1e-10)
-    alpha = alpha_keep
-    alpha_keep = alpha_keep * keep
-    out_mass = torch.zeros(n, d, device=dev).index_add_(
-        0, r, (alpha_keep[:, :, None] * hj).reshape(e, d)) * widen(amp)
+    alpha_keep = alpha * keep
+    out_terms = torch.zeros(n, d, device=dev).index_add_(
+        0, r, (alpha_keep[:, :, None] * hj).reshape(e, d))
+    dalpha_abs = (g_e * hj).sum(-1)
+    rho_abs = per_row(alpha_keep * dalpha_abs)
+    amp_e = amp.index_select(0, r)
+    ds_mass = alpha * (keep * dalpha_abs + rho_abs.index_select(0, r)) * amp_e
+    d_pre_mass = ds_mass[:, :, None] * att.float().abs()
+    dht_mass = torch.zeros(n, d, device=dev).index_add_(
+        0, r, d_pre_mass.reshape(e, d))
+    v_mass = ((alpha_keep * amp_e)[:, :, None] * g_e
+              + d_pre_mass).reshape(e, d)
+    datt_mass = (z_abs * ds_mass[:, :, None]).sum(0)
+    return dict(s=s_mass, row_s=row_s_mass, amp=amp, keep=keep, alpha=alpha,
+                alpha_keep=alpha_keep, out=out_terms * widen(amp),
+                out_terms=out_terms, rho=rho_abs * amp, rho_abs=rho_abs,
+                dht=dht_mass, v=v_mass, datt=datt_mass)
+
+
+def attend_case(graph, ht, att, gout, drop, what):
+    """The three attention kernels against their plain versions on one input,
+    each element held to the tolerance of the module docstring. The backward
+    kernels are fed the plain forward's scores and statistics, so each kernel
+    is held alone. Returns each kernel's largest absolute error."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    send, recv, row_ptr, valid = graph
+    kw = dict(edge_valid=valid, drop_mask=drop)
+    out, scores, m, l = A.sddmm_stats_agg_sorted(ht, send, recv, row_ptr, att,
+                                                 **kw)
+    p_out, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(
+        ht, send, recv, row_ptr, att, **kw)
+    mass = attend_masses(graph, ht, att, gout, drop, p_scores, p_m, p_l)
+    s_mass, row_s_mass, out_mass = mass["s"], mass["row_s"], mass["out"]
 
     finite = torch.isfinite(p_scores)
     check(bool((torch.isfinite(scores) == finite).all()),
@@ -606,7 +673,7 @@ def attend_case(graph, ht, att, gout, drop, what):
                 torch.where(finite, p_scores, zero), s_mass, scores.dtype,
                 f"{what} scores"),
         compare(m, p_m, row_s_mass, m.dtype, f"{what} m"),
-        compare(l, p_l, p_l * amp, l.dtype, f"{what} l"))
+        compare(l, p_l, p_l * mass["amp"], l.dtype, f"{what} l"))
     del out, p_out, out_mass, scores, zero
 
     graph3 = (send, recv, row_ptr)
@@ -614,26 +681,17 @@ def attend_case(graph, ht, att, gout, drop, what):
                               drop_mask=drop)
     p_rho = A.attend_rho_sorted_plain(gout, p_scores, p_m, p_l, ht, *graph3,
                                       drop_mask=drop)
-    dalpha_abs = (g_e * hj).sum(-1)
-    rho_abs = per_row(alpha_keep * dalpha_abs)
-    errs["attend_rho_sorted"] = compare(rho, p_rho, rho_abs * amp, rho.dtype,
+    errs["attend_rho_sorted"] = compare(rho, p_rho, mass["rho"], rho.dtype,
                                         f"{what} rho")
 
     dht, datt, v = A.attend_recv_bwd_full_sorted(
         ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
     p_dht, p_datt, p_v = A.attend_recv_bwd_full_sorted_plain(
         ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
-    amp_e = amp.index_select(0, r)
-    ds_mass = alpha * (keep * dalpha_abs + rho_abs.index_select(0, r)) * amp_e
-    d_pre_mass = ds_mass[:, :, None] * att.float().abs()
-    dht_mass = torch.zeros(n, d, device=dev).index_add_(
-        0, r, d_pre_mass.reshape(e, d))
-    v_mass = ((alpha_keep * amp_e)[:, :, None] * g_e + d_pre_mass).reshape(e, d)
-    datt_mass = (z_abs * ds_mass[:, :, None]).sum(0)
     errs["attend_recv_bwd_full_sorted"] = max(
-        compare(dht, p_dht, dht_mass, dht.dtype, f"{what} dht"),
-        compare(v, p_v, v_mass, v.dtype, f"{what} v"),
-        compare(datt, p_datt, datt_mass, datt.dtype, f"{what} datt"))
+        compare(dht, p_dht, mass["dht"], dht.dtype, f"{what} dht"),
+        compare(v, p_v, mass["v"], v.dtype, f"{what} v"),
+        compare(datt, p_datt, mass["datt"], datt.dtype, f"{what} datt"))
     if valid is not None:
         check(not v[~valid].any().item(),
               f"{what}: v must be zero on invalid slots")
@@ -849,6 +907,428 @@ def time_attend_cases(device, timer, contexts, replaces):
         del v, scores, cases
         torch.cuda.empty_cache()
     return entries
+
+
+# ---------------------------------------------------------------------------
+# The attention family's other modes, its sender backward and its two-pass
+# forward against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def attend_modes(bwd_mode="permute", score_cache=True):
+    """``GraphContext.attend``'s two module constants set for the block and
+    restored after it, whatever happens inside."""
+    from keras_geometric_tpu_torch.ops import csr
+
+    saved = csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE
+    csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = bwd_mode, score_cache
+    try:
+        yield
+    finally:
+        csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = saved
+
+
+def sender_order(send, recv, valid, n):
+    """The receiver-sorted stream in sender-sorted order, as ``prepare_graph``
+    builds it: ``((receivers_ss, senders_sorted, row_ptr_bwd), valid_ss f32
+    or None, perm)`` with ``perm[j]`` the receiver-order slot of ``j``."""
+    perm = torch.sort(send.long(), stable=True).indices
+    s_ss = send[perm].contiguous()
+    r_ss = recv[perm].contiguous()
+    ptr = torch.searchsorted(
+        s_ss, torch.arange(n + 1, device=send.device, dtype=torch.int32))
+    valid_ss = None if valid is None else valid[perm].float()
+    return (r_ss, s_ss, ptr.to(torch.int32)), valid_ss, perm
+
+
+def modes_case(graph, ht, att, gout, drop, what):
+    """The three mode branches (the forward without its scores, rho and the
+    receiver backward recomputing them, the receiver backward without
+    ``v``), the sender backward, the score-and-statistics kernel and the
+    aggregation against their plain versions on one input, under the
+    tolerance of the module docstring; the kernels are fed the plain
+    forward's statistics. Also held bit for bit: each mode against the
+    cached one on the kernels' own forward, the score-and-statistics kernel
+    against the forward's scores, ``m`` and ``l``, and a second launch of the
+    sender backward against the first. Returns each kernel's (and branch's)
+    largest absolute error."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+
+    send, recv, row_ptr, valid = graph
+    n = ht.shape[0]
+    g3 = (send, recv, row_ptr)
+    ss, valid_ss, perm = sender_order(send, recv, valid, n)
+    drop_ss = None if drop is None else drop[perm].contiguous()
+    kw = dict(edge_valid=valid, drop_mask=drop)
+    _, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(ht, *g3, att, **kw)
+    mass = attend_masses(graph, ht, att, gout, drop, p_scores, p_m, p_l)
+    finite = torch.isfinite(p_scores)
+    zero = torch.zeros_like(p_scores)
+    errs = {}
+
+    # The kernels' own forward, and every mode against it bit for bit.
+    out, scores, m, l = A.sddmm_stats_agg_sorted(ht, *g3, att, **kw)
+    no_scores = A.sddmm_stats_agg_sorted(ht, *g3, att, emit_scores=False,
+                                         **kw)
+    check(all(torch.equal(a, b) for a, b in zip(no_scores, (out, m, l))),
+          f"{what}: the forward without its scores differs from the cached "
+          f"launch")
+    stats = D.sddmm_stats_sorted(ht, *g3, att, edge_valid=valid)
+    check(all(torch.equal(a, b) for a, b in zip(stats, (scores, m, l))),
+          f"{what}: sddmm_stats_sorted differs from the forward's scores, m, "
+          f"l")
+    rho = A.attend_rho_sorted(gout, scores, m, l, ht, *g3, drop_mask=drop)
+    check(torch.equal(rho, A.attend_rho_sorted(
+        gout, None, m, l, ht, *g3, drop_mask=drop, att=att,
+        edge_valid=valid)), f"{what}: recomputed rho differs from cached")
+    cached = A.attend_recv_bwd_full_sorted(ht, gout, *g3, att, scores, m, l,
+                                           rho, drop_mask=drop)
+    for s_in, emit_v in ((scores, False), (None, True), (None, False)):
+        got = A.attend_recv_bwd_full_sorted(
+            ht, gout, *g3, att, s_in, m, l, rho, drop_mask=drop,
+            emit_v=emit_v, edge_valid=valid)
+        check(all(torch.equal(a, b) for a, b in zip(got, cached)),
+              f"{what}: receiver backward (scores "
+              f"{'cached' if s_in is not None else 'recomputed'}, emit_v="
+              f"{emit_v}) differs from the cached launch with v")
+    del out, scores, m, l, rho, cached, got, no_scores
+
+    # Against the plain versions.
+    errs["sddmm_stats_agg_sorted(emit_scores=False)"] = max(
+        compare(k, p, mk, k.dtype, f"{what} {name} (no scores)")
+        for k, p, mk, name in zip(
+            A.sddmm_stats_agg_sorted(ht, *g3, att, emit_scores=False, **kw),
+            A.sddmm_stats_agg_sorted_plain(ht, *g3, att, emit_scores=False,
+                                           **kw),
+            (mass["out"], mass["row_s"], p_l * mass["amp"]),
+            ("out", "m", "l")))
+    s8, m8, l8 = D.sddmm_stats_sorted(ht, *g3, att, edge_valid=valid)
+    check(bool((torch.isfinite(s8) == finite).all()),
+          f"{what}: sddmm_stats_sorted: -inf not exactly on invalid slots")
+    errs["sddmm_stats_sorted"] = max(
+        compare(torch.where(finite, s8, zero),
+                torch.where(finite, p_scores, zero), mass["s"], s8.dtype,
+                f"{what} sddmm_stats_sorted scores"),
+        compare(m8, p_m, mass["row_s"], m8.dtype,
+                f"{what} sddmm_stats_sorted m"),
+        compare(l8, p_l, p_l * mass["amp"], l8.dtype,
+                f"{what} sddmm_stats_sorted l"))
+    del s8, m8, l8
+    errs["attend_aggregate_sorted"] = compare(
+        A.attend_aggregate_sorted(p_scores, p_m, p_l, ht, *g3,
+                                  drop_mask=drop),
+        A.attend_aggregate_sorted_plain(p_scores, p_m, p_l, ht, *g3,
+                                        drop_mask=drop),
+        mass["out_terms"], ht.dtype, f"{what} attend_aggregate_sorted")
+    recompute = dict(drop_mask=drop, att=att, edge_valid=valid)
+    p_rho = A.attend_rho_sorted_plain(gout, None, p_m, p_l, ht, *g3,
+                                      **recompute)
+    errs["attend_rho_sorted(scores=None)"] = compare(
+        A.attend_rho_sorted(gout, None, p_m, p_l, ht, *g3, **recompute),
+        p_rho, mass["rho"], torch.float32, f"{what} rho (scores=None)")
+    masses = (mass["dht"], mass["datt"], mass["v"])
+    for s_in, emit_v, name in (
+            (None, True, "attend_recv_bwd_full_sorted(scores=None)"),
+            (p_scores, False, "attend_recv_bwd_full_sorted(emit_v=False)"),
+            (None, False,
+             "attend_recv_bwd_full_sorted(scores=None, emit_v=False)")):
+        args = (ht, gout, *g3, att, s_in, p_m, p_l, p_rho)
+        bkw = dict(drop_mask=drop, emit_v=emit_v, edge_valid=valid)
+        errs[name] = max(
+            compare(k, p, mk, k.dtype, f"{what} {name} {part}")
+            for k, p, mk, part in zip(
+                A.attend_recv_bwd_full_sorted(*args, **bkw),
+                A.attend_recv_bwd_full_sorted_plain(*args, **bkw), masses,
+                ("dht", "datt", "v")))
+    send_args = (ht, gout, *ss, att, p_m, p_l, p_rho)
+    send_kw = dict(valid_ss=valid_ss, drop_ss=drop_ss)
+    got = A.attend_send_bwd_sorted(*send_args, **send_kw)
+    check(torch.equal(got, A.attend_send_bwd_sorted(*send_args, **send_kw)),
+          f"{what}: two launches of attend_send_bwd_sorted differ")
+    send_mass = torch.zeros_like(mass["v"][:n]).index_add_(
+        0, send.long(), mass["v"])
+    errs["attend_send_bwd_sorted"] = compare(
+        got, A.attend_send_bwd_sorted_plain(*send_args, **send_kw),
+        send_mass, ht.dtype, f"{what} attend_send_bwd_sorted")
+    return errs
+
+
+def send_skewed_graph(device, hub=20_000):
+    """The skewed graph of the kernel sweep (a 20,000-slot hub receiver row,
+    empty receiver rows, padded slots in the last row) with the senders the
+    sender backward must also survive: a ``hub``-slot hub sender (row 8),
+    the padded slots' senders set to the last row as ``prepare_graph`` sets
+    them (so in sender order they pile into that row), an empty sender row
+    (``n - 2``), and a sender row whose every slot is invalid (row 10, its
+    slots marked padded)."""
+    g = dict(skewed_graph(device))
+    n = g["n"]
+    idx, mask = g["idx"].clone(), g["mask"].clone()
+    e_real = int(mask.sum().item())
+    idx[20_000:20_000 + hub] = 8
+    idx[idx == n - 2] = n - 3
+    mask &= idx != 10
+    idx[e_real:] = n - 1
+    g.update(idx=idx, mask=mask)
+    return g
+
+
+def modes_sweep(device, timer):
+    """``modes_case`` at every listed (H, F), both types, with and without
+    a dropout mask, on ``send_skewed_graph``; then what its 20,000-slot hub
+    sender row costs the sender backward (the same graph timed with and
+    without that row, at the arxiv layer-1 width in bf16)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    g = send_skewed_graph(device)
+    graph = (g["idx"], g["recv"], g["row_ptr"], g["mask"])
+    gen = torch.Generator(device=device).manual_seed(13)
+    worst, cases = {}, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads, f in ATTEND_SHAPES:
+            for dropped in (False, True):
+                ht, att, gout, drop = attend_inputs(
+                    gen, g["n"], heads, f, dtype, g["e"], dropped, device)
+                errs = modes_case(
+                    graph, ht, att, gout, drop,
+                    f"modes {str(dtype)[6:]} H={heads} F={f}"
+                    f"{' dropout' if dropped else ''}")
+                for name, err in errs.items():
+                    worst[name] = max(worst.get(name, 0.0), err)
+                cases += len(errs)
+    torch.cuda.synchronize()
+    hub = {}
+    heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+    for label, sg in (("with_hub_sender", g),
+                      ("without_hub_sender", send_skewed_graph(device, 0))):
+        ht, att, gout, _ = attend_inputs(gen, sg["n"], heads, f,
+                                         torch.bfloat16, sg["e"], False,
+                                         device)
+        graph = (sg["idx"], sg["recv"], sg["row_ptr"])
+        _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                                   edge_valid=sg["mask"])
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph)
+        ss, valid_ss, _ = sender_order(sg["idx"], sg["recv"], sg["mask"],
+                                       sg["n"])
+        hub[label] = timer.cold_ms(lambda: A.attend_send_bwd_sorted(
+            ht, gout, *ss, att, m, l, rho, valid_ss=valid_ss), iters=10)
+    return cases, worst, hub
+
+
+def time_mode_cases(device, timer, contexts, replaces):
+    """The mode branches, the sender backward and the two-pass forward's
+    kernels at the shapes their runs give them: kernel, plain version, bound
+    from bytes and operations, and the bound if no gathered row came from
+    the cache. No single PyTorch call computes any of them (null
+    ``library_ms``)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    entries = []
+    arxiv = [("gat_arxiv", "layer 1", GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0],
+              torch.bfloat16, False),
+             ("gat_arxiv", "layer 2", GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[1],
+              torch.bfloat16, False)]
+    citeseer = [("citeseer", "layer 1", GAT_CITESEER_HEADS,
+                 GAT_CITESEER_DIMS[0], torch.float32, True),
+                ("citeseer", "layer 2", GAT_CITESEER_HEADS,
+                 GAT_CITESEER_DIMS[1], torch.float32, True)]
+    for ctx_name, layer, heads, f, dtype, dropped in arxiv + citeseer:
+        ctx = contexts[ctx_name]
+        n, e, d = ctx.num_nodes, ctx.senders.shape[0], heads * f
+        es = 2 if dtype == torch.bfloat16 else 4
+        ht, att, gout, drop = attend_inputs(gen, n, heads, f, dtype, e,
+                                            dropped, device)
+        graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+        valid = ctx.edge_mask
+        ss = (ctx.receivers_ss, ctx.senders_sorted, ctx.row_ptr_bwd)
+        drop_ss = (None if drop is None
+                   else drop.index_select(0, ctx.bwd_perm.long()))
+        errs = modes_case(graph + (valid,), ht, att, gout, drop,
+                          f"modes at {ctx_name} {layer}")
+        torch.cuda.empty_cache()
+        _, scores, m, l = A.sddmm_stats_agg_sorted(
+            ht, *graph, att, edge_valid=valid, drop_mask=drop)
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph,
+                                  drop_mask=drop)
+        stats = 2 * n * heads * 4  # m and l
+        drop_bytes = 0 if drop is None else e * heads * es
+        index = e * 4 + (n + 1) * 4
+        nodes = n * d * es  # one node array, read or written once
+        gathered = e * d * es  # every gathered row from device memory
+        recompute = dict(att=att, edge_valid=valid, drop_mask=drop)
+        recv_kw = dict(drop_mask=drop, edge_valid=valid)
+        # name, mode, path, kernel, plain, bytes, operations, bytes if no
+        # gathered row is reused
+        fwd_bytes = 2 * nodes + index + e + stats + d * es + drop_bytes
+        bwd_bytes = (3 * nodes + index + e + stats + n * heads * 4
+                     + d * (es + 4) + drop_bytes)
+        cases = [
+            ("sddmm_stats_agg_sorted", "emit_scores=False", "nocache",
+             lambda: A.sddmm_stats_agg_sorted(
+                 ht, *graph, att, edge_valid=valid, drop_mask=drop,
+                 emit_scores=False),
+             lambda: A.sddmm_stats_agg_sorted_plain(
+                 ht, *graph, att, edge_valid=valid, drop_mask=drop,
+                 emit_scores=False),
+             fwd_bytes, 8 * e * d, gathered),
+            ("attend_rho_sorted", "scores=None", "nocache",
+             lambda: A.attend_rho_sorted(gout, None, m, l, ht, *graph,
+                                         **recompute),
+             lambda: A.attend_rho_sorted_plain(gout, None, m, l, ht, *graph,
+                                               **recompute),
+             2 * nodes + index + e + stats + n * heads * 4 + d * es
+             + drop_bytes, 6 * e * d, gathered),
+            ("attend_recv_bwd_full_sorted", "scores=None", "nocache",
+             lambda: A.attend_recv_bwd_full_sorted(
+                 ht, gout, *graph, att, None, m, l, rho, **recv_kw),
+             lambda: A.attend_recv_bwd_full_sorted_plain(
+                 ht, gout, *graph, att, None, m, l, rho, **recv_kw),
+             bwd_bytes + e * d * es, 16 * e * d, gathered),
+            ("attend_recv_bwd_full_sorted", "emit_v=False", "send",
+             lambda: A.attend_recv_bwd_full_sorted(
+                 ht, gout, *graph, att, scores, m, l, rho, emit_v=False,
+                 **recv_kw),
+             lambda: A.attend_recv_bwd_full_sorted_plain(
+                 ht, gout, *graph, att, scores, m, l, rho, emit_v=False,
+                 **recv_kw),
+             bwd_bytes - e + e * heads * 4, 10 * e * d, gathered),
+            ("attend_recv_bwd_full_sorted", "scores=None, emit_v=False",
+             "send_nocache",
+             lambda: A.attend_recv_bwd_full_sorted(
+                 ht, gout, *graph, att, None, m, l, rho, emit_v=False,
+                 **recv_kw),
+             lambda: A.attend_recv_bwd_full_sorted_plain(
+                 ht, gout, *graph, att, None, m, l, rho, emit_v=False,
+                 **recv_kw),
+             bwd_bytes, 14 * e * d, gathered),
+            # ht and g read once each, the output written, the sender-order
+            # index, validity and keep streams, (m, l, rho) and att; not
+            # reused: ht[r] and g[r] and (m, l, rho)[r] for every slot.
+            ("attend_send_bwd_sorted", None, "send",
+             lambda: A.attend_send_bwd_sorted(
+                 ht, gout, *ss, att, m, l, rho, valid_ss=ctx.edge_mask_ss,
+                 drop_ss=drop_ss),
+             lambda: A.attend_send_bwd_sorted_plain(
+                 ht, gout, *ss, att, m, l, rho, valid_ss=ctx.edge_mask_ss,
+                 drop_ss=drop_ss),
+             3 * nodes + index + e * 4 + 3 * n * heads * 4 + d * es
+             + drop_bytes, 12 * e * d,
+             2 * gathered - nodes + e * 3 * heads * 4 - 3 * n * heads * 4),
+            # ht read, the scores and m, l written, the index and validity
+            # streams, att; not reused: every sender row.
+            ("sddmm_stats_sorted", None, "two_pass",
+             lambda: D.sddmm_stats_sorted(ht, *graph, att, edge_valid=valid),
+             lambda: D.sddmm_stats_sorted_plain(ht, *graph, att,
+                                                edge_valid=valid),
+             nodes + index + e + e * heads * 4 + stats + d * es, 4 * e * d,
+             gathered),
+            # ht read, out written, scores, m, l and the index streams.
+            ("attend_aggregate_sorted", None, "two_pass",
+             lambda: A.attend_aggregate_sorted(scores, m, l, ht, *graph,
+                                               drop_mask=drop),
+             lambda: A.attend_aggregate_sorted_plain(scores, m, l, ht,
+                                                     *graph, drop_mask=drop),
+             2 * nodes + index + e * heads * 4 + stats + drop_bytes,
+             2 * e * d, gathered),
+        ]
+        for name, mode, run, kernel, plain, nbytes, ops, no_reuse in cases:
+            if ctx_name == "citeseer" and name != "attend_send_bwd_sorted":
+                continue  # the CiteSeer send run launches no other branch
+            path = ("attend_two_pass_arxiv_shape" if run == "two_pass" else
+                    f"train_gat_{ctx_name.removeprefix('gat_')}_shape_{run}")
+            err = errs[name if mode is None else f"{name}({mode})"]
+            ms = timer.cold_ms(kernel, iters=10)
+            plain_ms = timer.cold_ms(plain, iters=5, warmup=1)
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = ops / H100_F32_OPS_PER_S * 1e3
+            entry = {
+                "name": name, "route": "cuda",
+                "source": SOURCES[REPLACES[name][0]],
+                "replaces": replaces[name], "path": path,
+                "shape": f"{ctx_name} {layer}: E={e} N={n} H={heads} F={f} "
+                         f"{str(dtype)[6:]}"
+                         f"{' dropout mask' if dropped else ''}",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+                "library": "none: no single PyTorch call computes this",
+                "bound_ms_if_gather_not_reused":
+                    (nbytes + no_reuse) / H100_BYTES_PER_S * 1e3,
+            }
+            if mode is not None:
+                entry["mode"] = mode
+            entries.append(entry)
+        del scores, rho, cases
+        torch.cuda.empty_cache()
+    return entries
+
+
+def two_pass_phase(device, ctx, timer):
+    """``sddmm_stats_sorted`` then ``attend_aggregate_sorted`` at the two
+    arxiv-shaped GATv2 layers (random ``ht`` and ``att`` from a seed, bf16),
+    against the one-pass forward on the same inputs: scores, ``m`` and ``l``
+    bit for bit, the output under the tolerance of the module docstring
+    (mass: the sum of the absolute values of its terms). The launch counts
+    are read around the two-pass calls alone. Returns the counts."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+    e = ctx.senders.shape[0]
+    inputs = [attend_inputs(gen, ctx.num_nodes, GAT_ARXIV_HEADS, f,
+                            torch.bfloat16, e, False, device)[:2]
+              for f in GAT_ARXIV_DIMS]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    two_pass = []
+    for ht, att in inputs:
+        scores, m, l = D.sddmm_stats_sorted(ht, *graph, att,
+                                            edge_valid=ctx.edge_mask)
+        out = A.attend_aggregate_sorted(scores, m, l, ht, *graph)
+        two_pass.append((out, scores, m, l))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["sddmm_stats_sorted"] == counts[
+        "attend_aggregate_sorted"] == 2 and sum(counts.values()) == 4,
+          f"attend_two_pass_arxiv_shape: launch counts {counts}")
+    report = {}
+    for (ht, att), (out, scores, m, l), layer in zip(
+            inputs, two_pass, ("layer 1", "layer 2")):
+        fused = A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                         edge_valid=ctx.edge_mask)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (scores, m, l), fused[1:])),
+              f"two-pass {layer}: scores, m, l differ from the one-pass "
+              f"forward's")
+        mass = attend_masses(graph + (ctx.edge_mask,), ht, att, ht, None,
+                             scores, m, l)
+        err = compare(out, fused[0], mass["out_terms"], out.dtype,
+                      f"two-pass {layer} out against the one-pass forward")
+        check(bool(torch.isfinite(out).all()) and out.shape == ht.shape,
+              f"two-pass {layer}: output not finite or of the wrong shape")
+        report[layer] = {
+            "out_max_abs_err_vs_one_pass": err,
+            "scores_m_l_equal_bit_for_bit": True,
+            "two_pass_ms": timer.cold_ms(lambda: A.attend_aggregate_sorted(
+                *D.sddmm_stats_sorted(ht, *graph, att,
+                                      edge_valid=ctx.edge_mask), ht,
+                *graph), iters=10),
+            "one_pass_ms": timer.cold_ms(lambda: A.sddmm_stats_agg_sorted(
+                ht, *graph, att, edge_valid=ctx.edge_mask), iters=10),
+        }
+        del fused, mass
+    emit("attend_two_pass_arxiv_shape", launches=counts, **report)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1435,12 +1915,16 @@ class PlainContext:
         self.ctx = ctx
         self.self_weight = ctx.self_weight
         self.senders = ctx.senders
+        self.bwd_perm = ctx.bwd_perm
 
     def full_stream(self):
         return self
 
     def attend(self, ht, att, *, negative_slope=0.2, eps=1e-10,
-               drop_mask=None):
+               drop_mask=None, drop_mask_ss=None):
+        # The same function in every mode: the sender-order twin of the
+        # mask changes only how the kernels' backward is computed.
+        del drop_mask_ss
         return attend_restated(self.ctx.full_stream(), ht, att, drop_mask,
                                negative_slope, eps)
 
@@ -1549,33 +2033,63 @@ def autograd_phase(device):
                 results[f"{op}/{kind}/{str(dtype)[6:]}/F{f}"] = err / max(
                     scale, 1e-6)
     # GraphContext.attend: the hand-written backward (rho, receiver backward
-    # and sender-finish kernels) against autograd over the restatement. The
-    # restatement computes in f32 from the same (bf16-rounded) inputs, so its
-    # gradients are trustworthy in both types.
+    # and the sender finish) against autograd over the restatement, in every
+    # combination of the two module constants; with dropout in send mode
+    # with the sender-order mask (the sender backward runs) and without it
+    # (the permute finish runs). The restatement computes in f32 from the
+    # same (bf16-rounded) inputs, so its gradients are trustworthy in both
+    # types.
+    from keras_geometric_tpu_torch.kernels import attend_cuda
+
     ctx = contexts["general"]
     e = ctx.senders.shape[0]
+    check(ctx.edge_mask_ss is not None, "autograd: the stream has no pads")
     for dtype, heads, f in ((torch.float32, 4, 40), (torch.bfloat16, 4, 64),
                             (torch.float32, 8, 6)):
         g_tol = 2e-4 if dtype == torch.float32 else 5e-2
         for dropped in (False, True):
             ht, att, gout, drop = attend_inputs(gen, ctx.num_nodes, heads, f,
                                                 dtype, e, dropped, device)
-            grads = []
-            for fn in (ctx.attend, PlainContext(ctx).attend):
+            drop_ss = (None if drop is None
+                       else drop.index_select(0, ctx.bwd_perm.long()))
+
+            def value_and_grads(fn, **kw):
                 a = ht.detach().clone().requires_grad_(True)
                 b = att.detach().clone().requires_grad_(True)
-                out = fn(a, b, drop_mask=drop)
+                out = fn(a, b, drop_mask=drop, **kw)
                 out.backward(gout)
-                grads.append((out.detach(), a.grad, b.grad))
-            tag = (f"attend/{str(dtype)[6:]}/H{heads}F{f}"
-                   f"{'/dropout' if dropped else ''}")
-            for what, k, p in zip(("value", "d ht", "d att"), *grads):
-                scale = max(p.float().abs().max().item(), 1e-6)
-                err = (k.float() - p.float()).abs().max().item()
-                check(math.isfinite(err) and err <= g_tol * scale,
-                      f"{what} of {tag}: max abs err {err:.3e} against "
-                      f"scale {scale:.3e}")
-                results[f"{tag}/{what}"] = err / scale
+                return out.detach(), a.grad, b.grad
+
+            plain = value_and_grads(PlainContext(ctx).attend)
+            combos = [(mode, cache, drop_ss)
+                      for mode in ("permute", "send")
+                      for cache in (True, False)]
+            if dropped:  # the fallback: a mask without its twin
+                combos.append(("send", True, None))
+            for mode, cache, twin in combos:
+                with attend_modes(mode, cache):
+                    before = attend_cuda.LAUNCH_COUNTS[
+                        "attend_send_bwd_sorted"]
+                    got = value_and_grads(ctx.attend, drop_mask_ss=twin)
+                    sent = attend_cuda.LAUNCH_COUNTS[
+                        "attend_send_bwd_sorted"] - before
+                use_send = mode == "send" and (drop is None
+                                               or twin is not None)
+                check(sent == int(use_send),
+                      f"attend ({mode}, cache={cache}): the sender backward "
+                      f"ran {sent} times")
+                tag = (f"attend/{mode}/{'cache' if cache else 'nocache'}/"
+                       f"{str(dtype)[6:]}/H{heads}F{f}"
+                       f"{'/dropout' if dropped else ''}"
+                       f"{'/no_twin' if dropped and twin is None else ''}")
+                for what, k, p in zip(("value", "d ht", "d att"), got,
+                                      plain):
+                    scale = max(p.float().abs().max().item(), 1e-6)
+                    err = (k.float() - p.float()).abs().max().item()
+                    check(math.isfinite(err) and err <= g_tol * scale,
+                          f"{what} of {tag}: max abs err {err:.3e} against "
+                          f"scale {scale:.3e}")
+                    results[f"{tag}/{what}"] = err / scale
     torch.cuda.synchronize()
     return results
 
@@ -1853,14 +2367,20 @@ def first_step(make_model, make_gen, ctx, x, y, mask, compute_dtype):
 def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
                 falling=lambda l: l[-1] < l[0], same_as=None,
-                same_graph=None, extra=None):
+                same_graph=None, extra=None, per_step_modes=None,
+                against_default_modes=False):
     """``same_as``: a model that computes the same function by another path
     (built with the same initial parameters); its step-1 loss is held to the
     same tolerance as the plain path's. ``same_graph``: ``(ctx, x, y,
     mask)`` of the same graph prepared another way (without the locality
     tier); step 1 there is held to the same tolerances, loss and gradients,
     and its steps are timed after the run that counts. ``extra``: fields
-    added to the phase's line."""
+    added to the phase's line. ``per_step_modes``: the attention kernels'
+    launches per step in their other modes (none by default).
+    ``against_default_modes``: step 1 is also taken with the attention's
+    module constants at their defaults; the loss must be the same (the
+    forward is the same kernel's), the gradients within the tolerance of
+    the plain path's. Returns the run's launch counts and mode counts."""
     from keras_geometric_tpu_torch.training import make_node_classification_step
     from keras_geometric_tpu_torch.utils import timed_steps
 
@@ -1894,6 +2414,24 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
         check(abs(k_loss - other_loss) <= l_tol,
               f"{name}: step-1 loss {k_loss} vs the other path's "
               f"{other_loss}")
+    default_loss = default_grad_err = None
+    if against_default_modes:
+        with attend_modes():
+            default_loss, d_grads = first_step(make_model, make_gen, ctx, x,
+                                               y, mask, compute_dtype)
+        check(k_loss == default_loss,
+              f"{name}: step-1 loss {k_loss} vs the default modes' "
+              f"{default_loss}")
+        default_grad_err = 0.0
+        for key, dg in d_grads.items():
+            scale = dg.abs().max().item()
+            err = (k_grads[key] - dg).abs().max().item()
+            check(math.isfinite(err) and err <= g_tol * max(scale, 1e-12),
+                  f"{name}: step-1 gradient of {key} vs the default modes': "
+                  f"err {err:.3e} against scale {scale:.3e}")
+            default_grad_err = max(default_grad_err,
+                                   err / max(scale, 1e-12))
+        del d_grads
     grad_err = 0.0
     for key, pg in p_grads.items():
         scale = pg.abs().max().item()
@@ -1916,7 +2454,7 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     step_ms = timed_steps(lambda: step(x, None, y, mask, context=ctx),
                           warmup=2, iters=timed_iters)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, modes = launch_counts(), mode_launch_counts()
     total_steps = steps + 2 + timed_iters
     losses = [l.item() for l in losses]
     check(all(math.isfinite(l) for l in losses), f"{name}: loss not finite")
@@ -1924,6 +2462,10 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     expected = {k: per_step.get(k, 0) * total_steps for k in counts}
     check(counts == expected,
           f"{name}: launch counts {counts}, expected {expected}")
+    per_step_modes = per_step_modes or {}
+    expected = {k: per_step_modes.get(k, 0) * total_steps for k in modes}
+    check(modes == expected,
+          f"{name}: mode launch counts {modes}, expected {expected}")
     logits_ok = all(torch.isfinite(p).all().item() for p in model.parameters())
     check(logits_ok, f"{name}: parameters not finite after training")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1944,15 +2486,19 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     emit(name, steps=total_steps, losses=losses, step1_loss=k_loss,
          step1_loss_plain=p_loss, step1_loss_other_path=other_loss,
          step1_loss_without_locality_tier=same_graph_loss,
+         step1_loss_default_modes=default_loss,
+         step1_grad_rel_err_vs_default_modes=default_grad_err,
          step1_grad_rel_err=grad_err,
-         launches_per_step=per_step, launches=counts, step_ms=step_ms,
+         launches_per_step=per_step, launches=counts,
+         mode_launches_per_step=per_step_modes, mode_launches=modes,
+         step_ms=step_ms,
          step_ms_without_locality_tier=same_graph_ms,
          peak_memory_mb=peak_mb,
          peak_memory_mb_without_locality_tier=same_graph_peak_mb,
          nodes=ctx.num_nodes, stream_edges=ctx.num_real_edges,
          compute_dtype=str(compute_dtype or torch.float32)[6:],
          **(extra or {}))
-    return counts
+    return counts, modes
 
 
 def profile_steps(step_fn, iters=10, top=14):
@@ -2045,6 +2591,7 @@ def main() -> int:
     timer = Timer(device)
     kernel_entries = []
     path_launches = {}  # training run -> each kernel's launches in that run
+    path_mode_launches = {}  # the same, for the attention kernels' modes
     workloads = {}
     gcn_kw = dict(add_self_loops=True, gcn_normalize=True, symmetric=True,
                   densify_self_loops=True, pad_nodes=True,
@@ -2089,6 +2636,9 @@ def main() -> int:
                               "citeseer": workload("citeseer")[0]}
         kernel_entries += time_attend_cases(device, timer, attention_contexts,
                                             replaces)
+        modes_cases, modes_worst, send_hub = modes_sweep(device, timer)
+        kernel_entries += time_mode_cases(device, timer, attention_contexts,
+                                          replaces)
         composed_cases, composed_worst, composed_hub = composed_sweep(
             device, timer)
         kernel_entries += time_composed_cases(device, timer,
@@ -2098,15 +2648,17 @@ def main() -> int:
             device, timer, {name: workload(name)[0] for name in (
                 "skewed", "skewed_plain", "gat_skewed", "gat_skewed_plain")},
             replaces)
-        emit("kernels", comparisons=cases + attend_cases + composed_cases
-             + band_cases,
-             worst_abs_err={**worst, **attend_worst, **composed_worst,
-                            **band_worst},
+        emit("kernels", comparisons=cases + attend_cases + modes_cases
+             + composed_cases + band_cases,
+             worst_abs_err={**worst, **attend_worst, **modes_worst,
+                            **composed_worst, **band_worst},
              kernels=sorted(launch_counts()),
-             hub_row_ms={**hub, "composed": composed_hub},
-             timed=[{k: e[k] for k in ("name", "shape", "max_abs_err", "ms",
-                                       "plain_ms", "library_ms", "bound_ms",
-                                       "tier_ms", "without_tier_ms") if k in e}
+             hub_row_ms={**hub, "composed": composed_hub,
+                         "attend_send_bwd_sorted": send_hub},
+             timed=[{k: e[k] for k in ("name", "mode", "shape", "max_abs_err",
+                                       "ms", "plain_ms", "library_ms",
+                                       "bound_ms", "tier_ms",
+                                       "without_tier_ms") if k in e}
                     for e in kernel_entries if e["path"]])
 
     if "autograd" in phases:
@@ -2185,15 +2737,27 @@ def main() -> int:
         "train_gat_skewed_arxiv_shape": ("gat_skewed", gat_arxiv_model, adam,
                                          torch.bfloat16),
     }
+    # The attention's module constants (ATTEND_BWD_MODE, ATTEND_SCORE_CACHE)
+    # of the runs that set them; every other run keeps the defaults.
+    run_modes = {
+        "train_gat_arxiv_shape_send": ("send", True),
+        "train_gat_arxiv_shape_nocache": ("permute", False),
+        "train_gat_arxiv_shape_send_nocache": ("send", False),
+        "train_gat_citeseer_shape_send": ("send", True),
+    }
+    for name in run_modes:
+        base = name.replace("_send", "").replace("_nocache", "")
+        runs[name] = runs[base]
     if args.profile is not None and args.profile not in runs:
         ap.error(f"--profile takes one of {sorted(runs)}")
 
     def train(name, **kwargs):
         wl, make_model, make_optimizer, compute_dtype = runs[name]
         ctx, x, y, mask = workload(wl)[:4]
-        path_launches[name] = train_phase(
-            name, device, ctx, x, y, mask, make_model, make_optimizer,
-            compute_dtype, **kwargs)
+        with attend_modes(*run_modes.get(name, ("permute", True))):
+            path_launches[name], path_mode_launches[name] = train_phase(
+                name, device, ctx, x, y, mask, make_model, make_optimizer,
+                compute_dtype, **kwargs)
 
     if "train_arxiv_shape" in phases:
         ctx, _, _, _, prepare_s = workload("arxiv")
@@ -2259,6 +2823,38 @@ def main() -> int:
         train("train_gat_citeseer_shape_composed", steps=40,
               per_step=gat_composed_two_layers, timed_iters=10,
               falling=mean_of_ends, same_as=gat_citeseer_model)
+
+    # The attention's other modes: the same workloads and initial parameters
+    # as the default runs above; step 1 also against the default modes'.
+    # Send mode: the receiver backward writes no v and the sender backward
+    # replaces the fused-gather finish; no score cache: the forward writes
+    # no scores and rho and the receiver backward recompute them.
+    gat_send = {**gat_two_layers, "attend_send_bwd_sorted": 2}
+    del gat_send["gather_scatter_sum_sorted"]
+    send_modes = {"attend_recv_bwd_full_sorted(emit_v=False)": 2}
+    nocache_modes = {"sddmm_stats_agg_sorted(emit_scores=False)": 2,
+                     "attend_rho_sorted(scores=None)": 2,
+                     "attend_recv_bwd_full_sorted(scores=None)": 2}
+    for name, per_step, per_step_modes in (
+            ("train_gat_arxiv_shape_send", gat_send, send_modes),
+            ("train_gat_arxiv_shape_nocache", gat_two_layers, nocache_modes),
+            ("train_gat_arxiv_shape_send_nocache", gat_send,
+             {**send_modes, **nocache_modes})):
+        if name in phases:
+            train(name, steps=8, per_step=per_step, timed_iters=10,
+                  per_step_modes=per_step_modes, against_default_modes=True)
+    if "train_gat_citeseer_shape_send" in phases:
+        # Attention dropout: the layers draw the mask pair, and the sender
+        # backward reads the sender-order twin.
+        train("train_gat_citeseer_shape_send", steps=40, per_step=gat_send,
+              timed_iters=10, falling=mean_of_ends,
+              per_step_modes=send_modes, against_default_modes=True)
+
+    if "attend_two_pass_arxiv_shape" in phases:
+        path_launches["attend_two_pass_arxiv_shape"] = two_pass_phase(
+            device, workload("gat_arxiv")[0], timer)
+        path_mode_launches["attend_two_pass_arxiv_shape"] = (
+            mode_launch_counts())
 
     # The locality tier. Layer 1 propagates first (F = 128, no backward: x
     # needs no gradient), layer 2 runs at F = 40 forward and backward: the
@@ -2347,8 +2943,9 @@ def main() -> int:
         step = make_node_classification_step(
             model, make_optimizer(model), compute_dtype=compute_dtype,
             generator=torch.Generator(device=device).manual_seed(7))
-        emit("profile_" + args.profile.removeprefix("train_"),
-             **profile_steps(lambda: step(x, None, y, mask, context=ctx)))
+        with attend_modes(*run_modes.get(args.profile, ("permute", True))):
+            emit("profile_" + args.profile.removeprefix("train_"),
+                 **profile_steps(lambda: step(x, None, y, mask, context=ctx)))
 
     if set(phases) != set(PHASES):
         # A partial run is no pass: no "ok" key, and a code of its own.
@@ -2366,9 +2963,18 @@ def main() -> int:
         entry["launches"] = path_launches[entry["path"]][entry["name"]]
         check(entry["launches"] > 0, f"kernel {entry['name']} was never "
               f"launched by {entry['path']}")
+        if "mode" in entry:  # and its launches in that mode
+            entry["mode_launches"] = {
+                key: path_mode_launches[entry["path"]][key]
+                for key in (f"{entry['name']}({part.strip()})"
+                            for part in entry["mode"].split(","))}
+            check(all(entry["mode_launches"].values()),
+                  f"kernel {entry['name']} ({entry['mode']}) was never "
+                  f"launched in that mode by {entry['path']}")
     print(json.dumps({
         "kernels": on_path,
         "launches_by_path": path_launches,
+        "mode_launches_by_path": path_mode_launches,
         "timed_at_shapes_no_path_launches": [
             e for e in kernel_entries if not e["path"]],
         "seconds": time.perf_counter() - t_start}), flush=True)

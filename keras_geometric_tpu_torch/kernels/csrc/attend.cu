@@ -1,10 +1,13 @@
-// Fused GATv2 attention kernels for Hopper (sm_90a): forward, rho, and the
-// receiver-side backward, over a receiver-sorted CSR edge stream.
+// Fused GATv2 attention kernels for Hopper (sm_90a): the one-pass forward,
+// the aggregation from cached scores, rho, the receiver-side backward and the
+// sender-side backward, over CSR edge streams.
 //
-// They replace three TPU kernels of the JAX package:
+// They replace five TPU kernels of the JAX package:
 //   sddmm_stats_agg_kernel  <- kernels/sddmm_pallas.py  sddmm_stats_agg_sorted
+//   attend_aggregate_kernel <- kernels/attend_pallas.py attend_aggregate_sorted
 //   attend_rho_kernel       <- kernels/attend_pallas.py attend_rho_sorted
 //   attend_recv_bwd_kernel  <- kernels/attend_pallas.py attend_recv_bwd_full_sorted
+//   attend_send_bwd_kernel  <- kernels/attend_pallas.py attend_send_bwd_sorted
 //
 // With ht [N, D] the transformed node rows (D = H*F, head h owns columns
 // h*F .. (h+1)*F), att [H, F], and for edge slot e of receiver row r with
@@ -15,8 +18,12 @@
 //   alpha    = exp(s - m[r, h]) / (l[r, h] + eps)  with m the row's max score
 //                                                  and l = sum exp(s - m)
 // forward : out[r] = sum_e alpha[e] * keep[e] * ht[j]  (keep scales the
-//           numerator only), plus scores [E, H], m, l [N, H] in f32; m is
-//           stored as 0 for a row that saw no finite score.
+//           numerator only), m, l [N, H] f32 and, unless told not to, the
+//           scores [E, H] f32; m is stored as 0 for a row that saw no finite
+//           score.
+// aggregate: the same out from cached scores, m and l (the second half of
+//           the two-pass forward; sddmm.cu's score-and-statistics kernel is
+//           the first).
 // rho     : rho[r, h] = sum_e alpha * keep * dalpha,
 //           dalpha[e, h] = sum_f g[r, h, f] * ht[j, h, f]
 // backward: ds = alpha * (keep * dalpha - rho[r]),
@@ -24,40 +31,59 @@
 //           dht[r]   = sum_e d_pre[e]           (receiver part of d ht)
 //           v[e]     = alpha * keep * g[r] + d_pre[e]   (sender cotangent)
 //           datt[h, f] = sum over ALL edges of z[e, h, f] * ds[e, h]
+// sender  : dht_send[j] = sum over the slots e whose sender is j of v[e],
+//           recomputed in sender-sorted order (no [E, D] v in memory).
 //
-// The TPU kernels take the gathered sender rows hj = ht[senders] as an
-// [E, D] input and build everything from one-hot matrix products over a
-// boundary-encoded work list, because that machine has no vector gather.
-// Here the sender row is gathered inside each kernel, so hj never exists in
-// device memory, and the work is a few multiply-adds per (edge, column): by
-// bytes and operations all three kernels are bound by bytes (the node arrays
-// once, the index, score and mask streams, and for the backward the [E, D]
+// Modes: without the score cache the forward writes no scores (a null
+// pointer) and rho and the receiver backward recompute s from ht[r], ht[j]
+// and att (gatv2_score in lanes.cuh, the function the forward used, so s is
+// the forward's bit for bit, and exp(min(s - m, 0)) is exact); the receiver
+// backward writes v only when given one (the permute finish) and not when
+// the sender backward finishes. The recompute is a template parameter of rho
+// and the receiver backward, not a runtime branch: as a runtime branch its
+// extra registers cost the cached launches blocks in flight (rho 60
+// registers instead of 40, 31% slower; the receiver backward 3-7% slower,
+// measured on the H100). The other flags are runtime branches.
+//
+// The TPU kernels take the gathered rows hj = ht[senders] (and, sender-side,
+// g[recv], ht[recv] and the receivers' statistics) as [E, *] inputs and
+// build everything from one-hot matrix products over a boundary-encoded work
+// list, because that machine has no vector gather. Here the rows are
+// gathered inside each kernel, so no [E, D] gather ever exists in device
+// memory, and the work is a few multiply-adds per (edge, column): by bytes
+// and operations every kernel here is bound by bytes (the node arrays, the
+// index, score and mask streams, and for the permute backward the [E, D]
 // write of v).
 //
 // Design: a group of `lph` lanes (a power of two, at most a warp) owns one
-// (receiver row, head) pair, walks row_ptr[r] .. row_ptr[r+1] edge by edge,
-// keeps the row's running max, normaliser and output columns in f32
-// registers (the flash-attention recurrence), and reduces over the head's F
-// columns with shuffles inside the group. How a head's columns are laid over
-// the group's lanes in packs of up to 16 bytes is set out in lanes.cuh, with
-// the helpers this file shares with sddmm.cu. At F = 64 in bf16 a head takes 8 lanes
-// and a warp the four heads of a row, so wide packs keep several heads busy
-// with each operation a warp issues. A row is a chain of dependent reads
-// (row pointer -> sender index -> sender row -> shuffles), and what hides it
-// is the number of warps in flight: the kernels are built for at least four
-// blocks on a multiprocessor (64 registers a thread) and do not unroll the
-// walk, which measured faster at arxiv-sized graphs than two, four or eight
-// edges in flight per lane with fewer warps. No atomics anywhere. The one reduction that
-// spans rows, datt, is done in two steps: the backward kernel runs a fixed
-// grid whose groups stride over the (row, head) pairs with their head held
-// constant, each group writes its partial datt once, and a second small
-// kernel sums the partials in a fixed order, so datt is bit-reproducible.
+// (row, head) pair, walks the row's slots edge by edge, keeps its running
+// sums in f32 registers (the forward: the row's running max, normaliser and
+// output columns, the flash-attention recurrence), and reduces over the
+// head's F columns with shuffles inside the group. How a head's columns are
+// laid over the group's lanes in packs of up to 16 bytes is set out in
+// lanes.cuh, with the helpers this file shares with sddmm.cu. At F = 64 in
+// bf16 a head takes 8 lanes and a warp the four heads of a row, so wide
+// packs keep several heads busy with each operation a warp issues. A row is
+// a chain of dependent reads (row pointer -> index -> gathered row ->
+// shuffles), and what hides it is the number of warps in flight: the kernels
+// are built for at least four blocks on a multiprocessor (64 registers a
+// thread) and do not unroll the walk, which measured faster at arxiv-sized
+// graphs than two, four or eight edges in flight per lane with fewer warps.
+// The sender backward walks sender rows: each slot gathers the receiver's
+// ht and g rows and its (m, l, rho), three dependent gathers, and a padded
+// slot (masked) is skipped before any of them, so the padded tail, which in
+// sender order piles into the last row, costs one mask read a slot.
 //
-// Everything is accumulated in f32 and rounded once at the store. Offsets
-// into data are 64-bit; indices and row_ptr are int32. row_ptr[0] must be 0
-// and row_ptr[N] the slot count, so that every slot's score is written. The
-// C entry points launch on the given stream, allocate nothing, do not
-// synchronise, and return cudaGetLastError().
+// No atomics anywhere. The one reduction that spans rows, datt, is done in
+// two steps: the receiver backward runs a fixed grid whose groups stride
+// over the (row, head) pairs with their head held constant, each group
+// writes its partial datt once, and a second small kernel sums the partials
+// in a fixed order, so datt is bit-reproducible. Everything is accumulated
+// in f32 and rounded once at the store. Offsets into data are 64-bit;
+// indices and row pointers are int32. row_ptr[0] must be 0 and row_ptr[N]
+// the slot count, so that every slot's score is written. The C entry points
+// launch on the given stream, allocate nothing, do not synchronise, and
+// return cudaGetLastError().
 
 #include "lanes.cuh"
 
@@ -90,6 +116,24 @@ __device__ __forceinline__ float lane_dot(const float (&a)[NJ][VEC],
   return part;
 }
 
+// alpha of slot e from its score: the cached one, or (RECOMPUTE) the one
+// recomputed from the receiver's and sender's columns, 0 on an invalid slot.
+// exp(min(s - m, 0)) equals exp(s - m) for the forward's own s.
+template <bool RECOMPUTE, int VEC, int NJ>
+__device__ __forceinline__ float slot_alpha(
+    const float* __restrict__ scores, const uint8_t* __restrict__ valid,
+    int64_t e, int heads, int h, const float (&hi)[NJ][VEC],
+    const float (&hj)[NJ][VEC], const float (&a)[NJ][VEC], float slope,
+    float m, float denom, const Geometry& q) {
+  if constexpr (!RECOMPUTE) {
+    return expf(scores[e * heads + h] - m) / denom;
+  } else {
+    if (valid != nullptr && valid[e] == 0) return 0.0f;
+    const float s = gatv2_score<VEC, NJ>(hi, hj, a, slope, q.lph, q.mask);
+    return expf(fminf(s - m, 0.0f)) / denom;
+  }
+}
+
 template <typename S, int VEC, int NJ>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_stats_agg_kernel(const S* __restrict__ ht,
@@ -112,11 +156,7 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
   float hi_row[NJ][VEC], a[NJ][VEC], o[NJ][VEC];
   load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
   load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[j][i] = 0.0f;
-  }
+  zero_lane<VEC, NJ>(o);
   float m = -INFINITY, l = 0.0f;
 
   const int64_t hi = row_ptr[row + 1];
@@ -124,24 +164,14 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
     float hj[NJ][VEC];
     const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
                                              d, col0, heads, h, f, q, hj);
-    float part = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float pre = hi_row[j][i] + hj[j][i];
-        part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
-      }
-    }
-    part = group_sum(part, lph, q.mask);
+    const float part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph,
+                                            q.mask);
     const float s =
         (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
-    if (q.lane == 0) scores[e * heads + h] = s;
+    if (scores != nullptr && q.lane == 0) scores[e * heads + h] = s;
     if (s > -INFINITY) {  // the same on every lane of the group
-      const float m_new = fmaxf(m, s);
-      const float scale = expf(m - m_new);  // 0 while m is still -inf
-      const float p = expf(s - m_new);
-      l = l * scale + p;
+      float p;
+      const float scale = online_step(s, m, l, p);
       const float pk = p * keep;  // dropout scales the numerator only
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -150,7 +180,6 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
           o[j][i] = o[j][i] * scale + pk * hj[j][i];
         }
       }
-      m = m_new;
     }
   }
 
@@ -169,15 +198,56 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
 
 template <typename S, int VEC, int NJ>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_aggregate_kernel(const float* __restrict__ scores,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const S* __restrict__ ht,
+                        const int32_t* __restrict__ senders,
+                        const int32_t* __restrict__ row_ptr,
+                        const void* __restrict__ drop, int drop_bf16,
+                        S* __restrict__ out, int64_t n_rows, int heads, int f,
+                        int lph, float eps) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_rows * heads) return;
+  const int64_t row = q.gid / heads;
+  const int h = static_cast<int>(q.gid - row * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const float m = m_in[row * heads + h];
+  const float denom = l_in[row * heads + h] + eps;
+
+  float o[NJ][VEC];
+  zero_lane<VEC, NJ>(o);
+  const int64_t hi = row_ptr[row + 1];
+  for (int64_t e = row_ptr[row]; e < hi; ++e) {
+    const float s = scores[e * heads + h];
+    if (!(s > -INFINITY)) continue;  // an invalid slot: alpha is 0
+    float hj[NJ][VEC];
+    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
+                                             d, col0, heads, h, f, q, hj);
+    const float w = expf(s - m) / denom * keep;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[j][i] += w * hj[j][i];
+    }
+  }
+  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, o);
+}
+
+template <typename S, int VEC, int NJ, bool RECOMPUTE>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
                   const int32_t* __restrict__ senders,
                   const int32_t* __restrict__ row_ptr,
                   const float* __restrict__ scores,
                   const float* __restrict__ m_in,
                   const float* __restrict__ l_in,
+                  const void* __restrict__ att, int att_bf16,
+                  const uint8_t* __restrict__ valid,
                   const void* __restrict__ drop, int drop_bf16,
                   float* __restrict__ rho, int64_t n_rows, int heads, int f,
-                  int lph, float eps) {
+                  int lph, float slope, float eps) {
   const Geometry q = geometry(lph);
   if (q.gid >= n_rows * heads) return;
   const int64_t row = q.gid / heads;
@@ -185,8 +255,14 @@ attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
   const int64_t d = static_cast<int64_t>(heads) * f;
   const int64_t col0 = static_cast<int64_t>(h) * f;
 
-  float g_row[NJ][VEC];
+  // The receiver's columns and att only feed a recomputed score; the
+  // cached instantiation never reads them.
+  float g_row[NJ][VEC], hi_row[NJ][VEC], a[NJ][VEC];
   load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+  if constexpr (RECOMPUTE) {
+    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  }
   const float m = m_in[row * heads + h];
   const float denom = l_in[row * heads + h] + eps;
   float acc = 0.0f;
@@ -198,14 +274,15 @@ attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
                                              d, col0, heads, h, f, q, hj);
     const float dalpha =
         group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-    const float alpha =
-        expf(scores[e * heads + h] - m) / denom;  // 0 for an invalid slot
+    const float alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
+        scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
+        q);  // 0 for an invalid slot
     acc += alpha * keep * dalpha;
   }
   if (q.lane == 0) rho[row * heads + h] = acc;
 }
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool RECOMPUTE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const int32_t* __restrict__ senders,
@@ -215,6 +292,7 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
                        const float* __restrict__ rho,
+                       const uint8_t* __restrict__ valid,
                        const void* __restrict__ drop, int drop_bf16,
                        S* __restrict__ dht, S* __restrict__ v,
                        float* __restrict__ partial, int64_t n_rows, int heads,
@@ -230,22 +308,14 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
 
   float a[NJ][VEC], datt_acc[NJ][VEC];
   load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) datt_acc[j][i] = 0.0f;
-  }
+  zero_lane<VEC, NJ>(datt_acc);
 
   for (int64_t item = q.gid; item < n_rows * heads; item += n_groups) {
     const int64_t row = item / heads;
     float hi_row[NJ][VEC], g_row[NJ][VEC], acc[NJ][VEC];
     load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
     load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[j][i] = 0.0f;
-    }
+    zero_lane<VEC, NJ>(acc);
     const float m = m_in[row * heads + h];
     const float denom = l_in[row * heads + h] + eps;
     const float rho_row = rho[row * heads + h];
@@ -257,8 +327,9 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                                                e, d, col0, heads, h, f, q, hj);
       const float dalpha =
           group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-      const float alpha =
-          expf(scores[e * heads + h] - m) / denom;  // 0 for an invalid slot
+      const float alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
+          scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
+          q);  // 0 for an invalid slot
       const float ds = alpha * (keep * dalpha - rho_row);
       const float alpha_keep = alpha * keep;
 #pragma unroll
@@ -273,12 +344,67 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
           hj[j][i] = alpha_keep * g_row[j][i] + d_pre;  // this lane's v
         }
       }
-      store_lane<S, VEC, NJ>(v + e * d + col0, f, q, hj);
+      if (v != nullptr) store_lane<S, VEC, NJ>(v + e * d + col0, f, q, hj);
     }
     store_lane<S, VEC, NJ>(dht + row * d + col0, f, q, acc);
   }
 
   store_partial<VEC, NJ>(partial, heads, d, col0, f, q, datt_acc);
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
+                       const int32_t* __restrict__ receivers_ss,
+                       const int32_t* __restrict__ row_ptr_bwd,
+                       const void* __restrict__ att, int att_bf16,
+                       const float* __restrict__ m_in,
+                       const float* __restrict__ l_in,
+                       const float* __restrict__ rho,
+                       const float* __restrict__ valid_ss,
+                       const void* __restrict__ drop_ss, int drop_bf16,
+                       S* __restrict__ out, int64_t n_rows, int heads, int f,
+                       int lph, float slope, float eps) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_rows * heads) return;
+  const int64_t row = q.gid / heads;  // the sender
+  const int h = static_cast<int>(q.gid - row * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float hs[NJ][VEC], a[NJ][VEC], acc[NJ][VEC];
+  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hs);
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  zero_lane<VEC, NJ>(acc);
+
+  const int64_t hi = row_ptr_bwd[row + 1];
+  for (int64_t e = row_ptr_bwd[row]; e < hi; ++e) {
+    if (valid_ss != nullptr && valid_ss[e] == 0.0f) continue;  // padded slot
+    const int64_t r = receivers_ss[e];
+    float hr[NJ][VEC], gr[NJ][VEC];
+    load_lane<S, VEC, NJ>(ht + r * d + col0, f, q, hr);
+    load_lane<S, VEC, NJ>(g + r * d + col0, f, q, gr);
+    // The forward's score: receiver columns first, as it summed them.
+    const float s = gatv2_score<VEC, NJ>(hr, hs, a, slope, lph, q.mask);
+    const int64_t rh = r * heads + h;
+    const float alpha = expf(fminf(s - m_in[rh], 0.0f)) / (l_in[rh] + eps);
+    const float keep =
+        drop_ss == nullptr ? 1.0f
+                           : load_scalar(drop_ss, drop_bf16, e * heads + h);
+    const float dalpha = group_sum(lane_dot<VEC, NJ>(gr, hs), lph, q.mask);
+    const float ds = alpha * (keep * dalpha - rho[rh]);
+    const float alpha_keep = alpha * keep;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float pre = hr[j][i] + hs[j][i];
+        const float d_pre = ds * a[j][i] * (pre > 0.0f ? 1.0f : slope);
+        acc[j][i] += alpha_keep * gr[j][i] + d_pre;
+      }
+    }
+  }
+  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, acc);
 }
 
 }  // namespace
@@ -288,7 +414,7 @@ extern "C" {
 // Fused forward. ht/out: f32 (is_bf16 = 0) or bf16, row-major [n_rows,
 // heads*f]. att [heads, f] and drop [n_slots, heads] (null when absent) are
 // f32 or bf16 by their own flags; valid [n_slots] bytes (null: all valid).
-// scores [n_slots, heads], m, l [n_rows, heads]: f32.
+// scores [n_slots, heads] (null: not written), m, l [n_rows, heads]: f32.
 int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
                                const int32_t* row_ptr, const void* att,
                                int att_bf16, const uint8_t* valid,
@@ -298,8 +424,8 @@ int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
                                float slope, float eps, int is_bf16,
                                void* stream) {
   if (ht == nullptr || senders == nullptr || row_ptr == nullptr ||
-      att == nullptr || out == nullptr || scores == nullptr || m == nullptr ||
-      l == nullptr || !shape_ok(n_rows, heads, f)) {
+      att == nullptr || out == nullptr || m == nullptr || l == nullptr ||
+      !shape_ok(n_rows, heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -316,30 +442,66 @@ int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Aggregation from cached scores [n_slots, heads] (-inf on invalid slots)
+// and m, l [n_rows, heads], all f32; ht/out in the data's type.
+int kgt_attend_aggregate_sorted(const float* scores, const float* m,
+                                const float* l, const void* ht,
+                                const int32_t* senders,
+                                const int32_t* row_ptr, const void* drop,
+                                int drop_bf16, void* out, int64_t n_rows,
+                                int heads, int64_t f, float eps, int is_bf16,
+                                void* stream) {
+  if (scores == nullptr || m == nullptr || l == nullptr || ht == nullptr ||
+      senders == nullptr || row_ptr == nullptr || out == nullptr ||
+      !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
+  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_AGG(S)                                                          \
+  attend_aggregate_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(            \
+      scores, m, l, static_cast<const S*>(ht), senders, row_ptr, drop,      \
+      drop_bf16, static_cast<S*>(out), n_rows, heads, fi, lay.lph, eps)
+  KGT_DISPATCH(is_bf16, lay, KGT_AGG)
+#undef KGT_AGG
+  return static_cast<int>(cudaGetLastError());
+}
+
 // rho [n_rows, heads] f32 from the output cotangent g (same type as ht) and
-// the forward's cached scores, m, l.
+// the forward's m, l and cached scores; scores == null recomputes them from
+// ht and att (valid: null or [n_slots] bytes).
 int kgt_attend_rho_sorted(const void* g, const void* ht,
                           const int32_t* senders, const int32_t* row_ptr,
                           const float* scores, const float* m, const float* l,
+                          const void* att, int att_bf16, const uint8_t* valid,
                           const void* drop, int drop_bf16, float* rho,
-                          int64_t n_rows, int heads, int64_t f, float eps,
-                          int is_bf16, void* stream) {
+                          int64_t n_rows, int heads, int64_t f, float slope,
+                          float eps, int is_bf16, void* stream) {
   if (g == nullptr || ht == nullptr || senders == nullptr ||
-      row_ptr == nullptr || scores == nullptr || m == nullptr ||
-      l == nullptr || rho == nullptr || !shape_ok(n_rows, heads, f)) {
+      row_ptr == nullptr || m == nullptr || l == nullptr || rho == nullptr ||
+      (scores == nullptr && att == nullptr) || !shape_ok(n_rows, heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, g, ht, g, ht);
   const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
   const int fi = static_cast<int>(f);
-#define KGT_RHO(S)                                                         \
-  attend_rho_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                 \
+#define KGT_RHO_AS(S, RECOMPUTE)                                           \
+  attend_rho_kernel<S, VEC, NJ, RECOMPUTE><<<grid, kThreads, 0, s>>>(      \
       static_cast<const S*>(g), static_cast<const S*>(ht), senders,        \
-      row_ptr, scores, m, l, drop, drop_bf16, rho, n_rows, heads, fi,      \
-      lay.lph, eps)
+      row_ptr, scores, m, l, att, att_bf16, valid, drop, drop_bf16, rho,   \
+      n_rows, heads, fi, lay.lph, slope, eps)
+#define KGT_RHO(S)                                                         \
+  if (scores != nullptr) {                                                 \
+    KGT_RHO_AS(S, false);                                                  \
+  } else {                                                                 \
+    KGT_RHO_AS(S, true);                                                   \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_RHO)
 #undef KGT_RHO
+#undef KGT_RHO_AS
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,45 +514,86 @@ int64_t kgt_attend_recv_bwd_partial_rows(const void* ht, const void* g,
                                          int64_t n_rows, int heads, int64_t f,
                                          int is_bf16) {
   if (!shape_ok(n_rows, heads, f)) return 0;
-  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht, v);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
+                                 v == nullptr ? dht : v);
   return partial_rows(n_rows, heads, lay.lph);
 }
 
-// Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f] in
-// the data's type, datt [heads*f] f32. partial: scratch of
+// Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f] (null:
+// not written) in the data's type, datt [heads*f] f32. scores == null
+// recomputes them (valid: null or [n_slots] bytes). partial: scratch of
 // kgt_attend_recv_bwd_partial_rows(...) rows, written before it is read.
 int kgt_attend_recv_bwd_full_sorted(
     const void* ht, const void* g, const int32_t* senders,
     const int32_t* row_ptr, const void* att, int att_bf16,
     const float* scores, const float* m, const float* l, const float* rho,
-    const void* drop, int drop_bf16, void* dht, void* v, float* datt,
-    float* partial, int64_t n_rows, int heads, int64_t f, float slope,
-    float eps, int is_bf16, void* stream) {
+    const uint8_t* valid, const void* drop, int drop_bf16, void* dht, void* v,
+    float* datt, float* partial, int64_t n_rows, int heads, int64_t f,
+    float slope, float eps, int is_bf16, void* stream) {
   if (ht == nullptr || g == nullptr || senders == nullptr ||
-      row_ptr == nullptr || att == nullptr || scores == nullptr ||
-      m == nullptr || l == nullptr || rho == nullptr || dht == nullptr ||
-      v == nullptr || datt == nullptr || partial == nullptr ||
-      !shape_ok(n_rows, heads, f)) {
+      row_ptr == nullptr || att == nullptr || m == nullptr || l == nullptr ||
+      rho == nullptr || dht == nullptr || datt == nullptr ||
+      partial == nullptr || !shape_ok(n_rows, heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht, v);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
+                                 v == nullptr ? dht : v);
   const unsigned grid = blocks_for_fixed_grid(n_rows, heads, lay.lph);
   const int64_t p_rows = partial_rows(n_rows, heads, lay.lph);
   const int fi = static_cast<int>(f);
-#define KGT_BWD(S)                                                          \
-  attend_recv_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+#define KGT_BWD_AS(S, RECOMPUTE)                                            \
+  attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE><<<grid, kThreads, 0, s>>>(  \
       static_cast<const S*>(ht), static_cast<const S*>(g), senders,         \
-      row_ptr, att, att_bf16, scores, m, l, rho, drop, drop_bf16,           \
+      row_ptr, att, att_bf16, scores, m, l, rho, valid, drop, drop_bf16,    \
       static_cast<S*>(dht), static_cast<S*>(v), partial, n_rows, heads, fi, \
       lay.lph, slope, eps)
+#define KGT_BWD(S)                                                          \
+  if (scores != nullptr) {                                                  \
+    KGT_BWD_AS(S, false);                                                   \
+  } else {                                                                  \
+    KGT_BWD_AS(S, true);                                                    \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_BWD)
 #undef KGT_BWD
+#undef KGT_BWD_AS
   const cudaError_t first = cudaGetLastError();
   if (first != cudaSuccess) return static_cast<int>(first);
   return static_cast<int>(
       reduce_partials(partial, datt, p_rows, static_cast<int64_t>(heads) * f,
                       s));
+}
+
+// Sender-side backward: out [n_rows, heads*f] in the data's type, the sum
+// over each sender row's slots (row_ptr_bwd over the sender-sorted stream,
+// receivers_ss its receivers) of alpha*keep*g[r] + d_pre, recomputed from
+// ht, g, att and the receivers' m, l, rho [n_rows, heads] f32. valid_ss
+// [n_slots] f32 1/0 (null: all valid); drop_ss [n_slots, heads] (null: no
+// dropout) in sender-sorted order.
+int kgt_attend_send_bwd_sorted(
+    const void* ht, const void* g, const int32_t* receivers_ss,
+    const int32_t* row_ptr_bwd, const void* att, int att_bf16,
+    const float* m, const float* l, const float* rho, const float* valid_ss,
+    const void* drop_ss, int drop_bf16, void* out, int64_t n_rows, int heads,
+    int64_t f, float slope, float eps, int is_bf16, void* stream) {
+  if (ht == nullptr || g == nullptr || receivers_ss == nullptr ||
+      row_ptr_bwd == nullptr || att == nullptr || m == nullptr ||
+      l == nullptr || rho == nullptr || out == nullptr ||
+      !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, out, out);
+  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_SEND(S)                                                         \
+  attend_send_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+      static_cast<const S*>(ht), static_cast<const S*>(g), receivers_ss,    \
+      row_ptr_bwd, att, att_bf16, m, l, rho, valid_ss, drop_ss, drop_bf16,  \
+      static_cast<S*>(out), n_rows, heads, fi, lay.lph, slope, eps)
+  KGT_DISPATCH(is_bf16, lay, KGT_SEND)
+#undef KGT_SEND
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* kgt_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
 // Shared device helpers of the attention kernels (attend.cu, sddmm.cu,
 // softmax.cu): storage types, packs of neighbouring columns, sub-warp groups
-// that own one head's columns, the launcher's layout choice and the fixed-
+// that own one head's columns, the GATv2 score and the online softmax step
+// that every score kernel shares, the launcher's layout choice and the fixed-
 // order reduction of per-group partials.
 //
 // A group of `lph` lanes (a power of two, at most a warp) owns one head's F
@@ -156,6 +157,51 @@ __device__ __forceinline__ void load_att(const void* att, int att_bf16,
       out[j][i] = c < f ? load_scalar(att, att_bf16, col0 + c + i) : 0.0f;
     }
   }
+}
+
+// The GATv2 score of one (slot, head), sum_f att * leaky_relu(hi + hj), on
+// every lane of the group. Every kernel that computes or recomputes a score
+// (sddmm.cu's score kernels, attend.cu's forward and backward kernels) calls
+// this one function: the lane's columns in pack order, then the group's
+// butterfly. Inlined everywhere as the same expression, it compiles to the
+// same operations (nvcc contracts part + a * z into one fused multiply-add
+// and, without fast-math, reassociates nothing), so for the same layout
+// (pick_layout: F, the type, and 16-byte aligned data) a recomputed score is
+// the forward's bit for bit and exp(s - m) in a backward kernel sees exactly
+// the forward's s. (Rounding intrinsics in place of the plain expressions
+// gave the same bits and measured 6% slower in the forward and 14% in the
+// sender backward on the H100.)
+template <int VEC, int NJ>
+__device__ __forceinline__ float gatv2_score(const float (&hi)[NJ][VEC],
+                                             const float (&hj)[NJ][VEC],
+                                             const float (&a)[NJ][VEC],
+                                             float slope, int lph,
+                                             unsigned mask) {
+  float part = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float pre = hi[j][i] + hj[j][i];
+      part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
+    }
+  }
+  return group_sum(part, lph, mask);
+}
+
+// Folds a finite score s into a row's running max m and normaliser l (the
+// online softmax); sets p = exp(s - m_new) and returns exp(m_old - m_new),
+// the factor that rescales what was summed under the old max (0 while m is
+// still -inf). The forward kernels and the score-and-statistics kernel share
+// it, so their m and l agree bit for bit.
+__device__ __forceinline__ float online_step(float s, float& m, float& l,
+                                             float& p) {
+  const float m_new = fmaxf(m, s);
+  const float scale = expf(m - m_new);
+  p = expf(s - m_new);
+  l = l * scale + p;
+  m = m_new;
+  return scale;
 }
 
 template <int VEC, int NJ>

@@ -1,9 +1,13 @@
-// GATv2 attention scores and their backward for Hopper (sm_90a), over a
-// receiver-sorted edge stream with the gathered sender rows materialised.
+// GATv2 attention scores for Hopper (sm_90a): the score kernel and its
+// backward over a receiver-sorted edge stream with the gathered sender rows
+// materialised (the composed path), and the score-and-statistics kernel,
+// which gathers the sender rows itself (the first half of the two-pass
+// forward).
 //
-// They replace two TPU kernels of the JAX package:
+// They replace three TPU kernels of the JAX package:
 //   sddmm_scores_kernel <- kernels/sddmm_pallas.py sddmm_scores_sorted
 //   sddmm_bwd_kernel    <- kernels/sddmm_pallas.py sddmm_bwd_sorted
+//   sddmm_stats_kernel  <- kernels/sddmm_pallas.py sddmm_stats_sorted
 //
 // With ht [N, D] the transformed node rows (D = H*F, head h owns columns
 // h*F .. (h+1)*F), hj [E, D] the sender rows in slot order, att [H, F], and
@@ -18,16 +22,27 @@
 //                                           (f32 sum, cast by the caller)
 // d_pre is the cotangent of both endpoints (pre is symmetric in hi and hj):
 // the caller returns it as d hj and scatters it by receiver for d ht.
+// statistics, with hj[e] = ht[senders[e]] read in the kernel: the scores
+// (-inf on invalid slots) and per receiver row m = the row's max score (0
+// for a row without a finite one) and l = sum exp(s - m).
 //
 // The TPU kernels expand the receiver rows with one-hot matrix products over
 // a boundary-encoded work list and reduce each head through a block-diagonal
-// selector matrix, because that machine has no vector gather. Here both
-// kernels are edge-parallel: a sub-warp group (lanes.cuh) owns one
-// (slot, head) pair, reads the head's F-segment of ht[recv[e]] (neighbouring
-// slots share a receiver, so the row comes from L1/L2) and of hj[e], and
-// works in f32 registers. Both are bound by bytes: the [E, D] stream of hj
-// (and, backward, the [E, D] write of d_pre) is most of what they move; the
-// work is a few multiply-adds per (slot, column).
+// selector matrix, because that machine has no vector gather. Here the score
+// and backward kernels are edge-parallel: a sub-warp group (lanes.cuh) owns
+// one (slot, head) pair, reads the head's F-segment of ht[recv[e]]
+// (neighbouring slots share a receiver, so the row comes from L1/L2) and of
+// hj[e], and works in f32 registers. Both are bound by bytes: the [E, D]
+// stream of hj (and, backward, the [E, D] write of d_pre) is most of what
+// they move; the work is a few multiply-adds per (slot, column). The
+// statistics kernel is row-parallel like attend.cu's forward: a group per
+// (receiver row, head) walks the row's slots, gathers each sender row and
+// keeps the online (m, l) in registers; it moves the node rows, the index
+// and validity streams and the [E, H] score write, and is bound by bytes.
+// Every score here is gatv2_score (lanes.cuh), the function attend.cu's
+// kernels use, and the statistics step is online_step, the forward's: the
+// statistics kernel's scores, m and l equal the one-pass forward's bit for
+// bit.
 //
 // The forward gives each group one pair and reduces over the head's columns
 // with shuffles inside the group. The backward runs a fixed grid whose
@@ -64,17 +79,52 @@ sddmm_scores_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
                         hi_row);
   load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, hj_row);
   load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-  float part = 0.0f;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float pre = hi_row[j][i] + hj_row[j][i];
-      part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
+  const float part = gatv2_score<VEC, NJ>(hi_row, hj_row, a, slope, lph,
+                                          q.mask);
+  if (q.lane == 0) scores[q.gid] = part;
+}
+
+template <typename S, int VEC, int NJ>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+sddmm_stats_kernel(const S* __restrict__ ht,
+                   const int32_t* __restrict__ senders,
+                   const int32_t* __restrict__ row_ptr,
+                   const void* __restrict__ att, int att_bf16,
+                   const uint8_t* __restrict__ valid,
+                   float* __restrict__ scores, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int64_t n_rows, int heads,
+                   int f, int lph, float slope) {
+  const Geometry q = geometry(lph);
+  if (q.gid >= n_rows * heads) return;
+  const int64_t row = q.gid / heads;
+  const int h = static_cast<int>(q.gid - row * heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+
+  float hi_row[NJ][VEC], a[NJ][VEC];
+  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  float m = -INFINITY, l = 0.0f;
+
+  const int64_t hi = row_ptr[row + 1];
+  for (int64_t e = row_ptr[row]; e < hi; ++e) {
+    float hj[NJ][VEC];
+    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(senders[e]) * d + col0, f,
+                          q, hj);
+    const float part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph,
+                                            q.mask);
+    const float s =
+        (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
+    if (q.lane == 0) scores[e * heads + h] = s;
+    if (s > -INFINITY) {  // the same on every lane of the group
+      float p;
+      online_step(s, m, l, p);
     }
   }
-  part = group_sum(part, lph, q.mask);
-  if (q.lane == 0) scores[q.gid] = part;
+  if (q.lane == 0) {
+    m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
+    l_out[row * heads + h] = l;
+  }
 }
 
 template <typename S, int VEC, int NJ>
@@ -146,6 +196,34 @@ int kgt_sddmm_scores_sorted(const void* ht, const void* hj,
       att_bf16, scores, n_slots, heads, fi, lay.lph, slope)
   KGT_DISPATCH(is_bf16, lay, KGT_SCORES)
 #undef KGT_SCORES
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Scores [n_slots, heads] f32 (-inf where valid[e] == 0; valid null: all
+// valid) and m, l [n_rows, heads] f32 over the receiver-sorted stream
+// (row_ptr [n_rows + 1]); the sender rows ht[senders[e]] are read in the
+// kernel. ht f32 (is_bf16 = 0) or bf16; att by its own flag.
+int kgt_sddmm_stats_sorted(const void* ht, const int32_t* senders,
+                           const int32_t* row_ptr, const void* att,
+                           int att_bf16, const uint8_t* valid, float* scores,
+                           float* m, float* l, int64_t n_rows, int heads,
+                           int64_t f, float slope, int is_bf16,
+                           void* stream) {
+  if (ht == nullptr || senders == nullptr || row_ptr == nullptr ||
+      att == nullptr || scores == nullptr || m == nullptr || l == nullptr ||
+      !shape_ok(n_rows, heads, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, ht, ht, ht);
+  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const int fi = static_cast<int>(f);
+#define KGT_STATS(S)                                                        \
+  sddmm_stats_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                 \
+      static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
+      scores, m, l, n_rows, heads, fi, lay.lph, slope)
+  KGT_DISPATCH(is_bf16, lay, KGT_STATS)
+#undef KGT_STATS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,24 @@
-"""GATv2 attention scores and their backward on Hopper (the composed path).
+"""GATv2 attention scores on Hopper: the composed path's score kernel and its
+backward, and the two-pass forward's score-and-statistics kernel.
 
-Counterpart of the JAX package's ``sddmm_scores_sorted`` and
-``sddmm_bwd_sorted`` (``kernels/sddmm_pallas.py``). The kernels are CUDA C++
-(``csrc/sddmm.cu``, built by ``_build.py`` at first use); this module holds
-their wrappers, their plain PyTorch versions, their launch counters and their
-argument checks. ``ops/csr.py`` wires them into ``GraphContext.sddmm_scores``.
+Counterpart of the JAX package's ``sddmm_scores_sorted``,
+``sddmm_bwd_sorted`` and ``sddmm_stats_sorted`` (``kernels/sddmm_pallas.py``).
+The kernels are CUDA C++ (``csrc/sddmm.cu``, built by ``_build.py`` at first
+use); this module holds their wrappers, their plain PyTorch versions, their
+launch counters and their argument checks. ``ops/csr.py`` wires the first two
+into ``GraphContext.sddmm_scores``; ``sddmm_stats_sorted`` followed by
+``attend_cuda.attend_aggregate_sorted`` computes what the one-pass forward
+``attend_cuda.sddmm_stats_agg_sorted`` does.
 
-As in the reference, the kernels take the materialised sender rows
-``hj = ht[senders]`` (``[E, H*F]``, receiver-sorted slot order): on the
-composed path ``hj`` exists anyway, because the messages are ``alpha * hj``.
-In place of the reference's TPU work-list tables they take ``receivers``.
+As in the reference, the score kernel and its backward take the materialised
+sender rows ``hj = ht[senders]`` (``[E, H*F]``, receiver-sorted slot order):
+on the composed path ``hj`` exists anyway, because the messages are
+``alpha * hj``. In place of the reference's TPU work-list tables they take
+``receivers``. ``sddmm_stats_sorted`` takes ``ht``, ``senders`` and
+``row_ptr`` and gathers the sender rows itself, as the one-pass forward does:
+the reference's ``hj`` input is not made.
 
-Source notes, one per kernel (both are bound by bytes):
+Source notes, one per kernel (all three are bound by bytes):
 
 - ``sddmm_scores_sorted``: ``s[e, h] = sum_f att[h, f] *
   leaky_relu(ht[recv e] + hj[e])[hF + f]`` in f32. Reads ``hj`` once (most of
@@ -22,6 +29,13 @@ Source notes, one per kernel (both are bound by bytes):
   from ``ds [E, H]``. Reads ``hj`` and writes ``d_pre``; ``datt`` goes
   through per-group partials of a fixed grid and a second small kernel that
   sums them in a fixed order: no atomics, so it is bit-reproducible.
+- ``sddmm_stats_sorted``: scores ``[E, H]`` f32 (``-inf`` on invalid slots)
+  and the per-receiver online ``(m, l)`` in one pass over the receiver-sorted
+  slots; a sub-warp group per (receiver row, head), the sender rows gathered
+  in the kernel. Reads the node rows and the sender and validity streams,
+  writes the scores and ``[N, H]`` twice. Its scores, ``m`` and ``l`` are the
+  one-pass forward's bit for bit (the same score and online-step functions,
+  ``csrc/lanes.cuh``).
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -35,14 +49,23 @@ import functools
 import torch
 
 from . import _build
-from .attend_cuda import MAX_HEAD_WIDTH, _check_like, _scalar_matrix_arg
-from .spmm_cuda import _check_data, _check_index, _raise_on_error
+from .attend_cuda import (
+    MAX_HEAD_WIDTH,
+    _aligned,
+    _check_graph,
+    _check_like,
+    _scalar_matrix_arg,
+    scores_and_stats_plain,
+)
+from .spmm_cuda import _check_data, _check_index, _mask_arg, _raise_on_error
 
 __all__ = [
     "sddmm_scores_sorted",
     "sddmm_bwd_sorted",
+    "sddmm_stats_sorted",
     "sddmm_scores_sorted_plain",
     "sddmm_bwd_sorted_plain",
+    "sddmm_stats_sorted_plain",
     "LAUNCH_COUNTS",
     "reset_launch_counts",
 ]
@@ -52,6 +75,7 @@ __all__ = [
 LAUNCH_COUNTS = {
     "sddmm_scores_sorted": 0,
     "sddmm_bwd_sorted": 0,
+    "sddmm_stats_sorted": 0,
 }
 
 
@@ -92,6 +116,14 @@ def sddmm_bwd_sorted_plain(ht, hj, att, dscores, receivers, *,
     return d_pre.reshape(hj.shape).to(hj.dtype), datt.to(att.dtype)
 
 
+def sddmm_stats_sorted_plain(ht, senders, receivers, row_ptr, att, *,
+                             edge_valid=None, negative_slope=0.2):
+    del row_ptr
+    _, scores, m, l, _ = scores_and_stats_plain(
+        ht, senders, receivers, att, negative_slope, edge_valid)
+    return scores, m, l
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches.
 # ---------------------------------------------------------------------------
@@ -112,6 +144,10 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32, i32, vp,
     ]
     lib.kgt_sddmm_bwd_sorted.restype = i32
+    lib.kgt_sddmm_stats_sorted.argtypes = [
+        vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32, i32, vp,
+    ]
+    lib.kgt_sddmm_stats_sorted.restype = i32
     lib.kgt_cuda_error_string.argtypes = [i32]
     lib.kgt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -209,3 +245,44 @@ def sddmm_bwd_sorted(ht, hj, att, dscores, receivers, *, negative_slope=0.2):
     _raise_on_error(lib, code, "sddmm_bwd_sorted")
     LAUNCH_COUNTS["sddmm_bwd_sorted"] += 1
     return d_pre, datt.to(att.dtype)
+
+
+def sddmm_stats_sorted(ht, senders, receivers, row_ptr, att, *,
+                       edge_valid=None, negative_slope=0.2):
+    """GATv2 scores and the per-receiver softmax statistics in one pass.
+
+    ``ht`` ``[N, H*F]`` (f32 or bf16), ``senders``/``receivers`` ``[E]`` int32
+    with ``receivers`` sorted and ``row_ptr`` ``[N+1]`` its row pointers,
+    ``att`` ``[H, F]``, ``edge_valid`` ``[E]`` bool (False on padded slots).
+    Returns ``(scores [E, H] f32 with -inf on invalid slots, m [N, H] f32,
+    l [N, H] f32)``: ``m`` is the row's max score (0 for a row without a
+    finite one) and ``l = sum exp(scores - m)``. With
+    ``attend_cuda.attend_aggregate_sorted`` it is the two-pass form of
+    ``attend_cuda.sddmm_stats_agg_sorted``; not differentiable by itself.
+    """
+    if not ht.is_cuda:
+        return sddmm_stats_sorted_plain(ht, senders, receivers, row_ptr, att,
+                                        edge_valid=edge_valid,
+                                        negative_slope=negative_slope)
+    device = ht.device
+    n, heads, f, e = _check_graph(ht, senders, row_ptr, att)
+    att_ptr, att_bf16 = _scalar_matrix_arg("att", att, (heads, f), device)
+    valid_ptr = _mask_arg(edge_valid, e, device)
+    ht = _aligned(ht)
+    scores = torch.empty(e, heads, dtype=torch.float32, device=device)
+    m = torch.empty(n, heads, dtype=torch.float32, device=device)
+    l = torch.empty(n, heads, dtype=torch.float32, device=device)
+    if ht.numel() == 0:
+        return scores, m, l
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.kgt_sddmm_stats_sorted(
+            ht.data_ptr(), senders.data_ptr(), row_ptr.data_ptr(), att_ptr,
+            att_bf16, valid_ptr, scores.data_ptr(), m.data_ptr(),
+            l.data_ptr(), n, heads, f, float(negative_slope),
+            int(ht.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "sddmm_stats_sorted")
+    LAUNCH_COUNTS["sddmm_stats_sorted"] += 1
+    return scores, m, l

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import edge_dropout
+from ..ops import csr, edge_dropout
 from ..ops.graph_ops import add_self_loops, ensure_edge_index
 from ..ops.segment import segment_softmax, segment_sum
 from .module import get_initializer
@@ -128,7 +128,11 @@ class GATv2Conv(nn.Module):
     ):
         """``drop_mask`` (``[E, heads]`` pre-scaled keep mask: ``1/keep`` or
         0, in the order of the edges the attention runs over) replaces the
-        attention-dropout draw in ``train()`` mode."""
+        attention-dropout draw in ``train()`` mode. On a context whose
+        attention backward runs in sender order (``ATTEND_BWD_MODE = "send"``
+        in ``ops/csr.py``) a drawn mask comes with its sender-order twin; a
+        mask passed in here has none, so its backward takes the permute
+        finish."""
         if context is not None:
             return self._forward_context(
                 x, context, return_attention=return_attention,
@@ -207,20 +211,29 @@ class GATv2Conv(nn.Module):
         h, f = self.heads, self.output_dim
         ht = x @ self.kernel  # [N, H*F]
         fused = self.fused_attend and not return_attention
+        drop_mask_ss = None
         if not (self.training and self.dropout > 0):
             drop_mask = None
         elif drop_mask is None:
-            # The fused kernels read the mask in ht's type; the composed path
-            # multiplies it into alpha, which is f32.
-            drop_mask = edge_dropout.keep_mask_at(
-                generator, None, h, self.dropout,
-                ht.dtype if fused else torch.float32,
-                num_edges=int(context.senders.shape[0]), device=ht.device)
+            num_slots = int(context.senders.shape[0])
+            if fused and csr.ATTEND_BWD_MODE == "send":
+                # The sender-order backward reads the same draw in sender
+                # order: the pair, drawn only where it is read.
+                drop_mask, drop_mask_ss = edge_dropout.attention_keep_masks(
+                    generator, num_slots, context.bwd_perm, h, self.dropout,
+                    ht.dtype)
+            else:
+                # The fused kernels read the mask in ht's type; the composed
+                # path multiplies it into alpha, which is f32.
+                drop_mask = edge_dropout.keep_mask_at(
+                    generator, None, h, self.dropout,
+                    ht.dtype if fused else torch.float32,
+                    num_edges=num_slots, device=ht.device)
         if fused:
             agg = context.attend(
                 ht, self.att.reshape(h, f),
                 negative_slope=self.negative_slope, eps=1e-10,
-                drop_mask=drop_mask,
+                drop_mask=drop_mask, drop_mask_ss=drop_mask_ss,
             )
             return self._merge_heads(agg.reshape(n, h, f))
         h_j = context.gather(ht)  # [E, H*F]

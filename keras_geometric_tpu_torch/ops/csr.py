@@ -14,7 +14,9 @@ element, to the reference context's; the kernel tables reduce to one
 ``row_ptr`` per orientation. ``GraphContext.spmm`` runs the fused-gather
 kernel with a custom gradient of the same structure as the reference's,
 ``GraphContext.attend`` the fused GATv2 attention (forward, rho and receiver
-backward kernels, sender finish through the fused-gather scatter), and
+backward kernels, then the sender finish: the fused-gather scatter, or the
+sender backward kernel, as ``ATTEND_BWD_MODE`` selects; ``ATTEND_SCORE_CACHE``
+selects whether the forward keeps its scores), and
 ``GraphContext.sddmm_scores`` / ``GraphContext.edge_softmax`` the composed
 attention path (score and softmax kernels, each with the reference's
 backward).
@@ -44,6 +46,33 @@ from ..kernels import (
 )
 
 __all__ = ["GraphContext", "prepare_graph"]
+
+# How GraphContext.attend's backward sums the sender cotangents (read at each
+# backward, so that a caller or a test may set it; the reference's names,
+# values and meaning):
+#
+# - "permute" (default): the receiver backward writes the per-edge sender
+#   cotangent v [E, H*F] and the fused-gather scatter sums it by sender,
+#   reading it through bwd_perm (on an attend_window context: the window
+#   scatter and the residual's fused-gather scatter).
+# - "send": the receiver backward writes no v; the sender backward kernel
+#   recomputes alpha, ds and d_pre in sender-sorted order, gathering each
+#   slot's receiver rows, and sums them per sender. It needs the dropout
+#   mask in sender order too: with a drop_mask and no drop_mask_ss, the
+#   backward takes the permute finish, as the reference does. It is tested
+#   before the window tables, which it does not use.
+#
+# The reference chose "permute" from measurements on its own machine; what
+# the two cost on this one is recorded in PERF.md. Any other value raises.
+ATTEND_BWD_MODE = "permute"
+
+# Whether GraphContext.attend's forward writes its [E, H] f32 scores for the
+# backward (True, default) or the backward recomputes them from ht and att
+# (False); read at each forward. Either way the same function computes every
+# score, so the results agree bit for bit.
+ATTEND_SCORE_CACHE = True
+
+_ATTEND_BWD_MODES = ("permute", "send")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +265,7 @@ class GraphContext:
         negative_slope: float = 0.2,
         eps: float = 1e-10,
         drop_mask: torch.Tensor | None = None,
+        drop_mask_ss: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Fused GATv2 attention propagate with a hand-written backward.
 
@@ -254,7 +284,13 @@ class GraphContext:
         neither the gathered sender rows nor a permuted copy of ``v`` is
         ever written. On an ``attend_window`` context the window scatter
         kernel sums the window-eligible slots and the fused-gather scatter
-        only the residual ones (through ``attw_perm_res``).
+        only the residual ones (through ``attw_perm_res``). With
+        ``ATTEND_BWD_MODE = "send"`` no ``v`` is written: the sender backward
+        kernel recomputes it in sender-sorted order; ``drop_mask_ss`` (the
+        same mask in sender-sorted order, ``drop_mask[bwd_perm]``) is what
+        that mode reads under dropout, and nothing else reads it. With
+        ``ATTEND_SCORE_CACHE = False`` the forward keeps no scores and the
+        backward kernels recompute them.
         """
         ctx = self.full_stream()
         if att.ndim != 2:
@@ -264,7 +300,8 @@ class GraphContext:
                 f"ht has {ht.shape[0]} rows, the context {ctx.num_nodes} nodes"
             )
         return _Gatv2Attend.apply(
-            ht, att, ctx, float(negative_slope), float(eps), drop_mask
+            ht, att, ctx, float(negative_slope), float(eps), drop_mask,
+            drop_mask_ss,
         )
 
     def edge_softmax(self, scores: torch.Tensor, *, eps: float = 1e-10):
@@ -384,21 +421,28 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _Gatv2Attend(torch.autograd.Function):
-    """Fused attention forward (one kernel; scores, ``m``, ``l`` cached) with
-    the single-sweep sender finish as its backward."""
+    """Fused attention forward (one kernel; ``m``, ``l`` and, with the score
+    cache, the scores kept) with the rho and receiver-backward kernels and
+    the sender finish that ``ATTEND_BWD_MODE`` selects as its backward."""
 
     @staticmethod
-    def forward(ctx, ht, att, graph, negative_slope, eps, drop_mask):
+    def forward(ctx, ht, att, graph, negative_slope, eps, drop_mask,
+                drop_mask_ss):
         ht = ht.contiguous()
         att = att.contiguous()
-        out, scores, m, l = attend_cuda.sddmm_stats_agg_sorted(
+        cache = ATTEND_SCORE_CACHE
+        res = attend_cuda.sddmm_stats_agg_sorted(
             ht, graph.senders, graph.receivers, graph.row_ptr, att,
             edge_valid=graph.edge_mask, drop_mask=drop_mask,
-            negative_slope=negative_slope, eps=eps,
+            negative_slope=negative_slope, eps=eps, emit_scores=cache,
         )
+        if cache:
+            out, scores, m, l = res
+        else:
+            (out, m, l), scores = res, None
         ctx.save_for_backward(ht, att, scores, m, l)
         ctx.graph = graph
-        ctx.drop_mask = drop_mask
+        ctx.drop_mask, ctx.drop_mask_ss = drop_mask, drop_mask_ss
         ctx.negative_slope, ctx.eps = negative_slope, eps
         return out
 
@@ -407,16 +451,36 @@ class _Gatv2Attend(torch.autograd.Function):
     def backward(ctx, g):
         ht, att, scores, m, l = ctx.saved_tensors
         graph, drop_mask = ctx.graph, ctx.drop_mask
+        mode = ATTEND_BWD_MODE
+        if mode not in _ATTEND_BWD_MODES:
+            raise ValueError(
+                f"ATTEND_BWD_MODE must be one of {_ATTEND_BWD_MODES}, got "
+                f"{mode!r}")
         g = g.contiguous()
+        slope, eps = ctx.negative_slope, ctx.eps
         rho = attend_cuda.attend_rho_sorted(
             g, scores, m, l, ht, graph.senders, graph.receivers,
-            graph.row_ptr, eps=ctx.eps, drop_mask=drop_mask,
+            graph.row_ptr, eps=eps, drop_mask=drop_mask, att=att,
+            negative_slope=slope, edge_valid=graph.edge_mask,
         )
+        recv_args = (ht, g, graph.senders, graph.receivers, graph.row_ptr,
+                     att, scores, m, l, rho)
+        recv_kw = dict(eps=eps, negative_slope=slope, drop_mask=drop_mask,
+                       edge_valid=graph.edge_mask)
+        # Dropout without the sender-order mask takes the permute finish.
+        if mode == "send" and (drop_mask is None
+                               or ctx.drop_mask_ss is not None):
+            dht, datt = attend_cuda.attend_recv_bwd_full_sorted(
+                *recv_args, emit_v=False, **recv_kw)
+            dht_send = attend_cuda.attend_send_bwd_sorted(
+                ht, g, graph.receivers_ss, graph.senders_sorted,
+                graph.row_ptr_bwd, att, m, l, rho, eps=eps,
+                negative_slope=slope, valid_ss=graph.edge_mask_ss,
+                drop_ss=ctx.drop_mask_ss,
+            )
+            return dht + dht_send, datt, None, None, None, None, None
         dht, datt, v = attend_cuda.attend_recv_bwd_full_sorted(
-            ht, g, graph.senders, graph.receivers, graph.row_ptr, att,
-            scores, m, l, rho, eps=ctx.eps,
-            negative_slope=ctx.negative_slope, drop_mask=drop_mask,
-        )
+            *recv_args, **recv_kw)
         if graph.attw_plan is not None:
             # Banded finish: the window-eligible slots straight from the
             # receiver-sorted v, the residual ones read through their
@@ -429,12 +493,12 @@ class _Gatv2Attend(torch.autograd.Function):
                 weights=graph.attw_res_weight,
             )
             return (dht + dht_band[: graph.num_nodes] + dht_res, datt, None,
-                    None, None, None)
+                    None, None, None, None)
         dht_send = spmm_cuda.gather_scatter_sum_sorted(
             v, graph.bwd_perm, graph.senders_sorted, graph.row_ptr_bwd,
             graph.num_nodes,
         )
-        return dht + dht_send, datt, None, None, None, None
+        return dht + dht_send, datt, None, None, None, None, None
 
 
 class _EdgeSoftmax(torch.autograd.Function):

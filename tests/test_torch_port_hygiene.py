@@ -148,8 +148,10 @@ def test_attend_wrappers_branch_on_the_tensor_device_only():
     src = inspect.getsource(attend_cuda)
     assert "except" not in src and "torch.cuda.is_available" not in src
     for fn in (attend_cuda.sddmm_stats_agg_sorted,
+               attend_cuda.attend_aggregate_sorted,
                attend_cuda.attend_rho_sorted,
-               attend_cuda.attend_recv_bwd_full_sorted):
+               attend_cuda.attend_recv_bwd_full_sorted,
+               attend_cuda.attend_send_bwd_sorted):
         body = inspect.getsource(fn)
         assert re.search(r"if not ht\.is_cuda:\n\s+return \w+_plain\(", body)
         assert body.count("_plain(") == 1
@@ -186,16 +188,43 @@ def test_attend_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         ht, g, *graph, att, scores, m, l, rho)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert not got[2][5].any()  # the invalid slot sends nothing back
+    # The other modes, the aggregation from cached scores and the sender
+    # backward: their plain versions too, and no launch.
+    out3, m3, l3 = attend_cuda.sddmm_stats_agg_sorted(
+        ht, *graph, att, edge_valid=valid, emit_scores=False)
+    assert torch.equal(out3, out) and torch.equal(m3, m) and torch.equal(l3, l)
+    rho_re = attend_cuda.attend_rho_sorted(g, None, m, l, ht, *graph, att=att,
+                                           edge_valid=valid)
+    assert torch.equal(rho_re, attend_cuda.attend_rho_sorted_plain(
+        g, None, m, l, ht, *graph, att=att, edge_valid=valid))
+    got2 = attend_cuda.attend_recv_bwd_full_sorted(
+        ht, g, *graph, att, None, m, l, rho, emit_v=False, edge_valid=valid)
+    assert len(got2) == 2
+    agg = attend_cuda.attend_aggregate_sorted(scores, m, l, ht, *graph)
+    assert torch.equal(agg, attend_cuda.attend_aggregate_sorted_plain(
+        scores, m, l, ht, *graph))
+    perm = torch.argsort(send, stable=True)
+    s_ss, r_ss = send[perm], recv[perm]
+    ptr_ss = spmm_cuda.row_ptr_from_sorted(s_ss, 4)
+    valid_ss = valid[perm].float()
+    send_args = (ht, g, r_ss, s_ss, ptr_ss, att, m, l, rho)
+    assert torch.equal(
+        attend_cuda.attend_send_bwd_sorted(*send_args, valid_ss=valid_ss),
+        attend_cuda.attend_send_bwd_sorted_plain(*send_args,
+                                                 valid_ss=valid_ss))
     assert attend_cuda.LAUNCH_COUNTS == {
-        "sddmm_stats_agg_sorted": 0, "attend_rho_sorted": 0,
-        "attend_recv_bwd_full_sorted": 0}
+        "sddmm_stats_agg_sorted": 0, "attend_aggregate_sorted": 0,
+        "attend_rho_sorted": 0, "attend_recv_bwd_full_sorted": 0,
+        "attend_send_bwd_sorted": 0}
+    assert not any(attend_cuda.MODE_LAUNCH_COUNTS.values())
     assert _build.load_library.cache_info().currsize == 0
 
 
 @pytest.mark.parametrize("module,fns,data", [
     (softmax_cuda, ("softmax_stats_sorted", "softmax_apply_sorted"),
      "scores"),
-    (sddmm_cuda, ("sddmm_scores_sorted", "sddmm_bwd_sorted"), "ht"),
+    (sddmm_cuda, ("sddmm_scores_sorted", "sddmm_bwd_sorted",
+                  "sddmm_stats_sorted"), "ht"),
 ], ids=["softmax", "sddmm"])
 def test_composed_wrappers_branch_on_the_tensor_device_only(module, fns,
                                                              data):
@@ -232,6 +261,13 @@ def test_composed_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         sddmm_cuda.sddmm_scores_sorted_plain(ht, hj, att, recv))
     got = sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv)
     want = sddmm_cuda.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    send = torch.tensor([1, 2, 0, 3, 1, 0], dtype=torch.int32)
+    valid = torch.tensor([True] * 5 + [False])
+    got = sddmm_cuda.sddmm_stats_sorted(ht, send, recv, row_ptr, att,
+                                        edge_valid=valid)
+    want = sddmm_cuda.sddmm_stats_sorted_plain(ht, send, recv, row_ptr, att,
+                                               edge_valid=valid)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert not any(softmax_cuda.LAUNCH_COUNTS.values())
     assert not any(sddmm_cuda.LAUNCH_COUNTS.values())
@@ -379,7 +415,7 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS,
                **softmax_cuda.LAUNCH_COUNTS, **sddmm_cuda.LAUNCH_COUNTS,
                **band_cuda.LAUNCH_COUNTS}
-    assert set(module.REPLACES) == set(kernels) and len(kernels) == 12
+    assert set(module.REPLACES) == set(kernels) and len(kernels) == 15
     assert set(module.launch_counts()) == set(kernels)
     replaces = module.replaced_tpu_kernels()  # checks each pallas_call line
     assert replaces["attend_recv_bwd_full_sorted"].endswith(
@@ -395,6 +431,16 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
         "kernels/band_pallas.py:249")
     assert {"train_skewed_arxiv_shape",
             "train_gat_skewed_arxiv_shape"} <= set(module.PHASES)
+    assert replaces["sddmm_stats_sorted"].endswith(
+        "kernels/sddmm_pallas.py:316")
+    assert replaces["attend_aggregate_sorted"].endswith(
+        "kernels/attend_pallas.py:205")
+    assert replaces["attend_send_bwd_sorted"].endswith(
+        "kernels/attend_pallas.py:958")
+    assert {"train_gat_arxiv_shape_send", "train_gat_arxiv_shape_nocache",
+            "train_gat_arxiv_shape_send_nocache",
+            "train_gat_citeseer_shape_send",
+            "attend_two_pass_arxiv_shape"} <= set(module.PHASES)
 
 
 def test_roofline_uses_the_cards_constants():
