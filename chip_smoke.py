@@ -2,8 +2,9 @@
 """Drive keras_geometric_tpu_torch on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version, and train the 2-layer GCN and the
 2-layer GATv2 (fused and composed attention, the fused attention's other
-backward and score-cache modes, and both models on the locality tier)
-through the package's entry points.
+backward and score-cache modes, and both models on the locality tier), and
+GraphSAGE and GIN (their max and pooling paths through the segment max
+kernel) through the package's entry points.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -36,8 +37,15 @@ exit code and without the final line; so does a run of a subset of the phases
                 sender order, each mode also bit for bit against the cached
                 launch, the score-and-statistics kernel against the
                 forward's scores, ``m``, ``l``, and two sender-backward
-                launches against each other; then timings at the shapes the
-                training paths use;
+                launches against each other; the attention kernels also at
+                the wide heads (H, F) in (1, 320), (2, 512), which walk a
+                head in 256-column slabs; the narrow segment max at K in
+                1, 4, 8 and the wide one, forward and both tie rules of its
+                backward, at F in 1, 7, 40, 128, 256, 320 on tied inputs
+                (bf16 and f32, with and without the slot mask), forwards bit
+                for bit; then timings at the shapes the training paths use,
+                and the fused attention kernels at one head of 256 columns
+                against the wide heads;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
                 autograd over the plain versions, of ``GraphContext.attend``,
@@ -49,6 +57,10 @@ exit code and without the final line; so does a run of a subset of the phases
                 on the CiteSeer-shaped context; ``spmm`` on a symmetric and a
                 directed band context and ``attend`` on an ``attend_window``
                 context against autograd over the plain versions;
+                ``GINConv`` (sum, mean, max) and ``SAGEConv`` (all six
+                aggregators) on a CUDA context with tied inputs, and
+                ``GATv2Conv`` with two heads of 320 columns, against the same
+                layers on the plain versions (f32 and bf16);
 4. ``train_arxiv_shape``  the slice at full width: 169,343 nodes, 1,166,242
                 symmetric stream edges, 128 features, 256 hidden, 40 classes,
                 bf16 IO / f32 master parameters, Adam;
@@ -87,7 +99,19 @@ exit code and without the final line; so does a run of a subset of the phases
                 ``precompute_propagation`` on both contexts;
 12. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
                 ``attend_window=1024``, the GATv2 of run 6; step 1 also against
-                the same graph without the window tables.
+                the same graph without the window tables;
+13. ``segment_max_narrow_arxiv_shape``  the narrow segment max over random
+                ``[E, 4]`` scores (bf16 and f32) on run 6's graph, bit for bit
+                against its plain version and the softmax statistics kernel's
+                ``m`` (no module calls it: this is its path);
+14. ``train_sage_pool_arxiv_shape`` and ``train_gin_max_arxiv_shape``  run 6's
+                graph and features, ``GraphSAGE((256, 40),
+                aggregator="pooling")`` and a GIN with ``aggregator="max"``,
+                128 -> 256 -> 40, bf16 IO / f32 masters, Adam (1e-3): the
+                wide segment max and its backward with the ties split;
+15. ``train_sage_cora_shape``  run 5's Cora-shaped graph without self-loops,
+                ``GraphSAGE((16, 7))`` (mean) with message dropout 0.5, f32,
+                AdamW: the per-edge mean (messages-form scatter).
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -133,7 +157,9 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_gat_arxiv_shape_nocache",
           "train_gat_arxiv_shape_send_nocache",
           "train_gat_citeseer_shape_send", "attend_two_pass_arxiv_shape",
-          "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape")
+          "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape",
+          "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
+          "train_gin_max_arxiv_shape", "train_sage_cora_shape")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -147,13 +173,18 @@ GAT_ARXIV_EDGES = 1_335_586
 GAT_ARXIV_DIMS, GAT_ARXIV_HEADS = (64, 40), 4
 CITESEER = dict(nodes=3_327, pairs=4_732, feats=3_703, classes=6)
 GAT_CITESEER_DIMS, GAT_CITESEER_HEADS = (8, 6), 8
-ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7))  # (H, F)
+# (H, F) of the attention kernel sweeps; the last two are wider than a warp
+# holds at once (256 columns), so the kernels walk them in slabs.
+WIDE_HEAD_SHAPES = ((1, 320), (2, 512))
+ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7)) + WIDE_HEAD_SHAPES
 SOFTMAX_HEADS = (1, 4, 8)  # K of the softmax kernels
 SKEWED_EDGES = 2 * (ARXIV_EDGES // 2)  # the community graph's edge count
 BAND_WINDOW = ATTEND_WINDOW = 1024
 BAND_WIDTHS = (1, 7, 40, 128, 256)  # F of the band kernel sweep
 BAND_WINDOWS = (256, 512, 1024)
 SCATTER_WIDTHS = (8, 40, 160, 256)  # F of the window scatter sweep
+SEGMENT_MAX_HEADS = (1, 4, 8)  # K of the narrow segment max sweep
+SEGMENT_MAX_WIDTHS = (1, 7, 40, 128, 256, 320)  # F of the wide one
 
 SOURCES = {
     "spmm": "keras_geometric_tpu_torch/kernels/csrc/spmm.cu",
@@ -161,6 +192,7 @@ SOURCES = {
     "softmax": "keras_geometric_tpu_torch/kernels/csrc/softmax.cu",
     "sddmm": "keras_geometric_tpu_torch/kernels/csrc/sddmm.cu",
     "band": "keras_geometric_tpu_torch/kernels/csrc/band.cu",
+    "segment_max": "keras_geometric_tpu_torch/kernels/csrc/segment_max.cu",
 }
 # For each kernel: its CUDA source, and the file (under the reference
 # package's kernels/) and line of the pl.pallas_call it replaces.
@@ -180,6 +212,11 @@ REPLACES = {
     "sddmm_stats_sorted": ("sddmm", "sddmm_pallas.py", 316),
     "band_spmm": ("band", "band_pallas.py", 393),
     "window_scatter_sum": ("band", "band_pallas.py", 249),
+    "segment_max_sorted": ("segment_max", "spmm_pallas.py", 915),
+    "segment_max_wide_sorted": ("segment_max", "spmm_pallas.py", 1071),
+    # The backward of the same TPU kernel (its custom VJP, whose two sorted
+    # expands and select this one kernel replaces).
+    "segment_max_wide_bwd": ("segment_max", "spmm_pallas.py", 1071),
 }
 
 
@@ -229,11 +266,12 @@ def launch_counts() -> dict:
 
 
 def mode_launch_counts() -> dict:
-    """Launches of the attention kernels in their other modes (counted
-    beside their kernel's own count)."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda
+    """Launches of the attention kernels in their other modes and of the
+    wide segment max's backward with the ties split (counted beside their
+    kernel's own count)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
 
-    return dict(attend_cuda.MODE_LAUNCH_COUNTS)
+    return {**attend_cuda.MODE_LAUNCH_COUNTS, **spmm_cuda.MODE_LAUNCH_COUNTS}
 
 
 def reset_launch_counts() -> None:
@@ -1117,6 +1155,42 @@ def modes_sweep(device, timer):
     return cases, worst, hub
 
 
+def time_wide_heads(device, timer, ctx):
+    """The fused attention kernels (forward, rho, receiver backward) on the
+    arxiv-shaped GATv2 graph in bf16 at one head of 256 columns (the widest
+    narrow launch) and at the wide heads of ``WIDE_HEAD_SHAPES``, which run
+    the slab-walking instantiations: the price of a head wider than 256
+    columns, per call and per column."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+    e = int(ctx.senders.shape[0])
+    out = {}
+    for heads, f in ((1, 256),) + WIDE_HEAD_SHAPES:
+        ht, att, gout, _ = attend_inputs(gen, ctx.num_nodes, heads, f,
+                                         torch.bfloat16, e, False, device)
+        _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                                   edge_valid=ctx.edge_mask)
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph)
+        times = {
+            "sddmm_stats_agg_sorted": timer.cold_ms(
+                lambda: A.sddmm_stats_agg_sorted(
+                    ht, *graph, att, edge_valid=ctx.edge_mask), iters=10),
+            "attend_rho_sorted": timer.cold_ms(
+                lambda: A.attend_rho_sorted(gout, scores, m, l, ht, *graph),
+                iters=10),
+            "attend_recv_bwd_full_sorted": timer.cold_ms(
+                lambda: A.attend_recv_bwd_full_sorted(
+                    ht, gout, *graph, att, scores, m, l, rho), iters=10),
+        }
+        times["ms_per_1k_columns"] = {
+            k: v * 1000 / (heads * f) for k, v in list(times.items())}
+        out[f"H={heads} F={f}"] = times
+        del ht, att, gout, scores, m, l, rho
+    return out
+
+
 def time_mode_cases(device, timer, contexts, replaces):
     """The mode branches, the sender backward and the two-pass forward's
     kernels at the shapes their runs give them: kernel, plain version, bound
@@ -1905,6 +1979,259 @@ def band_autograd_phase(device):
 
 
 # ---------------------------------------------------------------------------
+# The segment max kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def tied_messages(gen, e, f, dtype, device):
+    """ReLU'd messages rounded to halves: values repeat within rows, and a
+    row whose messages are all <= 0 is tied at 0 in every column."""
+    m = torch.randn(e, f, generator=gen, device=device) - 0.3
+    return (torch.round(torch.relu(m) * 2) / 2).to(dtype)
+
+
+def segment_max_sweep(device):
+    """The narrow segment max at every K of ``SEGMENT_MAX_HEADS`` and the wide
+    one, forward and both tie rules of its backward, at every F of
+    ``SEGMENT_MAX_WIDTHS``, in bf16 and f32, with and without the slot mask,
+    on the skewed graph (hub row, empty rows, padded slots). Forwards are
+    held bit for bit (a max is order-free); the backward under the tolerance
+    of the module docstring with the row's cotangent as mass. The wide inputs
+    are tied (``tied_messages``), and the two rules must differ on them."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    g = skewed_graph(device)
+    n, e, recv, row_ptr = g["n"], g["e"], g["recv"], g["row_ptr"]
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = {"segment_max_sorted": 0.0, "segment_max_wide_sorted": 0.0,
+             "segment_max_wide_bwd": 0.0}
+    cases = 0
+    empty = torch.zeros(n, dtype=torch.bool, device=device)
+    empty[1:-1:2] = True  # every odd row but the last is empty
+    for dtype in (torch.bfloat16, torch.float32):
+        for mask in (None, g["mask"]):
+            what = f"{str(dtype)[6:]}{' masked' if mask is not None else ''}"
+            for k in SEGMENT_MAX_HEADS:
+                scores = torch.randn(e, k, generator=gen,
+                                     device=device).to(dtype)
+                got = K.segment_max_sorted(scores, recv, n, row_ptr=row_ptr,
+                                           mask=mask)
+                check(torch.equal(got, K.segment_max_sorted_plain(
+                    scores, recv, n, mask=mask)),
+                    f"segment_max_sorted K={k} {what}: differs from its "
+                    f"plain version")
+                check(bool(torch.isinf(got[empty]).all()),
+                      f"segment_max_sorted K={k} {what}: empty rows not -inf")
+                cases += 1
+            for f in SEGMENT_MAX_WIDTHS:
+                msgs = tied_messages(gen, e, f, dtype, device)
+                gout = torch.randn(n, f, generator=gen, device=device)
+                for empty_to_zero in (True, False):
+                    fwd = K._segment_max_wide_fwd(msgs, recv, row_ptr, n,
+                                                  mask, empty_to_zero)
+                    want = K.segment_max_wide_raw_plain(
+                        msgs, recv, n, mask=mask, empty_to_zero=empty_to_zero)
+                    check(torch.equal(fwd, want),
+                          f"segment_max_wide_sorted F={f} {what} "
+                          f"empty_to_zero={empty_to_zero}: differs from its "
+                          f"plain version")
+                    cases += 1
+                check(bool((want[empty] == K.NEG_SENTINEL).all()),
+                      f"segment_max_wide F={f} {what}: empty rows not at the "
+                      f"sentinel")
+                mass = gout.abs().index_select(0, recv.long())
+                grads = []
+                for ties_split in (False, True):
+                    got = K._segment_max_wide_bwd(msgs, want, gout, recv,
+                                                  row_ptr, n, mask,
+                                                  ties_split)
+                    plain = K.segment_max_wide_bwd_plain(
+                        msgs, want, gout, recv, n, mask=mask,
+                        ties_split=ties_split)
+                    worst["segment_max_wide_bwd"] = max(
+                        worst["segment_max_wide_bwd"],
+                        compare(got, plain, mass, dtype,
+                                f"segment_max_wide_bwd F={f} {what} "
+                                f"ties_split={ties_split}"))
+                    grads.append(got)
+                    cases += 1
+                check(not torch.equal(*grads),
+                      f"segment_max_wide F={f} {what}: the inputs hold no tie")
+    torch.cuda.synchronize()
+    return cases, worst
+
+
+def time_segment_max_cases(device, timer, contexts, replaces):
+    """The segment max kernels at the shapes their paths give them, on the
+    arxiv-shaped GATv2 graph (1,505,280 slots, the GraphSAGE / GIN runs'
+    context): the narrow one over ``[E, 4]`` scores in bf16 and f32
+    (``segment_max_narrow_arxiv_shape``), the wide forward and its backward
+    with the ties split over the two layers' bf16 messages (``[E, 128]``,
+    ``[E, 256]``) of ``train_sage_pool_arxiv_shape``. Bound: every input
+    byte read once and every output byte written once, over the memory
+    rate; ``bound_ms_if_not_reused``: the backward's second read of the
+    messages (it counts a row's ties first) from device memory too.
+    ``library_ms``: ``torch.segment_reduce(data, "max", lengths=...)``, the
+    one PyTorch call computing the forward (no mask); ``scatter_reduce_ms``:
+    ``scatter_reduce("amax")`` into ``-inf`` rows. No single call computes
+    the backward. ``ms_ties_whole``: the same backward with every tied
+    element given the whole cotangent (the public function's rule, one walk
+    of the row fewer), on the same inputs: what counting the ties costs."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    ctx = contexts["gat_arxiv"]
+    n, e = ctx.num_nodes, int(ctx.receivers.shape[0])
+    recv, row_ptr, mask = ctx.receivers, ctx.row_ptr, ctx.edge_mask
+    lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+    index = recv.long()[:, None]
+    gen = torch.Generator(device=device).manual_seed(21)
+    entries = []
+    index_bytes = e + (n + 1) * 4  # the mask and the row pointers
+
+    def entry(name, path, shape, err, kernel, plain, library, scatter,
+              nbytes, ops, not_reused=None):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_F32_OPS_PER_S * 1e3
+        out = {
+            "name": name, "route": "cuda",
+            "source": SOURCES[REPLACES[name][0]],
+            "replaces": replaces[name], "path": path, "shape": shape,
+            "launches": 0, "max_abs_err": err, "ms": timer.cold_ms(kernel),
+            "plain_ms": timer.cold_ms(plain, iters=10),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": (None if library is None
+                           else timer.cold_ms(library, iters=10)),
+            "library": (None if library is None else
+                        'torch.segment_reduce(data, "max", lengths=...)'),
+            "scatter_reduce_ms": (None if scatter is None
+                                  else timer.cold_ms(scatter, iters=10)),
+        }
+        if not_reused is not None:
+            out["bound_ms_if_not_reused"] = not_reused / H100_BYTES_PER_S * 1e3
+        entries.append(out)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        es = 2 if dtype == torch.bfloat16 else 4
+        k = GAT_ARXIV_HEADS
+        scores = torch.randn(e, k, generator=gen, device=device).to(dtype)
+        got = K.segment_max_sorted(scores, recv, n, row_ptr=row_ptr,
+                                   mask=mask)
+        check(torch.equal(got, K.segment_max_sorted_plain(
+            scores, recv, n, mask=mask)),
+            "segment_max_sorted at the arxiv shape differs from its plain "
+            "version")
+        entry("segment_max_sorted", "segment_max_narrow_arxiv_shape",
+              f"gat_arxiv scores: E={e} N={n} K={k} {str(dtype)[6:]} masked",
+              0.0,
+              lambda: K.segment_max_sorted(scores, recv, n, row_ptr=row_ptr,
+                                           mask=mask),
+              lambda: K.segment_max_sorted_plain(scores, recv, n, mask=mask),
+              lambda: torch.segment_reduce(scores, "max", lengths=lengths,
+                                           unsafe=True),
+              lambda: torch.full((n, k), float("-inf"), dtype=dtype,
+                                 device=device).scatter_reduce_(
+                  0, index.expand(e, k), scores, "amax"),
+              e * k * es + n * k * es + index_bytes, e * k)
+        del scores, got
+    for layer, f in (("layer 1", ARXIV_FEATS), ("layer 2", HIDDEN)):
+        msgs = tied_messages(gen, e, f, torch.bfloat16, device)
+        gout = torch.randn(n, f, generator=gen, device=device)
+        fwd = K._segment_max_wide_fwd(msgs, recv, row_ptr, n, mask, True)
+        check(torch.equal(fwd, K.segment_max_wide_raw_plain(
+            msgs, recv, n, mask=mask, empty_to_zero=True)),
+            f"segment_max_wide_sorted at arxiv {layer} differs from its "
+            f"plain version")
+        shape = (f"sage pooling arxiv {layer}: E={e} N={n} F={f} bfloat16 "
+                 f"masked, tied")
+        entry("segment_max_wide_sorted", "train_sage_pool_arxiv_shape",
+              shape, 0.0,
+              lambda: K._segment_max_wide_fwd(msgs, recv, row_ptr, n, mask,
+                                              True),
+              lambda: K.segment_max_wide_raw_plain(msgs, recv, n, mask=mask,
+                                                   empty_to_zero=True),
+              lambda: torch.segment_reduce(msgs, "max", lengths=lengths,
+                                           unsafe=True),
+              lambda: torch.full((n, f), float("-inf"), dtype=msgs.dtype,
+                                 device=device).scatter_reduce_(
+                  0, index.expand(e, f), msgs, "amax"),
+              e * f * 2 + n * f * 4 + index_bytes, e * f)
+        got = K._segment_max_wide_bwd(msgs, fwd, gout, recv, row_ptr, n, mask,
+                                      True)
+        plain = K.segment_max_wide_bwd_plain(msgs, fwd, gout, recv, n,
+                                             mask=mask, ties_split=True)
+        err = compare(got, plain, gout.abs().index_select(0, recv.long()),
+                      msgs.dtype, f"segment_max_wide_bwd at arxiv {layer}")
+        del got, plain
+        nbytes = 2 * e * f * 2 + 2 * n * f * 4 + index_bytes
+        entry("segment_max_wide_bwd", "train_sage_pool_arxiv_shape",
+              shape + ", ties split", err,
+              lambda: K._segment_max_wide_bwd(msgs, fwd, gout, recv, row_ptr,
+                                              n, mask, True),
+              lambda: K.segment_max_wide_bwd_plain(
+                  msgs, fwd, gout, recv, n, mask=mask, ties_split=True),
+              None, None, nbytes, 3 * e * f, not_reused=nbytes + e * f * 2)
+        entries[-1]["ms_ties_whole"] = timer.cold_ms(
+            lambda: K._segment_max_wide_bwd(msgs, fwd, gout, recv, row_ptr, n,
+                                            mask, False))
+        del msgs, gout, fwd
+    return entries
+
+
+def segment_max_narrow_phase(device, ctx, timer):
+    """The narrow segment max over random ``[E, 4]`` scores (seed 19, bf16 and
+    f32) on the arxiv-shaped GATv2 graph, with its slot mask: no module of
+    either package calls it, so this phase is its path. The launch counts
+    are read around those two calls alone. Each result is held bit for bit
+    against the plain version, and on the rows with an unmasked slot against
+    the softmax statistics kernel's ``m`` over the same scores (masked slots
+    at ``-inf``). Returns the counts."""
+    from keras_geometric_tpu_torch.kernels import softmax_cuda as S
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    n, e = ctx.num_nodes, int(ctx.receivers.shape[0])
+    recv, row_ptr, mask = ctx.receivers, ctx.row_ptr, ctx.edge_mask
+    inputs = [torch.randn(e, GAT_ARXIV_HEADS, generator=gen,
+                          device=device).to(dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [K.segment_max_sorted(s, recv, n, row_ptr=row_ptr, mask=mask)
+            for s in inputs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["segment_max_sorted"] == 2 and sum(counts.values()) == 2,
+          f"segment_max_narrow_arxiv_shape: launch counts {counts}")
+    report = {}
+    for scores, out in zip(inputs, outs):
+        dtype = str(scores.dtype)[6:]
+        check(out.shape == (n, GAT_ARXIV_HEADS) and out.dtype == scores.dtype,
+              f"segment_max_narrow {dtype}: wrong shape or type")
+        check(torch.equal(out, K.segment_max_sorted_plain(
+            scores, recv, n, mask=mask)),
+            f"segment_max_narrow {dtype}: differs from its plain version")
+        s32 = scores.float().masked_fill(~mask[:, None], float("-inf"))
+        m, _ = S.softmax_stats_sorted(s32, recv, row_ptr, n)
+        rows = torch.isfinite(out.float()).all(1)
+        check(torch.equal(out.float()[rows], m[rows]),
+              f"segment_max_narrow {dtype}: differs from the softmax "
+              f"statistics kernel's m on the rows with an unmasked slot")
+        report[dtype] = {
+            "rows_with_a_slot": int(rows.sum().item()),
+            "equal_to_plain_and_to_softmax_m": True,
+            "ms": timer.cold_ms(lambda: K.segment_max_sorted(
+                scores, recv, n, row_ptr=row_ptr, mask=mask), iters=10)}
+    emit("segment_max_narrow_arxiv_shape", launches=counts, slots=e,
+         nodes=n, **report)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Plain contexts: the same operators through the kernels' plain versions,
 # differentiated by autograd over PyTorch's own ops. For comparison only.
 # ---------------------------------------------------------------------------
@@ -1916,6 +2243,21 @@ class PlainContext:
         self.self_weight = ctx.self_weight
         self.senders = ctx.senders
         self.bwd_perm = ctx.bwd_perm
+        self.has_unit_weights = ctx.has_unit_weights
+
+    # The per-edge stream's receivers, mask and node count (what a layer
+    # reads from ``full_stream()`` for its library aggregators).
+    @property
+    def receivers(self):
+        return self.ctx.full_stream().receivers
+
+    @property
+    def edge_mask(self):
+        return self.ctx.full_stream().edge_mask
+
+    @property
+    def num_nodes(self):
+        return self.ctx.full_stream().num_nodes
 
     def full_stream(self):
         return self
@@ -1970,6 +2312,25 @@ class PlainContext:
         c = self.ctx
         return K.scatter_sum_sorted_plain(
             messages, c.receivers, c.num_nodes, weights=c.edge_weight)
+
+    def spmm_mean(self, h):
+        deg = self.ctx.in_degree.clamp_min(1e-8).to(h.dtype)
+        return self.spmm(h) / deg[:, None]
+
+    def scatter_mean(self, messages, *, masked=True):
+        deg = self.ctx.in_degree.clamp_min(1e-8)
+        total = self.scatter(messages, masked=masked)
+        return total / deg.to(total.dtype)[:, None]
+
+    def scatter_max(self, messages):
+        # PyTorch's scatter_reduce("amax"), whose gradient splits a tied
+        # row's cotangent as the kernel's split rule does; f32 inside.
+        from keras_geometric_tpu_torch.ops import segment
+
+        c = self.ctx.full_stream()
+        return segment.segment_max(messages.float(), c.receivers,
+                                   c.num_nodes, mask=c.edge_mask).to(
+            messages.dtype)
 
 
 def grad_of(fn, arg):
@@ -2174,6 +2535,98 @@ def composed_autograd_phase(device, citeseer):
     return results
 
 
+def gin_sage_autograd_phase(device):
+    """``GINConv`` (sum, mean, max) and ``SAGEConv`` (all six aggregators) on
+    a CUDA context, forward and gradients (parameters and features), against
+    the same layer on ``PlainContext`` (the plain versions, differentiated by
+    autograd over library ops), in f32 and bf16, on tied inputs: ReLU'd
+    features rounded to halves, and pooling biases shifted down so that
+    whole rows of pooled messages are 0. The max, min and pooling layers
+    must have launched the wide segment max and its backward with the ties
+    split. Then ``GATv2Conv`` with two heads of 320 columns on a context (the
+    attention kernels' wide instantiations) against the plain path the same
+    way. Tolerances: outputs 1e-4 (f32) / 2e-2 (bf16) and gradients 2e-4 /
+    5e-2 of their largest entry."""
+    import keras_geometric_tpu_torch as kgt
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    rng = np.random.default_rng(23)
+    n, e, f_in, f_out = 3_000, 24_000, 48, 40
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n - 50, e)])
+    edges[1, :3_000] = 7  # a hub row
+    ctx = kgt.prepare_graph(edges.astype(np.int32), n, device=device)
+    x_np = np.round(np.maximum(rng.standard_normal((n, f_in)), 0) * 2) / 2
+    results = {}
+
+    def run(layer, x, context):
+        layer.zero_grad(set_to_none=True)
+        x = x.detach().clone().requires_grad_(True)
+        out = layer(x, context=context)
+        (torch.tanh(out.float()) * 0.5).sum().backward()
+        return out.detach(), x.grad, {k: p.grad.detach().clone()
+                                      for k, p in layer.named_parameters()}
+
+    def held(name, layer, x, dtype, max_path, context):
+        K.reset_launch_counts()
+        got = run(layer, x, context)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCH_COUNTS)
+        want = run(layer, x, PlainContext(context))
+        o_tol, g_tol = ((1e-4, 2e-4) if dtype == torch.float32
+                        else (2e-2, 5e-2))
+        worst = 0.0
+        pairs = [("out", got[0], want[0], o_tol), ("d x", got[1], want[1],
+                                                   g_tol)]
+        pairs += [(f"d {k}", got[2][k], want[2][k], g_tol) for k in got[2]]
+        for what, a, b, tol in pairs:
+            # The std's square root has a NaN gradient where a row's
+            # variance is 0 (a tie), in both packages: the same places.
+            a, b = a.float(), b.float()
+            check(torch.equal(torch.isnan(a), torch.isnan(b)),
+                  f"{name}: {what} NaN at other places than the plain path's")
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            check(math.isfinite(err) and err <= tol * max(scale, 1e-12),
+                  f"{name}: {what} err {err:.3e} against scale {scale:.3e}")
+            worst = max(worst, err / max(scale, 1e-12))
+        if max_path:
+            check(counts["segment_max_wide_sorted"] >= 1 and
+                  counts["segment_max_wide_bwd"] >= 1 and
+                  K.MODE_LAUNCH_COUNTS["segment_max_wide_bwd(ties_split)"]
+                  >= 1, f"{name}: the segment max kernels did not run "
+                        f"({counts})")
+        results[name] = worst
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(x_np.astype(np.float32)).to(device).to(dtype)
+        tag = str(dtype)[6:]
+        for agg in ("sum", "mean", "max"):
+            gen = torch.Generator(device=device).manual_seed(1)
+            layer = kgt.GINConv(f_out, input_dim=f_in, mlp_hidden=(32,),
+                                aggregator=agg, train_eps=True,
+                                generator=gen, device=device).to(dtype)
+            held(f"GINConv {agg} {tag}", layer, x, dtype, agg == "max", ctx)
+        for agg in ("mean", "max", "sum", "min", "std", "pooling"):
+            gen = torch.Generator(device=device).manual_seed(2)
+            layer = kgt.SAGEConv(f_out, input_dim=f_in, aggregator=agg,
+                                 generator=gen, device=device)
+            if agg == "pooling":
+                with torch.no_grad():
+                    layer.pool_mlp.bias.fill_(-0.4)
+            held(f"SAGEConv {agg} {tag}", layer.to(dtype), x, dtype,
+                 agg in ("max", "min", "pooling"), ctx)
+        gen = torch.Generator(device=device).manual_seed(3)
+        gat_ctx = kgt.prepare_graph(edges.astype(np.int32), n,
+                                    add_self_loops=True, device=device)
+        layer = kgt.GATv2Conv(320, input_dim=f_in, heads=2,
+                              add_self_loops=False, generator=gen,
+                              device=device).to(dtype)
+        held(f"GATv2Conv heads=2 F=320 {tag}", layer, x, dtype, False,
+             gat_ctx)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
@@ -2229,7 +2682,10 @@ class CoraGCN(torch.nn.Module):
         return self.conv2(torch.relu(h), context=context)
 
 
-def cora_workload(device):
+def cora_workload(device, gcn=True):
+    """The Cora-shaped graph; ``gcn``: with the GCN's self-loops and
+    normalisation folded into the context (otherwise the plain edges, as
+    GraphSAGE takes them)."""
     import keras_geometric_tpu_torch as kgt
 
     rng = np.random.default_rng(0)
@@ -2240,7 +2696,7 @@ def cora_workload(device):
     x = (rng.random((n, feats)) < 0.02).astype(np.float32)  # sparse bag of words
     y = (x @ rng.standard_normal((feats, classes))).argmax(1).astype(np.int64)
     mask = rng.random(n) < 0.5
-    ctx = kgt.prepare_graph(edges, n, add_self_loops=True, gcn_normalize=True,
+    ctx = kgt.prepare_graph(edges, n, add_self_loops=gcn, gcn_normalize=gcn,
                             device=device)
     dev = lambda arr: torch.from_numpy(arr).to(device)
     return ctx, dev(x), dev(y), dev(mask)
@@ -2603,6 +3059,7 @@ def main() -> int:
         return (ctx.with_weight_dtype(torch.bfloat16), *rest)
 
     makers = {"cora": cora_workload, "citeseer": citeseer_workload,
+              "sage_cora": lambda dev: cora_workload(dev, gcn=False),
               "gat_arxiv": gat_arxiv_workload,
               "arxiv": lambda dev: arxiv_workload(dev, True),
               "directed": lambda dev: arxiv_workload(dev, False),
@@ -2648,11 +3105,16 @@ def main() -> int:
             device, timer, {name: workload(name)[0] for name in (
                 "skewed", "skewed_plain", "gat_skewed", "gat_skewed_plain")},
             replaces)
+        segmax_cases, segmax_worst = segment_max_sweep(device)
+        kernel_entries += time_segment_max_cases(
+            device, timer, {"gat_arxiv": workload("gat_arxiv")[0]}, replaces)
         emit("kernels", comparisons=cases + attend_cases + modes_cases
-             + composed_cases + band_cases,
+             + composed_cases + band_cases + segmax_cases,
              worst_abs_err={**worst, **attend_worst, **modes_worst,
-                            **composed_worst, **band_worst},
+                            **composed_worst, **band_worst, **segmax_worst},
              kernels=sorted(launch_counts()),
+             wide_head_ms=time_wide_heads(device, timer,
+                                          workload("gat_arxiv")[0]),
              hub_row_ms={**hub, "composed": composed_hub,
                          "attend_send_bwd_sorted": send_hub},
              timed=[{k: e[k] for k in ("name", "mode", "shape", "max_abs_err",
@@ -2665,7 +3127,8 @@ def main() -> int:
         emit("autograd", grad_rel_err={
             **autograd_phase(device),
             **composed_autograd_phase(device, workload("citeseer")),
-            **band_autograd_phase(device)})
+            **band_autograd_phase(device),
+            **gin_sage_autograd_phase(device)})
 
     def arxiv_model():
         gen = torch.Generator(device=device).manual_seed(0)
@@ -2694,7 +3157,29 @@ def main() -> int:
         gen = torch.Generator(device=device).manual_seed(0)
         return CoraGCN(1_433, 16, 7, 0.5, gen, device)
 
+    def sage_pool_arxiv_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GraphSAGE((HIDDEN, ARXIV_CLASSES), aggregator="pooling",
+                             input_dim=ARXIV_FEATS, generator=gen,
+                             device=device)
+
+    def gin_max_arxiv_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder("gin", (HIDDEN, ARXIV_CLASSES),
+                              input_dim=ARXIV_FEATS,
+                              conv_kwargs={"aggregator": "max"},
+                              generator=gen, device=device)
+
+    def sage_cora_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder("sage", (16, 7), input_dim=1_433,
+                              conv_kwargs={"dropout_rate": 0.5},
+                              generator=gen, device=device)
+
     adam = lambda model: torch.optim.Adam(model.parameters(), lr=1e-2)
+    # GIN and GraphSAGE on the random arxiv-shaped graph: at 1e-2 their
+    # first Adam steps overshoot (unnormalised maxes of 256-wide rows).
+    adam_slow = lambda model: torch.optim.Adam(model.parameters(), lr=1e-3)
     adamw = lambda lr: (lambda model: torch.optim.AdamW(
         model.parameters(), lr=lr, weight_decay=5e-4))
     spmm_only = {"gather_scatter_sum_sorted": 3}  # L1 fwd, L2 fwd, L2 bwd
@@ -2736,6 +3221,12 @@ def main() -> int:
                                      torch.bfloat16),
         "train_gat_skewed_arxiv_shape": ("gat_skewed", gat_arxiv_model, adam,
                                          torch.bfloat16),
+        "train_sage_pool_arxiv_shape": ("gat_arxiv", sage_pool_arxiv_model,
+                                        adam_slow, torch.bfloat16),
+        "train_gin_max_arxiv_shape": ("gat_arxiv", gin_max_arxiv_model,
+                                      adam_slow, torch.bfloat16),
+        "train_sage_cora_shape": ("sage_cora", sage_cora_model, adamw(0.01),
+                                  None),
     }
     # The attention's module constants (ATTEND_BWD_MODE, ATTEND_SCORE_CACHE)
     # of the runs that set them; every other run keeps the defaults.
@@ -2855,6 +3346,41 @@ def main() -> int:
             device, workload("gat_arxiv")[0], timer)
         path_mode_launches["attend_two_pass_arxiv_shape"] = (
             mode_launch_counts())
+
+    # The segment max kernels. The narrow one has no module caller: its own
+    # phase is its path. The wide one carries GraphSAGE's pooling and GIN's
+    # max on the GATv2 arxiv graph: per layer one forward; its backward
+    # (ties split) wherever the messages need a gradient (both SAGE layers:
+    # the pooling Dense; GIN's second layer only); and the gather's VJP
+    # (the fused-gather scatter) at the second layer, whose input needs one.
+    if "segment_max_narrow_arxiv_shape" in phases:
+        path_launches["segment_max_narrow_arxiv_shape"] = (
+            segment_max_narrow_phase(device, workload("gat_arxiv")[0],
+                                     timer))
+        path_mode_launches["segment_max_narrow_arxiv_shape"] = (
+            mode_launch_counts())
+    split = "segment_max_wide_bwd(ties_split)"
+    if "train_sage_pool_arxiv_shape" in phases:
+        train("train_sage_pool_arxiv_shape", steps=8, timed_iters=10,
+              per_step={"segment_max_wide_sorted": 2,
+                        "segment_max_wide_bwd": 2,
+                        "gather_scatter_sum_sorted": 1},
+              per_step_modes={split: 2})
+    if "train_gin_max_arxiv_shape" in phases:
+        train("train_gin_max_arxiv_shape", steps=8, timed_iters=10,
+              per_step={"segment_max_wide_sorted": 2,
+                        "segment_max_wide_bwd": 1,
+                        "gather_scatter_sum_sorted": 1},
+              per_step_modes={split: 1})
+    # GraphSAGE's mean with message dropout takes the per-edge path: the
+    # messages-form scatter per layer; at layer 2 its VJP (expand) and the
+    # gather's VJP.
+    if "train_sage_cora_shape" in phases:
+        train("train_sage_cora_shape", steps=40, timed_iters=10,
+              per_step={"scatter_sum_sorted": 2, "expand_sorted": 1,
+                        "gather_scatter_sum_sorted": 1},
+              falling=mean_of_ends)
+    workloads.pop("sage_cora", None)
 
     # The locality tier. Layer 1 propagates first (F = 128, no backward: x
     # needs no gradient), layer 2 runs at F = 40 forward and backward: the

@@ -9,15 +9,23 @@ hand-written forward and backward kernels) and composed
 ``GATv2Conv(fused_attend=False)``, ``return_attention=True``), with
 ``GATv2Conv`` and ``GAT``; and the locality tier (``ops/reorder.py``, the
 community graph generator, ``prepare_graph(band_window=..., attend_window=...)``
-with hand-written band SpMM and window scatter kernels). Entry points run on
-a CUDA device unless the caller passes another.
+with hand-written band SpMM and window scatter kernels); and GIN and
+GraphSAGE with all six aggregators (``GINConv``, ``SAGEConv``, ``GIN``,
+``GraphSAGE``, ``propagate`` / ``MessagePassing``, ``aggregate``,
+``PoolingAggregator``), whose max and pooling paths on a context run the
+hand-written segment max kernel. Entry points run on a CUDA device unless the
+caller passes another.
 """
 
 from ._version import __version__
-from .models.gnn import GAT, GCN, GNNEncoder
+from .models.gnn import GAT, GCN, GIN, GNNEncoder, GraphSAGE
+from .nn.aggregators import PoolingAggregator, aggregate
 from .nn.gatv2_conv import GATv2Conv
 from .nn.gcn_conv import GCNConv
-from .nn.module import MLP, Dense
+from .nn.gin_conv import GINConv
+from .nn.message_passing import MessagePassing, propagate
+from .nn.module import MLP, Dense, Module
+from .nn.sage_conv import SAGEConv
 from .ops.csr import GraphContext, prepare_graph
 from .ops.graph_ops import add_self_loops, ensure_edge_index, gcn_norm
 from .ops.precompute import precompute_propagation
@@ -25,13 +33,22 @@ from .ops.precompute import precompute_propagation
 
 __all__ = [
     "__version__",
+    "Module",
     "Dense",
     "MLP",
+    "MessagePassing",
+    "propagate",
+    "aggregate",
+    "PoolingAggregator",
     "GCNConv",
+    "GINConv",
     "GATv2Conv",
+    "SAGEConv",
     "GNNEncoder",
     "GCN",
+    "GIN",
     "GAT",
+    "GraphSAGE",
     "GraphContext",
     "prepare_graph",
     "precompute_propagation",

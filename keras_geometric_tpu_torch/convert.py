@@ -24,7 +24,12 @@ def params_from_jax(
 
     ``model.load_state_dict(params_from_jax(tree))`` loads a ``GCNConv``
     (``{"kernel", "bias"}``), a ``GATv2Conv`` (``{"kernel", "att", "bias"}``,
-    ``att`` kept ``[1, H, F]``) or a ``GNNEncoder`` / ``GAT``
+    ``att`` kept ``[1, H, F]``), a ``GINConv`` (``{"mlp": {"dense_i":
+    {"kernel", "bias"}}, "eps"}``, ``eps`` only when trainable), a
+    ``SAGEConv`` (``{"pool_mlp": {"kernel", "bias"}, "lin_neigh": {"kernel"},
+    "lin_self": {"kernel"}, "bias"}``, as far as its options give them), a
+    ``PoolingAggregator`` (``{"mlp": {"kernel", "bias"}}``) or a
+    ``GNNEncoder`` / ``GCN`` / ``GIN`` / ``GAT`` / ``GraphSAGE``
     (``{"layer_i": {...}}``).
     """
     out: dict[str, torch.Tensor] = {}

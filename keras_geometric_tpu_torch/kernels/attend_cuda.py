@@ -52,7 +52,10 @@ Source notes, one per kernel (all five are bound by bytes):
 Every score these kernels compute or recompute comes from one device function
 with one lane layout, so a recomputed score is the forward's bit for bit; the
 wrappers hand the kernels 16-byte aligned data (``_aligned``) so that the
-layout depends on F and the type alone.
+layout depends on F and the type alone. Any F per head works: a head wider
+than 256 columns runs an instantiation of its own that walks the head in
+256-column slabs (``csrc/lanes.cuh``), with its own score function, shared
+by every wide kernel in the same way.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -87,7 +90,6 @@ __all__ = [
     "attend_send_bwd_sorted_plain",
     "LAUNCH_COUNTS",
     "reset_launch_counts",
-    "MAX_HEAD_WIDTH",
 ]
 
 # One plain integer per kernel entry, incremented where the kernel is
@@ -109,10 +111,6 @@ MODE_LAUNCH_COUNTS = {
     "attend_recv_bwd_full_sorted(scores=None)": 0,
     "attend_recv_bwd_full_sorted(emit_v=False)": 0,
 }
-
-# Columns per head the kernels take: 8 per lane of a warp.
-MAX_HEAD_WIDTH = 256
-
 
 def reset_launch_counts() -> None:
     for counts in (LAUNCH_COUNTS, MODE_LAUNCH_COUNTS):
@@ -380,12 +378,7 @@ def _aligned(t):
 def _head_width(d, heads):
     if heads < 1 or d % heads:
         raise ValueError(f"{heads} heads do not divide the width {d}")
-    f = d // heads
-    if f > MAX_HEAD_WIDTH:
-        raise ValueError(
-            f"the attention kernels take at most {MAX_HEAD_WIDTH} columns "
-            f"per head, got F = {f}")
-    return f
+    return d // heads
 
 
 def _check_graph(ht, senders, row_ptr, att):

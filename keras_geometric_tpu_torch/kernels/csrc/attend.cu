@@ -74,6 +74,16 @@
 // slot (masked) is skipped before any of them, so the padded tail, which in
 // sender order piles into the last row, costs one mask read a slot.
 //
+// Wide heads (F > 256, lanes.cuh): a launch of its own instantiation (WIDE)
+// gives each group one 256-column slab of a (row, head) pair. The scores, m
+// and l, and dalpha, span the head: a wide group computes them by walking
+// the head's slabs for each slot (gatv2_score_wide, head_dot_wide), so every
+// slab's group of a row runs the same online recurrence and the first slab's
+// group writes the scores and statistics; the columns' own work (the output,
+// d_pre, v, the datt partials) is per slab. rho has no column output: one
+// group per (row, head) walks the slabs. The narrow instantiations are as
+// before.
+//
 // No atomics anywhere. The one reduction that spans rows, datt, is done in
 // two steps: the receiver backward runs a fixed grid whose groups stride
 // over the (row, head) pairs with their head held constant, each group
@@ -116,6 +126,23 @@ __device__ __forceinline__ float lane_dot(const float (&a)[NJ][VEC],
   return part;
 }
 
+// The dot product of two rows over a wide head's F columns (a, b: their
+// first column), slab by slab, then one butterfly.
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ float head_dot_wide(const S* __restrict__ a,
+                                               const S* __restrict__ b,
+                                               int f, const Geometry& q) {
+  float part = 0.0f;
+  for (int c = 0; c < f; c += kSlab) {
+    const int fk = f - c < kSlab ? f - c : kSlab;
+    float x[NJ][VEC], y[NJ][VEC];
+    load_lane<S, VEC, NJ>(a + c, fk, q, x);
+    load_lane<S, VEC, NJ>(b + c, fk, q, y);
+    part += lane_dot<VEC, NJ>(x, y);
+  }
+  return group_sum(part, q.lph, q.mask);
+}
+
 // alpha of slot e from its score: the cached one, or (RECOMPUTE) the one
 // recomputed from the receiver's and sender's columns, 0 on an invalid slot.
 // exp(min(s - m, 0)) equals exp(s - m) for the forward's own s.
@@ -134,7 +161,25 @@ __device__ __forceinline__ float slot_alpha(
   }
 }
 
-template <typename S, int VEC, int NJ>
+// The same for a wide head: hi, hj are the receiver's and the sender's
+// first column of the head, hcol the head's first column of att.
+template <bool RECOMPUTE, typename S, int VEC, int NJ>
+__device__ __forceinline__ float slot_alpha_wide(
+    const float* __restrict__ scores, const uint8_t* __restrict__ valid,
+    int64_t e, int heads, int h, const S* hi, const S* hj, const void* att,
+    int att_bf16, int64_t hcol, int f, float slope, float m, float denom,
+    const Geometry& q) {
+  if constexpr (!RECOMPUTE) {
+    return expf(scores[e * heads + h] - m) / denom;
+  } else {
+    if (valid != nullptr && valid[e] == 0) return 0.0f;
+    const float s = gatv2_score_wide<S, VEC, NJ>(hi, hj, att, att_bf16, hcol,
+                                                 f, slope, q);
+    return expf(fminf(s - m, 0.0f)) / denom;
+  }
+}
+
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_stats_agg_kernel(const S* __restrict__ ht,
                        const int32_t* __restrict__ senders,
@@ -147,28 +192,42 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
                        int64_t n_rows, int heads, int f, int lph, float slope,
                        float eps) {
   const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads) return;
-  const int64_t row = q.gid / heads;
-  const int h = static_cast<int>(q.gid - row * heads);
+  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
+  const Item it = item_of<WIDE>(q.gid, heads, f);
+  const int64_t row = it.row;
+  const int h = it.h;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const int64_t col0 = it.col0;  // this group's columns: col0 .. col0 + fk
+  const int64_t hcol = static_cast<int64_t>(h) * f;  // the head's first
+  // The group of a wide head's first slab writes the scores and statistics;
+  // every slab's group runs the same recurrence over the same scores.
+  const bool lead = q.lane == 0 && (!WIDE || col0 == hcol);
 
   float hi_row[NJ][VEC], a[NJ][VEC], o[NJ][VEC];
-  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  if constexpr (!WIDE) {
+    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  }
   zero_lane<VEC, NJ>(o);
   float m = -INFINITY, l = 0.0f;
 
   const int64_t hi = row_ptr[row + 1];
   for (int64_t e = row_ptr[row]; e < hi; ++e) {
     float hj[NJ][VEC];
-    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
-                                             d, col0, heads, h, f, q, hj);
-    const float part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph,
-                                            q.mask);
+    const float keep = load_edge<S, VEC, NJ>(
+        ht, senders, drop, drop_bf16, e, d, col0, heads, h, it.fk, q, hj);
+    float part;
+    if constexpr (WIDE) {
+      part = gatv2_score_wide<S, VEC, NJ>(
+          ht + row * d + hcol,
+          ht + static_cast<int64_t>(senders[e]) * d + hcol, att, att_bf16,
+          hcol, f, slope, q);
+    } else {
+      part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+    }
     const float s =
         (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
-    if (scores != nullptr && q.lane == 0) scores[e * heads + h] = s;
+    if (scores != nullptr && lead) scores[e * heads + h] = s;
     if (s > -INFINITY) {  // the same on every lane of the group
       float p;
       const float scale = online_step(s, m, l, p);
@@ -183,7 +242,7 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
     }
   }
 
-  if (q.lane == 0) {
+  if (lead) {
     m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
     l_out[row * heads + h] = l;
   }
@@ -193,10 +252,10 @@ sddmm_stats_agg_kernel(const S* __restrict__ ht,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) o[j][i] /= denom;
   }
-  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, o);
+  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, o);
 }
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_aggregate_kernel(const float* __restrict__ scores,
                         const float* __restrict__ m_in,
@@ -208,11 +267,12 @@ attend_aggregate_kernel(const float* __restrict__ scores,
                         S* __restrict__ out, int64_t n_rows, int heads, int f,
                         int lph, float eps) {
   const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads) return;
-  const int64_t row = q.gid / heads;
-  const int h = static_cast<int>(q.gid - row * heads);
+  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
+  const Item it = item_of<WIDE>(q.gid, heads, f);
+  const int64_t row = it.row;
+  const int h = it.h;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const int64_t col0 = it.col0;
   const float m = m_in[row * heads + h];
   const float denom = l_in[row * heads + h] + eps;
 
@@ -223,8 +283,8 @@ attend_aggregate_kernel(const float* __restrict__ scores,
     const float s = scores[e * heads + h];
     if (!(s > -INFINITY)) continue;  // an invalid slot: alpha is 0
     float hj[NJ][VEC];
-    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
-                                             d, col0, heads, h, f, q, hj);
+    const float keep = load_edge<S, VEC, NJ>(
+        ht, senders, drop, drop_bf16, e, d, col0, heads, h, it.fk, q, hj);
     const float w = expf(s - m) / denom * keep;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -232,10 +292,10 @@ attend_aggregate_kernel(const float* __restrict__ scores,
       for (int i = 0; i < VEC; ++i) o[j][i] += w * hj[j][i];
     }
   }
-  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, o);
+  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, o);
 }
 
-template <typename S, int VEC, int NJ, bool RECOMPUTE>
+template <typename S, int VEC, int NJ, bool RECOMPUTE, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
                   const int32_t* __restrict__ senders,
@@ -256,12 +316,15 @@ attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
   const int64_t col0 = static_cast<int64_t>(h) * f;
 
   // The receiver's columns and att only feed a recomputed score; the
-  // cached instantiation never reads them.
+  // cached instantiation never reads them. A wide head reads its rows slab
+  // by slab for each slot.
   float g_row[NJ][VEC], hi_row[NJ][VEC], a[NJ][VEC];
-  load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
-  if constexpr (RECOMPUTE) {
-    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  if constexpr (!WIDE) {
+    load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+    if constexpr (RECOMPUTE) {
+      load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+      load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+    }
   }
   const float m = m_in[row * heads + h];
   const float denom = l_in[row * heads + h] + eps;
@@ -269,20 +332,30 @@ attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
 
   const int64_t hi = row_ptr[row + 1];
   for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    float hj[NJ][VEC];
-    const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e,
-                                             d, col0, heads, h, f, q, hj);
-    const float dalpha =
-        group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-    const float alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
-        scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
-        q);  // 0 for an invalid slot
+    float keep, dalpha, alpha;
+    if constexpr (WIDE) {
+      const S* hj = ht + static_cast<int64_t>(senders[e]) * d + col0;
+      keep = drop == nullptr ? 1.0f
+                             : load_scalar(drop, drop_bf16, e * heads + h);
+      dalpha = head_dot_wide<S, VEC, NJ>(g + row * d + col0, hj, f, q);
+      alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
+          scores, valid, e, heads, h, ht + row * d + col0, hj, att,
+          att_bf16, col0, f, slope, m, denom, q);
+    } else {
+      float hj[NJ][VEC];
+      keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e, d, col0,
+                                   heads, h, f, q, hj);
+      dalpha = group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+      alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
+          scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
+          q);  // 0 for an invalid slot
+    }
     acc += alpha * keep * dalpha;
   }
   if (q.lane == 0) rho[row * heads + h] = acc;
 }
 
-template <typename S, int VEC, int NJ, bool RECOMPUTE>
+template <typename S, int VEC, int NJ, bool RECOMPUTE, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const int32_t* __restrict__ senders,
@@ -298,23 +371,28 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        float* __restrict__ partial, int64_t n_rows, int heads,
                        int f, int lph, float slope, float eps) {
   const Geometry q = geometry(lph);
-  // The grid holds a multiple of `heads` groups, so a group that strides over
-  // the (row, head) pairs by the grid's size keeps its head.
+  // The grid holds a multiple of heads * slabs groups, so a group that
+  // strides over the (row, head, slab) triples by the grid's size keeps its
+  // head and slab.
   const int64_t n_groups =
       static_cast<int64_t>(gridDim.x) * (kThreads / lph);
-  const int h = static_cast<int>(q.gid % heads);
+  const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
+  const int h = mine.h;
+  const int fk = mine.fk;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const int64_t col0 = mine.col0;
+  const int64_t hcol = static_cast<int64_t>(h) * f;
 
   float a[NJ][VEC], datt_acc[NJ][VEC];
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
   zero_lane<VEC, NJ>(datt_acc);
 
-  for (int64_t item = q.gid; item < n_rows * heads; item += n_groups) {
-    const int64_t row = item / heads;
+  for (int64_t item = q.gid; item < n_rows * per_row; item += n_groups) {
+    const int64_t row = item / per_row;
     float hi_row[NJ][VEC], g_row[NJ][VEC], acc[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-    load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+    load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
+    load_lane<S, VEC, NJ>(g + row * d + col0, fk, q, g_row);
     zero_lane<VEC, NJ>(acc);
     const float m = m_in[row * heads + h];
     const float denom = l_in[row * heads + h] + eps;
@@ -324,12 +402,21 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
     for (int64_t e = row_ptr[row]; e < hi; ++e) {
       float hj[NJ][VEC];
       const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16,
-                                               e, d, col0, heads, h, f, q, hj);
-      const float dalpha =
-          group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-      const float alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
-          scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
-          q);  // 0 for an invalid slot
+                                               e, d, col0, heads, h, fk, q,
+                                               hj);
+      float dalpha, alpha;
+      if constexpr (WIDE) {
+        const S* hj_head = ht + static_cast<int64_t>(senders[e]) * d + hcol;
+        dalpha = head_dot_wide<S, VEC, NJ>(g + row * d + hcol, hj_head, f, q);
+        alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
+            scores, valid, e, heads, h, ht + row * d + hcol, hj_head, att,
+            att_bf16, hcol, f, slope, m, denom, q);
+      } else {
+        dalpha = group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+        alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
+            scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
+            q);  // 0 for an invalid slot
+      }
       const float ds = alpha * (keep * dalpha - rho_row);
       const float alpha_keep = alpha * keep;
 #pragma unroll
@@ -344,15 +431,15 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
           hj[j][i] = alpha_keep * g_row[j][i] + d_pre;  // this lane's v
         }
       }
-      if (v != nullptr) store_lane<S, VEC, NJ>(v + e * d + col0, f, q, hj);
+      if (v != nullptr) store_lane<S, VEC, NJ>(v + e * d + col0, fk, q, hj);
     }
-    store_lane<S, VEC, NJ>(dht + row * d + col0, f, q, acc);
+    store_lane<S, VEC, NJ>(dht + row * d + col0, fk, q, acc);
   }
 
-  store_partial<VEC, NJ>(partial, heads, d, col0, f, q, datt_acc);
+  store_partial<VEC, NJ>(partial, per_row, d, col0, fk, q, datt_acc);
 }
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const int32_t* __restrict__ receivers_ss,
@@ -366,15 +453,17 @@ attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        S* __restrict__ out, int64_t n_rows, int heads, int f,
                        int lph, float slope, float eps) {
   const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads) return;
-  const int64_t row = q.gid / heads;  // the sender
-  const int h = static_cast<int>(q.gid - row * heads);
+  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
+  const Item it = item_of<WIDE>(q.gid, heads, f);
+  const int64_t row = it.row;  // the sender
+  const int h = it.h;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const int64_t col0 = it.col0;
+  const int64_t hcol = static_cast<int64_t>(h) * f;
 
   float hs[NJ][VEC], a[NJ][VEC], acc[NJ][VEC];
-  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hs);
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  load_lane<S, VEC, NJ>(ht + row * d + col0, it.fk, q, hs);
+  load_att<VEC, NJ>(att, att_bf16, col0, it.fk, q, a);
   zero_lane<VEC, NJ>(acc);
 
   const int64_t hi = row_ptr_bwd[row + 1];
@@ -382,16 +471,28 @@ attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
     if (valid_ss != nullptr && valid_ss[e] == 0.0f) continue;  // padded slot
     const int64_t r = receivers_ss[e];
     float hr[NJ][VEC], gr[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + r * d + col0, f, q, hr);
-    load_lane<S, VEC, NJ>(g + r * d + col0, f, q, gr);
+    load_lane<S, VEC, NJ>(ht + r * d + col0, it.fk, q, hr);
+    load_lane<S, VEC, NJ>(g + r * d + col0, it.fk, q, gr);
     // The forward's score: receiver columns first, as it summed them.
-    const float s = gatv2_score<VEC, NJ>(hr, hs, a, slope, lph, q.mask);
+    float s;
+    if constexpr (WIDE) {
+      s = gatv2_score_wide<S, VEC, NJ>(ht + r * d + hcol, ht + row * d + hcol,
+                                       att, att_bf16, hcol, f, slope, q);
+    } else {
+      s = gatv2_score<VEC, NJ>(hr, hs, a, slope, lph, q.mask);
+    }
     const int64_t rh = r * heads + h;
     const float alpha = expf(fminf(s - m_in[rh], 0.0f)) / (l_in[rh] + eps);
     const float keep =
         drop_ss == nullptr ? 1.0f
                            : load_scalar(drop_ss, drop_bf16, e * heads + h);
-    const float dalpha = group_sum(lane_dot<VEC, NJ>(gr, hs), lph, q.mask);
+    float dalpha;
+    if constexpr (WIDE) {
+      dalpha = head_dot_wide<S, VEC, NJ>(g + r * d + hcol,
+                                         ht + row * d + hcol, f, q);
+    } else {
+      dalpha = group_sum(lane_dot<VEC, NJ>(gr, hs), lph, q.mask);
+    }
     const float ds = alpha * (keep * dalpha - rho[rh]);
     const float alpha_keep = alpha * keep;
 #pragma unroll
@@ -404,7 +505,7 @@ attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
       }
     }
   }
-  store_lane<S, VEC, NJ>(out + row * d + col0, f, q, acc);
+  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, acc);
 }
 
 }  // namespace
@@ -430,10 +531,11 @@ int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
-  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const unsigned grid =
+      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_FWD(S)                                                          \
-  sddmm_stats_agg_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+  sddmm_stats_agg_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(       \
       static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
       drop, drop_bf16, static_cast<S*>(out), scores, m, l, n_rows, heads,   \
       fi, lay.lph, slope, eps)
@@ -458,10 +560,11 @@ int kgt_attend_aggregate_sorted(const float* scores, const float* m,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
-  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const unsigned grid =
+      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_AGG(S)                                                          \
-  attend_aggregate_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(            \
+  attend_aggregate_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(      \
       scores, m, l, static_cast<const S*>(ht), senders, row_ptr, drop,      \
       drop_bf16, static_cast<S*>(out), n_rows, heads, fi, lay.lph, eps)
   KGT_DISPATCH(is_bf16, lay, KGT_AGG)
@@ -489,7 +592,8 @@ int kgt_attend_rho_sorted(const void* g, const void* ht,
   const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_RHO_AS(S, RECOMPUTE)                                           \
-  attend_rho_kernel<S, VEC, NJ, RECOMPUTE><<<grid, kThreads, 0, s>>>(      \
+  attend_rho_kernel<S, VEC, NJ, RECOMPUTE, WIDE>                           \
+      <<<grid, kThreads, 0, s>>>(                                          \
       static_cast<const S*>(g), static_cast<const S*>(ht), senders,        \
       row_ptr, scores, m, l, att, att_bf16, valid, drop, drop_bf16, rho,   \
       n_rows, heads, fi, lay.lph, slope, eps)
@@ -516,7 +620,7 @@ int64_t kgt_attend_recv_bwd_partial_rows(const void* ht, const void* g,
   if (!shape_ok(n_rows, heads, f)) return 0;
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
                                  v == nullptr ? dht : v);
-  return partial_rows(n_rows, heads, lay.lph);
+  return partial_rows(n_rows, heads * lay.slabs, lay.lph);
 }
 
 // Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f] (null:
@@ -539,11 +643,13 @@ int kgt_attend_recv_bwd_full_sorted(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
                                  v == nullptr ? dht : v);
-  const unsigned grid = blocks_for_fixed_grid(n_rows, heads, lay.lph);
-  const int64_t p_rows = partial_rows(n_rows, heads, lay.lph);
+  const unsigned grid =
+      blocks_for_fixed_grid(n_rows, heads * lay.slabs, lay.lph);
+  const int64_t p_rows = partial_rows(n_rows, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_BWD_AS(S, RECOMPUTE)                                            \
-  attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE><<<grid, kThreads, 0, s>>>(  \
+  attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, WIDE>                       \
+      <<<grid, kThreads, 0, s>>>(                                           \
       static_cast<const S*>(ht), static_cast<const S*>(g), senders,         \
       row_ptr, att, att_bf16, scores, m, l, rho, valid, drop, drop_bf16,    \
       static_cast<S*>(dht), static_cast<S*>(v), partial, n_rows, heads, fi, \
@@ -584,10 +690,11 @@ int kgt_attend_send_bwd_sorted(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, out, out);
-  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const unsigned grid =
+      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_SEND(S)                                                         \
-  attend_send_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(             \
+  attend_send_bwd_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(       \
       static_cast<const S*>(ht), static_cast<const S*>(g), receivers_ss,    \
       row_ptr_bwd, att, att_bf16, m, l, rho, valid_ss, drop_ss, drop_bf16,  \
       static_cast<S*>(out), n_rows, heads, fi, lay.lph, slope, eps)

@@ -1,16 +1,27 @@
 // Shared device helpers of the attention kernels (attend.cu, sddmm.cu,
-// softmax.cu): storage types, packs of neighbouring columns, sub-warp groups
-// that own one head's columns, the GATv2 score and the online softmax step
-// that every score kernel shares, the launcher's layout choice and the fixed-
-// order reduction of per-group partials.
+// softmax.cu) and of segment_max.cu: storage types, packs of neighbouring
+// columns, sub-warp groups that own one head's columns, the GATv2 score and
+// the online softmax step that every score kernel shares, the launcher's
+// layout choice and the fixed-order reduction of per-group partials.
 //
 // A group of `lph` lanes (a power of two, at most a warp) owns one head's F
 // columns of one row or edge slot. A lane holds NJ packs of VEC neighbouring
 // columns (pack j of lane t starts at column (j*lph + t)*VEC) and moves each
 // pack with one load or store of up to 16 bytes; VEC is the widest vector
-// that divides F and the pointers' alignment, so any F >= 1 works, up to
-// 32 lanes * kMaxPerLane columns. Data arrive in f32 or bf16 (raw uint16_t
-// bits); every sum is taken in f32.
+// that divides F and the pointers' alignment, so any F >= 1 works. Data
+// arrive in f32 or bf16 (raw uint16_t bits); every sum is taken in f32.
+//
+// Wide heads. A warp holds at most kSlab = 32 lanes * kMaxPerLane columns
+// at once. A head wider than that (F > 256) is cut into 256-column slabs
+// (the last one shorter), laid over a warp as a 256-column head would be
+// (lph = 32, VEC * NJ = kMaxPerLane), and such a launch is its own
+// instantiation (WIDE = true), so that the narrow launches keep their
+// registers. A wide kernel gives each group one slab of a (row or slot,
+// head) pair where its output has columns, and computes a quantity summed
+// over the whole head (a score, a dot product) by walking the head's slabs
+// in order and reducing over the group once at the end: gatv2_score_wide
+// below, the one score function of every wide kernel, so that a recomputed
+// score is again the forward's bit for bit.
 
 #pragma once
 
@@ -25,6 +36,7 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocksPerSm = 4;  // caps the registers at 64 a thread
 constexpr int kMaxPerLane = 8;      // columns a lane holds at most (VEC * NJ)
 constexpr int kBlocksPerSm = 16;    // fixed grid of the kernels with partials
+constexpr int kSlab = 32 * kMaxPerLane;  // columns of a wide head's slab
 
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
@@ -159,6 +171,25 @@ __device__ __forceinline__ void load_att(const void* att, int att_bf16,
   }
 }
 
+// This lane's share of a GATv2 score: part + sum over the lane's columns of
+// att * leaky_relu(hi + hj), in pack order.
+template <int VEC, int NJ>
+__device__ __forceinline__ float gatv2_part(float part,
+                                            const float (&hi)[NJ][VEC],
+                                            const float (&hj)[NJ][VEC],
+                                            const float (&a)[NJ][VEC],
+                                            float slope) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float pre = hi[j][i] + hj[j][i];
+      part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
+    }
+  }
+  return part;
+}
+
 // The GATv2 score of one (slot, head), sum_f att * leaky_relu(hi + hj), on
 // every lane of the group. Every kernel that computes or recomputes a score
 // (sddmm.cu's score kernels, attend.cu's forward and backward kernels) calls
@@ -177,16 +208,90 @@ __device__ __forceinline__ float gatv2_score(const float (&hi)[NJ][VEC],
                                              const float (&a)[NJ][VEC],
                                              float slope, int lph,
                                              unsigned mask) {
+  return group_sum(gatv2_part<VEC, NJ>(0.0f, hi, hj, a, slope), lph, mask);
+}
+
+// The score of a wide head: the receiver's and the sender's F columns (hi,
+// hj: their first column) and att from column att_col0, slab by slab, the
+// lane's share carried across the slabs, then one butterfly. Every wide
+// kernel computes every score with this function (the receiver's columns
+// first, as the narrow ones do).
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ float gatv2_score_wide(
+    const S* __restrict__ hi, const S* __restrict__ hj, const void* att,
+    int att_bf16, int64_t att_col0, int f, float slope, const Geometry& q) {
   float part = 0.0f;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float pre = hi[j][i] + hj[j][i];
-      part += a[j][i] * (pre > 0.0f ? pre : slope * pre);
-    }
+  for (int c = 0; c < f; c += kSlab) {
+    const int fk = f - c < kSlab ? f - c : kSlab;
+    float x[NJ][VEC], y[NJ][VEC], a[NJ][VEC];
+    load_lane<S, VEC, NJ>(hi + c, fk, q, x);
+    load_lane<S, VEC, NJ>(hj + c, fk, q, y);
+    load_att<VEC, NJ>(att, att_bf16, att_col0 + c, fk, q, a);
+    part = gatv2_part<VEC, NJ>(part, x, y, a, slope);
   }
-  return group_sum(part, lph, mask);
+  return group_sum(part, q.lph, q.mask);
+}
+
+// Slabs of a head: 1 for a narrow launch.
+template <bool WIDE>
+__device__ __forceinline__ int head_slabs(int f) {
+  if constexpr (WIDE) {
+    return (f + kSlab - 1) / kSlab;
+  } else {
+    return 1;
+  }
+}
+
+// What a group owns: a (row or slot, head, slab) triple, its first column in
+// the [*, heads*f] arrays and its width. Groups enumerate the triples row by
+// row, and within a row slab by slab, head by head, so that a fixed grid
+// whose group count is a multiple of heads * slabs keeps each group on one
+// (head, slab).
+struct Item {
+  int64_t row;
+  int h, fk;
+  int64_t col0;
+};
+
+template <bool WIDE>
+__device__ __forceinline__ Item item_of(int64_t i, int heads, int f) {
+  Item it;
+  if constexpr (WIDE) {
+    const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+    it.row = i / per_row;
+    const int hk = static_cast<int>(i - it.row * per_row);
+    const int k = hk / heads;
+    it.h = hk - k * heads;
+    const int rest = f - k * kSlab;
+    it.fk = rest < kSlab ? rest : kSlab;
+    it.col0 =
+        static_cast<int64_t>(it.h) * f + static_cast<int64_t>(k) * kSlab;
+  } else {
+    it.row = i / heads;
+    it.h = static_cast<int>(i - it.row * heads);
+    it.fk = f;
+    it.col0 = static_cast<int64_t>(it.h) * f;
+  }
+  return it;
+}
+
+// A wide group's (head, slab) in a fixed grid, from gid % (heads * slabs):
+// its head, first column and width. A narrow group owns its head's columns.
+template <bool WIDE>
+__device__ __forceinline__ Item fixed_grid_item(int64_t gid, int heads,
+                                                int f) {
+  if constexpr (WIDE) {
+    return item_of<true>(gid % (static_cast<int64_t>(heads) *
+                                head_slabs<true>(f)),
+                         heads, f);
+  } else {
+    Item it;
+    it.row = 0;
+    it.h = static_cast<int>(gid % heads);
+    it.fk = f;
+    it.col0 = static_cast<int64_t>(it.h) * f;
+    return it;
+  }
 }
 
 // Folds a finite score s into a row's running max m and normaliser l (the
@@ -213,15 +318,16 @@ __device__ __forceinline__ void zero_lane(float (&v)[NJ][VEC]) {
   }
 }
 
-// A group's partial of datt (its head's columns) into its row of the
-// partials: one row per `heads` groups of a grid whose group count is a
-// multiple of `heads`, so that the group's head is gid % heads.
+// A group's partial of datt (its columns) into its row of the partials: one
+// row per `per_row` groups (heads, times slabs for a wide head) of a grid
+// whose group count is a multiple of `per_row`, so that the group's (head,
+// slab) is gid % per_row.
 template <int VEC, int NJ>
-__device__ __forceinline__ void store_partial(float* partial, int heads,
+__device__ __forceinline__ void store_partial(float* partial, int64_t per_row,
                                               int64_t d, int64_t col0, int f,
                                               const Geometry& q,
                                               const float (&acc)[NJ][VEC]) {
-  float* row = partial + (q.gid / heads) * d + col0;
+  float* row = partial + (q.gid / per_row) * d + col0;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int c = pack_column<VEC>(q, j);
@@ -253,9 +359,10 @@ reduce_partials_kernel(const float* __restrict__ partial,
 }
 
 // How a head's F columns are laid over lanes: packs of `vec` columns, `lph`
-// lanes per head, `nj` packs per lane.
+// lanes per head, `nj` packs per lane, `slabs` slabs of kSlab columns (1 for
+// a narrow head).
 struct Layout {
-  int vec, lph, nj;
+  int vec, lph, nj, slabs;
 };
 
 inline bool aligned_to(const void* p, int bytes) {
@@ -265,7 +372,8 @@ inline bool aligned_to(const void* p, int bytes) {
 // Widest pack (in elements, at most 16 bytes) that divides F and keeps every
 // row of every data array aligned; then the power of two of lanes that
 // covers the head's packs, at most a warp; then the packs per lane, rounded
-// up to a power of two.
+// up to a power of two. A head wider than kSlab takes a warp and
+// kMaxPerLane columns a lane, slab by slab.
 inline Layout pick_layout(int64_t f, int elem_size, const void* a,
                           const void* b, const void* c, const void* d) {
   Layout lay;
@@ -278,6 +386,12 @@ inline Layout pick_layout(int64_t f, int elem_size, const void* a,
     }
     lay.vec /= 2;
   }
+  lay.slabs = static_cast<int>((f + kSlab - 1) / kSlab);
+  if (lay.slabs > 1) {
+    lay.lph = 32;
+    lay.nj = kMaxPerLane / lay.vec;
+    return lay;
+  }
   const int64_t packs = f / lay.vec;
   lay.lph = 1;
   while (lay.lph < packs && lay.lph < 32) lay.lph <<= 1;
@@ -287,11 +401,12 @@ inline Layout pick_layout(int64_t f, int elem_size, const void* a,
   return lay;
 }
 
-// `items` (row, head) or (slot, head) pairs, one group each, fit the grid.
+// `items` (row, head) or (slot, head) pairs, one group per slab each, fit
+// the grid.
 inline bool shape_ok(int64_t items, int heads, int64_t f) {
-  return items > 0 && heads >= 1 && f >= 1 &&
-         f <= 32 * static_cast<int64_t>(kMaxPerLane) &&
-         items * heads < (static_cast<int64_t>(1) << 31);  // grid.x
+  const int64_t slabs = (f + kSlab - 1) / kSlab;
+  return items > 0 && heads >= 1 && f >= 1 && f < (1 << 30) &&
+         items * heads * slabs < (static_cast<int64_t>(1) << 31);  // grid.x
 }
 
 inline unsigned blocks_for_all(int64_t items, int heads, int lph) {
@@ -332,13 +447,21 @@ inline cudaError_t reduce_partials(const float* partial, float* datt,
 
 }  // namespace
 
-// Runs LAUNCH(S) with VEC and NJ bound to the layout's compile-time values.
-// Only layouts with VEC * NJ <= kMaxPerLane exist (pick_layout makes no
-// other for F <= 32 * kMaxPerLane).
+// Runs LAUNCH(S) with VEC, NJ and WIDE bound to the layout's compile-time
+// values. Only layouts with VEC * NJ <= kMaxPerLane exist (pick_layout makes
+// no other); a wide head has VEC * NJ == kMaxPerLane.
 #define KGT_CASE(V, N, LAUNCH, S)                 \
   case (V) * 16 + (N): {                          \
     constexpr int VEC = (V);                      \
     constexpr int NJ = (N);                       \
+    constexpr bool WIDE = false;                  \
+    LAUNCH(S);                                    \
+  } break;
+#define KGT_WIDE_CASE(V, LAUNCH, S)               \
+  case (V): {                                     \
+    constexpr int VEC = (V);                      \
+    constexpr int NJ = kMaxPerLane / (V);         \
+    constexpr bool WIDE = true;                   \
     LAUNCH(S);                                    \
   } break;
 #define KGT_CASES_UP_TO_4(LAUNCH, S)                                       \
@@ -348,7 +471,24 @@ inline cudaError_t reduce_partials(const float* partial, float* datt,
   KGT_CASE(1, 2, LAUNCH, S) KGT_CASE(1, 4, LAUNCH, S)                      \
   KGT_CASE(1, 8, LAUNCH, S)
 #define KGT_DISPATCH(is_bf16, lay, LAUNCH)                                 \
-  if (is_bf16) {                                                           \
+  if ((lay).slabs > 1) {                                                   \
+    if (is_bf16) {                                                         \
+      switch ((lay).vec) {                                                 \
+        KGT_WIDE_CASE(8, LAUNCH, uint16_t)                                 \
+        KGT_WIDE_CASE(4, LAUNCH, uint16_t)                                 \
+        KGT_WIDE_CASE(2, LAUNCH, uint16_t)                                 \
+        KGT_WIDE_CASE(1, LAUNCH, uint16_t)                                 \
+        default: return static_cast<int>(cudaErrorInvalidValue);           \
+      }                                                                    \
+    } else {                                                               \
+      switch ((lay).vec) {                                                 \
+        KGT_WIDE_CASE(4, LAUNCH, float)                                    \
+        KGT_WIDE_CASE(2, LAUNCH, float)                                    \
+        KGT_WIDE_CASE(1, LAUNCH, float)                                    \
+        default: return static_cast<int>(cudaErrorInvalidValue);           \
+      }                                                                    \
+    }                                                                      \
+  } else if (is_bf16) {                                                    \
     switch ((lay).vec * 16 + (lay).nj) {                                   \
       KGT_CASE(8, 1, LAUNCH, uint16_t)                                     \
       KGT_CASES_UP_TO_4(LAUNCH, uint16_t)                                  \

@@ -52,6 +52,11 @@
 // bit-reproducible. Padded slots are computed like any other: their ds is 0
 // (alpha is 0 there), so they add nothing to d_pre or datt.
 //
+// A head wider than 256 columns (lanes.cuh) runs its own instantiation
+// (WIDE): the score kernels compute each score over the head's slabs in
+// order (gatv2_score_wide, the function attend.cu's wide kernels use), the
+// backward gives each group one slab, since its work is per column.
+//
 // Offsets into data are 64-bit; indices are int32. The C entry points
 // launch on the given stream, allocate nothing, do not synchronise, and
 // return cudaGetLastError().
@@ -60,7 +65,7 @@
 
 namespace {
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_scores_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
                     const int32_t* __restrict__ recv,
@@ -74,17 +79,23 @@ sddmm_scores_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
   const int64_t d = static_cast<int64_t>(heads) * f;
   const int64_t col0 = static_cast<int64_t>(h) * f;
 
-  float hi_row[NJ][VEC], hj_row[NJ][VEC], a[NJ][VEC];
-  load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, f, q,
-                        hi_row);
-  load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, hj_row);
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-  const float part = gatv2_score<VEC, NJ>(hi_row, hj_row, a, slope, lph,
-                                          q.mask);
+  float part;
+  if constexpr (WIDE) {
+    part = gatv2_score_wide<S, VEC, NJ>(
+        ht + static_cast<int64_t>(recv[e]) * d + col0, hj + e * d + col0, att,
+        att_bf16, col0, f, slope, q);
+  } else {
+    float hi_row[NJ][VEC], hj_row[NJ][VEC], a[NJ][VEC];
+    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, f,
+                          q, hi_row);
+    load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, hj_row);
+    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+    part = gatv2_score<VEC, NJ>(hi_row, hj_row, a, slope, lph, q.mask);
+  }
   if (q.lane == 0) scores[q.gid] = part;
 }
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_stats_kernel(const S* __restrict__ ht,
                    const int32_t* __restrict__ senders,
@@ -102,17 +113,24 @@ sddmm_stats_kernel(const S* __restrict__ ht,
   const int64_t col0 = static_cast<int64_t>(h) * f;
 
   float hi_row[NJ][VEC], a[NJ][VEC];
-  load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  if constexpr (!WIDE) {
+    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  }
   float m = -INFINITY, l = 0.0f;
 
   const int64_t hi = row_ptr[row + 1];
   for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    float hj[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(senders[e]) * d + col0, f,
-                          q, hj);
-    const float part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph,
-                                            q.mask);
+    const S* sender = ht + static_cast<int64_t>(senders[e]) * d + col0;
+    float part;
+    if constexpr (WIDE) {
+      part = gatv2_score_wide<S, VEC, NJ>(ht + row * d + col0, sender, att,
+                                          att_bf16, col0, f, slope, q);
+    } else {
+      float hj[NJ][VEC];
+      load_lane<S, VEC, NJ>(sender, f, q, hj);
+      part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+    }
     const float s =
         (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
     if (q.lane == 0) scores[e * heads + h] = s;
@@ -127,7 +145,7 @@ sddmm_stats_kernel(const S* __restrict__ ht,
   }
 }
 
-template <typename S, int VEC, int NJ>
+template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
                  const int32_t* __restrict__ recv,
@@ -136,25 +154,31 @@ sddmm_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
                  float* __restrict__ partial, int64_t n_slots, int heads,
                  int f, int lph, float slope) {
   const Geometry q = geometry(lph);
-  // The grid holds a multiple of `heads` groups, so a group that strides over
-  // the (slot, head) pairs by the grid's size keeps its head.
+  // The grid holds a multiple of heads * slabs groups, so a group that
+  // strides over the (slot, head, slab) triples by the grid's size keeps its
+  // head and slab: every column's work is its own, so a wide head needs no
+  // more than its slab.
   const int64_t n_groups =
       static_cast<int64_t>(gridDim.x) * (kThreads / lph);
-  const int h = static_cast<int>(q.gid % heads);
+  const int64_t per_slot =
+      static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
+  const int h = mine.h;
+  const int fk = mine.fk;
+  const int64_t col0 = mine.col0;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
 
   float a[NJ][VEC], datt_acc[NJ][VEC];
-  load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
   zero_lane<VEC, NJ>(datt_acc);
 
-  for (int64_t item = q.gid; item < n_slots * heads; item += n_groups) {
-    const int64_t e = item / heads;
+  for (int64_t item = q.gid; item < n_slots * per_slot; item += n_groups) {
+    const int64_t e = item / per_slot;
     float hi_row[NJ][VEC], row[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, f,
+    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, fk,
                           q, hi_row);
-    load_lane<S, VEC, NJ>(hj + e * d + col0, f, q, row);
-    const float g = ds[item];
+    load_lane<S, VEC, NJ>(hj + e * d + col0, fk, q, row);
+    const float g = WIDE ? ds[e * heads + h] : ds[item];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -165,9 +189,9 @@ sddmm_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
         row[j][i] = g * a[j][i] * (pos ? 1.0f : slope);  // this lane's d_pre
       }
     }
-    store_lane<S, VEC, NJ>(d_pre + e * d + col0, f, q, row);
+    store_lane<S, VEC, NJ>(d_pre + e * d + col0, fk, q, row);
   }
-  store_partial<VEC, NJ>(partial, heads, d, col0, f, q, datt_acc);
+  store_partial<VEC, NJ>(partial, per_slot, d, col0, fk, q, datt_acc);
 }
 
 }  // namespace
@@ -191,7 +215,7 @@ int kgt_sddmm_scores_sorted(const void* ht, const void* hj,
   const unsigned grid = blocks_for_all(n_slots, heads, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_SCORES(S)                                                       \
-  sddmm_scores_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                \
+  sddmm_scores_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(           \
       static_cast<const S*>(ht), static_cast<const S*>(hj), recv, att,      \
       att_bf16, scores, n_slots, heads, fi, lay.lph, slope)
   KGT_DISPATCH(is_bf16, lay, KGT_SCORES)
@@ -219,7 +243,7 @@ int kgt_sddmm_stats_sorted(const void* ht, const int32_t* senders,
   const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_STATS(S)                                                        \
-  sddmm_stats_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                 \
+  sddmm_stats_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(            \
       static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
       scores, m, l, n_rows, heads, fi, lay.lph, slope)
   KGT_DISPATCH(is_bf16, lay, KGT_STATS)
@@ -236,7 +260,7 @@ int64_t kgt_sddmm_bwd_partial_rows(const void* ht, const void* hj,
                                    int heads, int64_t f, int is_bf16) {
   if (!shape_ok(n_slots, heads, f)) return 0;
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
-  return partial_rows(n_slots, heads, lay.lph);
+  return partial_rows(n_slots, heads * lay.slabs, lay.lph);
 }
 
 // Backward: d_pre [n_slots, heads*f] in the data's type, datt [heads*f] f32,
@@ -254,11 +278,12 @@ int kgt_sddmm_bwd_sorted(const void* ht, const void* hj, const int32_t* recv,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
-  const unsigned grid = blocks_for_fixed_grid(n_slots, heads, lay.lph);
-  const int64_t p_rows = partial_rows(n_slots, heads, lay.lph);
+  const unsigned grid =
+      blocks_for_fixed_grid(n_slots, heads * lay.slabs, lay.lph);
+  const int64_t p_rows = partial_rows(n_slots, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
 #define KGT_BWD(S)                                                          \
-  sddmm_bwd_kernel<S, VEC, NJ><<<grid, kThreads, 0, s>>>(                   \
+  sddmm_bwd_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(              \
       static_cast<const S*>(ht), static_cast<const S*>(hj), recv, att,      \
       att_bf16, ds, static_cast<S*>(d_pre), partial, n_slots, heads, fi,    \
       lay.lph, slope)

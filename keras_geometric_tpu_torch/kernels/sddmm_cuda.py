@@ -50,7 +50,6 @@ import torch
 
 from . import _build
 from .attend_cuda import (
-    MAX_HEAD_WIDTH,
     _aligned,
     _check_graph,
     _check_like,
@@ -168,10 +167,6 @@ def _check_operands(ht, hj, att, receivers):
         raise ValueError(
             f"att must be [H, F] with H*F = {d}, got {tuple(att.shape)}")
     heads, f = att.shape
-    if f > MAX_HEAD_WIDTH:
-        raise ValueError(
-            f"the attention kernels take at most {MAX_HEAD_WIDTH} columns "
-            f"per head, got F = {f}")
     e = hj.shape[0]
     if e * heads >= 2**31:
         raise ValueError("E*H must stay below 2**31 (int32 indices)")

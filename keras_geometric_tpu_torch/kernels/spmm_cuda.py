@@ -21,6 +21,23 @@ Source notes, one per kernel:
   when the node array fits there.
 - ``expand_sorted`` replaces ``_expand_impl``: ``out[e] = rows[recv[e]]*w[e]``,
   one thread per (edge, 16-byte column chunk). Bound by the ``E*F`` write.
+- ``segment_max_sorted`` (``csrc/segment_max.cu``) replaces
+  ``segment_max_sorted``'s ``_segment_max_kernel``: the per-row max of narrow
+  ``[E, K]`` scores, ``-inf`` for a row without an unmasked slot, no VJP. Bound
+  by bytes (the scores once, ``[N, K]`` written). A group of 8 lanes per row
+  strides over its slots, up to 8 columns per lane, then a butterfly max.
+- ``segment_max_wide_raw`` / ``segment_max_wide_sorted`` (same source)
+  replace ``_segment_max_wide_kernel`` and its custom VJP: the per-row max
+  of wide ``[E, F]`` messages into ``[N, F]`` f32 (the ``-1e30`` sentinel on
+  an empty row, 0 with ``empty_to_zero``), and a backward kernel that routes
+  the cotangent to the elements equal to their row's max. Bound by bytes (the
+  messages read once forward, read and written once backward). A sub-warp per
+  row lies across the columns as in the scatter; the TPU's max-scan and
+  one-hot select have no counterpart. The public function gives every tied
+  element the whole cotangent, the JAX package's kernel rule; the layers use
+  ``_segment_max_sorted_split``, whose backward (the same kernel with a
+  template flag) splits it evenly among the ties, as XLA's ``segment_max``
+  does.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -43,8 +60,15 @@ __all__ = [
     "scatter_sum_sorted_plain",
     "gather_scatter_sum_sorted_plain",
     "expand_sorted_plain",
+    "segment_max_sorted",
+    "segment_max_wide_raw",
+    "segment_max_wide_sorted",
+    "segment_max_sorted_plain",
+    "segment_max_wide_raw_plain",
+    "segment_max_wide_bwd_plain",
     "row_ptr_from_sorted",
     "LAUNCH_COUNTS",
+    "MODE_LAUNCH_COUNTS",
     "reset_launch_counts",
 ]
 
@@ -54,14 +78,26 @@ LAUNCH_COUNTS = {
     "scatter_sum_sorted": 0,
     "gather_scatter_sum_sorted": 0,
     "expand_sorted": 0,
+    "segment_max_sorted": 0,
+    "segment_max_wide_sorted": 0,
+    "segment_max_wide_bwd": 0,
 }
+
+# Launches of the wide segment max's backward with the ties split evenly (the
+# layers' rule), counted beside (not instead of) its own count.
+MODE_LAUNCH_COUNTS = {"segment_max_wide_bwd(ties_split)": 0}
+
+# Where the wide segment max leaves a row without an unmasked slot (the JAX
+# package's finite stand-in for -inf).
+NEG_SENTINEL = -1e30
 
 _DATA_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[name] = 0
+    for counts in (LAUNCH_COUNTS, MODE_LAUNCH_COUNTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def row_ptr_from_sorted(receivers: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -372,3 +408,273 @@ def expand_sorted(rows, receivers, *, row_ptr=None, weights=None):
         raise ValueError(f"rows must be [N, F], got {tuple(rows.shape)}")
     row_ptr = _row_ptr_or_raise(rows, receivers, rows.shape[0], row_ptr)
     return _ExpandSorted.apply(rows, receivers, row_ptr, weights, None)
+
+
+# ---------------------------------------------------------------------------
+# Segment max over receiver-sorted streams (csrc/segment_max.cu): the narrow
+# per-row max of attention-width scores, and the wide per-row max of message
+# rows with its backward.
+# ---------------------------------------------------------------------------
+
+
+def _bool_mask(mask):
+    """The slot mask as bool; the JAX package passes 1/0 floats as well."""
+    if mask is None or mask.dtype == torch.bool:
+        return mask
+    return mask != 0
+
+
+def _in_rows(values, receivers, num_nodes, mask, fill):
+    """The slots of rows ``0 .. num_nodes-1`` (a kernel walks no other) and
+    their rows, with masked slots' values set to ``fill``."""
+    ids = receivers.long()
+    if mask is not None:
+        values = torch.where(mask[:, None], values,
+                             torch.full_like(values, fill))
+    keep = (ids >= 0) & (ids < num_nodes)
+    return values[keep], ids[keep]
+
+
+def _receivers_of(row_ptr, num_slots):
+    """Each slot's row from the row pointers, on the host; slots past the
+    last row get ``num_nodes`` (no row)."""
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    n = counts.shape[0]
+    ids = torch.repeat_interleave(torch.arange(n, dtype=torch.int32), counts)
+    tail = torch.full((num_slots - ids.shape[0],), n, dtype=torch.int32)
+    return torch.cat([ids, tail])
+
+
+def segment_max_sorted_plain(scores, receivers, num_nodes, *, mask=None):
+    vals, ids = _in_rows(scores.float(), receivers, num_nodes, mask,
+                         float("-inf"))
+    out = torch.full((num_nodes, scores.shape[1]), float("-inf"),
+                     dtype=torch.float32, device=scores.device)
+    out = out.scatter_reduce(0, ids[:, None].expand_as(vals), vals, "amax")
+    return out.to(scores.dtype)
+
+
+def segment_max_wide_raw_plain(messages, receivers, num_nodes, *, mask=None,
+                               empty_to_zero=False):
+    vals, ids = _in_rows(messages.float(), receivers, num_nodes, mask,
+                         NEG_SENTINEL)
+    out = torch.full((num_nodes, messages.shape[1]), NEG_SENTINEL,
+                     dtype=torch.float32, device=messages.device)
+    out = out.scatter_reduce(0, ids[:, None].expand_as(vals), vals, "amax")
+    if empty_to_zero:
+        out = torch.where(out <= NEG_SENTINEL / 2, torch.zeros_like(out), out)
+    return out
+
+
+def segment_max_wide_bwd_plain(messages, maxv, g, receivers, num_nodes, *,
+                               mask=None, ties_split=False):
+    if num_nodes == 0:
+        return torch.zeros_like(messages)
+    ids = receivers.long()
+    in_row = (ids >= 0) & (ids < num_nodes)
+    rows = ids.clamp(0, num_nodes - 1)
+    is_max = (messages.float() == maxv.float().index_select(0, rows))
+    is_max &= in_row[:, None]
+    if mask is not None:
+        is_max &= mask[:, None]
+    g = g.float()
+    if ties_split:
+        ties = torch.zeros_like(g).index_add_(0, rows, is_max.float())
+        g = g / ties  # a column without a tie routes nothing
+    dmsg = torch.where(is_max, g.index_select(0, rows), torch.zeros((), device=g.device))
+    return dmsg.to(messages.dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _segment_max_library() -> ctypes.CDLL:
+    lib = _build.load_library("segment_max")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.kgt_segment_max_sorted.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
+    lib.kgt_segment_max_sorted.restype = i32
+    lib.kgt_segment_max_wide_sorted.argtypes = [
+        vp, vp, vp, vp, i64, i64, i32, i32, vp,
+    ]
+    lib.kgt_segment_max_wide_sorted.restype = i32
+    lib.kgt_segment_max_wide_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp,
+    ]
+    lib.kgt_segment_max_wide_bwd.restype = i32
+    lib.kgt_cuda_error_string.argtypes = [i32]
+    lib.kgt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rows(name, t, shape, device):
+    if t.dtype != torch.float32 or t.device != device or \
+            tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous float32 {shape} tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _segment_max_narrow(scores, receivers, row_ptr, num_nodes, mask):
+    if not scores.is_cuda:
+        return segment_max_sorted_plain(scores, receivers, num_nodes,
+                                        mask=mask)
+    device = scores.device
+    _check_data("scores", scores)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    mask_ptr = _mask_arg(mask, scores.shape[0], device)
+    k = scores.shape[1]
+    out = torch.empty(num_nodes, k, dtype=scores.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    if scores.shape[0] == 0:  # no slot to walk: every row is empty
+        return out.fill_(float("-inf"))
+    lib = _segment_max_library()
+    with torch.cuda.device(device):
+        code = lib.kgt_segment_max_sorted(
+            scores.data_ptr(), row_ptr.data_ptr(),
+            mask_ptr, out.data_ptr(), num_nodes, k,
+            int(scores.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "segment_max_sorted")
+    LAUNCH_COUNTS["segment_max_sorted"] += 1
+    return out
+
+
+def _segment_max_wide_fwd(messages, receivers, row_ptr, num_nodes, mask,
+                          empty_to_zero):
+    if not messages.is_cuda:
+        return segment_max_wide_raw_plain(
+            messages, receivers, num_nodes, mask=mask,
+            empty_to_zero=empty_to_zero)
+    device = messages.device
+    _check_data("messages", messages)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    mask_ptr = _mask_arg(mask, messages.shape[0], device)
+    f = messages.shape[1]
+    out = torch.empty(num_nodes, f, dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    if messages.shape[0] == 0:  # no slot to walk: every row is empty
+        return out.fill_(0.0 if empty_to_zero else NEG_SENTINEL)
+    lib = _segment_max_library()
+    with torch.cuda.device(device):
+        code = lib.kgt_segment_max_wide_sorted(
+            messages.data_ptr(), row_ptr.data_ptr(), mask_ptr, out.data_ptr(),
+            num_nodes, f, int(empty_to_zero),
+            int(messages.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "segment_max_wide_sorted")
+    LAUNCH_COUNTS["segment_max_wide_sorted"] += 1
+    return out
+
+
+def _segment_max_wide_bwd(messages, maxv, g, receivers, row_ptr, num_nodes,
+                          mask, ties_split):
+    if not messages.is_cuda:
+        return segment_max_wide_bwd_plain(
+            messages, maxv, g, receivers, num_nodes, mask=mask,
+            ties_split=ties_split)
+    device = messages.device
+    _check_data("messages", messages)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    mask_ptr = _mask_arg(mask, messages.shape[0], device)
+    f = messages.shape[1]
+    _check_rows("the row max", maxv, (num_nodes, f), device)
+    _check_rows("the cotangent", g, (num_nodes, f), device)
+    dmsg = torch.empty_like(messages)
+    if dmsg.numel() == 0 or num_nodes == 0:
+        return dmsg.zero_()
+    lib = _segment_max_library()
+    with torch.cuda.device(device):
+        code = lib.kgt_segment_max_wide_bwd(
+            messages.data_ptr(), maxv.data_ptr(), g.data_ptr(),
+            row_ptr.data_ptr(), mask_ptr, dmsg.data_ptr(), num_nodes, f,
+            int(ties_split), int(messages.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "segment_max_wide_bwd")
+    LAUNCH_COUNTS["segment_max_wide_bwd"] += 1
+    if ties_split:
+        MODE_LAUNCH_COUNTS["segment_max_wide_bwd(ties_split)"] += 1
+    return dmsg
+
+
+class _SegmentMaxWide(torch.autograd.Function):
+    """The wide segment max (f32 out) and its backward kernel; the cotangent
+    goes to the elements equal to their row's max, whole or split evenly
+    among a row's ties (``ties_split``)."""
+
+    @staticmethod
+    def forward(ctx, messages, receivers, row_ptr, num_nodes, mask,
+                empty_to_zero, ties_split):
+        messages = messages.contiguous()
+        out = _segment_max_wide_fwd(messages, receivers, row_ptr, num_nodes,
+                                    mask, empty_to_zero)
+        ctx.save_for_backward(messages, out)
+        ctx.index = (receivers, row_ptr, num_nodes, mask, ties_split)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        messages, out = ctx.saved_tensors
+        receivers, row_ptr, num_nodes, mask, ties_split = ctx.index
+        dmsg = _segment_max_wide_bwd(messages, out, g.float().contiguous(),
+                                     receivers, row_ptr, num_nodes, mask,
+                                     ties_split)
+        return dmsg, None, None, None, None, None, None
+
+
+def segment_max_sorted(scores, receivers, num_nodes, *, row_ptr=None,
+                       mask=None):
+    """Per-receiver max of narrow receiver-sorted ``[E, K]`` scores into
+    ``[N, K]``, in the scores' type. A masked slot (``mask`` ``[E]``, bool or
+    1/0) counts as ``-inf``; a row without an unmasked slot gives ``-inf``.
+    ``row_ptr`` is required for CUDA tensors, as for the scatter. Not
+    differentiable (the JAX package's kernel has no VJP either)."""
+    if scores.ndim != 2:
+        raise ValueError(f"scores must be [E, K], got {tuple(scores.shape)}")
+    row_ptr = _row_ptr_or_raise(scores, receivers, num_nodes, row_ptr)
+    return _segment_max_narrow(scores.contiguous(), receivers, row_ptr,
+                               num_nodes, _bool_mask(mask))
+
+
+def segment_max_wide_raw(messages, num_nodes, *, row_ptr, mask=None):
+    """Per-row max of receiver-sorted ``[E, F]`` messages (f32 or bf16) into
+    ``[N, F]`` f32, ``row_ptr`` ``[N+1]`` giving each row's slots; a row
+    without an unmasked slot holds the ``-1e30`` sentinel. Not
+    differentiable: :func:`segment_max_wide_sorted` is."""
+    if messages.ndim != 2:
+        raise ValueError(
+            f"messages must be [E, F], got {tuple(messages.shape)}")
+    receivers = None
+    if not messages.is_cuda:
+        receivers = _receivers_of(row_ptr, messages.shape[0])
+    return _segment_max_wide_fwd(messages.contiguous(), receivers, row_ptr,
+                                 num_nodes, _bool_mask(mask), False)
+
+
+def segment_max_wide_sorted(messages, receivers, num_nodes, *, row_ptr=None,
+                            mask=None, empty_to_zero=True):
+    """Differentiable per-receiver max of wide receiver-sorted ``[E, F]``
+    messages into ``[N, F]`` f32. Masked slots are skipped; an empty row is
+    0, or the ``-1e30`` sentinel with ``empty_to_zero=False`` (partial maxes
+    of split streams then combine with ``torch.maximum``). The backward is
+    the JAX package's kernel rule: every unmasked element equal to its row's
+    max receives the row's whole cotangent, ties included."""
+    if messages.ndim != 2:
+        raise ValueError(
+            f"messages must be [E, F], got {tuple(messages.shape)}")
+    row_ptr = _row_ptr_or_raise(messages, receivers, num_nodes, row_ptr)
+    return _SegmentMaxWide.apply(messages, receivers, row_ptr, num_nodes,
+                                 _bool_mask(mask), empty_to_zero, False)
+
+
+def _segment_max_sorted_split(messages, receivers, num_nodes, *, row_ptr=None,
+                              mask=None):
+    """The layers' segment max: :func:`segment_max_wide_sorted` with empty
+    rows at 0 and, in the backward, a row's cotangent split evenly among the
+    elements tied at its max in each column (XLA's ``segment_max`` rule, and
+    ``scatter_reduce``'s), counted by the same backward kernel."""
+    row_ptr = _row_ptr_or_raise(messages, receivers, num_nodes, row_ptr)
+    return _SegmentMaxWide.apply(messages, receivers, row_ptr, num_nodes,
+                                 _bool_mask(mask), True, True)

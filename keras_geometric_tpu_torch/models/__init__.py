@@ -1,5 +1,5 @@
 """Model compositions: multi-layer GNN encoders."""
 
-from .gnn import GAT, GCN, GNNEncoder
+from .gnn import GAT, GCN, GIN, GNNEncoder, GraphSAGE
 
-__all__ = ["GNNEncoder", "GCN", "GAT"]
+__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE"]

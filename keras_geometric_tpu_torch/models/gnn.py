@@ -1,8 +1,8 @@
 """Standard multi-layer GNN model families.
 
 Counterpart of the JAX package's ``models/gnn.py``: the canonical stacks are
-first-class modules so training and benchmarks share one definition. The GCN
-and GATv2 families are ported; ``'gin'`` and ``'sage'`` raise.
+first-class modules so training and benchmarks share one definition: the
+GCN, GIN, GATv2 and GraphSAGE families.
 """
 
 from __future__ import annotations
@@ -14,15 +14,14 @@ from torch import nn
 
 from ..nn.gatv2_conv import GATv2Conv
 from ..nn.gcn_conv import GCNConv
+from ..nn.gin_conv import GINConv
 from ..nn.module import dropout, get_activation
+from ..nn.sage_conv import SAGEConv
 
-__all__ = ["GNNEncoder", "GCN", "GAT"]
+__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE"]
 
-_UNPORTED = {
-    "gin": "ROADMAP M5",
-    "sage": "ROADMAP M5",
-}
-_FAMILIES = {"gcn": GCNConv, "gatv2": GATv2Conv}
+_FAMILIES = {"gcn": GCNConv, "gin": GINConv, "gatv2": GATv2Conv,
+             "sage": SAGEConv}
 
 
 def _layer_out_dim(layer: nn.Module) -> int:
@@ -36,7 +35,9 @@ def _layer_out_dim(layer: nn.Module) -> int:
 class GNNEncoder(nn.Module):
     """A stack of conv layers with inter-layer activation (+ dropout).
 
-    ``conv``: layer family name (``'gcn'`` | ``'gatv2'``). ``hidden_dims``:
+    ``conv``: layer family name (``'gcn'`` | ``'gin'`` | ``'gatv2'`` |
+    ``'sage'``; SAGE layers are built with ``activation=None``, the encoder
+    applying its own between layers). ``hidden_dims``:
     output dim of each layer (for ``'gatv2'`` per head; every layer gets the
     same ``conv_kwargs``, so with the default ``concat=True`` each layer,
     the last included, is ``heads * dim`` wide). The final layer gets no
@@ -63,10 +64,6 @@ class GNNEncoder(nn.Module):
         hidden_dims = tuple(hidden_dims)
         if not hidden_dims:
             raise ValueError("hidden_dims must be non-empty")
-        if conv in _UNPORTED:
-            raise NotImplementedError(
-                f"conv family {conv!r} is not ported yet: {_UNPORTED[conv]}"
-            )
         if conv not in _FAMILIES:
             raise ValueError(f"Unknown conv family: {conv}")
         self.conv = conv
@@ -76,11 +73,14 @@ class GNNEncoder(nn.Module):
         self.dropout_rate = dropout_rate
         self.final_activation = final_activation
         self.num_layers = len(hidden_dims)
+        layer_kwargs = dict(conv_kwargs)
+        if conv == "sage":
+            layer_kwargs["activation"] = None
         dim = input_dim
         for i, out_dim in enumerate(hidden_dims):
             layer = _FAMILIES[conv](
                 out_dim, input_dim=dim, generator=generator, device=device,
-                dtype=dtype, **dict(conv_kwargs),
+                dtype=dtype, **layer_kwargs,
             )
             self.add_module(f"layer_{i}", layer)
             dim = _layer_out_dim(layer)
@@ -126,11 +126,14 @@ class GNNEncoder(nn.Module):
         for i, layer in enumerate(self.layers()):
             if context is not None:
                 h = layer(h, context=context, generator=generator)
-            else:
+            elif isinstance(layer, (GCNConv, GATv2Conv)):
                 h = layer(
                     h, edge_index, edge_mask=edge_mask, node_mask=node_mask,
                     generator=generator,
                 )
+            else:
+                h = layer(h, edge_index, edge_mask=edge_mask,
+                          generator=generator)
             if i < self.num_layers - 1:
                 h = act(h)
                 h = dropout(h, self.dropout_rate, self.training, generator)
@@ -144,8 +147,23 @@ def GCN(hidden_dims: tuple[int, ...], **kwargs) -> GNNEncoder:
     return GNNEncoder("gcn", tuple(hidden_dims), **kwargs)
 
 
+def GIN(hidden_dims: tuple[int, ...], mlp_hidden: tuple[int, ...] = (),
+        **kwargs) -> GNNEncoder:
+    """GIN stack; every layer's MLP has the hidden widths ``mlp_hidden``."""
+    return GNNEncoder("gin", tuple(hidden_dims),
+                      conv_kwargs=(("mlp_hidden", tuple(mlp_hidden)),),
+                      **kwargs)
+
+
 def GAT(hidden_dims: tuple[int, ...], heads: int = 8, **kwargs) -> GNNEncoder:
     """GATv2 stack; every layer has ``heads`` heads and concatenates them."""
     return GNNEncoder(
         "gatv2", tuple(hidden_dims), conv_kwargs=(("heads", heads),), **kwargs
     )
+
+
+def GraphSAGE(hidden_dims: tuple[int, ...], aggregator: str = "mean",
+              **kwargs) -> GNNEncoder:
+    """GraphSAGE stack; every layer aggregates with ``aggregator``."""
+    return GNNEncoder("sage", tuple(hidden_dims),
+                      conv_kwargs=(("aggregator", aggregator),), **kwargs)

@@ -1,15 +1,33 @@
-"""Neural network layers: building blocks and conv layers."""
+"""Neural network layers: building blocks, message passing and conv layers."""
 
+from .aggregators import (
+    AGGREGATORS,
+    PoolingAggregator,
+    aggregate,
+    available_aggregators,
+)
 from .gatv2_conv import GATv2Conv
 from .gcn_conv import GCNConv
-from .module import MLP, Dense, dropout, get_activation, get_initializer
+from .gin_conv import GINConv
+from .message_passing import MessagePassing, propagate
+from .module import MLP, Dense, Module, dropout, get_activation, get_initializer
+from .sage_conv import SAGEConv
 
 __all__ = [
+    "Module",
     "Dense",
     "MLP",
     "dropout",
     "get_activation",
     "get_initializer",
+    "MessagePassing",
+    "propagate",
+    "aggregate",
+    "available_aggregators",
+    "AGGREGATORS",
+    "PoolingAggregator",
     "GCNConv",
+    "GINConv",
     "GATv2Conv",
+    "SAGEConv",
 ]

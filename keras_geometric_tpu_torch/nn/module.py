@@ -18,12 +18,18 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = [
+    "Module",
     "Dense",
     "MLP",
     "get_initializer",
     "get_activation",
     "dropout",
 ]
+
+
+# The reference's base class of every layer; here every layer is a
+# ``torch.nn.Module``, so the name points there.
+Module = nn.Module
 
 
 def _fans(shape) -> tuple[int, int]:

@@ -12,7 +12,15 @@ from .graph_ops import (
     sort_edges_by_receiver,
 )
 from .precompute import precompute_propagation
-from .segment import segment_count, segment_max, segment_softmax, segment_sum
+from .segment import (
+    segment_count,
+    segment_max,
+    segment_mean,
+    segment_min,
+    segment_softmax,
+    segment_std,
+    segment_sum,
+)
 
 __all__ = [
     "edge_dropout",
@@ -31,6 +39,9 @@ __all__ = [
     "sort_edges_by_receiver",
     "segment_count",
     "segment_sum",
+    "segment_mean",
     "segment_max",
+    "segment_min",
+    "segment_std",
     "segment_softmax",
 ]

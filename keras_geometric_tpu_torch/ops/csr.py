@@ -19,6 +19,9 @@ sender backward kernel, as ``ATTEND_BWD_MODE`` selects; ``ATTEND_SCORE_CACHE``
 selects whether the forward keeps its scores), and
 ``GraphContext.sddmm_scores`` / ``GraphContext.edge_softmax`` the composed
 attention path (score and softmax kernels, each with the reference's
+backward), and ``GraphContext.scatter_max`` the receiver max of GIN's and
+GraphSAGE's max and pooling paths (the wide segment max kernel, which the
+reference leaves to XLA's ``segment_max``; the same tie rule in the
 backward).
 
 The locality tier (``kernels/band_cuda.py``, after a reordering from
@@ -237,6 +240,21 @@ class GraphContext:
         total = self.scatter(messages, masked=masked)
         deg = self.in_degree.clamp_min(1e-8).to(total.dtype)
         return total / deg[:, None]
+
+    def scatter_max(self, messages: torch.Tensor) -> torch.Tensor:
+        """``[E, F] -> [N, F]`` receiver max of the stream's unmasked slots
+        (the wide segment max kernel), in the messages' type; a row without
+        one is 0. In the backward a row's cotangent is split evenly among
+        the slots tied at its max in each column, as XLA's ``segment_max``
+        splits it on the reference's layer paths."""
+        self._check_message_stream(messages)
+        return spmm_cuda._segment_max_sorted_split(
+            messages,
+            self.receivers,
+            self.num_nodes,
+            row_ptr=self.row_ptr,
+            mask=self.edge_mask,
+        ).to(messages.dtype)
 
     def gather_receivers(self, h: torch.Tensor) -> torch.Tensor:
         """``[N, F] -> [E, F]`` receiver-row gather (x_i) through the sorted

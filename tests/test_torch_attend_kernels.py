@@ -255,9 +255,11 @@ def test_wrappers_check_their_arguments_like_the_kernel_would():
         attend_cuda._check_graph(ht, send, row_ptr[:-1], att)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         attend_cuda._check_graph(ht.double(), send, row_ptr, att)
-    wide = torch.zeros(c["n"], attend_cuda.MAX_HEAD_WIDTH + 1)
-    with pytest.raises(ValueError, match="columns per head"):
-        attend_cuda._check_graph(wide, send, row_ptr, wide[:1])
+    # Heads wider than 256 columns are taken (the kernels walk them in
+    # 256-column slabs).
+    wide = torch.zeros(c["n"], 257)
+    assert attend_cuda._check_graph(wide, send, row_ptr, wide[:1]) == (
+        c["n"], 1, 257, c["e"])
     with pytest.raises(TypeError, match="float32"):
         attend_cuda._check_like("scores", torch.zeros(4, 2).double(), (4, 2),
                                 torch.float32, ht.device)

@@ -103,9 +103,11 @@ def test_gat_helper_and_unported_families():
     assert t_gat.layer_1.input_dim == 256
     assert t_gat.layer_0.add_self_loops is True  # plain GAT keeps the loops
     assert kgt_torch.GAT((8, 6), input_dim=4, device="cpu").layer_0.heads == 8
-    for family in ("gin", "sage"):
-        with pytest.raises(NotImplementedError, match="M5"):
-            kgt_torch.GNNEncoder(family, (4,), input_dim=4, device="cpu")
+    # 'gin' and 'sage' are ported too (ROADMAP M5): their encoders build.
+    for family, layer in (("gin", kgt_torch.GINConv),
+                          ("sage", kgt_torch.SAGEConv)):
+        enc = kgt_torch.GNNEncoder(family, (4,), input_dim=4, device="cpu")
+        assert isinstance(enc.layer_0, layer) and enc.output_dim == 4
     with pytest.raises(ValueError, match="Unknown conv family"):
         kgt_torch.GNNEncoder("gat", (4,), input_dim=4, device="cpu")
 

@@ -360,9 +360,10 @@ def test_gnn_encoder_no_context_and_final_activation():
 @pytest.mark.parametrize("family,item", [("gin", "M5"), ("sage", "M5"),
                                          ("gatv2", "M6")])
 def test_unported_families_raise(family, item):
-    """'gin' and 'sage' are not ported. 'gatv2' is, both attention paths of
-    ROADMAP M6: the composed one (``fused_attend=False``) now runs on a
-    context and gives the fused encoder's output."""
+    """Every family is ported now. 'gin' and 'sage' (ROADMAP M5) build and
+    give the reference encoder's output with its parameters; 'gatv2' (M6)
+    runs both attention paths on a context: the composed one
+    (``fused_attend=False``) gives the fused encoder's output."""
     if family == "gatv2":
         ctx = kgt_torch.prepare_graph(np.array([[0, 1], [1, 0]]), 2,
                                       add_self_loops=True, device="cpu")
@@ -379,8 +380,17 @@ def test_unported_families_raise(family, item):
                                    outs[0].detach().numpy(), rtol=1e-6,
                                    atol=1e-6)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        kgt_torch.GNNEncoder(family, (4,), input_dim=3, device="cpu")
+    del item
+    j_enc = JGNNEncoder(family, (4, 2))
+    params = j_enc.init(jax.random.PRNGKey(3), 3)
+    t_enc = kgt_torch.GNNEncoder(family, (4, 2), input_dim=3, device="cpu")
+    t_enc.load_state_dict(convert.params_from_jax(params))
+    ei = np.array([[0, 1, 2, 2], [1, 0, 0, 1]], np.int32)
+    x = np.arange(9, dtype=np.float32).reshape(3, 3) / 9 - 0.3
+    want = j_enc.apply(params, jnp.asarray(x), jnp.asarray(ei))
+    got = t_enc(torch.from_numpy(x), torch.from_numpy(ei))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unknown_family_and_empty_dims():

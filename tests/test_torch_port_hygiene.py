@@ -50,6 +50,8 @@ MODULES = [
     "kernels/band_cuda.py", "kernels/csrc/band.cu", "ops/reorder.py",
     "data/__init__.py", "data/datasets/__init__.py",
     "data/datasets/synthetic.py",
+    "kernels/csrc/segment_max.cu", "nn/aggregators.py",
+    "nn/message_passing.py", "nn/gin_conv.py", "nn/sage_conv.py",
 ]
 
 
@@ -125,8 +127,64 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         rows, idx, recv, 4, weights=w))
     assert spmm_cuda.LAUNCH_COUNTS == {
         "scatter_sum_sorted": 0, "gather_scatter_sum_sorted": 0,
-        "expand_sorted": 0}
+        "expand_sorted": 0, "segment_max_sorted": 0,
+        "segment_max_wide_sorted": 0, "segment_max_wide_bwd": 0}
     assert _build.load_library.cache_info().currsize == 0
+
+
+def test_segment_max_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    spmm_cuda.reset_launch_counts()
+    recv = torch.tensor([0, 0, 2, 3, 3, 3], dtype=torch.int32)
+    row_ptr = spmm_cuda.row_ptr_from_sorted(recv, 5)
+    mask = torch.tensor([True] * 5 + [False])
+    scores = torch.tensor([[1.0, -2.0], [3.0, -4.0], [5.0, 0.0], [2.0, 2.0],
+                           [2.0, 1.0], [9.0, 9.0]])
+    got = spmm_cuda.segment_max_sorted(scores, recv, 5, row_ptr=row_ptr,
+                                       mask=mask)
+    assert torch.equal(got, spmm_cuda.segment_max_sorted_plain(
+        scores, recv, 5, mask=mask))
+    assert got[3].tolist() == [2.0, 2.0] and torch.isinf(got[1]).all()
+    raw = spmm_cuda.segment_max_wide_raw(scores, 5, row_ptr=row_ptr,
+                                         mask=mask)
+    assert torch.equal(raw, spmm_cuda.segment_max_wide_raw_plain(
+        scores, recv, 5, mask=mask))
+    assert (raw[1] == spmm_cuda.NEG_SENTINEL).all()
+    msgs = scores.clone().requires_grad_()
+    out = spmm_cuda._segment_max_sorted_split(msgs, recv, 5, row_ptr=row_ptr,
+                                              mask=mask)
+    assert not out[1].any() and not out[4].any()  # empty rows are 0
+    out.sum().backward()
+    assert msgs.grad[3:5, 0].tolist() == [0.5, 0.5]  # a tie, split
+    assert msgs.grad[5].tolist() == [0.0, 0.0]  # the masked slot
+    assert not any(spmm_cuda.LAUNCH_COUNTS.values())
+    assert not any(spmm_cuda.MODE_LAUNCH_COUNTS.values())
+    assert _build.load_library.cache_info().currsize == 0
+
+
+def test_segment_max_wrappers_branch_on_the_tensor_device_only():
+    for fn, data, counter in (
+            (spmm_cuda._segment_max_narrow, "scores", "segment_max_sorted"),
+            (spmm_cuda._segment_max_wide_fwd, "messages",
+             "segment_max_wide_sorted"),
+            (spmm_cuda._segment_max_wide_bwd, "messages",
+             "segment_max_wide_bwd")):
+        body = inspect.getsource(fn)
+        assert re.search(
+            rf"if not {data}\.is_cuda:\n\s+return \w+_plain\(", body)
+        assert body.count("_plain(") == 1
+        assert f'LAUNCH_COUNTS["{counter}"] += 1' in body
+    # The public functions and the layers reach the kernels through the
+    # wrappers only, and a CUDA tensor must come with its row_ptr.
+    for fn in (spmm_cuda.segment_max_sorted, spmm_cuda.segment_max_wide_sorted,
+               spmm_cuda._segment_max_sorted_split, spmm_cuda._SegmentMaxWide):
+        src = inspect.getsource(fn)
+        assert "_plain" not in src
+    for fn in (spmm_cuda.segment_max_sorted, spmm_cuda.segment_max_wide_sorted,
+               spmm_cuda._segment_max_sorted_split):
+        assert "_row_ptr_or_raise(" in inspect.getsource(fn)
+    from keras_geometric_tpu_torch.nn import gin_conv, sage_conv
+    for module in (gin_conv, sage_conv):
+        assert "scatter_max(" in inspect.getsource(module)
 
 
 def test_wrappers_branch_on_the_tensor_device_only():
@@ -332,7 +390,10 @@ def test_kernels_build_inside_the_checkout():
     assert "environ.get(\"KGT" not in inspect.getsource(_build)
     assert _build.CSRC == PORT / "kernels" / "csrc"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "attend.cu", "band.cu", "sddmm.cu", "softmax.cu", "spmm.cu"]
+        "attend.cu", "band.cu", "sddmm.cu", "segment_max.cu", "softmax.cu",
+        "spmm.cu"]
+    assert '_build.load_library("segment_max")' in inspect.getsource(
+        spmm_cuda)
     assert '_build.load_library("attend")' in inspect.getsource(attend_cuda)
     assert '_build.load_library("band")' in inspect.getsource(band_cuda)
     assert '_build.load_library("softmax")' in inspect.getsource(softmax_cuda)
@@ -341,7 +402,7 @@ def test_kernels_build_inside_the_checkout():
         assert "<torch/" not in source.read_text(), source.name
     # The shared header is part of every library's build key.
     assert 'CSRC.glob("*.cuh")' in inspect.getsource(_build.load_library)
-    for name in ("attend.cu", "sddmm.cu", "softmax.cu"):
+    for name in ("attend.cu", "sddmm.cu", "softmax.cu", "segment_max.cu"):
         assert '#include "lanes.cuh"' in (_build.CSRC / name).read_text()
 
 
@@ -358,9 +419,11 @@ def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
 @pytest.mark.parametrize(
     "fn", [kgt_torch.prepare_graph, kgt_torch.GCNConv.__init__,
            kgt_torch.GNNEncoder.__init__, kgt_torch.Dense.__init__,
-           kgt_torch.MLP.__init__, kgt_torch.GATv2Conv.__init__],
+           kgt_torch.MLP.__init__, kgt_torch.GATv2Conv.__init__,
+           kgt_torch.GINConv.__init__, kgt_torch.SAGEConv.__init__,
+           kgt_torch.PoolingAggregator.__init__],
     ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP",
-         "GATv2Conv"])
+         "GATv2Conv", "GINConv", "SAGEConv", "PoolingAggregator"])
 def test_entry_points_default_to_the_cuda_device(fn):
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
@@ -415,7 +478,7 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     kernels = {**spmm_cuda.LAUNCH_COUNTS, **attend_cuda.LAUNCH_COUNTS,
                **softmax_cuda.LAUNCH_COUNTS, **sddmm_cuda.LAUNCH_COUNTS,
                **band_cuda.LAUNCH_COUNTS}
-    assert set(module.REPLACES) == set(kernels) and len(kernels) == 15
+    assert set(module.REPLACES) == set(kernels) and len(kernels) == 18
     assert set(module.launch_counts()) == set(kernels)
     replaces = module.replaced_tpu_kernels()  # checks each pallas_call line
     assert replaces["attend_recv_bwd_full_sorted"].endswith(
@@ -441,6 +504,16 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
             "train_gat_arxiv_shape_send_nocache",
             "train_gat_citeseer_shape_send",
             "attend_two_pass_arxiv_shape"} <= set(module.PHASES)
+    assert replaces["segment_max_sorted"].endswith(
+        "kernels/spmm_pallas.py:915")
+    assert replaces["segment_max_wide_sorted"].endswith(
+        "kernels/spmm_pallas.py:1071")
+    assert replaces["segment_max_wide_bwd"].endswith(
+        "kernels/spmm_pallas.py:1071")
+    assert module.SOURCES["segment_max"].endswith("csrc/segment_max.cu")
+    assert {"segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
+            "train_gin_max_arxiv_shape",
+            "train_sage_cora_shape"} <= set(module.PHASES)
 
 
 def test_roofline_uses_the_cards_constants():

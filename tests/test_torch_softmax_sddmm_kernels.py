@@ -258,9 +258,11 @@ def test_wrappers_check_their_arguments_like_the_kernel_would():
         sddmm_cuda._check_operands(ht, hj, att, recv[:-1])
     with pytest.raises(TypeError, match="int32"):
         sddmm_cuda._check_operands(ht, hj, att, recv.long())
-    wide = torch.zeros(4, sddmm_cuda.MAX_HEAD_WIDTH + 1)
-    with pytest.raises(ValueError, match="columns per head"):
-        sddmm_cuda._check_operands(wide, wide, wide[:1], recv[:4])
+    # Heads wider than 256 columns are taken (the kernels walk them in
+    # 256-column slabs).
+    wide = torch.zeros(4, 257)
+    assert sddmm_cuda._check_operands(wide, wide, wide[:1], recv[:4]) == (
+        1, 257, 4)
     assert softmax_cuda._check_scores(torch.zeros(E, 4)) == (E, 4)
     with pytest.raises(TypeError, match="float32"):
         softmax_cuda._check_scores(torch.zeros(E, 4, dtype=torch.bfloat16))
@@ -300,7 +302,10 @@ def test_cuda_kernels_match_plain_versions(heads, f, dtype):
     ]
     torch.cuda.synchronize()
     assert all(v == 1 for v in softmax_cuda.LAUNCH_COUNTS.values())
-    assert all(v == 1 for v in sddmm_cuda.LAUNCH_COUNTS.values())
+    # The two kernels launched here, by name: the module also counts the
+    # score-and-statistics kernel, which this test does not launch.
+    assert sddmm_cuda.LAUNCH_COUNTS["sddmm_scores_sorted"] == 1
+    assert sddmm_cuda.LAUNCH_COUNTS["sddmm_bwd_sorted"] == 1
     tol = _tol(dtype)
     for got, want in pairs:
         for a, b in zip(got, want):
