@@ -8,13 +8,22 @@ checkout; unpack another commit with ``git archive <commit>
 keras_geometric_tpu_torch | tar -x -C build/parent``). Each copy runs in its
 own process, in the order given (give them as parent, change, change,
 parent), builds its kernels from its own sources, and prints one JSON line
-(after a first line with the card's name and power limit):
-the median milliseconds (CUDA events, after a write over a buffer larger than
-the L2 cache) of each attention kernel it has, at the two arxiv-shaped GATv2
-layers (169,343 nodes, 1,335,586 random edges plus self-loops, 4 heads of 64
-then of 40, bf16). With ``--ptxas`` it first prints, per copy, the registers
-and spills that ``nvcc -Xptxas -v`` reports for the kernels' bf16
-instantiations at those widths.
+(after a first line with the card's name and power limit): the median
+milliseconds (CUDA events, after a write over a buffer larger than the L2
+cache) of each attention kernel it has and of the sender finish (the
+fused-gather scatter over ``bwd_perm``), at the two arxiv-shaped GATv2 layers
+(169,343 nodes, 1,335,586 random edges plus self-loops, 4 heads of 64 then of
+40, bf16) and the two CiteSeer-shaped ones (3,327 nodes, 2 x 4,732 edges plus
+self-loops, 8 heads of 8 then of 6, f32, a dropout mask), each on the context
+as ``prepare_graph`` pads it, with the slot counts and the longest row.
+``--unpadded`` adds the same graphs prepared with ``edge_chunk=1``, whose
+streams hold no padded slot. ``--band`` adds the banded SpMM (``band_spmm``)
+at the banded GCN's shapes (169,472 padded nodes, a dense random bf16 band of
+1,024 columns, row blocks of 256, F = 128 and 40) beside ``torch.bmm`` over
+the row blocks with the ``x`` windows gathered beforehand. With ``--ptxas``
+it first prints, per copy, the registers and spills that ``nvcc -Xptxas -v``
+reports for the kernels' bf16 instantiations at the arxiv widths and their
+f32 ones at CiteSeer's.
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
 """
@@ -45,13 +54,16 @@ def ptxas_report(root: str) -> None:
                                     capture_output=True, text=True).stdout
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if kernel and "unsigned short, 8, 1" in kernel and (regs or spill):
+        shown = kernel and ("unsigned short, 8, 1" in kernel
+                            or "float, 4, 1" in kernel
+                            or "float, 2, 1" in kernel)
+        if shown and (regs or spill):
             name = re.search(r"::(\w+<[^>]*>)\(", kernel).group(1)
             print(json.dumps({"root": root, "kernel": name,
                               "line": line.strip()}), flush=True)
 
 
-def time_copy(root: str) -> None:
+def time_copy(root: str, unpadded: bool, band: bool) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -59,16 +71,12 @@ def time_copy(root: str) -> None:
     import keras_geometric_tpu_torch as kgt
     from keras_geometric_tpu_torch.kernels import _build
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     if not A.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"imported {A.__file__}, not the copy in {root}")
     device = torch.device("cuda")
-    _build.load_library("attend")
-    rng = np.random.default_rng(0)
-    n, e = 169_343, 1_335_586
-    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
-    ctx = kgt.prepare_graph(edges.astype(np.int32), n, add_self_loops=True,
-                            device=device)
+    _build.load_libraries(["attend", "spmm"] + (["band"] if band else []))
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
 
     def cold_ms(fn, iters=20, warmup=3):
@@ -87,59 +95,136 @@ def time_copy(root: str) -> None:
         times = sorted(a.elapsed_time(b) for a, b in pairs)
         return times[len(times) // 2]
 
-    gen = torch.Generator(device=device).manual_seed(6)
-    graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
-    valid = ctx.edge_mask
+    rng = np.random.default_rng(0)
+    n, e = 169_343, 1_335_586
+    arxiv = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    nc, pairs = 3_327, 4_732
+    a, b = rng.integers(0, nc, pairs), rng.integers(0, nc, pairs)
+    citeseer = np.stack([np.concatenate([a, b]), np.concatenate([b, a])])
+    shapes = (("arxiv", arxiv, n, 4, (64, 40), torch.bfloat16, False),
+              ("citeseer", citeseer, nc, 8, (8, 6), torch.float32, True))
+    chunks = [("padded", {})]
+    if unpadded:
+        chunks.append(("unpadded", {"edge_chunk": 1}))
     has_modes = "attend_send_bwd_sorted" in A.LAUNCH_COUNTS
-    result = {"root": root,
-              "card": torch.cuda.get_device_name(0)}
-    for layer, f in (("layer 1", 64), ("layer 2", 40)):
-        d = 4 * f
-        ht = (0.5 * torch.randn(n, d, generator=gen, device=device)).to(
-            torch.bfloat16)
-        att = (0.3 * torch.randn(4, f, generator=gen, device=device)).to(
-            torch.bfloat16)
-        g = torch.randn(n, d, generator=gen, device=device).to(torch.bfloat16)
-        _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att,
-                                                   edge_valid=valid)
-        rho = A.attend_rho_sorted(g, scores, m, l, ht, *graph)
-        cases = {
-            "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
-                ht, *graph, att, edge_valid=valid),
-            "attend_rho_sorted": lambda: A.attend_rho_sorted(
-                g, scores, m, l, ht, *graph),
-            "attend_recv_bwd_full_sorted": lambda: (
-                A.attend_recv_bwd_full_sorted(ht, g, *graph, att, scores, m,
-                                              l, rho)),
-        }
-        if has_modes:
-            cases.update({
-                "attend_rho_sorted(scores=None)": lambda: A.attend_rho_sorted(
-                    g, None, m, l, ht, *graph, att=att, edge_valid=valid),
-                "attend_recv_bwd_full_sorted(scores=None)": lambda: (
-                    A.attend_recv_bwd_full_sorted(
-                        ht, g, *graph, att, None, m, l, rho,
-                        edge_valid=valid)),
-                "attend_recv_bwd_full_sorted(emit_v=False)": lambda: (
-                    A.attend_recv_bwd_full_sorted(
-                        ht, g, *graph, att, scores, m, l, rho,
-                        emit_v=False)),
-                "attend_send_bwd_sorted": lambda: A.attend_send_bwd_sorted(
-                    ht, g, ctx.receivers_ss, ctx.senders_sorted,
-                    ctx.row_ptr_bwd, att, m, l, rho,
-                    valid_ss=ctx.edge_mask_ss),
-            })
-        result[layer] = {name: cold_ms(fn) for name, fn in cases.items()}
+    result = {"root": root, "card": torch.cuda.get_device_name(0)}
+    if band:
+        from keras_geometric_tpu_torch.kernels import band_cuda as B
+
+        gen = torch.Generator(device=device).manual_seed(13)
+        n_pad, window, rb = 169_472, 1_024, 256
+        nb = n_pad // rb
+        mat = torch.randn(n_pad, window, generator=gen,
+                          device=device).to(torch.bfloat16)
+        base_idx = torch.from_numpy(B._block_base_rows(
+            n_pad, window, rb).astype(np.int32)).to(device)
+        rows = (base_idx.long() * (window // 2))[:, None] + torch.arange(
+            window, device=device)
+        result["band"] = {}
+        for f in (128, 40):
+            x = torch.randn(n_pad, f, generator=gen,
+                            device=device).to(torch.bfloat16)
+            windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
+            result["band"][f"F={f}"] = {
+                "band_spmm": cold_ms(lambda: B.band_matmul(
+                    x, mat, base_idx, window, rb)),
+                "torch.bmm": cold_ms(lambda: torch.bmm(
+                    mat.view(nb, rb, window), windows)),
+            }
+            del x, windows
+        del mat
+        torch.cuda.empty_cache()
+    for name, edges, nodes, heads, dims, dtype, dropped in shapes:
+        for pad_name, kwargs in chunks:
+            ctx = kgt.prepare_graph(edges.astype(np.int32), nodes,
+                                    add_self_loops=True, device=device,
+                                    **kwargs)
+            gen = torch.Generator(device=device).manual_seed(6)
+            graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+            valid = ctx.edge_mask
+            slots = ctx.senders.shape[0]
+            lengths = ctx.row_ptr[1:] - ctx.row_ptr[:-1]
+            lengths_ss = ctx.row_ptr_bwd[1:] - ctx.row_ptr_bwd[:-1]
+            key = f"{name} {pad_name}"
+            result[key] = {
+                "slots": slots,
+                "padded_slots": slots - int(valid.sum()),
+                "longest_row": int(lengths.max()),
+                "longest_row_at": int(lengths.argmax()),
+                "longest_sender_row": int(lengths_ss.max()),
+            }
+            for layer, f in zip(("layer 1", "layer 2"), dims):
+                d = heads * f
+                ht = (0.5 * torch.randn(nodes, d, generator=gen,
+                                        device=device)).to(dtype)
+                att = (0.3 * torch.randn(heads, f, generator=gen,
+                                         device=device)).to(dtype)
+                g = torch.randn(nodes, d, generator=gen,
+                                device=device).to(dtype)
+                drop = drop_ss = None
+                if dropped:
+                    u = torch.rand(slots, heads, generator=gen, device=device)
+                    drop = torch.where(u < 0.7, 1.0 / 0.7, 0.0).to(dtype)
+                    drop_ss = drop.index_select(0, ctx.bwd_perm.long())
+                _, scores, m, l = A.sddmm_stats_agg_sorted(
+                    ht, *graph, att, edge_valid=valid, drop_mask=drop)
+                rho = A.attend_rho_sorted(g, scores, m, l, ht, *graph,
+                                          drop_mask=drop)
+                _, _, v = A.attend_recv_bwd_full_sorted(
+                    ht, g, *graph, att, scores, m, l, rho, drop_mask=drop)
+
+                def recv_bwd(cached=True, emit_v=True):
+                    return A.attend_recv_bwd_full_sorted(
+                        ht, g, *graph, att, scores if cached else None, m,
+                        l, rho, edge_valid=None if cached else valid,
+                        emit_v=emit_v, drop_mask=drop)
+
+                cases = {
+                    "sddmm_stats_agg_sorted": lambda: (
+                        A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                                 edge_valid=valid,
+                                                 drop_mask=drop)),
+                    "attend_rho_sorted": lambda: A.attend_rho_sorted(
+                        g, scores, m, l, ht, *graph, drop_mask=drop),
+                    "attend_recv_bwd_full_sorted": recv_bwd,
+                    "sender finish": lambda: K.gather_scatter_sum_sorted(
+                        v, ctx.bwd_perm, ctx.senders_sorted,
+                        ctx.row_ptr_bwd, nodes),
+                }
+                if has_modes:
+                    cases.update({
+                        "attend_rho_sorted(scores=None)": lambda: (
+                            A.attend_rho_sorted(
+                                g, None, m, l, ht, *graph, att=att,
+                                edge_valid=valid, drop_mask=drop)),
+                        "attend_recv_bwd_full_sorted(scores=None)": (
+                            lambda: recv_bwd(cached=False)),
+                        "attend_recv_bwd_full_sorted(emit_v=False)": (
+                            lambda: recv_bwd(emit_v=False)),
+                        "attend_recv_bwd_full_sorted(scores=None, "
+                        "emit_v=False)": (
+                            lambda: recv_bwd(cached=False, emit_v=False)),
+                        "attend_send_bwd_sorted": lambda: (
+                            A.attend_send_bwd_sorted(
+                                ht, g, ctx.receivers_ss, ctx.senders_sorted,
+                                ctx.row_ptr_bwd, att, m, l, rho,
+                                valid_ss=ctx.edge_mask_ss, drop_ss=drop_ss)),
+                    })
+                result[key][layer] = {case: cold_ms(fn)
+                                      for case, fn in cases.items()}
+                del v, scores, cases
+            del ctx
+            torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
 
 
 def main() -> int:
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        time_copy(args[1])
+        time_copy(args[1], "--unpadded" in args, "--band" in args)
         return 0
-    ptxas = "--ptxas" in args
-    roots = [a for a in args if a != "--ptxas"]
+    flags = [a for a in args if a in ("--ptxas", "--unpadded", "--band")]
+    roots = [a for a in args if a not in flags]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -147,11 +232,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    if ptxas:
+    if "--ptxas" in flags:
         for root in dict.fromkeys(roots):
             ptxas_report(root)
     for root in roots:
-        subprocess.run([sys.executable, __file__, "--child", root], check=True)
+        subprocess.run([sys.executable, __file__, "--child", root,
+                        *[a for a in flags if a != "--ptxas"]],
+                       check=True)
     return 0
 
 

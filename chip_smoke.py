@@ -15,7 +15,9 @@ Phases (each prints one JSON line; any failure ends the run with a non-zero
 exit code and without the final line; so does a run of a subset of the phases
 (``--phases``), which exits with code 4 once its phases have passed):
 
-1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build;
+1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build, and
+                the registers and spills ``nvcc -Xptxas -v`` reports for the
+                TMA band kernel and the receiver backward;
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
@@ -43,7 +45,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 1, 4, 8 and the wide one, forward and both tie rules of its
                 backward, at F in 1, 7, 40, 128, 256, 320 on tied inputs
                 (bf16 and f32, with and without the slot mask), forwards bit
-                for bit; then timings at the shapes the training paths use,
+                for bit; then timings at the shapes the training paths use
+                (the receiver walks also on the same graph without padded
+                slots, the band kernel also on its wmma route at F = 7),
                 and the fused attention kernels at one head of 256 columns
                 against the wide heads;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
@@ -97,6 +101,8 @@ exit code and without the final line; so does a run of a subset of the phases
                 LPA cluster order, ``band_window=1024``, the GCN of run 4;
                 step 1 also against the same graph without the band; then
                 ``precompute_propagation`` on both contexts;
+                this run and the fused GATv2 arxiv runs of 6 and 9 also
+                trace five more steps (device busy time, idle share);
 12. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
                 ``attend_window=1024``, the GATv2 of run 6; step 1 also against
                 the same graph without the window tables;
@@ -142,7 +148,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -266,17 +274,89 @@ def launch_counts() -> dict:
 
 
 def mode_launch_counts() -> dict:
-    """Launches of the attention kernels in their other modes and of the
-    wide segment max's backward with the ties split (counted beside their
-    kernel's own count)."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda, spmm_cuda
+    """Launches of the attention kernels in their other modes, of the wide
+    segment max's backward with the ties split and of the band kernel by
+    route (counted beside their kernel's own count)."""
+    from keras_geometric_tpu_torch.kernels import (
+        attend_cuda,
+        band_cuda,
+        spmm_cuda,
+    )
 
-    return {**attend_cuda.MODE_LAUNCH_COUNTS, **spmm_cuda.MODE_LAUNCH_COUNTS}
+    return {**attend_cuda.MODE_LAUNCH_COUNTS, **spmm_cuda.MODE_LAUNCH_COUNTS,
+            **band_cuda.MODE_LAUNCH_COUNTS}
 
 
 def reset_launch_counts() -> None:
     for module in kernel_modules():
         module.reset_launch_counts()
+
+
+# Instantiations whose registers and spills the device phase reports (the
+# TMA band kernel and the receiver backward's work-list walk, at the shapes
+# the training runs give them):
+# mangled-name fragment -> what it is.
+PTXAS_SHOWN = {
+    "band_bf16_tma_kernelILi128E": "band_bf16_tma_kernel<N=128>",
+    "band_bf16_tma_kernelILi40E": "band_bf16_tma_kernel<N=40>",
+    "band_bf16_kernelILi1ELb0E": "band_bf16_kernel<NF=1, VEC=false> (F=7)",
+    "attend_recv_bwd_kernelItLi8ELi1ELb0ELb1ELb0E":
+        "attend_recv_bwd_kernel<bf16, 8, 1, cached, v> (arxiv)",
+    "attend_recv_bwd_kernelItLi8ELi1ELb0ELb0ELb0E":
+        "attend_recv_bwd_kernel<bf16, 8, 1, cached, no v> (arxiv, send)",
+    "attend_recv_bwd_kernelItLi8ELi1ELb1ELb1ELb0E":
+        "attend_recv_bwd_kernel<bf16, 8, 1, recompute, v> (arxiv)",
+    "attend_recv_bwd_kernelIfLi4ELi1ELb0ELb1ELb0E":
+        "attend_recv_bwd_kernel<f32, 4, 1, cached, v> (CiteSeer L1)",
+    "attend_recv_bwd_kernelIfLi2ELi1ELb0ELb1ELb0E":
+        "attend_recv_bwd_kernel<f32, 2, 1, cached, v> (CiteSeer L2)",
+    "attend_recv_bwd_kernelItLi8ELi1ELb0ELb1ELb1E":
+        "attend_recv_bwd_kernel<bf16, 8, 1, cached, v, wide>",
+    "recv_bwd_finish_kernelItE": "recv_bwd_finish_kernel<bf16>",
+}
+
+
+def ptxas_report() -> dict:
+    """Registers, spills and static shared memory that ``nvcc -Xptxas -v``
+    reports for the instantiations of PTXAS_SHOWN (one compiler per source,
+    side by side; object code is discarded)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keras_geometric_tpu_torch.kernels import _build
+
+    def one(source):
+        flags = [f for f in _build.NVCC_FLAGS if f not in
+                 ("-shared", "-Xcompiler", "-fPIC")]
+        proc = subprocess.run(
+            [_build._find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+             os.devnull, str(_build.CSRC / f"{source}.cu")],
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {source}")
+        return proc.stderr.splitlines()
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        lines = [l for out in pool.map(one, ("band", "attend")) for l in out]
+    report, shown = {}, None
+    for line in lines:
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            shown = next((v for k, v in PTXAS_SHOWN.items()
+                          if k in found.group(1)), None)
+            continue
+        if shown is None:
+            continue
+        item = report.setdefault(shown, {})
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+            value = re.search(pattern, line)
+            if value:
+                item[key] = int(value.group(1))
+    check(set(report) == set(PTXAS_SHOWN.values()),
+          f"ptxas reported {sorted(report)}, expected every instantiation "
+          f"of {sorted(PTXAS_SHOWN.values())}")
+    return report
 
 
 def nvidia_smi_line() -> str:
@@ -811,12 +891,33 @@ def attend_sweep(device, timer):
     return cases, worst, hub
 
 
+def unpadded_context(ctx):
+    """The real slots of an attention context (self-loops included) prepared
+    again with ``edge_chunk=1``: the same graph, its stream without a padded
+    slot."""
+    import keras_geometric_tpu_torch as kgt
+
+    real = ctx.edge_mask
+    edges = torch.stack([ctx.senders[real], ctx.receivers[real]])
+    return kgt.prepare_graph(edges.cpu().numpy(), ctx.num_nodes,
+                             edge_chunk=1, device=ctx.senders.device)
+
+
+def longest_row(row_ptr) -> int:
+    return int((row_ptr[1:] - row_ptr[:-1]).max())
+
+
 def time_attend_cases(device, timer, contexts, replaces):
     """The attention kernels and the sender finish (the fused-gather scatter
     reading ``v`` through ``bwd_perm``) at the shapes the GATv2 training runs
     give them: kernel, plain version, bound from bytes and operations. No
     single PyTorch call computes any of the three attention kernels, so their
-    ``library_ms`` is null; the sender finish is one ``index_add_``."""
+    ``library_ms`` is null; the sender finish is one ``index_add_``. Each
+    entry also gives the stream's longest row (``longest_row``: in sender
+    order for the finish) and the kernel's time on the same graph prepared
+    without padded slots (``ms_unpadded``): where a padded tail, which
+    ``prepare_graph`` puts in the last row, is walked serially, the two
+    times differ."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -864,6 +965,33 @@ def time_attend_cases(device, timer, contexts, replaces):
             f"sender finish at {ctx_name} {layer}")
         del finish_plain, finish_mass
         senders_long = ctx.senders.long()
+        # The same graph and inputs over a stream without padded slots.
+        bare = unpadded_context(ctx)
+        bare_graph = (bare.senders, bare.receivers, bare.row_ptr)
+        bare_drop = None if drop is None else drop[ctx.edge_mask]
+        _, b_scores, b_m, b_l = A.sddmm_stats_agg_sorted(
+            ht, *bare_graph, att, edge_valid=bare.edge_mask,
+            drop_mask=bare_drop)
+        b_rho = A.attend_rho_sorted(gout, b_scores, b_m, b_l, ht,
+                                    *bare_graph, drop_mask=bare_drop)
+        _, _, b_v = A.attend_recv_bwd_full_sorted(
+            ht, gout, *bare_graph, att, b_scores, b_m, b_l, b_rho,
+            drop_mask=bare_drop)
+        unpadded = {
+            "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
+                ht, *bare_graph, att, edge_valid=bare.edge_mask,
+                drop_mask=bare_drop),
+            "attend_rho_sorted": lambda: A.attend_rho_sorted(
+                gout, b_scores, b_m, b_l, ht, *bare_graph,
+                drop_mask=bare_drop),
+            "attend_recv_bwd_full_sorted": lambda: (
+                A.attend_recv_bwd_full_sorted(
+                    ht, gout, *bare_graph, att, b_scores, b_m, b_l, b_rho,
+                    drop_mask=bare_drop)),
+            "gather_scatter_sum_sorted": lambda: K.gather_scatter_sum_sorted(
+                b_v, bare.bwd_perm, bare.senders_sorted, bare.row_ptr_bwd,
+                n),
+        }
 
         stats = 2 * n * heads * 4  # m and l
         drop_bytes = 0 if drop is None else e * heads * es
@@ -941,8 +1069,15 @@ def time_attend_cases(device, timer, contexts, replaces):
                 # cache: E more rows than the ideal count.
                 entry["bound_ms_if_gather_not_reused"] = (
                     (case["nbytes"] + e * d * es) / H100_BYTES_PER_S * 1e3)
+            sender_order = name == "gather_scatter_sum_sorted"
+            entry["longest_row"] = longest_row(
+                ctx.row_ptr_bwd if sender_order else ctx.row_ptr)
+            entry["padded_slots"] = e - int(ctx.edge_mask.sum())
+            entry["ms_unpadded"] = timer.cold_ms(unpadded[name], iters=10)
+            entry["longest_row_unpadded"] = longest_row(
+                bare.row_ptr_bwd if sender_order else bare.row_ptr)
             entries.append(entry)
-        del v, scores, cases
+        del v, scores, cases, b_v, b_scores, unpadded, bare
         torch.cuda.empty_cache()
     return entries
 
@@ -1160,8 +1295,10 @@ def time_wide_heads(device, timer, ctx):
     arxiv-shaped GATv2 graph in bf16 at one head of 256 columns (the widest
     narrow launch) and at the wide heads of ``WIDE_HEAD_SHAPES``, which run
     the slab-walking instantiations: the price of a head wider than 256
-    columns, per call and per column."""
+    columns, per call and per column, and each call's bound (the bytes the
+    fused arxiv rows count, over the card's memory rate)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.utils.profiling import H100_BYTES_PER_S
 
     gen = torch.Generator(device=device).manual_seed(25)
     graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
@@ -1184,8 +1321,22 @@ def time_wide_heads(device, timer, ctx):
                 lambda: A.attend_recv_bwd_full_sorted(
                     ht, gout, *graph, att, scores, m, l, rho), iters=10),
         }
+        n, d = ctx.num_nodes, heads * f
+        index = e * 4 + (n + 1) * 4
+        stats = 2 * n * heads * 4
+        nbytes = {  # as time_attend_cases counts them, bf16, no dropout
+            "sddmm_stats_agg_sorted": 2 * n * d * 2 + index + e
+            + e * heads * 4 + stats + d * 2,
+            "attend_rho_sorted": 2 * n * d * 2 + index + e * heads * 4
+            + stats + n * heads * 4,
+            "attend_recv_bwd_full_sorted": 3 * n * d * 2 + e * d * 2 + index
+            + e * heads * 4 + stats + n * heads * 4 + d * 6,
+        }
         times["ms_per_1k_columns"] = {
             k: v * 1000 / (heads * f) for k, v in list(times.items())}
+        times["bound_ms"] = {k: b / H100_BYTES_PER_S * 1e3
+                             for k, b in nbytes.items()}
+        times["bound_by"] = "bytes"
         out[f"H={heads} F={f}"] = times
         del ht, att, gout, scores, m, l, rho
     return out
@@ -1820,8 +1971,11 @@ def time_band_cases(device, timer, contexts, replaces):
     plan = ctx.band
     n, window, rb = plan.n_pad, plan.window, plan.row_block
     nb = n // rb
+    # The two widths of the banded GCN (the wgmma route), then F = 7, which
+    # no run gives, for the wmma route at the same band.
     for layer, f in (("layer 1", ARXIV_FEATS), ("layers 2 and backward",
-                                                ARXIV_CLASSES)):
+                                                ARXIV_CLASSES),
+                     ("no run: F % 8 != 0", 7)):
         x = torch.randn(n, f, generator=gen, device=device).to(torch.bfloat16)
         args = (plan.band, plan.base_idx, window, rb)
         err = compare(B.band_matmul(x, *args), B.band_matmul_plain(x, *args),
@@ -1831,16 +1985,22 @@ def time_band_cases(device, timer, contexts, replaces):
             window, device=device)
         windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
         band3 = plan.band.view(nb, rb, window)
+        route = B.band_route(f, window, rb, torch.bfloat16)
         entries.append(entry(
-            "band_spmm", "train_skewed_arxiv_shape",
+            "band_spmm", "train_skewed_arxiv_shape" if route == "wgmma"
+            else None,
             f"skewed {layer}: n_pad={n} W={window} F={f} bf16 "
-            f"band edges={plan.num_edges}", err,
+            f"band edges={plan.num_edges} route={route}", err,
             lambda: B.band_matmul(x, *args),
             lambda: B.band_matmul_plain(x, *args),
             lambda: torch.bmm(band3, windows),
             # band once, x once, out once, base_idx
             n * window * 2 + 2 * n * f * 2 + nb * 4,
             2 * n * window * f, H100_BF16_TENSOR_OPS_PER_S))
+        entries[-1]["mode"] = route
+        if route != "wgmma":
+            del windows
+            continue
 
         def residual(c):
             return K.gather_scatter_sum_sorted(
@@ -2824,7 +2984,7 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
                 falling=lambda l: l[-1] < l[0], same_as=None,
                 same_graph=None, extra=None, per_step_modes=None,
-                against_default_modes=False):
+                against_default_modes=False, profile=False):
     """``same_as``: a model that computes the same function by another path
     (built with the same initial parameters); its step-1 loss is held to the
     same tolerance as the plain path's. ``same_graph``: ``(ctx, x, y,
@@ -2832,7 +2992,10 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     tier); step 1 there is held to the same tolerances, loss and gradients,
     and its steps are timed after the run that counts. ``extra``: fields
     added to the phase's line. ``per_step_modes``: the attention kernels'
-    launches per step in their other modes (none by default).
+    launches per step in their other modes and the band kernel's by route
+    (none by default). ``profile``: after the run that counts, trace a few
+    more steps and add the device's busy time per step, its idle share and
+    the kernels that take most of it.
     ``against_default_modes``: step 1 is also taken with the attention's
     module constants at their defaults; the loss must be the same (the
     forward is the same kernel's), the gradients within the tolerance of
@@ -2925,6 +3088,10 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     logits_ok = all(torch.isfinite(p).all().item() for p in model.parameters())
     check(logits_ok, f"{name}: parameters not finite after training")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    traced = {}
+    if profile:
+        traced = {"profile": profile_steps(
+            lambda: step(x, None, y, mask, context=ctx), iters=5, top=8)}
     same_graph_ms = same_graph_peak_mb = None
     if same_graph is not None:
         del model, optimizer, step
@@ -2953,7 +3120,7 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
          peak_memory_mb_without_locality_tier=same_graph_peak_mb,
          nodes=ctx.num_nodes, stream_edges=ctx.num_real_edges,
          compute_dtype=str(compute_dtype or torch.float32)[6:],
-         **(extra or {}))
+         **traced, **(extra or {}))
     return counts, modes
 
 
@@ -3033,7 +3200,12 @@ def main() -> int:
 
     # 1. device + build (always: everything below needs the libraries). One
     # compiler per source, side by side.
-    _build.load_libraries(sorted(SOURCES))
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ptxas = pool.submit(ptxas_report)
+        _build.load_libraries(sorted(SOURCES))
+        ptxas = ptxas.result()
     nvcc = subprocess.run([_build._find_nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60)
     emit("device", kind=kind, nvidia_smi=smi, torch=torch.__version__,
@@ -3042,7 +3214,8 @@ def main() -> int:
          capability=list(torch.cuda.get_device_capability(0)),
          kernel_build_seconds=_build.BUILD_SECONDS,
          build_wall_seconds=time.perf_counter() - t_start,
-         nvcc_flags=list(_build.NVCC_FLAGS), package=kgt.__version__)
+         nvcc_flags=list(_build.NVCC_FLAGS), package=kgt.__version__,
+         ptxas=ptxas)
 
     timer = Timer(device)
     kernel_entries = []
@@ -3283,7 +3456,7 @@ def main() -> int:
         emit("prepare_gat_arxiv_shape", host_seconds=prepare_s,
              slots=int(ctx.senders.shape[0]))
         train("train_gat_arxiv_shape", steps=8, per_step=gat_two_layers,
-              timed_iters=10)
+              timed_iters=10, profile=True)
 
     if "train_gat_citeseer_shape" in phases:
         train("train_gat_citeseer_shape", steps=40, per_step=gat_two_layers,
@@ -3333,7 +3506,8 @@ def main() -> int:
              {**send_modes, **nocache_modes})):
         if name in phases:
             train(name, steps=8, per_step=per_step, timed_iters=10,
-                  per_step_modes=per_step_modes, against_default_modes=True)
+                  per_step_modes=per_step_modes, against_default_modes=True,
+                  profile=True)
     if "train_gat_citeseer_shape_send" in phases:
         # Attention dropout: the layers draw the mask pair, and the sender
         # backward reads the sender-order twin.
@@ -3409,8 +3583,9 @@ def main() -> int:
              **locality)
         train("train_skewed_arxiv_shape", steps=8,
               per_step={"band_spmm": 3, "gather_scatter_sum_sorted": 3},
-              timed_iters=10, same_graph=workload("skewed_plain")[:4],
-              extra=locality)
+              per_step_modes={"band_spmm(wgmma)": 3}, timed_iters=10,
+              same_graph=workload("skewed_plain")[:4], extra=locality,
+              profile=True)
         # bench.py's best_* hoisting: S @ x once, on both contexts.
         from keras_geometric_tpu_torch.utils import timed_steps
 

@@ -39,10 +39,15 @@ Source notes, one per kernel (all five are bound by bytes):
 - ``attend_recv_bwd_full_sorted``: recomputes ``pre``, ``alpha``, ``dalpha``
   (and, without the cache, the score); writes the receiver part of ``d ht``,
   ``datt`` and, for the permute finish, the per-edge sender cotangent ``v``
-  (``[E, H*F]``, the largest stream of these kernels). The reduction of
-  ``datt`` over all edges goes through per-group partials and a second small
-  kernel that sums them in a fixed order: no atomics, so ``datt`` is
-  bit-reproducible.
+  (``[E, H*F]``, the largest stream of these kernels). Its groups walk
+  pieces of at most ``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built
+  once per ``row_ptr`` tensor and kept beside it), so no group walks a long
+  row, the padded tail or a hub, serially; a padded slot is never gathered
+  and its ``v`` row is written as 0. Each group keeps the sender rows of the
+  next slots in flight in a shared-memory ring filled by ``cp.async``. A row
+  split into pieces gets its ``d ht`` from its pieces' f32 shares, added in
+  piece order by the second launch, which also sums the ``datt`` partials in
+  a fixed order: no atomics, so ``dht`` and ``datt`` are bit-reproducible.
 - ``attend_send_bwd_sorted``: the sender part of ``d ht`` without ``v``: a
   group per (sender row, head) walks the sender-sorted slots, gathers the
   receiver's ``ht`` and ``g`` rows and its ``(m, l, rho)``, recomputes the
@@ -64,6 +69,7 @@ a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -88,6 +94,9 @@ __all__ = [
     "attend_rho_sorted_plain",
     "attend_recv_bwd_full_sorted_plain",
     "attend_send_bwd_sorted_plain",
+    "RECV_BWD_PIECE",
+    "RecvBwdWork",
+    "recv_bwd_work",
     "LAUNCH_COUNTS",
     "reset_launch_counts",
 ]
@@ -116,6 +125,79 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCH_COUNTS, MODE_LAUNCH_COUNTS):
         for name in counts:
             counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# The receiver backward's work list.
+# ---------------------------------------------------------------------------
+
+# Slots a group of the receiver backward walks at most.
+RECV_BWD_PIECE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class RecvBwdWork:
+    """Pieces of the receiver-sorted stream for the receiver backward.
+
+    ``pieces`` ``[P, 4]`` int32: (row, first slot, end slot, share), in row
+    and slot order; every row has at least one piece (an empty row one empty
+    piece) and every slot lies in exactly one, of at most ``piece`` slots.
+    ``share`` is -1 where the piece is its whole row, else its row in the
+    ``[num_shares, D]`` f32 scratch of shares. ``fix_rows`` ``[R]`` int32 are
+    the rows split into several pieces, in order, and their shares are
+    ``fix_ptr[k] .. fix_ptr[k + 1]`` (``[R + 1]`` int32), in slot order.
+    """
+
+    pieces: torch.Tensor
+    fix_rows: torch.Tensor
+    fix_ptr: torch.Tensor
+    piece: int
+    num_shares: int
+
+    @property
+    def num_pieces(self) -> int:
+        return int(self.pieces.shape[0])
+
+
+def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
+    rp = row_ptr.long()
+    lengths = rp[1:] - rp[:-1]
+    counts = torch.clamp((lengths + piece - 1) // piece, min=1)
+    total = int(counts.sum())
+    n = lengths.shape[0]
+    row = torch.repeat_interleave(torch.arange(n, device=rp.device), counts,
+                                  output_size=total)
+    first = torch.cumsum(counts, 0) - counts  # each row's first piece
+    k = torch.arange(total, device=rp.device) - first[row]
+    lo = rp[row] + k * piece
+    hi = torch.minimum(lo + piece, rp[row + 1])
+    split = counts[row] > 1
+    share = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
+    pieces = torch.stack([row, lo, hi, share], 1).to(torch.int32).contiguous()
+    fix_rows = torch.nonzero(counts > 1).flatten()
+    fix_ptr = torch.zeros(fix_rows.shape[0] + 1, dtype=torch.long,
+                          device=rp.device)
+    fix_ptr[1:] = torch.cumsum(counts[fix_rows], 0)
+    return RecvBwdWork(pieces=pieces, fix_rows=fix_rows.to(torch.int32),
+                       fix_ptr=fix_ptr.to(torch.int32), piece=piece,
+                       num_shares=int(split.sum()))
+
+
+def recv_bwd_work(row_ptr: torch.Tensor,
+                  piece: int = RECV_BWD_PIECE) -> RecvBwdWork:
+    """The receiver backward's pieces for ``row_ptr`` (``[N + 1]``), on its
+    device. Built once per ``row_ptr`` tensor (one host synchronisation, at
+    the first backward of a context) and kept on the tensor while it is not
+    written to."""
+    if piece < 1:
+        raise ValueError(f"piece must be >= 1, got {piece}")
+    key = (row_ptr._version, piece)
+    cached = getattr(row_ptr, "_recv_bwd_work", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    work = _build_recv_bwd_work(row_ptr, piece)
+    row_ptr._recv_bwd_work = (key, work)
+    return work
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +413,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_attend_recv_bwd_partial_rows.restype = i64
     lib.kgt_attend_recv_bwd_full_sorted.argtypes = [
-        vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp, vp,
-        i64, i32, i64, f32, f32, i32, vp,
+        vp, vp, vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp,
+        vp, vp, vp, i64, vp, vp, vp, i64, i32, i64, f32, f32, i32, vp,
     ]
     lib.kgt_attend_recv_bwd_full_sorted.restype = i32
     lib.kgt_attend_send_bwd_sorted.argtypes = [
@@ -600,19 +682,26 @@ def attend_recv_bwd_full_sorted(ht, g, senders, receivers, row_ptr, att,
     lib = _library()
     is_bf16 = int(ht.dtype == torch.bfloat16)
     v_ptr = None if v is None else v.data_ptr()
+    work = recv_bwd_work(row_ptr)
+    n_fix = int(work.fix_rows.shape[0])
     with torch.cuda.device(device):
         partial_rows = lib.kgt_attend_recv_bwd_partial_rows(
-            ht.data_ptr(), g.data_ptr(), dht.data_ptr(), v_ptr, n, heads, f,
-            is_bf16)
+            ht.data_ptr(), g.data_ptr(), dht.data_ptr(), v_ptr,
+            work.num_pieces, heads, f, is_bf16)
         partial = torch.empty(partial_rows, d, dtype=torch.float32,
                               device=device)
+        shares = (torch.empty(work.num_shares, d, dtype=torch.float32,
+                              device=device) if n_fix else None)
         code = lib.kgt_attend_recv_bwd_full_sorted(
             ht.data_ptr(), g.data_ptr(), senders.data_ptr(),
-            row_ptr.data_ptr(), att_ptr, att_bf16,
+            work.pieces.data_ptr(), work.num_pieces, work.piece, att_ptr,
+            att_bf16,
             None if scores is None else scores.data_ptr(), m.data_ptr(),
             l.data_ptr(), rho.data_ptr(), valid_ptr, drop_ptr, drop_bf16,
-            dht.data_ptr(), v_ptr, datt.data_ptr(), partial.data_ptr(), n,
-            heads, f, float(negative_slope), float(eps), is_bf16, _stream(),
+            dht.data_ptr(), None if shares is None else shares.data_ptr(),
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(), n_fix, v_ptr,
+            datt.data_ptr(), partial.data_ptr(), n, heads, f,
+            float(negative_slope), float(eps), is_bf16, _stream(),
         )
     _raise_on_error(lib, code, "attend_recv_bwd_full_sorted")
     LAUNCH_COUNTS["attend_recv_bwd_full_sorted"] += 1

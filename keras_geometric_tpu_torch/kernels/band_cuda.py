@@ -23,11 +23,16 @@ Source notes, one per kernel:
 
 - ``band_spmm`` replaces ``_band_matmul`` (``band_pallas.py:393``). Bound by
   bytes: the band is read once (``2W`` bytes per node row in bf16 against
-  ``2F`` for each of ``x`` and ``y``). A block owns 64 rows of a row block and
-  up to 128 columns; it stages band and ``x`` slabs of 32 window columns in
-  shared memory, multiplies bf16 on the tensor cores (``nvcuda::wmma``, f32
-  accumulators) and f32 on the FMA units (never TF32), and rounds once at the
-  store.
+  ``2F`` for each of ``x`` and ``y``). :func:`band_route` picks one of three
+  instantiations from the type and the shapes alone, and a counter per route
+  records it (``MODE_LAUNCH_COUNTS``). ``wgmma`` (bf16, ``F % 8 == 0``, row
+  blocks of 256, ``W % 64 == 0``: the banded GCN's shapes): a persistent CTA
+  per SM takes whole row blocks, reading each ``x`` window once; a producer
+  warp fills a ring of band and ``x`` tiles by TMA and two warpgroups
+  multiply them with ``wgmma`` into f32 registers. ``wmma`` (other bf16 shapes): a block owns 64 rows of a row
+  block and up to 128 columns and stages slabs of 32 window columns with
+  thread-issued loads for ``nvcuda::wmma``. ``fma`` (f32): the same tiling on
+  the FMA units (never TF32). Each rounds once at the store.
 - ``window_scatter_sum`` replaces ``_win_scatter_kernel``
   (``band_pallas.py:249``), which contracts an equality one-hot on the TPU's
   matrix unit: here the rows are summed directly. Bound by bytes: the
@@ -62,7 +67,9 @@ __all__ = [
     "build_window_scatter_plan",
     "window_scatter_sum",
     "window_scatter_sum_plain",
+    "band_route",
     "LAUNCH_COUNTS",
+    "MODE_LAUNCH_COUNTS",
     "reset_launch_counts",
 ]
 
@@ -72,10 +79,18 @@ BAND_ROW_BLOCK = 256
 # launched and nowhere else.
 LAUNCH_COUNTS = {"band_spmm": 0, "window_scatter_sum": 0}
 
+# Launches of band_spmm by route (band_route), counted beside its own count.
+MODE_LAUNCH_COUNTS = {
+    "band_spmm(wgmma)": 0,
+    "band_spmm(wmma)": 0,
+    "band_spmm(fma)": 0,
+}
+
 
 def reset_launch_counts() -> None:
-    for name in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[name] = 0
+    for counts in (LAUNCH_COUNTS, MODE_LAUNCH_COUNTS):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +349,26 @@ def band_matmul_plain(x, band, base_idx, window, row_block):
     return y.reshape(n_pad, f).to(x.dtype)
 
 
+# The route's code in the C entry point: the TMA + wgmma kernel is 1, the
+# thread-staged ones (wmma, FMA) are 0.
+_ROUTE_CODE = {"wgmma": 1, "wmma": 0, "fma": 0}
+
+
+def band_route(f: int, window: int, row_block: int, dtype) -> str:
+    """The instantiation of the band kernel for these shapes: ``"wgmma"``
+    (TMA ring and Hopper's warpgroup products) for bf16 with ``f % 8 == 0``
+    (a tensor map's rows start on 16-byte boundaries), row blocks of 256 (a
+    CTA's tile) and ``window % 64 == 0`` (its ring stage); ``"wmma"`` for
+    any other bf16 shape; ``"fma"`` for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the band kernel takes f32 or bf16, got {dtype}")
+    if f % 8 == 0 and row_block == 256 and window % 64 == 0:
+        return "wgmma"
+    return "wmma"
+
+
 def band_matmul(x, band, base_idx, window, row_block):
     """``y[b*RB : (b+1)*RB] = band[b*RB : (b+1)*RB] @ x[base(b) : base(b)+W]``
     with ``base(b) = base_idx[b] * W/2``: ``x`` ``[n_pad, F]`` and ``band``
@@ -358,6 +393,9 @@ def band_matmul(x, band, base_idx, window, row_block):
     if band.data_ptr() % 16:
         raise ValueError("band must be 16-byte aligned")
     _check_index("base_idx", base_idx, n_pad // row_block, device)
+    route = band_route(f, window, row_block, x.dtype)
+    if x.data_ptr() % 16:  # TMA reads from 16-byte aligned rows
+        x = x.clone()
     out = torch.empty(n_pad, f, dtype=x.dtype, device=device)
     if out.numel() == 0:
         return out
@@ -366,11 +404,12 @@ def band_matmul(x, band, base_idx, window, row_block):
         code = lib.kgt_band_matmul(
             x.data_ptr(), band.data_ptr(), base_idx.data_ptr(),
             out.data_ptr(), n_pad, f, window, row_block,
-            int(x.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), _ROUTE_CODE[route],
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on_error(lib, code, "band_spmm")
     LAUNCH_COUNTS["band_spmm"] += 1
+    MODE_LAUNCH_COUNTS[f"band_spmm({route})"] += 1
     return out
 
 
@@ -423,7 +462,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("band")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.kgt_band_matmul.argtypes = [
-        vp, vp, vp, vp, i64, i64, i32, i32, i32, vp,
+        vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, vp,
     ]
     lib.kgt_band_matmul.restype = i32
     lib.kgt_window_scatter_sum.argtypes = [

@@ -40,10 +40,12 @@
 // the forward's bit for bit, and exp(min(s - m, 0)) is exact); the receiver
 // backward writes v only when given one (the permute finish) and not when
 // the sender backward finishes. The recompute is a template parameter of rho
-// and the receiver backward, not a runtime branch: as a runtime branch its
-// extra registers cost the cached launches blocks in flight (rho 60
-// registers instead of 40, 31% slower; the receiver backward 3-7% slower,
-// measured on the H100). The other flags are runtime branches.
+// and the receiver backward, and so is writing v in the receiver backward,
+// not runtime branches: as a runtime branch the recompute's extra registers
+// cost the cached launches blocks in flight (rho 60 registers instead of 40,
+// 31% slower; the receiver backward 3-7% slower, measured on the H100), and
+// with v the receiver backward runs best at two blocks per SM, without it at
+// three. The other flags are runtime branches.
 //
 // The TPU kernels take the gathered rows hj = ht[senders] (and, sender-side,
 // g[recv], ht[recv] and the receivers' statistics) as [E, *] inputs and
@@ -69,6 +71,16 @@
 // are built for at least four blocks on a multiprocessor (64 registers a
 // thread) and do not unroll the walk, which measured faster at arxiv-sized
 // graphs than two, four or eight edges in flight per lane with fewer warps.
+// The receiver backward is laid out differently: its groups walk
+// pieces of at most 32 slots from a host-built work list, so no group walks
+// a long row serially (the padded tail, which prepare_graph puts in the last
+// row, or a hub), and a split row's dht is its pieces' f32 shares added in
+// piece order by the second launch. A group copies its piece's senders,
+// scores and keep factors into shared memory in one go (cp.async), then
+// keeps the sender rows of the next kRing slots in flight in a shared-memory
+// ring (cp.async, one commit group a slot); a padded slot is never gathered
+// and writes a zero v row. Its time at arxiv's shapes is bound by the
+// per-slot arithmetic, not by the walk's latency (PERF.md).
 // The sender backward walks sender rows: each slot gathers the receiver's
 // ht and g rows and its (m, l, rho), three dependent gathers, and a padded
 // slot (masked) is skipped before any of them, so the padded tail, which in
@@ -355,88 +367,344 @@ attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
   if (q.lane == 0) rho[row * heads + h] = acc;
 }
 
-template <typename S, int VEC, int NJ, bool RECOMPUTE, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+// The receiver backward's work list: piece p covers slots pieces[p].y ..
+// pieces[p].z of row pieces[p].x, at most `cap` of them (the host cuts
+// longer rows, the padded tail included, into pieces); pieces[p].w is -1
+// for a piece that is its whole row (it writes the row's dht) and otherwise
+// the row of dht_part where it leaves its f32 share, which the finish
+// kernel adds up in piece order.
+
+// Blocks per SM the receiver backward is built for, by whether it writes v
+// (NVIDIA H100 80GB HBM3 at 700 W, arxiv shapes, bf16 F = 64 / 40): writing
+// v, two blocks and 108 registers without spills beat three blocks at 80
+// registers with spills by 18% / 2%; without v three blocks win by 9% / 11%.
+constexpr int recv_bwd_min_blocks(bool emit_v) { return emit_v ? 2 : 3; }
+constexpr int kRing = 4;  // sender rows in flight per group
+
+// Asynchronous copy of one pack (VEC values) into shared memory. cp.async
+// moves 4, 8 or 16 bytes; a 2-byte pack (bf16 at an odd F) is copied by the
+// thread itself.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(uint32_t dst, const void* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src) : "memory");
+  } else if constexpr (BYTES == 8 || BYTES == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES) : "memory");
+  } else {
+    const uint16_t v = *static_cast<const uint16_t*>(src);
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t shared_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A group's ring of kRing stages, each holding this lane's packs of one
+// slot's sender row: [stage][pack j][thread] packs of VEC values, so the
+// threads of a warp touch consecutive words.
+template <typename S, int VEC, int NJ>
+struct SenderRing {
+  static constexpr int kPack = VEC * static_cast<int>(sizeof(S));
+  static constexpr int kBytes = kRing * NJ * kThreads * kPack;
+
+  __device__ static int offset(int stage, int j) {
+    return ((stage * NJ + j) * kThreads + static_cast<int>(threadIdx.x)) *
+           kPack;
+  }
+
+  // Starts the copies of this lane's packs of a head (its first column).
+  __device__ static void fill(uint8_t* ring, int stage, const S* head, int f,
+                              const Geometry& q) {
+    const uint32_t base = shared_u32(ring);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = pack_column<VEC>(q, j);
+      if (c < f) copy_async<kPack>(base + offset(stage, j), head + c);
+    }
+  }
+
+  // This lane's packs of a landed stage, zeros outside the head (as
+  // load_lane gives them).
+  __device__ static void read(const uint8_t* ring, int stage, int f,
+                              const Geometry& q, float (&out)[NJ][VEC]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = pack_column<VEC>(q, j);
+      if (c < f) {
+        load_pack<S, VEC>(
+            reinterpret_cast<const S*>(ring + offset(stage, j)), out[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) out[j][i] = 0.0f;
+      }
+    }
+  }
+};
+
+// d_pre of one column: rounded products that the compiler may not fuse into
+// the sums that read d_pre, so that dht is the same bit for bit whether or
+// not the instantiation also writes v (which reads d_pre too).
+__device__ __forceinline__ float recv_d_pre(float ds, float a, bool pos,
+                                            float slope) {
+  return __fmul_rn(__fmul_rn(ds, a), pos ? 1.0f : slope);
+}
+
+// Shared memory of a block of the receiver backward: the groups' rings, then
+// each group's piece table of `cap` senders, scores (or, recomputing, 0 /
+// -inf for a valid / padded slot) and keep factors.
+template <typename S, int VEC, int NJ, bool WIDE>
+inline size_t recv_bwd_smem(int lph, int cap) {
+  if constexpr (WIDE) {
+    return 0;
+  } else {
+    return SenderRing<S, VEC, NJ>::kBytes +
+           static_cast<size_t>(kThreads / lph) * cap * 12;
+  }
+}
+
+template <typename S, int VEC, int NJ, bool RECOMPUTE, bool EMIT_V, bool WIDE>
+__global__ void __launch_bounds__(kThreads, recv_bwd_min_blocks(EMIT_V))
 attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const int32_t* __restrict__ senders,
-                       const int32_t* __restrict__ row_ptr,
-                       const void* __restrict__ att, int att_bf16,
+                       const int4* __restrict__ pieces, int64_t n_pieces,
+                       int cap, const void* __restrict__ att, int att_bf16,
                        const float* __restrict__ scores,
                        const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
                        const float* __restrict__ rho,
                        const uint8_t* __restrict__ valid,
                        const void* __restrict__ drop, int drop_bf16,
-                       S* __restrict__ dht, S* __restrict__ v,
-                       float* __restrict__ partial, int64_t n_rows, int heads,
-                       int f, int lph, float slope, float eps) {
+                       S* __restrict__ dht, float* __restrict__ dht_part,
+                       S* __restrict__ v, float* __restrict__ partial,
+                       int heads, int f, int lph, float slope, float eps) {
+  using Ring = SenderRing<S, VEC, NJ>;
+  extern __shared__ __align__(16) uint8_t smem[];
   const Geometry q = geometry(lph);
   // The grid holds a multiple of heads * slabs groups, so a group that
-  // strides over the (row, head, slab) triples by the grid's size keeps its
-  // head and slab.
+  // strides over the (piece, head, slab) triples by the grid's size keeps
+  // its head and slab.
   const int64_t n_groups =
       static_cast<int64_t>(gridDim.x) * (kThreads / lph);
   const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const int64_t n_items = n_pieces * per_row;
   const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
   const int h = mine.h;
   const int fk = mine.fk;
   const int64_t d = static_cast<int64_t>(heads) * f;
   const int64_t col0 = mine.col0;
   const int64_t hcol = static_cast<int64_t>(h) * f;
+  uint8_t* ring = smem;
+  int32_t* t_send = reinterpret_cast<int32_t*>(smem + Ring::kBytes) +
+                    static_cast<int64_t>(threadIdx.x / lph) * cap * 3;
+  float* t_score = reinterpret_cast<float*>(t_send + cap);
+  float* t_keep = t_score + cap;
 
   float a[NJ][VEC], datt_acc[NJ][VEC];
   load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
   zero_lane<VEC, NJ>(datt_acc);
 
-  for (int64_t item = q.gid; item < n_rows * per_row; item += n_groups) {
-    const int64_t row = item / per_row;
-    float hi_row[NJ][VEC], g_row[NJ][VEC], acc[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
-    load_lane<S, VEC, NJ>(g + row * d + col0, fk, q, g_row);
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / per_row];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    // The next piece's header is read a piece ahead.
+    int4 pc_next = make_int4(0, 0, 0, -1);
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / per_row];
+    const int64_t row = pc.x;
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    float acc[NJ][VEC];
     zero_lane<VEC, NJ>(acc);
-    const float m = m_in[row * heads + h];
-    const float denom = l_in[row * heads + h] + eps;
-    const float rho_row = rho[row * heads + h];
 
-    const int64_t hi = row_ptr[row + 1];
-    for (int64_t e = row_ptr[row]; e < hi; ++e) {
-      float hj[NJ][VEC];
-      const float keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16,
-                                               e, d, col0, heads, h, fk, q,
-                                               hj);
-      float dalpha, alpha;
-      if constexpr (WIDE) {
+    if constexpr (WIDE) {
+      // A wide head reads its rows slab by slab for each slot, from device
+      // memory (no ring).
+      float hi_row[NJ][VEC], g_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
+      load_lane<S, VEC, NJ>(g + row * d + col0, fk, q, g_row);
+      const float m = m_in[row * heads + h];
+      const float denom = l_in[row * heads + h] + eps;
+      const float rho_row = rho[row * heads + h];
+      for (int64_t e = lo; e < lo + n; ++e) {
+        float hj[NJ][VEC];
+        const float keep = load_edge<S, VEC, NJ>(
+            ht, senders, drop, drop_bf16, e, d, col0, heads, h, fk, q, hj);
         const S* hj_head = ht + static_cast<int64_t>(senders[e]) * d + hcol;
-        dalpha = head_dot_wide<S, VEC, NJ>(g + row * d + hcol, hj_head, f, q);
-        alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
+        const float dalpha =
+            head_dot_wide<S, VEC, NJ>(g + row * d + hcol, hj_head, f, q);
+        const float alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
             scores, valid, e, heads, h, ht + row * d + hcol, hj_head, att,
             att_bf16, hcol, f, slope, m, denom, q);
-      } else {
-        dalpha = group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-        alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
-            scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
-            q);  // 0 for an invalid slot
-      }
-      const float ds = alpha * (keep * dalpha - rho_row);
-      const float alpha_keep = alpha * keep;
+        const float ds = alpha * (keep * dalpha - rho_row);
+        const float alpha_keep = alpha * keep;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
+        for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float pre = hi_row[j][i] + hj[j][i];
-          const bool pos = pre > 0.0f;
-          const float d_pre = ds * a[j][i] * (pos ? 1.0f : slope);
-          acc[j][i] += d_pre;
-          datt_acc[j][i] += (pos ? pre : slope * pre) * ds;
-          hj[j][i] = alpha_keep * g_row[j][i] + d_pre;  // this lane's v
+          for (int i = 0; i < VEC; ++i) {
+            const float pre = hi_row[j][i] + hj[j][i];
+            const bool pos = pre > 0.0f;
+            const float d_pre = recv_d_pre(ds, a[j][i], pos, slope);
+            acc[j][i] += d_pre;
+            datt_acc[j][i] += (pos ? pre : slope * pre) * ds;
+            hj[j][i] = alpha_keep * g_row[j][i] + d_pre;  // this lane's v
+          }
+        }
+        if constexpr (EMIT_V) {
+          store_lane<S, VEC, NJ>(v + e * d + col0, fk, q, hj);
         }
       }
-      if (v != nullptr) store_lane<S, VEC, NJ>(v + e * d + col0, fk, q, hj);
+    } else {
+      // The piece's table: its senders, scores (or validity) and keep
+      // factors, copied into shared memory by the group's lanes together
+      // (one latency for the piece), while the receiver's row is read.
+      __syncwarp(q.mask);  // the previous piece's table is read out
+      for (int i = q.lane; i < n; i += lph) {
+        const int64_t e = lo + i;
+        copy_async<4>(shared_u32(t_send + i), senders + e);
+        if constexpr (RECOMPUTE) {
+          t_score[i] = (valid == nullptr || valid[e] != 0) ? 0.0f : -INFINITY;
+        } else {
+          copy_async<4>(shared_u32(t_score + i), scores + e * heads + h);
+        }
+        if (drop != nullptr) {
+          if (drop_bf16) {
+            t_keep[i] = load_scalar(drop, 1, e * heads + h);
+          } else {
+            copy_async<4>(shared_u32(t_keep + i),
+                          static_cast<const float*>(drop) + e * heads + h);
+          }
+        }
+      }
+      copy_commit();
+      float hi_row[NJ][VEC], g_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
+      load_lane<S, VEC, NJ>(g + row * d + col0, fk, q, g_row);
+      const float m = m_in[row * heads + h];
+      const float denom = l_in[row * heads + h] + eps;
+      const float rho_row = rho[row * heads + h];
+      copy_wait<0>();
+      __syncwarp(q.mask);  // every lane's part of the table has landed
+
+      // The ring: slot j's sender row is copied kRing slots ahead of its
+      // use, one commit group a slot (empty where nothing is copied), so
+      // that waiting for all but the kRing - 1 latest groups means slot j
+      // has landed. A padded slot's row is never copied.
+#pragma unroll
+      for (int i = 0; i < kRing; ++i) {
+        if (i < n && t_score[i] != -INFINITY) {
+          Ring::fill(ring, i,
+                     ht + static_cast<int64_t>(t_send[i]) * d + col0, fk, q);
+        }
+        copy_commit();
+      }
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        const float s = t_score[j];
+        const float keep = drop == nullptr ? 1.0f : t_keep[j];
+        float hj[NJ][VEC];
+        if (s != -INFINITY) {
+          Ring::read(ring, stage, fk, q, hj);
+          const float dalpha =
+              group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+          // The cached score, or the forward's recomputed bit for bit
+          // (gatv2_score on the same lane layout), as slot_alpha takes them.
+          float alpha;
+          if constexpr (RECOMPUTE) {
+            const float sr =
+                gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+            alpha = expf(fminf(sr - m, 0.0f)) / denom;
+          } else {
+            alpha = expf(s - m) / denom;
+          }
+          const float ds = alpha * (keep * dalpha - rho_row);
+          const float alpha_keep = alpha * keep;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float pre = hi_row[jj][i] + hj[jj][i];
+              const bool pos = pre > 0.0f;
+              const float d_pre = recv_d_pre(ds, a[jj][i], pos, slope);
+              acc[jj][i] += d_pre;
+              datt_acc[jj][i] += (pos ? pre : slope * pre) * ds;
+              hj[jj][i] = alpha_keep * g_row[jj][i] + d_pre;  // lane's v
+            }
+          }
+        } else {
+          zero_lane<VEC, NJ>(hj);  // a padded slot: v is 0
+        }
+        if constexpr (EMIT_V) {
+          store_lane<S, VEC, NJ>(v + (lo + j) * d + col0, fk, q, hj);
+        }
+        // The stage just read takes the slot kRing ahead.
+        const int ahead = j + kRing;
+        if (ahead < n && t_score[ahead] != -INFINITY) {
+          Ring::fill(ring, stage,
+                     ht + static_cast<int64_t>(t_send[ahead]) * d + col0, fk,
+                     q);
+        }
+        copy_commit();
+        stage = stage + 1 == kRing ? 0 : stage + 1;
+      }
     }
-    store_lane<S, VEC, NJ>(dht + row * d + col0, fk, q, acc);
+    if (pc.w < 0) {
+      store_lane<S, VEC, NJ>(dht + row * d + col0, fk, q, acc);
+    } else {
+      float* part = dht_part + static_cast<int64_t>(pc.w) * d + col0;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = pack_column<VEC>(q, j);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          if (c < fk) part[c + i] = acc[j][i];
+        }
+      }
+    }
+    pc = pc_next;
   }
 
   store_partial<VEC, NJ>(partial, per_row, d, col0, fk, q, datt_acc);
+}
+
+// The receiver backward's second launch: blocks 0 .. d-1 sum the datt
+// partials in a fixed order (reduce_partials_kernel's work); the blocks
+// after them give each split row its dht, the f32 shares of its pieces
+// added in piece order and rounded once.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+recv_bwd_finish_kernel(const float* __restrict__ partial,
+                       float* __restrict__ datt, int64_t p_rows, int64_t d,
+                       const float* __restrict__ dht_part,
+                       const int32_t* __restrict__ fix_rows,
+                       const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                       S* __restrict__ dht) {
+  if (blockIdx.x < d) {
+    reduce_partial_column(partial, datt, p_rows, d, blockIdx.x);
+    return;
+  }
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) - d) * kThreads +
+                    threadIdx.x;
+  if (i >= n_fix * d) return;
+  const int64_t k = i / d;
+  const int64_t c = i - k * d;
+  float acc = 0.0f;
+  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
+    acc += dht_part[static_cast<int64_t>(p) * d + c];
+  }
+  dht[static_cast<int64_t>(fix_rows[k]) * d + c] = Cvt<S>::from_f(acc);
 }
 
 template <typename S, int VEC, int NJ, bool WIDE>
@@ -609,65 +877,104 @@ int kgt_attend_rho_sorted(const void* g, const void* ht,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows of the [rows, heads*f] f32 scratch that the backward needs for its
-// datt partials on the current device, for the same data pointers (their
-// alignment decides the layout, and the layout the number of groups); 0 for
-// a shape it does not take.
+// Rows of the [rows, heads*f] f32 scratch that the receiver backward needs
+// for its datt partials on the current device over n_pieces pieces of work,
+// for the same data pointers (their alignment decides the layout, and the
+// layout the number of groups); 0 for a shape it does not take.
 int64_t kgt_attend_recv_bwd_partial_rows(const void* ht, const void* g,
                                          const void* dht, const void* v,
-                                         int64_t n_rows, int heads, int64_t f,
-                                         int is_bf16) {
-  if (!shape_ok(n_rows, heads, f)) return 0;
+                                         int64_t n_pieces, int heads,
+                                         int64_t f, int is_bf16) {
+  if (!shape_ok(n_pieces, heads, f)) return 0;
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
                                  v == nullptr ? dht : v);
-  return partial_rows(n_rows, heads * lay.slabs, lay.lph);
+  return partial_rows(n_pieces, heads * lay.slabs, lay.lph);
 }
 
-// Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f] (null:
-// not written) in the data's type, datt [heads*f] f32. scores == null
-// recomputes them (valid: null or [n_slots] bytes). partial: scratch of
-// kgt_attend_recv_bwd_partial_rows(...) rows, written before it is read.
+// Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f]
+// (null: not written) in the data's type, datt [heads*f] f32. scores == null
+// recomputes them (valid: null or [n_slots] bytes). pieces [n_pieces, 4]
+// int32 (row, first slot, end slot, share row or -1), each of at most cap
+// slots, cover every row and every slot once; the n_fix rows fix_rows split into several pieces take
+// the sum of their shares dht_part[fix_ptr[k] .. fix_ptr[k + 1]] ([*,
+// heads*f] f32 scratch). partial: scratch of
+// kgt_attend_recv_bwd_partial_rows(..., n_pieces, ...) rows. Scratch is
+// written before it is read.
 int kgt_attend_recv_bwd_full_sorted(
     const void* ht, const void* g, const int32_t* senders,
-    const int32_t* row_ptr, const void* att, int att_bf16,
+    const int32_t* pieces, int64_t n_pieces, int cap, const void* att,
+    int att_bf16,
     const float* scores, const float* m, const float* l, const float* rho,
-    const uint8_t* valid, const void* drop, int drop_bf16, void* dht, void* v,
-    float* datt, float* partial, int64_t n_rows, int heads, int64_t f,
-    float slope, float eps, int is_bf16, void* stream) {
+    const uint8_t* valid, const void* drop, int drop_bf16, void* dht,
+    float* dht_part, const int32_t* fix_rows, const int32_t* fix_ptr,
+    int64_t n_fix, void* v, float* datt, float* partial, int64_t n_rows,
+    int heads, int64_t f, float slope, float eps, int is_bf16,
+    void* stream) {
   if (ht == nullptr || g == nullptr || senders == nullptr ||
-      row_ptr == nullptr || att == nullptr || m == nullptr || l == nullptr ||
+      pieces == nullptr || att == nullptr || m == nullptr || l == nullptr ||
       rho == nullptr || dht == nullptr || datt == nullptr ||
-      partial == nullptr || !shape_ok(n_rows, heads, f)) {
+      partial == nullptr || n_pieces < n_rows || n_fix < 0 || cap < 1 ||
+      cap > 1024 ||
+      (n_fix > 0 && (dht_part == nullptr || fix_rows == nullptr ||
+                     fix_ptr == nullptr)) ||
+      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
+      !shape_ok(n_pieces, heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, dht,
                                  v == nullptr ? dht : v);
   const unsigned grid =
-      blocks_for_fixed_grid(n_rows, heads * lay.slabs, lay.lph);
-  const int64_t p_rows = partial_rows(n_rows, heads * lay.slabs, lay.lph);
+      blocks_for_fixed_grid(n_pieces, heads * lay.slabs, lay.lph);
+  const int64_t p_rows = partial_rows(n_pieces, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
-#define KGT_BWD_AS(S, RECOMPUTE)                                            \
-  attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, WIDE>                       \
-      <<<grid, kThreads, 0, s>>>(                                           \
-      static_cast<const S*>(ht), static_cast<const S*>(g), senders,         \
-      row_ptr, att, att_bf16, scores, m, l, rho, valid, drop, drop_bf16,    \
-      static_cast<S*>(dht), static_cast<S*>(v), partial, n_rows, heads, fi, \
-      lay.lph, slope, eps)
+  const int4* work = reinterpret_cast<const int4*>(pieces);
+#define KGT_BWD_AS(S, RECOMPUTE, EMIT_V)                                    \
+  {                                                                         \
+    const size_t smem = recv_bwd_smem<S, VEC, NJ, WIDE>(lay.lph, cap);      \
+    const cudaError_t attr = cudaFuncSetAttribute(                          \
+        attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, EMIT_V, WIDE>,        \
+        cudaFuncAttributeMaxDynamicSharedMemorySize,                        \
+        static_cast<int>(smem));                                            \
+    if (attr != cudaSuccess) return static_cast<int>(attr);                 \
+    attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, EMIT_V, WIDE>             \
+        <<<grid, kThreads, smem, s>>>(                                      \
+        static_cast<const S*>(ht), static_cast<const S*>(g), senders, work, \
+        n_pieces, cap, att, att_bf16, scores, m, l, rho, valid, drop,       \
+        drop_bf16, static_cast<S*>(dht), dht_part, static_cast<S*>(v),      \
+        partial, heads, fi, lay.lph, slope, eps);                           \
+  }
 #define KGT_BWD(S)                                                          \
-  if (scores != nullptr) {                                                  \
-    KGT_BWD_AS(S, false);                                                   \
+  if (scores != nullptr && v != nullptr) {                                  \
+    KGT_BWD_AS(S, false, true);                                             \
+  } else if (scores != nullptr) {                                           \
+    KGT_BWD_AS(S, false, false);                                            \
+  } else if (v != nullptr) {                                                \
+    KGT_BWD_AS(S, true, true);                                              \
   } else {                                                                  \
-    KGT_BWD_AS(S, true);                                                    \
+    KGT_BWD_AS(S, true, false);                                             \
   }
   KGT_DISPATCH(is_bf16, lay, KGT_BWD)
 #undef KGT_BWD
 #undef KGT_BWD_AS
   const cudaError_t first = cudaGetLastError();
   if (first != cudaSuccess) return static_cast<int>(first);
-  return static_cast<int>(
-      reduce_partials(partial, datt, p_rows, static_cast<int64_t>(heads) * f,
-                      s));
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t fix_blocks = (n_fix * d + kThreads - 1) / kThreads;
+  if (d + fix_blocks >= (static_cast<int64_t>(1) << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned finish = static_cast<unsigned>(d + fix_blocks);
+  if (is_bf16) {
+    recv_bwd_finish_kernel<uint16_t><<<finish, kThreads, 0, s>>>(
+        partial, datt, p_rows, d, dht_part, fix_rows, fix_ptr, n_fix,
+        static_cast<uint16_t*>(dht));
+  } else {
+    recv_bwd_finish_kernel<float><<<finish, kThreads, 0, s>>>(
+        partial, datt, p_rows, d, dht_part, fix_rows, fix_ptr, n_fix,
+        static_cast<float*>(dht));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Sender-side backward: out [n_rows, heads*f] in the data's type, the sum

@@ -338,13 +338,12 @@ __device__ __forceinline__ void store_partial(float* partial, int64_t per_row,
   }
 }
 
-// datt[c] = sum over the partial rows, in a fixed order: one block per
-// column, threads stride over the rows, then a tree in shared memory.
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partial,
-                       float* __restrict__ datt, int64_t p_rows, int64_t d) {
+// datt[c] = sum over the partial rows, in a fixed order, by one block of
+// kThreads: threads stride over the rows, then a tree in shared memory.
+__device__ __forceinline__ void reduce_partial_column(
+    const float* __restrict__ partial, float* __restrict__ datt,
+    int64_t p_rows, int64_t d, int64_t c) {
   __shared__ float buf[kThreads];
-  const int64_t c = blockIdx.x;
   float acc = 0.0f;
   for (int64_t p = threadIdx.x; p < p_rows; p += kThreads) {
     acc += partial[p * d + c];
@@ -356,6 +355,13 @@ reduce_partials_kernel(const float* __restrict__ partial,
     __syncthreads();
   }
   if (threadIdx.x == 0) datt[c] = buf[0];
+}
+
+// One block per column.
+__global__ void __launch_bounds__(kThreads)
+reduce_partials_kernel(const float* __restrict__ partial,
+                       float* __restrict__ datt, int64_t p_rows, int64_t d) {
+  reduce_partial_column(partial, datt, p_rows, d, blockIdx.x);
 }
 
 // How a head's F columns are laid over lanes: packs of `vec` columns, `lph`
