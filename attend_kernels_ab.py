@@ -9,18 +9,21 @@ keras_geometric_tpu_torch | tar -x -C build/parent``). Each copy runs in its
 own process, in the order given (give them as parent, change, change,
 parent), builds its kernels from its own sources, and prints one JSON line
 (after a first line with the card's name and power limit): the median
-milliseconds (CUDA events, after a write over a buffer larger than the L2
-cache) of each attention kernel it has and of the sender finish (the
-fused-gather scatter over ``bwd_perm``), at the two arxiv-shaped GATv2 layers
-(169,343 nodes, 1,335,586 random edges plus self-loops, 4 heads of 64 then of
-40, bf16) and the two CiteSeer-shaped ones (3,327 nodes, 2 x 4,732 edges plus
-self-loops, 8 heads of 8 then of 6, f32, a dropout mask), each on the context
-as ``prepare_graph`` pads it, with the slot counts and the longest row.
-``--unpadded`` adds the same graphs prepared with ``edge_chunk=1``, whose
-streams hold no padded slot. ``--band`` adds the banded SpMM (``band_spmm``)
-at the banded GCN's shapes (169,472 padded nodes, a dense random bf16 band of
-1,024 columns, row blocks of 256, F = 128 and 40) beside ``torch.bmm`` over
-the row blocks with the ``x`` windows gathered beforehand. With ``--ptxas``
+milliseconds (CUDA events, after a write over a buffer ten times the L2
+cache, which also keeps the card busy, about 0.17 ms, while the host
+prepares the call, so that a small kernel's time is the card's alone) of
+each attention kernel it has, in each of its modes, and of the sender
+finish (the fused-gather scatter over ``bwd_perm``), at the two arxiv-shaped
+GATv2 layers (169,343 nodes, 1,335,586 random edges plus self-loops, 4 heads
+of 64 then of 40, bf16) and the two CiteSeer-shaped ones (3,327 nodes, 2 x
+4,732 edges plus self-loops, 8 heads of 8 then of 6, f32, a dropout mask),
+each on the context as ``prepare_graph`` pads it, with the slot counts and
+the longest row. ``--unpadded`` adds the same graphs prepared with
+``edge_chunk=1``, whose streams hold no padded slot. ``--band`` adds the
+banded SpMM (``band_spmm``) at the banded GCN's shapes (169,472 padded
+nodes, a dense random bf16 band of 1,024 columns, row blocks of 256, F = 128
+and 40) beside ``torch.bmm`` over the row blocks with the ``x`` windows
+gathered beforehand. With ``--ptxas``
 it first prints, per copy, the registers and spills that ``nvcc -Xptxas -v``
 reports for the kernels' bf16 instantiations at the arxiv widths and their
 f32 ones at CiteSeer's.
@@ -77,7 +80,7 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
         raise SystemExit(f"imported {A.__file__}, not the copy in {root}")
     device = torch.device("cuda")
     _build.load_libraries(["attend", "spmm"] + (["band"] if band else []))
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
 
     def cold_ms(fn, iters=20, warmup=3):
         for _ in range(warmup):
@@ -193,6 +196,10 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
                 }
                 if has_modes:
                     cases.update({
+                        "sddmm_stats_agg_sorted(emit_scores=False)": lambda: (
+                            A.sddmm_stats_agg_sorted(
+                                ht, *graph, att, edge_valid=valid,
+                                drop_mask=drop, emit_scores=False)),
                         "attend_rho_sorted(scores=None)": lambda: (
                             A.attend_rho_sorted(
                                 g, None, m, l, ht, *graph, att=att,

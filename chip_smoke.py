@@ -17,7 +17,8 @@ exit code and without the final line; so does a run of a subset of the phases
 
 1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build, and
                 the registers and spills ``nvcc -Xptxas -v`` reports for the
-                TMA band kernel and the receiver backward;
+                TMA band kernel and the kernels that walk pieces (forward,
+                rho, receiver backward);
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
@@ -38,8 +39,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 empty and an all-invalid sender row and the padded tail in
                 sender order, each mode also bit for bit against the cached
                 launch, the score-and-statistics kernel against the
-                forward's scores, ``m``, ``l``, and two sender-backward
-                launches against each other; the attention kernels also at
+                forward's scores and ``m`` (and ``l`` on every row whose
+                finite scores lie in one piece of the forward's work list),
+                and two sender-backward launches against each other; the attention kernels also at
                 the wide heads (H, F) in (1, 320), (2, 512), which walk a
                 head in 256-column slabs; the narrow segment max at K in
                 1, 4, 8 and the wide one, forward and both tie rules of its
@@ -47,7 +49,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 (bf16 and f32, with and without the slot mask), forwards bit
                 for bit; then timings at the shapes the training paths use
                 (the receiver walks also on the same graph without padded
-                slots, the band kernel also on its wmma route at F = 7),
+                slots, the kernels that walk pieces with their work list's
+                pieces and split rows and their times with and without the
+                hub row, the band kernel also on its wmma route at F = 7),
                 and the fused attention kernels at one head of 256 columns
                 against the wide heads;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
@@ -293,8 +297,8 @@ def reset_launch_counts() -> None:
 
 
 # Instantiations whose registers and spills the device phase reports (the
-# TMA band kernel and the receiver backward's work-list walk, at the shapes
-# the training runs give them):
+# TMA band kernel and the kernels that walk the work list of pieces, at the
+# shapes the training runs give them):
 # mangled-name fragment -> what it is.
 PTXAS_SHOWN = {
     "band_bf16_tma_kernelILi128E": "band_bf16_tma_kernel<N=128>",
@@ -313,6 +317,19 @@ PTXAS_SHOWN = {
     "attend_recv_bwd_kernelItLi8ELi1ELb0ELb1ELb1E":
         "attend_recv_bwd_kernel<bf16, 8, 1, cached, v, wide>",
     "recv_bwd_finish_kernelItE": "recv_bwd_finish_kernel<bf16>",
+    "sddmm_stats_agg_kernelItLi8ELi1ELb0E":
+        "sddmm_stats_agg_kernel<bf16, 8, 1> (arxiv)",
+    "sddmm_stats_agg_kernelIfLi4ELi1ELb0E":
+        "sddmm_stats_agg_kernel<f32, 4, 1> (CiteSeer L1)",
+    "sddmm_stats_agg_kernelItLi8ELi1ELb1E":
+        "sddmm_stats_agg_kernel<bf16, 8, 1, wide>",
+    "agg_finish_kernelItE": "agg_finish_kernel<bf16>",
+    "attend_rho_kernelItLi8ELi1ELb0ELb0E":
+        "attend_rho_kernel<bf16, 8, 1, cached> (arxiv)",
+    "attend_rho_kernelItLi8ELi1ELb1ELb0E":
+        "attend_rho_kernel<bf16, 8, 1, recompute> (arxiv)",
+    "attend_rho_kernelIfLi4ELi1ELb0ELb0E":
+        "attend_rho_kernel<f32, 4, 1, cached> (CiteSeer L1)",
 }
 
 
@@ -375,11 +392,13 @@ def nvidia_smi_line() -> str:
 
 class Timer:
     """Median milliseconds of one call, each call timed by its own pair of
-    CUDA events after a write over a buffer larger than the L2 cache, so the
-    call finds the cache as cold as it would behind other work."""
+    CUDA events after a write over a buffer ten times the L2 cache, so the
+    call finds the cache as cold as it would behind other work; the write
+    keeps the card busy (about 0.17 ms) while the host prepares the call, so
+    that a small kernel's time is the card's alone."""
 
     def __init__(self, device):
-        self.flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+        self.flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8,
                                  device=device)
 
     def cold_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -907,7 +926,22 @@ def longest_row(row_ptr) -> int:
     return int((row_ptr[1:] - row_ptr[:-1]).max())
 
 
-def time_attend_cases(device, timer, contexts, replaces):
+# The kernels that walk the work list of pieces (attend_cuda.recv_bwd_work).
+PIECE_WALKS = ("sddmm_stats_agg_sorted", "attend_rho_sorted",
+               "attend_recv_bwd_full_sorted")
+
+
+def piece_fields(row_ptr) -> dict:
+    """The work list those kernels walk over a stream: its longest row, its
+    pieces and its rows split into several pieces."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    work = A.recv_bwd_work(row_ptr)
+    return {"longest_row": longest_row(row_ptr), "pieces": work.num_pieces,
+            "split_rows": int(work.fix_rows.shape[0])}
+
+
+def time_attend_cases(device, timer, contexts, replaces, hub):
     """The attention kernels and the sender finish (the fused-gather scatter
     reading ``v`` through ``bwd_perm``) at the shapes the GATv2 training runs
     give them: kernel, plain version, bound from bytes and operations. No
@@ -917,7 +951,9 @@ def time_attend_cases(device, timer, contexts, replaces):
     order for the finish) and the kernel's time on the same graph prepared
     without padded slots (``ms_unpadded``): where a padded tail, which
     ``prepare_graph`` puts in the last row, is walked serially, the two
-    times differ."""
+    times differ. The attention kernels' entries add the pieces and split
+    rows of the work list they walk, and their times on ``attend_sweep``'s
+    graph with and without its 20,000-slot hub row (``hub_row_ms``)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -1072,6 +1108,10 @@ def time_attend_cases(device, timer, contexts, replaces):
             sender_order = name == "gather_scatter_sum_sorted"
             entry["longest_row"] = longest_row(
                 ctx.row_ptr_bwd if sender_order else ctx.row_ptr)
+            if name in PIECE_WALKS:
+                entry.update(piece_fields(ctx.row_ptr))
+                entry["hub_row_ms"] = {label: times[name]
+                                       for label, times in hub.items()}
             entry["padded_slots"] = e - int(ctx.edge_mask.sum())
             entry["ms_unpadded"] = timer.cold_ms(unpadded[name], iters=10)
             entry["longest_row_unpadded"] = longest_row(
@@ -1100,6 +1140,24 @@ def attend_modes(bwd_mode="permute", score_cache=True):
         yield
     finally:
         csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = saved
+
+
+def one_piece_rows(recv, row_ptr, valid):
+    """Rows whose valid slots (all slots where ``valid`` is None) lie in one
+    piece of the attention kernels' work list, or that have none."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    n = row_ptr.shape[0] - 1
+    r = recv.long()
+    at = (torch.arange(r.shape[0], device=r.device)
+          - row_ptr.long()[r]) // A.RECV_BWD_PIECE
+    if valid is not None:
+        r, at = r[valid], at[valid]
+    first = torch.full((n,), -1, device=r.device).scatter_reduce(
+        0, r, at, "amin", include_self=False)
+    last = torch.full((n,), -1, device=r.device).scatter_reduce(
+        0, r, at, "amax", include_self=False)
+    return first == last
 
 
 def sender_order(send, recv, valid, n):
@@ -1148,10 +1206,16 @@ def modes_case(graph, ht, att, gout, drop, what):
     check(all(torch.equal(a, b) for a, b in zip(no_scores, (out, m, l))),
           f"{what}: the forward without its scores differs from the cached "
           f"launch")
+    # The score-and-statistics kernel walks each row serially, the forward
+    # in pieces: l agrees bit for bit where a row's finite scores lie in one
+    # piece (elsewhere the merge of the pieces rounds otherwise; the forward's
+    # l is held against the plain version below).
     stats = D.sddmm_stats_sorted(ht, *g3, att, edge_valid=valid)
-    check(all(torch.equal(a, b) for a, b in zip(stats, (scores, m, l))),
+    one = one_piece_rows(recv, row_ptr, valid)
+    check(torch.equal(stats[0], scores) and torch.equal(stats[1], m) and
+          torch.equal(stats[2][one], l[one]),
           f"{what}: sddmm_stats_sorted differs from the forward's scores, m, "
-          f"l")
+          f"or l on a row whose finite scores lie in one piece")
     rho = A.attend_rho_sorted(gout, scores, m, l, ht, *g3, drop_mask=drop)
     check(torch.equal(rho, A.attend_rho_sorted(
         gout, None, m, l, ht, *g3, drop_mask=drop, att=att,
@@ -1491,6 +1555,8 @@ def time_mode_cases(device, timer, contexts, replaces):
             }
             if mode is not None:
                 entry["mode"] = mode
+            if name in PIECE_WALKS:
+                entry.update(piece_fields(ctx.row_ptr))
             entries.append(entry)
         del scores, rho, cases
         torch.cuda.empty_cache()
@@ -3265,7 +3331,7 @@ def main() -> int:
         attention_contexts = {"gat_arxiv": workload("gat_arxiv")[0],
                               "citeseer": workload("citeseer")[0]}
         kernel_entries += time_attend_cases(device, timer, attention_contexts,
-                                            replaces)
+                                            replaces, hub)
         modes_cases, modes_worst, send_hub = modes_sweep(device, timer)
         kernel_entries += time_mode_cases(device, timer, attention_contexts,
                                           replaces)

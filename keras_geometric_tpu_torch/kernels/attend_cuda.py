@@ -26,33 +26,44 @@ Source notes, one per kernel (all five are bound by bytes):
 - ``sddmm_stats_agg_sorted``: scores, online softmax statistics and the
   attention-weighted aggregation in one pass. Moves the node array and the
   output once, the sender, validity and keep-mask streams, and (with the
-  cache) the ``[E, H]`` f32 scores. A sub-warp group per (receiver row, head)
-  keeps the running max, normaliser and output columns in registers; a lane
-  moves up to 16 bytes of neighbouring columns at a time, so that at F = 64
-  in bf16 one warp serves the four heads of a row.
+  cache) the ``[E, H]`` f32 scores. A sub-warp group per (piece, head) keeps
+  the running max, normaliser and output columns in registers; a lane moves
+  up to 16 bytes of neighbouring columns at a time, so that at F = 64 in
+  bf16 one warp serves four heads. A row split into pieces gets its ``m``,
+  ``l`` and output from its pieces' f32 ``(m_p, l_p, o_p)``, merged in piece
+  order by a second launch (the flash-decoding combine).
 - ``attend_aggregate_sorted``: ``out[r] = sum_e alpha*keep*ht[senders e]``
   from cached scores, ``m`` and ``l``; reads the node rows, the score stream,
-  writes the output. The same group per (row, head).
+  writes the output. A group per (row, head).
 - ``attend_rho_sorted``: ``rho[r, h] = sum_e alpha*keep*<g[r, h], ht[j, h]>``
   from the cached scores, or from scores recomputed in registers; reads two
-  node arrays and the score stream, writes ``[N, H]``.
+  node arrays and the score stream, writes ``[N, H]``. A split row's ``rho``
+  is its pieces' f32 shares added in piece order by a second launch.
 - ``attend_recv_bwd_full_sorted``: recomputes ``pre``, ``alpha``, ``dalpha``
   (and, without the cache, the score); writes the receiver part of ``d ht``,
   ``datt`` and, for the permute finish, the per-edge sender cotangent ``v``
-  (``[E, H*F]``, the largest stream of these kernels). Its groups walk
-  pieces of at most ``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built
-  once per ``row_ptr`` tensor and kept beside it), so no group walks a long
-  row, the padded tail or a hub, serially; a padded slot is never gathered
-  and its ``v`` row is written as 0. Each group keeps the sender rows of the
-  next slots in flight in a shared-memory ring filled by ``cp.async``. A row
-  split into pieces gets its ``d ht`` from its pieces' f32 shares, added in
-  piece order by the second launch, which also sums the ``datt`` partials in
-  a fixed order: no atomics, so ``dht`` and ``datt`` are bit-reproducible.
+  (``[E, H*F]``, the largest stream of these kernels), 0 on a padded slot.
+  A split row's ``d ht`` is its pieces' f32 shares, added in piece order by
+  the second launch, which also sums the ``datt`` partials in a fixed order.
 - ``attend_send_bwd_sorted``: the sender part of ``d ht`` without ``v``: a
   group per (sender row, head) walks the sender-sorted slots, gathers the
   receiver's ``ht`` and ``g`` rows and its ``(m, l, rho)``, recomputes the
   score, ``alpha``, ``ds`` and ``d_pre`` and sums ``alpha*keep*g[r] + d_pre``
   in f32, rounded once. Padded slots are skipped before any gather.
+
+The forward, rho and the receiver backward walk pieces of at most
+``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built once per ``row_ptr``
+tensor and kept beside it, at a context's first forward), so no group walks
+a long row, the padded tail or a hub, serially. Each group copies its
+piece's senders, scores (or validity) and keep factors into shared memory in
+one go, keeps the sender rows of the next slots in flight in a shared-memory
+ring filled by ``cp.async``, and never gathers a padded slot. Each of the
+three calls is two kernel launches (the piece walk, then the fixed-order
+combination of the split rows; the receiver backward's second launch also
+sums ``datt``) and counts one launch. No atomics: every result is
+bit-reproducible, and a row whose finite scores lie in one piece (every row
+of at most 32 slots, and the padded tail row whose real slots come first)
+gets what a walk of the whole row gives, bit for bit.
 
 Every score these kernels compute or recompute comes from one device function
 with one lane layout, so a recomputed score is the forward's bit for bit; the
@@ -128,16 +139,17 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# The receiver backward's work list.
+# The work list of the kernels that walk pieces (the forward, rho and the
+# receiver backward).
 # ---------------------------------------------------------------------------
 
-# Slots a group of the receiver backward walks at most.
+# Slots a group of those kernels walks at most.
 RECV_BWD_PIECE = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class RecvBwdWork:
-    """Pieces of the receiver-sorted stream for the receiver backward.
+    """Pieces of the receiver-sorted stream for the kernels that walk them.
 
     ``pieces`` ``[P, 4]`` int32: (row, first slot, end slot, share), in row
     and slot order; every row has at least one piece (an empty row one empty
@@ -185,10 +197,10 @@ def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
 
 def recv_bwd_work(row_ptr: torch.Tensor,
                   piece: int = RECV_BWD_PIECE) -> RecvBwdWork:
-    """The receiver backward's pieces for ``row_ptr`` (``[N + 1]``), on its
-    device. Built once per ``row_ptr`` tensor (one host synchronisation, at
-    the first backward of a context) and kept on the tensor while it is not
-    written to."""
+    """The pieces for ``row_ptr`` (``[N + 1]``), on its device, that the
+    forward, rho and the receiver backward walk. Built once per ``row_ptr``
+    tensor (one host synchronisation, at the first forward of a context)
+    and kept on the tensor while it is not written to."""
     if piece < 1:
         raise ValueError(f"piece must be >= 1, got {piece}")
     key = (row_ptr._version, piece)
@@ -395,8 +407,8 @@ def _library() -> ctypes.CDLL:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     lib.kgt_sddmm_stats_agg_sorted.argtypes = [
-        vp, vp, vp, vp, i32, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32,
-        f32, i32, vp,
+        vp, vp, vp, i64, i32, vp, i32, vp, vp, i32, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, i64, i64, i32, i64, f32, f32, i32, vp,
     ]
     lib.kgt_sddmm_stats_agg_sorted.restype = i32
     lib.kgt_attend_aggregate_sorted.argtypes = [
@@ -404,8 +416,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_attend_aggregate_sorted.restype = i32
     lib.kgt_attend_rho_sorted.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp, i64, i32, i64,
-        f32, f32, i32, vp,
+        vp, vp, vp, vp, i64, i32, vp, vp, vp, vp, i32, vp, vp, i32, vp, vp,
+        vp, vp, i64, i64, i32, i64, f32, f32, i32, vp,
     ]
     lib.kgt_attend_rho_sorted.restype = i32
     lib.kgt_attend_recv_bwd_partial_rows.argtypes = [
@@ -492,6 +504,26 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _work_args(work):
+    """(pieces, num_pieces, piece) of a work list, as the kernels take them."""
+    return work.pieces.data_ptr(), work.num_pieces, work.piece
+
+
+def _fix_args(work):
+    """(fix_rows, fix_ptr, number of split rows) of a work list."""
+    return (work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(),
+            int(work.fix_rows.shape[0]))
+
+
+def _shares(work, width, device):
+    """f32 scratch of ``width`` values per share of a split row (flat), or
+    None where no row is split."""
+    if not work.num_shares:
+        return None
+    return torch.empty(work.num_shares * width, dtype=torch.float32,
+                       device=device)
+
+
 def sddmm_stats_agg_sorted(ht, senders, receivers, row_ptr, att, *,
                            edge_valid=None, drop_mask=None,
                            negative_slope=0.2, eps=1e-10, emit_scores=True):
@@ -530,12 +562,20 @@ def sddmm_stats_agg_sorted(ht, senders, receivers, row_ptr, att, *,
     if out.numel() == 0:
         return result
     lib = _library()
+    work = recv_bwd_work(row_ptr)
+    # The split rows' shares: m_p and l_p [num_shares, H], o_p [.., H*F].
+    shares = _shares(work, 2 * heads + heads * f, device)
+    m_part = l_part = o_part = None
+    if shares is not None:
+        m_part, l_part, o_part = (t.data_ptr() for t in shares.split(
+            [work.num_shares * heads] * 2 + [work.num_shares * heads * f]))
     with torch.cuda.device(device):
         code = lib.kgt_sddmm_stats_agg_sorted(
-            ht.data_ptr(), senders.data_ptr(), row_ptr.data_ptr(), att_ptr,
+            ht.data_ptr(), senders.data_ptr(), *_work_args(work), att_ptr,
             att_bf16, valid_ptr, drop_ptr, drop_bf16, out.data_ptr(),
             None if scores is None else scores.data_ptr(), m.data_ptr(),
-            l.data_ptr(), n, heads, f, float(negative_slope), float(eps),
+            l.data_ptr(), m_part, l_part, o_part, *_fix_args(work), n, heads,
+            f, float(negative_slope), float(eps),
             int(ht.dtype == torch.bfloat16), _stream(),
         )
     _raise_on_error(lib, code, "sddmm_stats_agg_sorted")
@@ -626,13 +666,16 @@ def attend_rho_sorted(g, scores, m, l, ht, senders, receivers, row_ptr, *,
     if ht.numel() == 0:
         return rho
     lib = _library()
+    work = recv_bwd_work(row_ptr)
+    shares = _shares(work, heads, device)
     with torch.cuda.device(device):
         code = lib.kgt_attend_rho_sorted(
             g.data_ptr(), ht.data_ptr(), senders.data_ptr(),
-            row_ptr.data_ptr(), None if scores is None else scores.data_ptr(),
+            *_work_args(work), None if scores is None else scores.data_ptr(),
             m.data_ptr(), l.data_ptr(), att_ptr, att_bf16, valid_ptr,
-            drop_ptr, drop_bf16, rho.data_ptr(), n, heads, f,
-            float(negative_slope), float(eps),
+            drop_ptr, drop_bf16, rho.data_ptr(),
+            None if shares is None else shares.data_ptr(), *_fix_args(work),
+            n, heads, f, float(negative_slope), float(eps),
             int(ht.dtype == torch.bfloat16), _stream(),
         )
     _raise_on_error(lib, code, "attend_rho_sorted")
@@ -683,25 +726,21 @@ def attend_recv_bwd_full_sorted(ht, g, senders, receivers, row_ptr, att,
     is_bf16 = int(ht.dtype == torch.bfloat16)
     v_ptr = None if v is None else v.data_ptr()
     work = recv_bwd_work(row_ptr)
-    n_fix = int(work.fix_rows.shape[0])
+    shares = _shares(work, d, device)
     with torch.cuda.device(device):
         partial_rows = lib.kgt_attend_recv_bwd_partial_rows(
             ht.data_ptr(), g.data_ptr(), dht.data_ptr(), v_ptr,
             work.num_pieces, heads, f, is_bf16)
         partial = torch.empty(partial_rows, d, dtype=torch.float32,
                               device=device)
-        shares = (torch.empty(work.num_shares, d, dtype=torch.float32,
-                              device=device) if n_fix else None)
         code = lib.kgt_attend_recv_bwd_full_sorted(
             ht.data_ptr(), g.data_ptr(), senders.data_ptr(),
-            work.pieces.data_ptr(), work.num_pieces, work.piece, att_ptr,
-            att_bf16,
+            *_work_args(work), att_ptr, att_bf16,
             None if scores is None else scores.data_ptr(), m.data_ptr(),
             l.data_ptr(), rho.data_ptr(), valid_ptr, drop_ptr, drop_bf16,
             dht.data_ptr(), None if shares is None else shares.data_ptr(),
-            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(), n_fix, v_ptr,
-            datt.data_ptr(), partial.data_ptr(), n, heads, f,
-            float(negative_slope), float(eps), is_bf16, _stream(),
+            *_fix_args(work), v_ptr, datt.data_ptr(), partial.data_ptr(), n,
+            heads, f, float(negative_slope), float(eps), is_bf16, _stream(),
         )
     _raise_on_error(lib, code, "attend_recv_bwd_full_sorted")
     LAUNCH_COUNTS["attend_recv_bwd_full_sorted"] += 1

@@ -58,49 +58,55 @@
 // write of v).
 //
 // Design: a group of `lph` lanes (a power of two, at most a warp) owns one
-// (row, head) pair, walks the row's slots edge by edge, keeps its running
-// sums in f32 registers (the forward: the row's running max, normaliser and
-// output columns, the flash-attention recurrence), and reduces over the
-// head's F columns with shuffles inside the group. How a head's columns are
-// laid over the group's lanes in packs of up to 16 bytes is set out in
-// lanes.cuh, with the helpers this file shares with sddmm.cu. At F = 64 in
-// bf16 a head takes 8 lanes and a warp the four heads of a row, so wide
-// packs keep several heads busy with each operation a warp issues. A row is
-// a chain of dependent reads (row pointer -> index -> gathered row ->
-// shuffles), and what hides it is the number of warps in flight: the kernels
-// are built for at least four blocks on a multiprocessor (64 registers a
-// thread) and do not unroll the walk, which measured faster at arxiv-sized
-// graphs than two, four or eight edges in flight per lane with fewer warps.
-// The receiver backward is laid out differently: its groups walk
-// pieces of at most 32 slots from a host-built work list, so no group walks
-// a long row serially (the padded tail, which prepare_graph puts in the last
-// row, or a hub), and a split row's dht is its pieces' f32 shares added in
-// piece order by the second launch. A group copies its piece's senders,
-// scores and keep factors into shared memory in one go (cp.async), then
-// keeps the sender rows of the next kRing slots in flight in a shared-memory
-// ring (cp.async, one commit group a slot); a padded slot is never gathered
-// and writes a zero v row. Its time at arxiv's shapes is bound by the
-// per-slot arithmetic, not by the walk's latency (PERF.md).
-// The sender backward walks sender rows: each slot gathers the receiver's
-// ht and g rows and its (m, l, rho), three dependent gathers, and a padded
-// slot (masked) is skipped before any of them, so the padded tail, which in
-// sender order piles into the last row, costs one mask read a slot.
+// head's columns, keeps its running sums in f32 registers (the forward: the
+// running max, normaliser and output columns, the flash-attention
+// recurrence), and reduces over the head's F columns with shuffles inside
+// the group. How a head's columns are laid over the group's lanes in packs
+// of up to 16 bytes is set out in lanes.cuh, with the helpers this file
+// shares with sddmm.cu. At F = 64 in bf16 a head takes 8 lanes and a warp
+// four heads, so wide packs keep several heads busy with each operation a
+// warp issues.
+// The forward, rho and the receiver backward walk pieces: a host-built work
+// list (attend_cuda.recv_bwd_work, one per row_ptr tensor) cuts every row
+// into pieces of at most 32 slots, and a fixed grid of groups strides over
+// the (piece, head) items with its head held constant, reading the next
+// piece's header a piece ahead. So no group walks a long row serially (the
+// padded tail, which prepare_graph puts in the last row, or a hub). A group
+// copies its piece's senders, scores (or validity) and keep factors into
+// shared memory in one go (cp.async, stage_piece), then keeps the sender
+// rows of the next kRing slots in flight in a shared-memory ring (cp.async,
+// one commit group a slot, ring_start / ring_next); a padded slot is never
+// gathered. A piece that is its whole row stores its row's results as a
+// row walk would; the pieces of a split row leave f32 partials in scratch,
+// and a second launch combines them in piece order (no atomics): the
+// forward's per-piece (m, l, o) by the flash-decoding merge, rho's and dht's
+// shares by a sum. The per-slot arithmetic, not the walk's latency, bounds
+// these kernels at arxiv's shapes (PERF.md): the forward and rho run at four
+// blocks per SM, the receiver backward at two or three.
+// The aggregation from cached scores and the sender backward walk whole
+// rows, one group per (row, head): a row is a chain of dependent reads (row
+// pointer -> index -> gathered row -> shuffles) hidden only by the warps in
+// flight, so they are built for at least four blocks on a multiprocessor
+// (64 registers a thread). The sender backward's slot gathers the
+// receiver's ht and g rows and its (m, l, rho), three dependent gathers,
+// and a padded slot (masked) is skipped before any of them, so the padded
+// tail, which in sender order piles into the last row, costs one mask read
+// a slot.
 //
 // Wide heads (F > 256, lanes.cuh): a launch of its own instantiation (WIDE)
-// gives each group one 256-column slab of a (row, head) pair. The scores, m
-// and l, and dalpha, span the head: a wide group computes them by walking
-// the head's slabs for each slot (gatv2_score_wide, head_dot_wide), so every
-// slab's group of a row runs the same online recurrence and the first slab's
-// group writes the scores and statistics; the columns' own work (the output,
-// d_pre, v, the datt partials) is per slab. rho has no column output: one
-// group per (row, head) walks the slabs. The narrow instantiations are as
-// before.
+// gives each group one 256-column slab of a (row or piece, head) pair. The
+// scores, m and l, and dalpha, span the head: a wide group computes them by
+// walking the head's slabs for each slot (gatv2_score_wide, head_dot_wide),
+// so every slab's group of a piece runs the same online recurrence and the
+// first slab's group writes the scores and statistics; the columns' own work
+// (the output, d_pre, v, the datt partials) is per slab. rho has no column
+// output: one group per (piece, head) walks the slabs. A wide group reads
+// its rows from device memory (no ring, no staged table).
 //
 // No atomics anywhere. The one reduction that spans rows, datt, is done in
-// two steps: the receiver backward runs a fixed grid whose groups stride
-// over the (row, head) pairs with their head held constant, each group
-// writes its partial datt once, and a second small kernel sums the partials
-// in a fixed order, so datt is bit-reproducible. Everything is accumulated
+// two steps: the receiver backward's groups, which keep their head, each
+// write their partial datt once, and its second launch sums the partials in
+// a fixed order, so datt is bit-reproducible. Everything is accumulated
 // in f32 and rounded once at the store. Offsets into data are 64-bit;
 // indices and row pointers are int32. row_ptr[0] must be 0 and row_ptr[N]
 // the slot count, so that every slot's score is written. The C entry points
@@ -155,26 +161,11 @@ __device__ __forceinline__ float head_dot_wide(const S* __restrict__ a,
   return group_sum(part, q.lph, q.mask);
 }
 
-// alpha of slot e from its score: the cached one, or (RECOMPUTE) the one
-// recomputed from the receiver's and sender's columns, 0 on an invalid slot.
-// exp(min(s - m, 0)) equals exp(s - m) for the forward's own s.
-template <bool RECOMPUTE, int VEC, int NJ>
-__device__ __forceinline__ float slot_alpha(
-    const float* __restrict__ scores, const uint8_t* __restrict__ valid,
-    int64_t e, int heads, int h, const float (&hi)[NJ][VEC],
-    const float (&hj)[NJ][VEC], const float (&a)[NJ][VEC], float slope,
-    float m, float denom, const Geometry& q) {
-  if constexpr (!RECOMPUTE) {
-    return expf(scores[e * heads + h] - m) / denom;
-  } else {
-    if (valid != nullptr && valid[e] == 0) return 0.0f;
-    const float s = gatv2_score<VEC, NJ>(hi, hj, a, slope, q.lph, q.mask);
-    return expf(fminf(s - m, 0.0f)) / denom;
-  }
-}
-
-// The same for a wide head: hi, hj are the receiver's and the sender's
-// first column of the head, hcol the head's first column of att.
+// alpha of a wide head's slot e from its score: the cached one, or
+// (RECOMPUTE) the one recomputed from the receiver's and the sender's
+// columns (hi, hj: their first column of the head; hcol the head's first
+// column of att), 0 on an invalid slot. exp(min(s - m, 0)) equals
+// exp(s - m) for the forward's own s.
 template <bool RECOMPUTE, typename S, int VEC, int NJ>
 __device__ __forceinline__ float slot_alpha_wide(
     const float* __restrict__ scores, const uint8_t* __restrict__ valid,
@@ -189,82 +180,6 @@ __device__ __forceinline__ float slot_alpha_wide(
                                                  f, slope, q);
     return expf(fminf(s - m, 0.0f)) / denom;
   }
-}
-
-template <typename S, int VEC, int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-sddmm_stats_agg_kernel(const S* __restrict__ ht,
-                       const int32_t* __restrict__ senders,
-                       const int32_t* __restrict__ row_ptr,
-                       const void* __restrict__ att, int att_bf16,
-                       const uint8_t* __restrict__ valid,
-                       const void* __restrict__ drop, int drop_bf16,
-                       S* __restrict__ out, float* __restrict__ scores,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
-                       int64_t n_rows, int heads, int f, int lph, float slope,
-                       float eps) {
-  const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
-  const Item it = item_of<WIDE>(q.gid, heads, f);
-  const int64_t row = it.row;
-  const int h = it.h;
-  const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = it.col0;  // this group's columns: col0 .. col0 + fk
-  const int64_t hcol = static_cast<int64_t>(h) * f;  // the head's first
-  // The group of a wide head's first slab writes the scores and statistics;
-  // every slab's group runs the same recurrence over the same scores.
-  const bool lead = q.lane == 0 && (!WIDE || col0 == hcol);
-
-  float hi_row[NJ][VEC], a[NJ][VEC], o[NJ][VEC];
-  if constexpr (!WIDE) {
-    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-  }
-  zero_lane<VEC, NJ>(o);
-  float m = -INFINITY, l = 0.0f;
-
-  const int64_t hi = row_ptr[row + 1];
-  for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    float hj[NJ][VEC];
-    const float keep = load_edge<S, VEC, NJ>(
-        ht, senders, drop, drop_bf16, e, d, col0, heads, h, it.fk, q, hj);
-    float part;
-    if constexpr (WIDE) {
-      part = gatv2_score_wide<S, VEC, NJ>(
-          ht + row * d + hcol,
-          ht + static_cast<int64_t>(senders[e]) * d + hcol, att, att_bf16,
-          hcol, f, slope, q);
-    } else {
-      part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
-    }
-    const float s =
-        (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
-    if (scores != nullptr && lead) scores[e * heads + h] = s;
-    if (s > -INFINITY) {  // the same on every lane of the group
-      float p;
-      const float scale = online_step(s, m, l, p);
-      const float pk = p * keep;  // dropout scales the numerator only
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          o[j][i] = o[j][i] * scale + pk * hj[j][i];
-        }
-      }
-    }
-  }
-
-  if (lead) {
-    m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
-    l_out[row * heads + h] = l;
-  }
-  const float denom = l + eps;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[j][i] /= denom;
-  }
-  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, o);
 }
 
 template <typename S, int VEC, int NJ, bool WIDE>
@@ -307,78 +222,17 @@ attend_aggregate_kernel(const float* __restrict__ scores,
   store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, o);
 }
 
-template <typename S, int VEC, int NJ, bool RECOMPUTE, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
-                  const int32_t* __restrict__ senders,
-                  const int32_t* __restrict__ row_ptr,
-                  const float* __restrict__ scores,
-                  const float* __restrict__ m_in,
-                  const float* __restrict__ l_in,
-                  const void* __restrict__ att, int att_bf16,
-                  const uint8_t* __restrict__ valid,
-                  const void* __restrict__ drop, int drop_bf16,
-                  float* __restrict__ rho, int64_t n_rows, int heads, int f,
-                  int lph, float slope, float eps) {
-  const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads) return;
-  const int64_t row = q.gid / heads;
-  const int h = static_cast<int>(q.gid - row * heads);
-  const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = static_cast<int64_t>(h) * f;
+// ---------------------------------------------------------------------------
+// Pieces: the work list, the staged piece table and the ring of sender rows
+// that the forward, rho and the receiver backward share.
+//
+// Piece p covers slots pieces[p].y .. pieces[p].z of row pieces[p].x, at
+// most `cap` of them (the host cuts longer rows, the padded tail included,
+// into pieces); pieces[p].w is -1 for a piece that is its whole row (it
+// stores the row's results) and otherwise its row in the f32 scratch of
+// shares, which the kernel's second launch combines in piece order.
+// ---------------------------------------------------------------------------
 
-  // The receiver's columns and att only feed a recomputed score; the
-  // cached instantiation never reads them. A wide head reads its rows slab
-  // by slab for each slot.
-  float g_row[NJ][VEC], hi_row[NJ][VEC], a[NJ][VEC];
-  if constexpr (!WIDE) {
-    load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
-    if constexpr (RECOMPUTE) {
-      load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-      load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-    }
-  }
-  const float m = m_in[row * heads + h];
-  const float denom = l_in[row * heads + h] + eps;
-  float acc = 0.0f;
-
-  const int64_t hi = row_ptr[row + 1];
-  for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    float keep, dalpha, alpha;
-    if constexpr (WIDE) {
-      const S* hj = ht + static_cast<int64_t>(senders[e]) * d + col0;
-      keep = drop == nullptr ? 1.0f
-                             : load_scalar(drop, drop_bf16, e * heads + h);
-      dalpha = head_dot_wide<S, VEC, NJ>(g + row * d + col0, hj, f, q);
-      alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
-          scores, valid, e, heads, h, ht + row * d + col0, hj, att,
-          att_bf16, col0, f, slope, m, denom, q);
-    } else {
-      float hj[NJ][VEC];
-      keep = load_edge<S, VEC, NJ>(ht, senders, drop, drop_bf16, e, d, col0,
-                                   heads, h, f, q, hj);
-      dalpha = group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
-      alpha = slot_alpha<RECOMPUTE, VEC, NJ>(
-          scores, valid, e, heads, h, hi_row, hj, a, slope, m, denom,
-          q);  // 0 for an invalid slot
-    }
-    acc += alpha * keep * dalpha;
-  }
-  if (q.lane == 0) rho[row * heads + h] = acc;
-}
-
-// The receiver backward's work list: piece p covers slots pieces[p].y ..
-// pieces[p].z of row pieces[p].x, at most `cap` of them (the host cuts
-// longer rows, the padded tail included, into pieces); pieces[p].w is -1
-// for a piece that is its whole row (it writes the row's dht) and otherwise
-// the row of dht_part where it leaves its f32 share, which the finish
-// kernel adds up in piece order.
-
-// Blocks per SM the receiver backward is built for, by whether it writes v
-// (NVIDIA H100 80GB HBM3 at 700 W, arxiv shapes, bf16 F = 64 / 40): writing
-// v, two blocks and 108 registers without spills beat three blocks at 80
-// registers with spills by 18% / 2%; without v three blocks win by 9% / 11%.
-constexpr int recv_bwd_min_blocks(bool emit_v) { return emit_v ? 2 : 3; }
 constexpr int kRing = 4;  // sender rows in flight per group
 
 // Asynchronous copy of one pack (VEC values) into shared memory. cp.async
@@ -454,25 +308,486 @@ struct SenderRing {
   }
 };
 
-// d_pre of one column: rounded products that the compiler may not fuse into
-// the sums that read d_pre, so that dht is the same bit for bit whether or
-// not the instantiation also writes v (which reads d_pre too).
-__device__ __forceinline__ float recv_d_pre(float ds, float a, bool pos,
-                                            float slope) {
-  return __fmul_rn(__fmul_rn(ds, a), pos ? 1.0f : slope);
+// A group's piece table in shared memory, after the block's rings: the
+// senders of the piece's slots, their flags (the cached score, or 0 / -inf
+// for a valid / padded slot) and their keep factors, `cap` of each.
+struct PieceTable {
+  int32_t* send;
+  float* flag;
+  float* keep;
+};
+
+__device__ __forceinline__ PieceTable piece_table(uint8_t* smem,
+                                                  int ring_bytes, int lph,
+                                                  int cap) {
+  int32_t* send = reinterpret_cast<int32_t*>(smem + ring_bytes) +
+                  static_cast<int64_t>(threadIdx.x / lph) * cap * 3;
+  float* flag = reinterpret_cast<float*>(send + cap);
+  return PieceTable{send, flag, flag + cap};
 }
 
-// Shared memory of a block of the receiver backward: the groups' rings, then
-// each group's piece table of `cap` senders, scores (or, recomputing, 0 /
-// -inf for a valid / padded slot) and keep factors.
+// Dynamic shared memory of a block that walks pieces: its groups' rings,
+// then their tables (12 bytes a slot). A wide launch uses none.
 template <typename S, int VEC, int NJ, bool WIDE>
-inline size_t recv_bwd_smem(int lph, int cap) {
+inline size_t piece_smem(int lph, int cap) {
   if constexpr (WIDE) {
     return 0;
   } else {
     return SenderRing<S, VEC, NJ>::kBytes +
            static_cast<size_t>(kThreads / lph) * cap * 12;
   }
+}
+
+// Starts copying the table of the piece of n slots from slot lo into shared
+// memory, the group's lanes together (one latency for the piece): the flags
+// are head h's cached scores or (FROM_VALID) 0 / -inf from the validity
+// bytes. piece_landed waits for it; the group reads its rows meanwhile.
+template <bool FROM_VALID>
+__device__ __forceinline__ void stage_piece(
+    const PieceTable& t, int64_t lo, int n,
+    const int32_t* __restrict__ senders, const float* __restrict__ scores,
+    const uint8_t* __restrict__ valid, const void* __restrict__ drop,
+    int drop_bf16, int heads, int h, const Geometry& q) {
+  __syncwarp(q.mask);  // the previous piece's table is read out
+  for (int i = q.lane; i < n; i += q.lph) {
+    const int64_t e = lo + i;
+    copy_async<4>(shared_u32(t.send + i), senders + e);
+    if constexpr (FROM_VALID) {
+      t.flag[i] = (valid == nullptr || valid[e] != 0) ? 0.0f : -INFINITY;
+    } else {
+      copy_async<4>(shared_u32(t.flag + i), scores + e * heads + h);
+    }
+    if (drop != nullptr) {
+      if (drop_bf16) {
+        t.keep[i] = load_scalar(drop, 1, e * heads + h);
+      } else {
+        copy_async<4>(shared_u32(t.keep + i),
+                      static_cast<const float*>(drop) + e * heads + h);
+      }
+    }
+  }
+  copy_commit();
+}
+
+__device__ __forceinline__ void piece_landed(const Geometry& q) {
+  copy_wait<0>();
+  __syncwarp(q.mask);  // every lane's part of the table has landed
+}
+
+// The ring over a landed piece table: a slot's sender row is copied kRing
+// slots ahead of its use, one commit group a slot (empty where nothing is
+// copied), so that waiting for all but the kRing - 1 latest groups
+// (copy_wait<kRing - 1>) means slot j has landed in stage j % kRing. A slot
+// whose flag is -inf is never copied. ring_start fills the first kRing
+// stages; after slot j is read, ring_next refills its stage with slot
+// j + kRing and returns the next stage.
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ void ring_start(uint8_t* ring, const PieceTable& t,
+                                           int n, const S* __restrict__ ht,
+                                           int64_t d, int64_t col0, int fk,
+                                           const Geometry& q) {
+#pragma unroll
+  for (int i = 0; i < kRing; ++i) {
+    if (i < n && t.flag[i] != -INFINITY) {
+      SenderRing<S, VEC, NJ>::fill(
+          ring, i, ht + static_cast<int64_t>(t.send[i]) * d + col0, fk, q);
+    }
+    copy_commit();
+  }
+}
+
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ int ring_next(uint8_t* ring, const PieceTable& t,
+                                         int j, int n, int stage,
+                                         const S* __restrict__ ht, int64_t d,
+                                         int64_t col0, int fk,
+                                         const Geometry& q) {
+  const int ahead = j + kRing;
+  if (ahead < n && t.flag[ahead] != -INFINITY) {
+    SenderRing<S, VEC, NJ>::fill(
+        ring, stage, ht + static_cast<int64_t>(t.send[ahead]) * d + col0, fk,
+        q);
+  }
+  copy_commit();
+  return stage + 1 == kRing ? 0 : stage + 1;
+}
+
+// This lane's columns of a split row's f32 share (part: the share's first
+// column of the group).
+template <int VEC, int NJ>
+__device__ __forceinline__ void store_share(float* part, int fk,
+                                            const Geometry& q,
+                                            const float (&v)[NJ][VEC]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = pack_column<VEC>(q, j);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (c < fk) part[c + i] = v[j][i];
+    }
+  }
+}
+
+// Column c of split row k: its shares (rows fix_ptr[k] .. fix_ptr[k + 1] of
+// part, `cols` wide) added in piece order. A hub row has hundreds of shares:
+// the unrolled loop issues several shares' loads before their adds, which
+// stay in order.
+__device__ __forceinline__ float sum_shares(const float* __restrict__ part,
+                                            int64_t cols,
+                                            const int32_t* __restrict__ fix_ptr,
+                                            int64_t k, int64_t c) {
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
+    acc += part[static_cast<int64_t>(p) * cols + c];
+  }
+  return acc;
+}
+
+// Blocks per SM the receiver backward is built for, by whether it writes v
+// (NVIDIA H100 80GB HBM3 at 700 W, arxiv shapes, bf16 F = 64 / 40): writing
+// v, two blocks and 108 registers without spills beat three blocks at 80
+// registers with spills by 18% / 2%; without v three blocks win by 9% /
+// 11%. The forward and rho take kMinBlocksPerSm (four, 64 registers): on
+// the same card and shapes four blocks beat three (80 registers, no
+// spills) by 8% / 11% in the forward and the recomputing rho despite about
+// 116 bytes of spills, five (48 registers) lost by 2x, and the cached rho
+// ran within 2% at three, four or five.
+constexpr int recv_bwd_min_blocks(bool emit_v) { return emit_v ? 2 : 3; }
+
+// ---------------------------------------------------------------------------
+// The forward
+// ---------------------------------------------------------------------------
+
+// Folds a finite score s into a piece's running max m and normaliser l and
+// its output columns o, the sender's columns hj weighted by p * keep
+// (dropout scales the numerator only).
+template <int VEC, int NJ>
+__device__ __forceinline__ void fold_slot(float s, float keep,
+                                          const float (&hj)[NJ][VEC],
+                                          float& m, float& l,
+                                          float (&o)[NJ][VEC]) {
+  float p;
+  const float scale = online_step(s, m, l, p);
+  const float pk = p * keep;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[j][i] = o[j][i] * scale + pk * hj[j][i];
+  }
+}
+
+template <typename S, int VEC, int NJ, bool WIDE>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+sddmm_stats_agg_kernel(const S* __restrict__ ht,
+                       const int32_t* __restrict__ senders,
+                       const int4* __restrict__ pieces, int64_t n_pieces,
+                       int cap, const void* __restrict__ att, int att_bf16,
+                       const uint8_t* __restrict__ valid,
+                       const void* __restrict__ drop, int drop_bf16,
+                       S* __restrict__ out, float* __restrict__ scores,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       float* __restrict__ m_part, float* __restrict__ l_part,
+                       float* __restrict__ o_part, int heads, int f, int lph,
+                       float slope, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Geometry q = geometry(lph);
+  // The grid holds a multiple of heads * slabs groups, so a group that
+  // strides over the (piece, head, slab) triples by the grid's size keeps
+  // its head and slab.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const int64_t n_items = n_pieces * per_row;
+  const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
+  const int h = mine.h;
+  const int fk = mine.fk;
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = mine.col0;  // this group's columns: col0 .. col0 + fk
+  const int64_t hcol = static_cast<int64_t>(h) * f;  // the head's first
+  // The group of a wide head's first slab writes the scores and statistics;
+  // every slab's group runs the same recurrence over the same scores.
+  const bool lead = q.lane == 0 && (!WIDE || col0 == hcol);
+  const PieceTable t =
+      piece_table(smem, SenderRing<S, VEC, NJ>::kBytes, lph, cap);
+
+  float a[NJ][VEC];
+  if constexpr (!WIDE) load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
+
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / per_row];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    // The next piece's header is read a piece ahead.
+    int4 pc_next = make_int4(0, 0, 0, -1);
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / per_row];
+    const int64_t row = pc.x;
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    float o[NJ][VEC];
+    zero_lane<VEC, NJ>(o);
+    float m = -INFINITY, l = 0.0f;
+
+    if constexpr (WIDE) {
+      // Rows from device memory, slab by slab for each score (no ring).
+      for (int64_t e = lo; e < lo + n; ++e) {
+        const int64_t src = senders[e];  // read beside the slot's flag
+        float s = -INFINITY;
+        if (valid == nullptr || valid[e] != 0) {  // never gather a padded slot
+          float hj[NJ][VEC];
+          load_lane<S, VEC, NJ>(ht + src * d + col0, fk, q, hj);
+          const float keep = drop == nullptr
+                                 ? 1.0f
+                                 : load_scalar(drop, drop_bf16, e * heads + h);
+          s = gatv2_score_wide<S, VEC, NJ>(ht + row * d + hcol,
+                                           ht + src * d + hcol, att, att_bf16,
+                                           hcol, f, slope, q);
+          if (s > -INFINITY) fold_slot<VEC, NJ>(s, keep, hj, m, l, o);
+        }
+        if (scores != nullptr && lead) scores[e * heads + h] = s;
+      }
+    } else {
+      // The piece's senders, validity and keep factors land while the
+      // receiver's row is read.
+      stage_piece<true>(t, lo, n, senders, nullptr, valid, drop, drop_bf16,
+                        heads, h, q);
+      float hi_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
+      piece_landed(q);
+      ring_start<S, VEC, NJ>(smem, t, n, ht, d, col0, fk, q);
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        float s = -INFINITY;
+        if (t.flag[j] != -INFINITY) {
+          float hj[NJ][VEC];
+          SenderRing<S, VEC, NJ>::read(smem, stage, fk, q, hj);
+          s = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+          if (s > -INFINITY) {  // the same on every lane of the group
+            const float keep = drop == nullptr ? 1.0f : t.keep[j];
+            fold_slot<VEC, NJ>(s, keep, hj, m, l, o);
+          }
+        }
+        if (scores != nullptr && lead) scores[(lo + j) * heads + h] = s;
+        stage =
+            ring_next<S, VEC, NJ>(smem, t, j, n, stage, ht, d, col0, fk, q);
+      }
+    }
+
+    if (pc.w < 0) {  // the whole row: its statistics and output
+      if (lead) {
+        m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
+        l_out[row * heads + h] = l;
+      }
+      const float denom = l + eps;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) o[j][i] /= denom;
+      }
+      store_lane<S, VEC, NJ>(out + row * d + col0, fk, q, o);
+    } else {  // a share of a split row; m is -inf where no score was finite
+      if (lead) {
+        m_part[static_cast<int64_t>(pc.w) * heads + h] = m;
+        l_part[static_cast<int64_t>(pc.w) * heads + h] = l;
+      }
+      store_share<VEC, NJ>(o_part + static_cast<int64_t>(pc.w) * d + col0,
+                           fk, q, o);
+    }
+    pc = pc_next;
+  }
+}
+
+// The forward's second launch, one thread per (split row, column): the
+// row's m, l and output from its pieces' (m_p, l_p, o_p) in piece order, the
+// flash-decoding merge: m = max m_p over the pieces that saw a finite score
+// (stored as 0 where none did), l = sum l_p exp(m_p - m), o = sum o_p
+// exp(m_p - m), out = o / (l + eps) rounded once. A piece without a finite
+// score is skipped, so a row whose finite scores lie in one piece gets what
+// a walk of the whole row gives, bit for bit.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+agg_finish_kernel(const float* __restrict__ m_part,
+                  const float* __restrict__ l_part,
+                  const float* __restrict__ o_part,
+                  const int32_t* __restrict__ fix_rows,
+                  const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                  int heads, int f, float eps, S* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out) {
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_fix * d) return;
+  const int64_t k = i / d;
+  const int64_t c = i - k * d;
+  const int h = static_cast<int>(c / f);
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
+    m = fmaxf(m, m_part[static_cast<int64_t>(p) * heads + h]);
+  }
+  float l = 0.0f, o = 0.0f;
+#pragma unroll 8
+  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
+    const int64_t ph = static_cast<int64_t>(p) * heads + h;
+    const float mp = m_part[ph];
+    const float lp = l_part[ph];
+    const float op = o_part[static_cast<int64_t>(p) * d + c];
+    if (mp > -INFINITY) {  // a piece without a finite score is skipped
+      const float w = expf(mp - m);
+      l += lp * w;
+      o += op * w;
+    }
+  }
+  const int64_t row = fix_rows[k];
+  if (c == static_cast<int64_t>(h) * f) {
+    m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
+    l_out[row * heads + h] = l;
+  }
+  out[row * d + c] = Cvt<S>::from_f(o / (l + eps));
+}
+
+// ---------------------------------------------------------------------------
+// rho
+// ---------------------------------------------------------------------------
+
+template <typename S, int VEC, int NJ, bool RECOMPUTE, bool WIDE>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_rho_kernel(const S* __restrict__ g, const S* __restrict__ ht,
+                  const int32_t* __restrict__ senders,
+                  const int4* __restrict__ pieces, int64_t n_pieces, int cap,
+                  const float* __restrict__ scores,
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in,
+                  const void* __restrict__ att, int att_bf16,
+                  const uint8_t* __restrict__ valid,
+                  const void* __restrict__ drop, int drop_bf16,
+                  float* __restrict__ rho, float* __restrict__ rho_part,
+                  int heads, int f, int lph, float slope, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Geometry q = geometry(lph);
+  // One group per (piece, head), a wide one walking the head's slabs; the
+  // grid holds a multiple of heads groups, so a group keeps its head.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int64_t n_items = n_pieces * heads;
+  const int h = static_cast<int>(q.gid % heads);
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = static_cast<int64_t>(h) * f;
+  const PieceTable t =
+      piece_table(smem, SenderRing<S, VEC, NJ>::kBytes, lph, cap);
+
+  // The receiver's columns and att only feed a recomputed score; the
+  // cached instantiation never reads them.
+  float a[NJ][VEC];
+  if constexpr (!WIDE && RECOMPUTE) {
+    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
+  }
+
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / heads];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    int4 pc_next = make_int4(0, 0, 0, -1);  // read a piece ahead
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / heads];
+    const int64_t row = pc.x;
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    const float m = m_in[row * heads + h];
+    const float denom = l_in[row * heads + h] + eps;
+    float acc = 0.0f;
+
+    if constexpr (WIDE) {
+      for (int64_t e = lo; e < lo + n; ++e) {
+        const int64_t src = senders[e];  // read beside the slot's flag
+        // A padded slot (invalid; with the cache, score -inf) is skipped
+        // before its gather.
+        if constexpr (RECOMPUTE) {
+          if (valid != nullptr && valid[e] == 0) continue;
+        } else {
+          if (scores[e * heads + h] == -INFINITY) continue;
+        }
+        const S* hj = ht + src * d + col0;
+        const float keep = drop == nullptr
+                               ? 1.0f
+                               : load_scalar(drop, drop_bf16, e * heads + h);
+        const float dalpha =
+            head_dot_wide<S, VEC, NJ>(g + row * d + col0, hj, f, q);
+        const float alpha = slot_alpha_wide<RECOMPUTE, S, VEC, NJ>(
+            scores, valid, e, heads, h, ht + row * d + col0, hj, att,
+            att_bf16, col0, f, slope, m, denom, q);
+        acc += alpha * keep * dalpha;
+      }
+    } else {
+      // The piece's table lands while the receiver's rows are read.
+      stage_piece<RECOMPUTE>(t, lo, n, senders, scores, valid, drop,
+                             drop_bf16, heads, h, q);
+      float g_row[NJ][VEC], hi_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(g + row * d + col0, f, q, g_row);
+      if constexpr (RECOMPUTE) {
+        load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+      }
+      piece_landed(q);
+      ring_start<S, VEC, NJ>(smem, t, n, ht, d, col0, f, q);
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        const float flag = t.flag[j];
+        if (flag != -INFINITY) {  // else a padded slot: alpha is 0
+          float hj[NJ][VEC];
+          SenderRing<S, VEC, NJ>::read(smem, stage, f, q, hj);
+          const float dalpha =
+              group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
+          // The cached score, or the forward's recomputed bit for bit
+          // (gatv2_score on the same lane layout).
+          float alpha;
+          if constexpr (RECOMPUTE) {
+            const float sr =
+                gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+            alpha = expf(fminf(sr - m, 0.0f)) / denom;
+          } else {
+            alpha = expf(flag - m) / denom;
+          }
+          const float keep = drop == nullptr ? 1.0f : t.keep[j];
+          acc += alpha * keep * dalpha;
+        }
+        stage =
+            ring_next<S, VEC, NJ>(smem, t, j, n, stage, ht, d, col0, f, q);
+      }
+    }
+    if (q.lane == 0) {
+      if (pc.w < 0) {
+        rho[row * heads + h] = acc;
+      } else {
+        rho_part[static_cast<int64_t>(pc.w) * heads + h] = acc;
+      }
+    }
+    pc = pc_next;
+  }
+}
+
+// rho's second launch, one thread per (split row, head): its pieces' shares
+// added in piece order.
+__global__ void __launch_bounds__(kThreads)
+rho_finish_kernel(const float* __restrict__ rho_part,
+                  const int32_t* __restrict__ fix_rows,
+                  const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                  int heads, float* __restrict__ rho) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_fix * heads) return;
+  const int64_t k = i / heads;
+  const int64_t h = i - k * heads;
+  rho[static_cast<int64_t>(fix_rows[k]) * heads + h] =
+      sum_shares(rho_part, heads, fix_ptr, k, h);
+}
+
+// ---------------------------------------------------------------------------
+// The receiver backward
+// ---------------------------------------------------------------------------
+
+// d_pre of one column: rounded products that the compiler may not fuse into
+// the sums that read d_pre, so that dht is the same bit for bit whether or
+// not the instantiation also writes v (which reads d_pre too).
+__device__ __forceinline__ float recv_d_pre(float ds, float a, bool pos,
+                                            float slope) {
+  return __fmul_rn(__fmul_rn(ds, a), pos ? 1.0f : slope);
 }
 
 template <typename S, int VEC, int NJ, bool RECOMPUTE, bool EMIT_V, bool WIDE>
@@ -490,7 +805,6 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        S* __restrict__ dht, float* __restrict__ dht_part,
                        S* __restrict__ v, float* __restrict__ partial,
                        int heads, int f, int lph, float slope, float eps) {
-  using Ring = SenderRing<S, VEC, NJ>;
   extern __shared__ __align__(16) uint8_t smem[];
   const Geometry q = geometry(lph);
   // The grid holds a multiple of heads * slabs groups, so a group that
@@ -506,11 +820,8 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
   const int64_t d = static_cast<int64_t>(heads) * f;
   const int64_t col0 = mine.col0;
   const int64_t hcol = static_cast<int64_t>(h) * f;
-  uint8_t* ring = smem;
-  int32_t* t_send = reinterpret_cast<int32_t*>(smem + Ring::kBytes) +
-                    static_cast<int64_t>(threadIdx.x / lph) * cap * 3;
-  float* t_score = reinterpret_cast<float*>(t_send + cap);
-  float* t_keep = t_score + cap;
+  const PieceTable t =
+      piece_table(smem, SenderRing<S, VEC, NJ>::kBytes, lph, cap);
 
   float a[NJ][VEC], datt_acc[NJ][VEC];
   load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
@@ -566,61 +877,29 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
         }
       }
     } else {
-      // The piece's table: its senders, scores (or validity) and keep
-      // factors, copied into shared memory by the group's lanes together
-      // (one latency for the piece), while the receiver's row is read.
-      __syncwarp(q.mask);  // the previous piece's table is read out
-      for (int i = q.lane; i < n; i += lph) {
-        const int64_t e = lo + i;
-        copy_async<4>(shared_u32(t_send + i), senders + e);
-        if constexpr (RECOMPUTE) {
-          t_score[i] = (valid == nullptr || valid[e] != 0) ? 0.0f : -INFINITY;
-        } else {
-          copy_async<4>(shared_u32(t_score + i), scores + e * heads + h);
-        }
-        if (drop != nullptr) {
-          if (drop_bf16) {
-            t_keep[i] = load_scalar(drop, 1, e * heads + h);
-          } else {
-            copy_async<4>(shared_u32(t_keep + i),
-                          static_cast<const float*>(drop) + e * heads + h);
-          }
-        }
-      }
-      copy_commit();
+      // The piece's table lands while the receiver's rows are read.
+      stage_piece<RECOMPUTE>(t, lo, n, senders, scores, valid, drop,
+                             drop_bf16, heads, h, q);
       float hi_row[NJ][VEC], g_row[NJ][VEC];
       load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hi_row);
       load_lane<S, VEC, NJ>(g + row * d + col0, fk, q, g_row);
       const float m = m_in[row * heads + h];
       const float denom = l_in[row * heads + h] + eps;
       const float rho_row = rho[row * heads + h];
-      copy_wait<0>();
-      __syncwarp(q.mask);  // every lane's part of the table has landed
-
-      // The ring: slot j's sender row is copied kRing slots ahead of its
-      // use, one commit group a slot (empty where nothing is copied), so
-      // that waiting for all but the kRing - 1 latest groups means slot j
-      // has landed. A padded slot's row is never copied.
-#pragma unroll
-      for (int i = 0; i < kRing; ++i) {
-        if (i < n && t_score[i] != -INFINITY) {
-          Ring::fill(ring, i,
-                     ht + static_cast<int64_t>(t_send[i]) * d + col0, fk, q);
-        }
-        copy_commit();
-      }
+      piece_landed(q);
+      ring_start<S, VEC, NJ>(smem, t, n, ht, d, col0, fk, q);
       int stage = 0;
       for (int j = 0; j < n; ++j) {
         copy_wait<kRing - 1>();
-        const float s = t_score[j];
-        const float keep = drop == nullptr ? 1.0f : t_keep[j];
+        const float s = t.flag[j];
+        const float keep = drop == nullptr ? 1.0f : t.keep[j];
         float hj[NJ][VEC];
         if (s != -INFINITY) {
-          Ring::read(ring, stage, fk, q, hj);
+          SenderRing<S, VEC, NJ>::read(smem, stage, fk, q, hj);
           const float dalpha =
               group_sum(lane_dot<VEC, NJ>(g_row, hj), lph, q.mask);
           // The cached score, or the forward's recomputed bit for bit
-          // (gatv2_score on the same lane layout), as slot_alpha takes them.
+          // (gatv2_score on the same lane layout).
           float alpha;
           if constexpr (RECOMPUTE) {
             const float sr =
@@ -649,29 +928,15 @@ attend_recv_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
         if constexpr (EMIT_V) {
           store_lane<S, VEC, NJ>(v + (lo + j) * d + col0, fk, q, hj);
         }
-        // The stage just read takes the slot kRing ahead.
-        const int ahead = j + kRing;
-        if (ahead < n && t_score[ahead] != -INFINITY) {
-          Ring::fill(ring, stage,
-                     ht + static_cast<int64_t>(t_send[ahead]) * d + col0, fk,
-                     q);
-        }
-        copy_commit();
-        stage = stage + 1 == kRing ? 0 : stage + 1;
+        stage =
+            ring_next<S, VEC, NJ>(smem, t, j, n, stage, ht, d, col0, fk, q);
       }
     }
     if (pc.w < 0) {
       store_lane<S, VEC, NJ>(dht + row * d + col0, fk, q, acc);
     } else {
-      float* part = dht_part + static_cast<int64_t>(pc.w) * d + col0;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = pack_column<VEC>(q, j);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          if (c < fk) part[c + i] = acc[j][i];
-        }
-      }
+      store_share<VEC, NJ>(dht_part + static_cast<int64_t>(pc.w) * d + col0,
+                           fk, q, acc);
     }
     pc = pc_next;
   }
@@ -700,12 +965,13 @@ recv_bwd_finish_kernel(const float* __restrict__ partial,
   if (i >= n_fix * d) return;
   const int64_t k = i / d;
   const int64_t c = i - k * d;
-  float acc = 0.0f;
-  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
-    acc += dht_part[static_cast<int64_t>(p) * d + c];
-  }
-  dht[static_cast<int64_t>(fix_rows[k]) * d + c] = Cvt<S>::from_f(acc);
+  dht[static_cast<int64_t>(fix_rows[k]) * d + c] =
+      Cvt<S>::from_f(sum_shares(dht_part, d, fix_ptr, k, c));
 }
+
+// ---------------------------------------------------------------------------
+// The sender backward
+// ---------------------------------------------------------------------------
 
 template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
@@ -776,6 +1042,40 @@ attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
   store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, acc);
 }
 
+// The work list's arguments: pieces 16-byte aligned (int4 loads), at least
+// one a row, at most 1,024 slots each (the piece tables' shared memory),
+// and the scratch of shares present where rows are split.
+inline bool pieces_ok(const int32_t* pieces, int64_t n_pieces, int64_t n_rows,
+                      int cap, int64_t n_fix, bool has_scratch, int heads,
+                      int64_t f) {
+  return pieces != nullptr && n_pieces >= n_rows && n_fix >= 0 && cap >= 1 &&
+         cap <= 1024 && (n_fix == 0 || has_scratch) &&
+         reinterpret_cast<uintptr_t>(pieces) % 16 == 0 &&
+         shape_ok(n_pieces, heads, f);
+}
+
+// Launches a piece-walking kernel with `smem` bytes of dynamic shared memory
+// (more than the default 48 KB only once the kernel is allowed them).
+template <typename Kernel, typename... Args>
+cudaError_t launch_pieces(Kernel kernel, unsigned grid, size_t smem,
+                          cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// Blocks of a second launch with one thread per (split row, column) of
+// `cols` columns, 0 when the grid would not fit.
+inline int64_t finish_blocks(int64_t n_fix, int64_t cols) {
+  const int64_t blocks = (n_fix * cols + kThreads - 1) / kThreads;
+  return blocks < (static_cast<int64_t>(1) << 31) ? blocks : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -784,31 +1084,61 @@ extern "C" {
 // heads*f]. att [heads, f] and drop [n_slots, heads] (null when absent) are
 // f32 or bf16 by their own flags; valid [n_slots] bytes (null: all valid).
 // scores [n_slots, heads] (null: not written), m, l [n_rows, heads]: f32.
-int kgt_sddmm_stats_agg_sorted(const void* ht, const int32_t* senders,
-                               const int32_t* row_ptr, const void* att,
-                               int att_bf16, const uint8_t* valid,
-                               const void* drop, int drop_bf16, void* out,
-                               float* scores, float* m, float* l,
-                               int64_t n_rows, int heads, int64_t f,
-                               float slope, float eps, int is_bf16,
-                               void* stream) {
-  if (ht == nullptr || senders == nullptr || row_ptr == nullptr ||
-      att == nullptr || out == nullptr || m == nullptr || l == nullptr ||
-      !shape_ok(n_rows, heads, f)) {
+// pieces [n_pieces, 4] int32 (row, first slot, end slot, share row or -1),
+// each of at most cap slots, cover every row and every slot once; the n_fix
+// rows fix_rows split into several pieces take their m, l and output from
+// their shares fix_ptr[k] .. fix_ptr[k + 1] of the f32 scratch m_part,
+// l_part [*, heads] and o_part [*, heads*f], written before they are read.
+int kgt_sddmm_stats_agg_sorted(
+    const void* ht, const int32_t* senders, const int32_t* pieces,
+    int64_t n_pieces, int cap, const void* att, int att_bf16,
+    const uint8_t* valid, const void* drop, int drop_bf16, void* out,
+    float* scores, float* m, float* l, float* m_part, float* l_part,
+    float* o_part, const int32_t* fix_rows, const int32_t* fix_ptr,
+    int64_t n_fix, int64_t n_rows, int heads, int64_t f, float slope,
+    float eps, int is_bf16, void* stream) {
+  const int64_t fix_blocks = finish_blocks(n_fix, heads * f);
+  if (ht == nullptr || senders == nullptr || att == nullptr ||
+      out == nullptr || m == nullptr || l == nullptr ||
+      !shape_ok(n_rows, heads, f) ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 m_part != nullptr && l_part != nullptr &&
+                     o_part != nullptr && fix_rows != nullptr &&
+                     fix_ptr != nullptr,
+                 heads, f) ||
+      (n_fix > 0 && fix_blocks == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
   const unsigned grid =
-      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
+      blocks_for_fixed_grid(n_pieces, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_FWD(S)                                                          \
-  sddmm_stats_agg_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(       \
-      static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
-      drop, drop_bf16, static_cast<S*>(out), scores, m, l, n_rows, heads,   \
-      fi, lay.lph, slope, eps)
+  {                                                                         \
+    const cudaError_t err = launch_pieces(                                  \
+        sddmm_stats_agg_kernel<S, VEC, NJ, WIDE>, grid,                     \
+        piece_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s,                      \
+        static_cast<const S*>(ht), senders, work, n_pieces, cap, att,       \
+        att_bf16, valid, drop, drop_bf16, static_cast<S*>(out), scores, m,  \
+        l, m_part, l_part, o_part, heads, fi, lay.lph, slope, eps);         \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_FWD)
 #undef KGT_FWD
+  if (n_fix > 0) {
+    const unsigned blocks = static_cast<unsigned>(fix_blocks);
+    if (is_bf16) {
+      agg_finish_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+          m_part, l_part, o_part, fix_rows, fix_ptr, n_fix, heads, fi, eps,
+          static_cast<uint16_t*>(out), m, l);
+    } else {
+      agg_finish_kernel<float><<<blocks, kThreads, 0, s>>>(
+          m_part, l_part, o_part, fix_rows, fix_ptr, n_fix, heads, fi, eps,
+          static_cast<float*>(out), m, l);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -842,29 +1172,45 @@ int kgt_attend_aggregate_sorted(const float* scores, const float* m,
 
 // rho [n_rows, heads] f32 from the output cotangent g (same type as ht) and
 // the forward's m, l and cached scores; scores == null recomputes them from
-// ht and att (valid: null or [n_slots] bytes).
+// ht and att (valid: null or [n_slots] bytes). pieces, cap, fix_rows,
+// fix_ptr and n_fix as for the forward; rho_part: f32 scratch [*, heads] of
+// the split rows' shares.
 int kgt_attend_rho_sorted(const void* g, const void* ht,
-                          const int32_t* senders, const int32_t* row_ptr,
-                          const float* scores, const float* m, const float* l,
-                          const void* att, int att_bf16, const uint8_t* valid,
+                          const int32_t* senders, const int32_t* pieces,
+                          int64_t n_pieces, int cap, const float* scores,
+                          const float* m, const float* l, const void* att,
+                          int att_bf16, const uint8_t* valid,
                           const void* drop, int drop_bf16, float* rho,
+                          float* rho_part, const int32_t* fix_rows,
+                          const int32_t* fix_ptr, int64_t n_fix,
                           int64_t n_rows, int heads, int64_t f, float slope,
                           float eps, int is_bf16, void* stream) {
-  if (g == nullptr || ht == nullptr || senders == nullptr ||
-      row_ptr == nullptr || m == nullptr || l == nullptr || rho == nullptr ||
-      (scores == nullptr && att == nullptr) || !shape_ok(n_rows, heads, f)) {
+  const int64_t fix_blocks = finish_blocks(n_fix, heads);
+  if (g == nullptr || ht == nullptr || senders == nullptr || m == nullptr ||
+      l == nullptr || rho == nullptr || (scores == nullptr && att == nullptr) ||
+      !shape_ok(n_rows, heads, f) ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 rho_part != nullptr && fix_rows != nullptr &&
+                     fix_ptr != nullptr,
+                 heads, f) ||
+      (n_fix > 0 && fix_blocks == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, g, ht, g, ht);
-  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const unsigned grid = blocks_for_fixed_grid(n_pieces, heads, lay.lph);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_RHO_AS(S, RECOMPUTE)                                           \
-  attend_rho_kernel<S, VEC, NJ, RECOMPUTE, WIDE>                           \
-      <<<grid, kThreads, 0, s>>>(                                          \
-      static_cast<const S*>(g), static_cast<const S*>(ht), senders,        \
-      row_ptr, scores, m, l, att, att_bf16, valid, drop, drop_bf16, rho,   \
-      n_rows, heads, fi, lay.lph, slope, eps)
+  {                                                                        \
+    const cudaError_t err = launch_pieces(                                 \
+        attend_rho_kernel<S, VEC, NJ, RECOMPUTE, WIDE>, grid,              \
+        piece_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s,                     \
+        static_cast<const S*>(g), static_cast<const S*>(ht), senders,      \
+        work, n_pieces, cap, scores, m, l, att, att_bf16, valid, drop,     \
+        drop_bf16, rho, rho_part, heads, fi, lay.lph, slope, eps);         \
+    if (err != cudaSuccess) return static_cast<int>(err);                  \
+  }
 #define KGT_RHO(S)                                                         \
   if (scores != nullptr) {                                                 \
     KGT_RHO_AS(S, false);                                                  \
@@ -874,6 +1220,10 @@ int kgt_attend_rho_sorted(const void* g, const void* ht,
   KGT_DISPATCH(is_bf16, lay, KGT_RHO)
 #undef KGT_RHO
 #undef KGT_RHO_AS
+  if (n_fix > 0) {
+    rho_finish_kernel<<<static_cast<unsigned>(fix_blocks), kThreads, 0, s>>>(
+        rho_part, fix_rows, fix_ptr, n_fix, heads, rho);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -893,11 +1243,9 @@ int64_t kgt_attend_recv_bwd_partial_rows(const void* ht, const void* g,
 
 // Receiver-side backward: dht [n_rows, heads*f] and v [n_slots, heads*f]
 // (null: not written) in the data's type, datt [heads*f] f32. scores == null
-// recomputes them (valid: null or [n_slots] bytes). pieces [n_pieces, 4]
-// int32 (row, first slot, end slot, share row or -1), each of at most cap
-// slots, cover every row and every slot once; the n_fix rows fix_rows split into several pieces take
-// the sum of their shares dht_part[fix_ptr[k] .. fix_ptr[k + 1]] ([*,
-// heads*f] f32 scratch). partial: scratch of
+// recomputes them (valid: null or [n_slots] bytes). pieces, cap, fix_rows,
+// fix_ptr and n_fix as for the forward; a split row's dht is the sum of its
+// shares in dht_part ([*, heads*f] f32 scratch). partial: scratch of
 // kgt_attend_recv_bwd_partial_rows(..., n_pieces, ...) rows. Scratch is
 // written before it is read.
 int kgt_attend_recv_bwd_full_sorted(
@@ -910,15 +1258,17 @@ int kgt_attend_recv_bwd_full_sorted(
     int64_t n_fix, void* v, float* datt, float* partial, int64_t n_rows,
     int heads, int64_t f, float slope, float eps, int is_bf16,
     void* stream) {
-  if (ht == nullptr || g == nullptr || senders == nullptr ||
-      pieces == nullptr || att == nullptr || m == nullptr || l == nullptr ||
-      rho == nullptr || dht == nullptr || datt == nullptr ||
-      partial == nullptr || n_pieces < n_rows || n_fix < 0 || cap < 1 ||
-      cap > 1024 ||
-      (n_fix > 0 && (dht_part == nullptr || fix_rows == nullptr ||
-                     fix_ptr == nullptr)) ||
-      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
-      !shape_ok(n_pieces, heads, f)) {
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t fix_blocks = finish_blocks(n_fix, d);
+  if (ht == nullptr || g == nullptr || senders == nullptr || att == nullptr ||
+      m == nullptr || l == nullptr || rho == nullptr || dht == nullptr ||
+      datt == nullptr || partial == nullptr ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 dht_part != nullptr && fix_rows != nullptr &&
+                     fix_ptr != nullptr,
+                 heads, f) ||
+      (n_fix > 0 && fix_blocks == 0) ||
+      d + fix_blocks >= (static_cast<int64_t>(1) << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -931,18 +1281,14 @@ int kgt_attend_recv_bwd_full_sorted(
   const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_BWD_AS(S, RECOMPUTE, EMIT_V)                                    \
   {                                                                         \
-    const size_t smem = recv_bwd_smem<S, VEC, NJ, WIDE>(lay.lph, cap);      \
-    const cudaError_t attr = cudaFuncSetAttribute(                          \
-        attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, EMIT_V, WIDE>,        \
-        cudaFuncAttributeMaxDynamicSharedMemorySize,                        \
-        static_cast<int>(smem));                                            \
-    if (attr != cudaSuccess) return static_cast<int>(attr);                 \
-    attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, EMIT_V, WIDE>             \
-        <<<grid, kThreads, smem, s>>>(                                      \
+    const cudaError_t err = launch_pieces(                                  \
+        attend_recv_bwd_kernel<S, VEC, NJ, RECOMPUTE, EMIT_V, WIDE>, grid,  \
+        piece_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s,                      \
         static_cast<const S*>(ht), static_cast<const S*>(g), senders, work, \
         n_pieces, cap, att, att_bf16, scores, m, l, rho, valid, drop,       \
         drop_bf16, static_cast<S*>(dht), dht_part, static_cast<S*>(v),      \
         partial, heads, fi, lay.lph, slope, eps);                           \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
   }
 #define KGT_BWD(S)                                                          \
   if (scores != nullptr && v != nullptr) {                                  \
@@ -957,13 +1303,6 @@ int kgt_attend_recv_bwd_full_sorted(
   KGT_DISPATCH(is_bf16, lay, KGT_BWD)
 #undef KGT_BWD
 #undef KGT_BWD_AS
-  const cudaError_t first = cudaGetLastError();
-  if (first != cudaSuccess) return static_cast<int>(first);
-  const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t fix_blocks = (n_fix * d + kThreads - 1) / kThreads;
-  if (d + fix_blocks >= (static_cast<int64_t>(1) << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const unsigned finish = static_cast<unsigned>(d + fix_blocks);
   if (is_bf16) {
     recv_bwd_finish_kernel<uint16_t><<<finish, kThreads, 0, s>>>(

@@ -1,5 +1,5 @@
-"""The host side of the band kernel's routes and of the receiver backward's
-work list, and the receiver backward walked in pieces.
+"""The host side of the band kernel's routes and of the attention kernels'
+work list, and the forward, rho and the receiver backward walked in pieces.
 
 ``band_route`` picks the banded SpMM's instantiation from the type and the
 shapes alone: the TMA + wgmma kernel for bf16 with ``F % 8 == 0`` (row blocks
@@ -7,20 +7,27 @@ of 256, ``W % 64 == 0``), the wmma kernel for any other bf16 shape, the FMA
 kernel for f32.
 
 ``recv_bwd_work`` cuts the receiver-sorted stream into pieces of at most
-``piece`` slots, so that no group of the receiver backward walks a long row
-serially. The graph here has a 5,000-slot hub row and a 511-slot padded
-tail in the last row (as ``prepare_graph`` pads a stream). A plain emulation
-of the kernel's walk, each piece summed alone and a split row's pieces added
-in piece order, is held against ``attend_recv_bwd_full_sorted_plain`` and
-the JAX package's Pallas kernel in interpret mode (f32: 1e-4, the
-reference's two-pass bf16 split of f32 operands; sums held against their
-largest entry).
+``piece`` slots, so that no group of the forward (K9), rho (K10b) or the
+receiver backward (K10c) walks a long row serially. The graph here has a
+5,000-slot hub row and a 511-slot padded tail in the last row (as
+``prepare_graph`` pads a stream). Plain emulations of the kernels' walks,
+each piece alone and a split row's pieces combined in piece order (K9: the
+flash-decoding merge of each piece's ``(m_p, l_p, o_p)``, skipping a piece
+without a finite score; K10b and K10c: the sum of the shares), are held
+against the plain versions and the JAX package's Pallas kernels in
+interpret mode (f32: 1e-4, the reference's two-pass bf16 split of f32
+operands; bf16: 2e-2; sums held against their largest entry). The padded
+tail row, whose real slots all lie in its first piece, gets its unsplit
+result bit for bit.
 
 The ``cuda``-marked tests run the kernels on a card: the wgmma band kernel at
-F = 40 and 128 and the wmma one at F = 7 against the plain version, and the
-receiver backward on the hub graph in every mode, its recomputed scores
-giving the cached scores' results bit for bit and two launches giving the
-same bits.
+F = 40 and 128 and the wmma one at F = 7 against the plain version; the
+forward, rho and the receiver backward on the hub graph in every mode,
+against their plain versions, recomputed scores giving the cached scores'
+results bit for bit and two launches giving the same bits; and the
+forward's scores and ``m`` equal to the score-and-statistics kernel's (a
+serial row walk) bit for bit, ``l`` too on every row whose finite scores
+lie in one piece.
 """
 
 import jax.numpy as jnp
@@ -30,7 +37,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from keras_geometric_tpu.kernels import attend_pallas, sddmm_pallas, spmm_pallas
-from keras_geometric_tpu_torch.kernels import attend_cuda, band_cuda
+from keras_geometric_tpu_torch.kernels import attend_cuda, band_cuda, sddmm_cuda
 
 torch.set_num_threads(1)
 
@@ -287,8 +294,10 @@ def test_cuda_band_routes_match_plain_version(f):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,f", [(4, 64), (8, 6), (1, 320)])
 def test_cuda_recv_bwd_on_the_hub_graph(heads, f, dtype):
-    """On a card: the receiver backward over the hub row and the padded tail
-    in every mode, against the plain version; scores recomputed inside the
+    """On a card, over the hub row and the padded tail: the forward and rho
+    that feed the receiver backward, in every mode
+    (``_check_forward_and_rho_on_card``); then the receiver backward in
+    every mode, against the plain version; scores recomputed inside the
     kernel give the cached scores' dht, datt and v bit for bit; two launches
     give the same bits."""
     if not torch.cuda.is_available():
@@ -300,6 +309,8 @@ def test_cuda_recv_bwd_on_the_hub_graph(heads, f, dtype):
     t = {k: torch.from_numpy(a).to(dev, dtype) for k, a in c.items()}
     graph = tuple(torch.from_numpy(a).to(dev) for a in (send, recv, row_ptr))
     edge_valid = torch.from_numpy(valid).to(dev)
+    _check_forward_and_rho_on_card(t, graph, edge_valid, valid, row_ptr,
+                                   dtype)
     _, scores, m, l = attend_cuda.sddmm_stats_agg_sorted(
         t["ht"], *graph, t["att"], edge_valid=edge_valid, drop_mask=t["drop"])
     rho = attend_cuda.attend_rho_sorted(t["g"], scores, m, l, t["ht"], *graph,
@@ -326,3 +337,240 @@ def test_cuda_recv_bwd_on_the_hub_graph(heads, f, dtype):
                                    atol=tol * scale)
     assert torch.equal(no_v[0], cached[0]) and torch.equal(no_v[1], cached[1])
     assert not cached[2][~edge_valid].any()
+
+
+def _one_piece_rows(row_ptr, valid, piece):
+    """Rows whose valid slots all lie in one piece of ``piece`` slots (or
+    that have none)."""
+    rows = np.zeros(row_ptr.shape[0] - 1, bool)
+    for r in range(rows.shape[0]):
+        at = np.nonzero(valid[row_ptr[r]:row_ptr[r + 1]])[0] // piece
+        rows[r] = at.size == 0 or at.min() == at.max()
+    return rows
+
+
+def _piecewise_forward(ht, send, att, valid, drop, work):
+    """K9's walk in plain torch: each piece runs the online softmax over its
+    valid slots alone, in slot order; a whole-row piece gives its row's out,
+    m and l; a split row merges its pieces' (m_p, l_p, o_p) in piece order,
+    skipping a piece without a finite score. Scores are -inf on padded
+    slots."""
+    n, d = ht.shape
+    heads, f = att.shape
+    out = torch.zeros(n, heads, f)
+    m_out = torch.zeros(n, heads)
+    l_out = torch.zeros(n, heads)
+    scores = torch.full((send.shape[0], heads), -np.inf)
+    parts = [None] * work.num_shares
+    for row, lo, hi, share in work.pieces.tolist():
+        m = torch.full((heads,), -np.inf)
+        l = torch.zeros(heads)
+        o = torch.zeros(heads, f)
+        hi_row = ht[row].view(heads, f)
+        for e in range(lo, hi):
+            if not valid[e]:
+                continue  # never gathered
+            hj = ht[send[e]].view(heads, f)
+            pre = hi_row + hj
+            s = (att * torch.where(pre > 0, pre, SLOPE * pre)).sum(-1)
+            scores[e] = s
+            keep = torch.ones(heads) if drop is None else drop[e]
+            m_new = torch.maximum(m, s)
+            scale = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * scale + p
+            o = o * scale[:, None] + (p * keep)[:, None] * hj
+            m = m_new
+        if share >= 0:
+            parts[share] = (m, l, o)
+            continue
+        out[row] = o / (l + EPS)[:, None]
+        m_out[row] = torch.where(m > -np.inf, m, 0.0)
+        l_out[row] = l
+    for k, row in enumerate(work.fix_rows.tolist()):
+        mine = parts[int(work.fix_ptr[k]):int(work.fix_ptr[k + 1])]
+        m = torch.stack([mp for mp, _, _ in mine]).max(0).values
+        l = torch.zeros(heads)
+        o = torch.zeros(heads, f)
+        for mp, lp, op in mine:
+            live = mp > -np.inf
+            w = torch.exp(mp - m)
+            l = torch.where(live, l + lp * w, l)
+            o = torch.where(live[:, None], o + op * w[:, None], o)
+        out[row] = o / (l + EPS)[:, None]
+        m_out[row] = torch.where(m > -np.inf, m, 0.0)
+        l_out[row] = l
+    return out.reshape(n, d), scores, m_out, l_out
+
+
+def _piecewise_rho(g, ht, send, scores, m, l, drop, work):
+    """K10b's walk in plain torch: each piece sums alpha * keep * dalpha over
+    its slots with a finite score alone; a split row's rho is its pieces'
+    shares added in piece order."""
+    n, d = ht.shape
+    heads = m.shape[1]
+    f = d // heads
+    rho = torch.zeros(n, heads)
+    shares = torch.zeros(work.num_shares, heads)
+    for row, lo, hi, share in work.pieces.tolist():
+        acc = torch.zeros(heads)
+        g_row = g[row].view(heads, f)
+        for e in range(lo, hi):
+            s = scores[e]
+            if not (s > -np.inf).any():
+                continue  # a padded slot: never gathered
+            hj = ht[send[e]].view(heads, f)
+            alpha = torch.exp(s - m[row]) / (l[row] + EPS)
+            keep = torch.ones(heads) if drop is None else drop[e]
+            acc = acc + alpha * keep * (g_row * hj).sum(-1)
+        if share < 0:
+            rho[row] = acc
+        else:
+            shares[share] = acc
+    for k, row in enumerate(work.fix_rows.tolist()):
+        total = torch.zeros(heads)
+        for p in range(int(work.fix_ptr[k]), int(work.fix_ptr[k + 1])):
+            total = total + shares[p]
+        rho[row] = total
+    return rho
+
+
+def _held(got, want, tol, what):
+    """Equal -inf entries, the rest within ``tol`` of the largest entry."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert np.array_equal(np.isneginf(got), np.isneginf(want)), what
+    got, want = (np.where(np.isneginf(a), 0.0, a) for a in (got, want))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_piecewise_forward_and_rho_equal_the_plain_versions_and_jax(dtype,
+                                                                    drop):
+    heads, f = 2, 4
+    n, recv, send, valid, row_ptr = _hub_graph(seed=7)
+    e = recv.shape[0]
+    c = _inputs(13, n, e, heads, f, drop)
+    # The inputs rounded to the working type; the walks sum in f32.
+    t = {k: None if a is None else
+         torch.from_numpy(a).to(getattr(torch, dtype)).float()
+         for k, a in c.items()}
+    graph = (torch.from_numpy(send), torch.from_numpy(recv),
+             torch.from_numpy(row_ptr))
+    work = attend_cuda.recv_bwd_work(graph[2])
+    assert work.fix_rows.tolist() == [7, n - 1]  # the hub and the tail
+    walked = _piecewise_forward(t["ht"], send, t["att"], valid, t["drop"],
+                                work)
+    plain = attend_cuda.sddmm_stats_agg_sorted_plain(
+        t["ht"], *graph, t["att"], edge_valid=torch.from_numpy(valid),
+        drop_mask=t["drop"], negative_slope=SLOPE, eps=EPS)
+    for got, want, what in zip(walked, plain, ("out", "scores", "m", "l")):
+        _held(got.numpy(), want.numpy(), 1e-4, f"{what} against plain")
+    _, scores, m, l = plain
+    rho = _piecewise_rho(t["g"], t["ht"], send, scores, m, l, t["drop"],
+                         work)
+    _held(rho.numpy(), attend_cuda.attend_rho_sorted_plain(
+        t["g"], scores, m, l, t["ht"], *graph, eps=EPS,
+        drop_mask=t["drop"]).numpy(), 1e-4, "rho against plain")
+
+    tables = spmm_pallas.build_row_tables(recv, n, edge_chunk=128,
+                                          row_block=32)
+    jd = jnp.dtype(dtype)
+    ht_j = jnp.asarray(c["ht"]).astype(jd)
+    hj = jnp.take(ht_j, jnp.asarray(send), axis=0)
+    drop_j = None if c["drop"] is None else jnp.asarray(c["drop"]).astype(jd)
+    with pltpu.force_tpu_interpret_mode():
+        j_out, j_scores, j_m, j_l = sddmm_pallas.sddmm_stats_agg_sorted(
+            ht_j, hj, jnp.asarray(c["att"]).astype(jd), tables=tables,
+            num_nodes=n, edge_valid=jnp.asarray(valid), negative_slope=SLOPE,
+            eps=EPS, drop_mask=drop_j)
+        j_rho = attend_pallas.attend_rho_sorted(
+            jnp.asarray(c["g"]).astype(jd), j_scores, j_m, j_l, hj,
+            tables=tables, eps=EPS, drop_mask=drop_j)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for got, want, what in zip(walked + (rho,),
+                               (j_out[:n], j_scores, j_m, j_l, j_rho[:n]),
+                               ("out", "scores", "m", "l", "rho")):
+        _held(got.numpy(), np.asarray(want.astype(jnp.float32)), tol,
+              f"{what} against the Pallas kernel")
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["nodrop", "drop"])
+def test_rows_whose_scores_lie_in_one_piece_merge_bit_for_bit(drop):
+    """The piecewise walk against the same walk with every row one piece:
+    every row whose finite scores lie in one piece (the padded tail row
+    among them) bit for bit, the split hub row to rounding."""
+    heads, f = 2, 4
+    n, recv, send, valid, row_ptr = _hub_graph(seed=7)
+    c = _inputs(21, n, recv.shape[0], heads, f, drop)
+    t = {k: None if a is None else torch.from_numpy(a) for k, a in c.items()}
+    rp = torch.from_numpy(row_ptr)
+    split = attend_cuda.recv_bwd_work(rp)
+    whole = attend_cuda.recv_bwd_work(rp, HUB + TAIL)
+    assert whole.num_shares == 0 and split.num_shares > 0
+    one = _one_piece_rows(row_ptr, valid, attend_cuda.RECV_BWD_PIECE)
+    assert one[n - 1] and not one[7]  # the padded tail, the hub
+    a = _piecewise_forward(t["ht"], send, t["att"], valid, t["drop"], split)
+    b = _piecewise_forward(t["ht"], send, t["att"], valid, t["drop"], whole)
+    assert torch.equal(a[1], b[1])  # scores: per slot
+    for x, y in zip(a[:1] + a[2:], b[:1] + b[2:]):
+        assert torch.equal(x[one], y[one])
+        _held(x.numpy(), y.numpy(), 1e-5, "the hub row")
+    rho_a = _piecewise_rho(t["g"], t["ht"], send, a[1], a[2], a[3],
+                           t["drop"], split)
+    rho_b = _piecewise_rho(t["g"], t["ht"], send, a[1], a[2], a[3],
+                           t["drop"], whole)
+    assert torch.equal(rho_a[one], rho_b[one])
+    _held(rho_a.numpy(), rho_b.numpy(), 1e-5, "the hub row's rho")
+    empty = np.diff(row_ptr) == 0
+    assert empty.any() and not a[0][empty].any() and not a[2][empty].any()
+    assert not a[3][empty].any() and not rho_a[empty].any()
+
+
+def _check_forward_and_rho_on_card(t, graph, edge_valid, valid, row_ptr,
+                                   dtype):
+    """The forward (with and without its scores) and rho (cached and
+    recomputed) on a card over the hub row and the padded tail, with and
+    without dropout, against their plain versions; two launches give the
+    same bits, the recomputed rho the cached one's; the scores and m equal
+    the serial score-and-statistics kernel's bit for bit, l too on every row
+    whose finite scores lie in one piece; empty rows are zeros."""
+    one = torch.from_numpy(_one_piece_rows(
+        row_ptr, valid, attend_cuda.RECV_BWD_PIECE)).to(edge_valid.device)
+    empty = torch.from_numpy(np.diff(row_ptr) == 0).to(edge_valid.device)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    args = (t["ht"], *graph, t["att"])
+    for drop in (None, t["drop"]):
+        kw = dict(edge_valid=edge_valid, drop_mask=drop)
+        fwd = attend_cuda.sddmm_stats_agg_sorted(*args, **kw)
+        again = attend_cuda.sddmm_stats_agg_sorted(*args, **kw)
+        no_scores = attend_cuda.sddmm_stats_agg_sorted(*args,
+                                                       emit_scores=False, **kw)
+        plain = attend_cuda.sddmm_stats_agg_sorted_plain(*args, **kw)
+        s8, m8, l8 = sddmm_cuda.sddmm_stats_sorted(*args,
+                                                   edge_valid=edge_valid)
+        out, scores, m, l = fwd
+        rho = attend_cuda.attend_rho_sorted(t["g"], scores, m, l, t["ht"],
+                                            *graph, drop_mask=drop)
+        rho_again = attend_cuda.attend_rho_sorted(
+            t["g"], scores, m, l, t["ht"], *graph, drop_mask=drop)
+        rho_re = attend_cuda.attend_rho_sorted(
+            t["g"], None, m, l, t["ht"], *graph, att=t["att"], **kw)
+        rho_plain = attend_cuda.attend_rho_sorted_plain(
+            t["g"], scores, m, l, t["ht"], *graph, drop_mask=drop)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(fwd, again))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(no_scores, (out, m, l)))
+        for a, b, what in zip(fwd, plain, ("out", "scores", "m", "l")):
+            _held(a.float().cpu().numpy(), b.float().cpu().numpy(), tol, what)
+        assert torch.equal(s8, scores) and torch.equal(m8, m)
+        assert torch.equal(l8[one], l[one])
+        _held(l8.cpu().numpy(), l.cpu().numpy(), 1e-5, "l of the hub row")
+        assert torch.equal(rho, rho_again) and torch.equal(rho, rho_re)
+        _held(rho.cpu().numpy(), rho_plain.cpu().numpy(), tol, "rho")
+        for x in (out, m, l, rho):
+            assert not x[empty].any()
