@@ -23,12 +23,23 @@ the longest row. ``--unpadded`` adds the same graphs prepared with
 banded SpMM (``band_spmm``) at the banded GCN's shapes (169,472 padded
 nodes, a dense random bf16 band of 1,024 columns, row blocks of 256, F = 128
 and 40) beside ``torch.bmm`` over the row blocks with the ``x`` windows
-gathered beforehand. With ``--ptxas``
-it first prints, per copy, the registers and spills that ``nvcc -Xptxas -v``
-reports for the kernels' bf16 instantiations at the arxiv widths and their
-f32 ones at CiteSeer's.
+gathered beforehand. ``--gcn`` adds the fused-gather scatter (K1) at the
+arxiv-shaped GCN's two layers (169,343 nodes padded to 169,472, 2 x
+583,121 symmetric edges, GCN weights and the densified diagonal in bf16, F
+= 128 and 40). Where a copy's fused-gather scatter walks pieces, the GCN
+cases and the sender finish are also timed as its row walk
+(``pieces=False``). ``--only=a,b`` keeps the named groups of cases
+(``attend``: the forward, rho and the receiver backward in every mode;
+``send``: the sender backward; ``finish``; ``gcn``; ``band``), so that a
+copy that changes one kernel is timed on that kernel alone. With
+``--ptxas`` it first prints, per copy, the registers and spills that ``nvcc
+-Xptxas -v`` reports for the attention kernels' bf16 instantiations at the
+arxiv widths and their f32 ones at CiteSeer's, and for the fused-gather
+scatter's at bf16 (16-byte packs) and f32 (four-wide packs).
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
+    python3 attend_kernels_ab.py build/parent . . build/parent --gcn \
+        --only=send,finish,gcn --unpadded
 """
 
 from __future__ import annotations
@@ -38,36 +49,48 @@ import os
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+
+GROUPS = ("attend", "send", "finish", "gcn", "band")
+# Template arguments of the instantiations --ptxas shows, per source.
+SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
+         "spmm.cu": ("unsigned short, 8>", "float, 4>",
+                     "unsigned short, 8, true>", "float, 4, true>")}
 
 
-def ptxas_report(root: str) -> None:
-    source = os.path.join(root, "keras_geometric_tpu_torch", "kernels", "csrc",
-                          "attend.cu")
+def ptxas_report(root: str) -> list:
+    """The ptxas lines of the shown instantiations of a copy's sources."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "nvcc")
-    proc = subprocess.run(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-Xptxas", "-v", "-c", "-o", os.devnull, source],
-        capture_output=True, text=True, check=True)
-    kernel = None
-    for line in proc.stderr.splitlines():
-        found = re.search(r"Compiling entry function '(\S+)'", line)
-        if found:
-            kernel = subprocess.run(["c++filt", found.group(1)],
-                                    capture_output=True, text=True).stdout
-        regs = re.search(r"Used (\d+) registers", line)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        shown = kernel and ("unsigned short, 8, 1" in kernel
-                            or "float, 4, 1" in kernel
-                            or "float, 2, 1" in kernel)
-        if shown and (regs or spill):
-            name = re.search(r"::(\w+<[^>]*>)\(", kernel).group(1)
-            print(json.dumps({"root": root, "kernel": name,
-                              "line": line.strip()}), flush=True)
+    out = []
+    for name, shown_args in SHOWN.items():
+        source = os.path.join(root, "keras_geometric_tpu_torch", "kernels",
+                              "csrc", name)
+        proc = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xptxas", "-v", "-c", "-o", os.devnull, source],
+            capture_output=True, text=True, check=True)
+        kernel = None
+        for line in proc.stderr.splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                kernel = subprocess.run(["c++filt", found.group(1)],
+                                        capture_output=True,
+                                        text=True).stdout
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            shown = kernel and any(a in kernel for a in shown_args)
+            if shown and (regs or spill):
+                kname = re.search(r"::(\w+<[^>]*>)\(", kernel).group(1)
+                out.append({"root": root, "kernel": kname,
+                            "line": line.strip()})
+    return out
 
 
-def time_copy(root: str, unpadded: bool, band: bool) -> None:
+def time_copy(root: str, unpadded: bool, groups: set) -> None:
     sys.path.insert(0, os.path.abspath(root))
+    import inspect
+
     import numpy as np
     import torch
 
@@ -79,8 +102,13 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
     if not A.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"imported {A.__file__}, not the copy in {root}")
     device = torch.device("cuda")
-    _build.load_libraries(["attend", "spmm"] + (["band"] if band else []))
+    gat = bool(groups & {"attend", "send", "finish"})
+    band = "band" in groups
+    _build.load_libraries(["spmm"] + (["attend"] if gat else [])
+                          + (["band"] if band else []))
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
+    has_pieces = "pieces" in inspect.signature(
+        K.gather_scatter_sum_sorted).parameters
 
     def cold_ms(fn, iters=20, warmup=3):
         for _ in range(warmup):
@@ -110,7 +138,48 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
     if unpadded:
         chunks.append(("unpadded", {"edge_chunk": 1}))
     has_modes = "attend_send_bwd_sorted" in A.LAUNCH_COUNTS
-    result = {"root": root, "card": torch.cuda.get_device_name(0)}
+    result = {"root": root, "card": torch.cuda.get_device_name(0),
+              "groups": sorted(groups)}
+    if "gcn" in groups:
+        # chip_smoke.py's arxiv_workload: the features are drawn first.
+        half = 1_166_243 // 2
+        gcn_rng = np.random.default_rng(0)
+        gcn_rng.standard_normal((n, 128))
+        a = gcn_rng.integers(0, n, half).astype(np.int32)
+        b = gcn_rng.integers(0, n, half).astype(np.int32)
+        sym = np.stack([np.concatenate([a, b]), np.concatenate([b, a])])
+        gen = torch.Generator(device=device).manual_seed(2)
+        for pad_name, kwargs in chunks:
+            ctx = kgt.prepare_graph(
+                sym, n, add_self_loops=True, gcn_normalize=True,
+                symmetric=True, densify_self_loops=True, pad_nodes=True,
+                device=device, **kwargs).with_weight_dtype(torch.bfloat16)
+            key = f"gcn {pad_name}"
+            lengths = ctx.row_ptr[1:] - ctx.row_ptr[:-1]
+            result[key] = {"slots": ctx.senders.shape[0],
+                           "padded_slots": ctx.senders.shape[0]
+                           - ctx.num_real_edges,
+                           "longest_row": int(lengths.max())}
+            for layer, f in (("layer 1", 128), ("layer 2", 40)):
+                h = torch.randn(ctx.num_nodes, f, generator=gen,
+                                device=device).to(torch.bfloat16)
+                args = (h, ctx.senders, ctx.receivers, ctx.row_ptr,
+                        ctx.num_nodes)
+                kw = dict(weights=ctx.edge_weight,
+                          self_weight=ctx.self_weight)
+                cases = {"K1 gcn": lambda: K.gather_scatter_sum_sorted(
+                    *args, **kw)}
+                if has_pieces:
+                    cases["K1 gcn (rows)"] = lambda: (
+                        K.gather_scatter_sum_sorted(*args, pieces=False,
+                                                    **kw))
+                result[key][layer] = {case: cold_ms(fn)
+                                      for case, fn in cases.items()}
+                del h, args
+            del ctx
+            torch.cuda.empty_cache()
+    if not gat:
+        shapes = ()
     if band:
         from keras_geometric_tpu_torch.kernels import band_cuda as B
 
@@ -182,6 +251,8 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
                         l, rho, edge_valid=None if cached else valid,
                         emit_v=emit_v, drop_mask=drop)
 
+                finish = (v, ctx.bwd_perm, ctx.senders_sorted,
+                          ctx.row_ptr_bwd, nodes)
                 cases = {
                     "sddmm_stats_agg_sorted": lambda: (
                         A.sddmm_stats_agg_sorted(ht, *graph, att,
@@ -190,10 +261,14 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
                     "attend_rho_sorted": lambda: A.attend_rho_sorted(
                         g, scores, m, l, ht, *graph, drop_mask=drop),
                     "attend_recv_bwd_full_sorted": recv_bwd,
-                    "sender finish": lambda: K.gather_scatter_sum_sorted(
-                        v, ctx.bwd_perm, ctx.senders_sorted,
-                        ctx.row_ptr_bwd, nodes),
                 }
+                if "finish" in groups:
+                    cases["sender finish"] = (
+                        lambda: K.gather_scatter_sum_sorted(*finish))
+                    if has_pieces:
+                        cases["sender finish (rows)"] = (
+                            lambda: K.gather_scatter_sum_sorted(
+                                *finish, pieces=False))
                 if has_modes:
                     cases.update({
                         "sddmm_stats_agg_sorted(emit_scores=False)": lambda: (
@@ -217,31 +292,58 @@ def time_copy(root: str, unpadded: bool, band: bool) -> None:
                                 ctx.row_ptr_bwd, att, m, l, rho,
                                 valid_ss=ctx.edge_mask_ss, drop_ss=drop_ss)),
                     })
+                if "attend" not in groups:
+                    cases = {k: fn for k, fn in cases.items()
+                             if k.startswith("sender finish")
+                             or k == "attend_send_bwd_sorted"}
+                if "send" not in groups:
+                    cases.pop("attend_send_bwd_sorted", None)
                 result[key][layer] = {case: cold_ms(fn)
                                       for case, fn in cases.items()}
-                del v, scores, cases
+                del v, scores, cases, finish
             del ctx
             torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
 
 
+def groups_of(flags) -> set:
+    """The case groups the flags ask for: ``--only=`` names them; otherwise
+    the attention's (attend, send, finish), plus gcn / band when asked."""
+    only = [f.split("=", 1)[1] for f in flags if f.startswith("--only=")]
+    if only:
+        groups = set(only[-1].split(","))
+        unknown = groups - set(GROUPS)
+        if unknown:
+            raise SystemExit(f"unknown groups {sorted(unknown)}; known: "
+                             f"{GROUPS}")
+        return groups
+    return ({"attend", "send", "finish"} | ({"gcn"} if "--gcn" in flags
+                                            else set())
+            | ({"band"} if "--band" in flags else set()))
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        time_copy(args[1], "--unpadded" in args, "--band" in args)
+        time_copy(args[1], "--unpadded" in args, groups_of(args[2:]))
         return 0
-    flags = [a for a in args if a in ("--ptxas", "--unpadded", "--band")]
+    flags = [a for a in args if a in ("--ptxas", "--unpadded", "--band",
+                                      "--gcn") or a.startswith("--only=")]
     roots = [a for a in args if a not in flags]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
+    groups_of(flags)  # refuses an unknown group before anything runs
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     if "--ptxas" in flags:
-        for root in dict.fromkeys(roots):
-            ptxas_report(root)
+        unique = list(dict.fromkeys(roots))
+        with ThreadPoolExecutor(max_workers=len(unique)) as pool:
+            for lines in pool.map(ptxas_report, unique):
+                for line in lines:
+                    print(json.dumps(line), flush=True)
     for root in roots:
         subprocess.run([sys.executable, __file__, "--child", root,
                         *[a for a in flags if a != "--ptxas"]],

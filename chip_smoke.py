@@ -18,7 +18,8 @@ exit code and without the final line; so does a run of a subset of the phases
 1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build, and
                 the registers and spills ``nvcc -Xptxas -v`` reports for the
                 TMA band kernel and the kernels that walk pieces (forward,
-                rho, receiver backward);
+                rho, both backwards, the fused-gather scatter and its row
+                walk);
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
@@ -41,7 +42,12 @@ exit code and without the final line; so does a run of a subset of the phases
                 launch, the score-and-statistics kernel against the
                 forward's scores and ``m`` (and ``l`` on every row whose
                 finite scores lie in one piece of the forward's work list),
-                and two sender-backward launches against each other; the attention kernels also at
+                and two sender-backward launches against each other, the
+                permute finish on the same graph (the fused-gather scatter's
+                piece walk, and bit for bit its row walk on every sender row
+                of at most one piece; the same on every fused-gather case of
+                the sweep above and at the training shapes below); the
+                attention kernels also at
                 the wide heads (H, F) in (1, 320), (2, 512), which walk a
                 head in 256-column slabs; the narrow segment max at K in
                 1, 4, 8 and the wide one, forward and both tie rules of its
@@ -330,6 +336,33 @@ PTXAS_SHOWN = {
         "attend_rho_kernel<bf16, 8, 1, recompute> (arxiv)",
     "attend_rho_kernelIfLi4ELi1ELb0ELb0E":
         "attend_rho_kernel<f32, 4, 1, cached> (CiteSeer L1)",
+    "attend_send_bwd_kernelItLi8ELi1ELb0E":
+        "attend_send_bwd_kernel<bf16, 8, 1> (arxiv)",
+    "attend_send_bwd_kernelIfLi4ELi1ELb0E":
+        "attend_send_bwd_kernel<f32, 4, 1> (CiteSeer L1)",
+    "attend_send_bwd_kernelItLi8ELi1ELb1E":
+        "attend_send_bwd_kernel<bf16, 8, 1, wide>",
+    "send_bwd_finish_kernelItE": "send_bwd_finish_kernel<bf16>",
+    "gather_scatter_pieces_kernelItLi8E":
+        "gather_scatter_pieces_kernel<bf16, 8> (GCN arxiv, finish arxiv)",
+    "gather_scatter_pieces_kernelIfLi4E":
+        "gather_scatter_pieces_kernel<f32, 4> (finish CiteSeer)",
+    "gather_scatter_merge_kernelItE": "gather_scatter_merge_kernel<bf16>",
+    "scatter_sum_sorted_kernelItLi8ELb1E":
+        "scatter_sum_sorted_kernel<bf16, 8, gather> (the row walk)",
+}
+
+# The CUDA kernels each call of a piece-walking wrapper launches: the walk
+# over the pieces, then (where the work list has split rows) the merge.
+PIECE_KERNELS = {
+    "sddmm_stats_agg_sorted": ("sddmm_stats_agg_kernel", "agg_finish_kernel"),
+    "attend_rho_sorted": ("attend_rho_kernel", "rho_finish_kernel"),
+    "attend_recv_bwd_full_sorted": ("attend_recv_bwd_kernel",
+                                    "recv_bwd_finish_kernel"),
+    "attend_send_bwd_sorted": ("attend_send_bwd_kernel",
+                               "send_bwd_finish_kernel"),
+    "gather_scatter_sum_sorted": ("gather_scatter_pieces_kernel",
+                                  "gather_scatter_merge_kernel"),
 }
 
 
@@ -351,8 +384,9 @@ def ptxas_report() -> dict:
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {source}")
         return proc.stderr.splitlines()
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        lines = [l for out in pool.map(one, ("band", "attend")) for l in out]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        lines = [l for out in pool.map(one, ("band", "attend", "spmm"))
+                 for l in out]
     report, shown = {}, None
     for line in lines:
         found = re.search(r"Compiling entry function '(\S+)'", line)
@@ -464,6 +498,19 @@ def skewed_graph(device, n=20_000, seed=1, hub=20_000):
                 mask=dev(mask), self_w=dev(self_w), row_ptr=dev(row_ptr))
 
 
+def check_one_piece_rows_equal(pieces_out, rows_out, row_ptr, what):
+    """The fused-gather form's piece walk against its row walk: the same
+    bits on every row of at most one piece's slots (a split row's shares
+    are added in another order)."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    one = (row_ptr[1:] - row_ptr[:-1]) <= K.RECV_BWD_PIECE
+    check(torch.equal(pieces_out[one], rows_out[one]),
+          f"{what}: the piece walk differs from the row walk on a row that "
+          f"is one piece")
+    return int(one.sum())
+
+
 def kernel_sweep(device):
     """Every kernel, every variant, on the skewed graph. Returns the number of
     comparisons and the worst error per kernel."""
@@ -519,14 +566,22 @@ def kernel_sweep(device):
                     out = K.gather_scatter_sum_sorted(
                         rows, g["idx"], g["recv"], g["row_ptr"], n,
                         weights=w, self_weight=self_w)
+                    by_rows = K.gather_scatter_sum_sorted(
+                        rows, g["idx"], g["recv"], g["row_ptr"], n,
+                        weights=w, self_weight=self_w, pieces=False)
                     ref = K.gather_scatter_sum_sorted_plain(
                         rows, g["idx"], g["recv"], n, weights=w,
                         self_weight=self_w)
                     worst["gather_scatter_sum_sorted"] = max(
                         worst["gather_scatter_sum_sorted"],
                         compare(out, ref, mass, dtype,
-                                f"gather_scatter_sum_sorted {tag}"))
-                    cases += 1
+                                f"gather_scatter_sum_sorted {tag}"),
+                        compare(by_rows, ref, mass, dtype,
+                                f"gather_scatter_sum_sorted (rows) {tag}"))
+                    check_one_piece_rows_equal(
+                        out, by_rows, g["row_ptr"],
+                        f"gather_scatter_sum_sorted {tag}")
+                    cases += 2
     torch.cuda.synchronize()
     # Empty rows are exact zeros; an empty output launches nothing.
     out = K.scatter_sum_sorted(msgs, g["recv"], n, row_ptr=g["row_ptr"])
@@ -607,8 +662,14 @@ def time_kernel_cases(device, timer, contexts, replaces):
         w_lib = torch.ones(e, device=device) if w is None else w
         edge_ids = torch.arange(e, device=device)
         for name, path in kernels.items():
+            piece_walk = None
             if name == "gather_scatter_sum_sorted":
+                # The GCN's operator runs the row walk (ops/csr.py); the
+                # piece walk is held and timed beside it.
                 kernel = lambda: K.gather_scatter_sum_sorted(
+                    h, ctx.senders, ctx.receivers, ctx.row_ptr, n, weights=w,
+                    self_weight=sw, pieces=False)
+                piece_walk = lambda: K.gather_scatter_sum_sorted(
                     h, ctx.senders, ctx.receivers, ctx.row_ptr, n, weights=w,
                     self_weight=sw)
                 plain = lambda: K.gather_scatter_sum_sorted_plain(
@@ -656,6 +717,23 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 mass = p_out.float().abs()
             err = compare(k_out, p_out, mass, dtype,
                           f"{name} at {ctx_name} {layer}")
+            walk_fields = {}
+            if piece_walk is not None:
+                pieces_out = piece_walk()
+                walk_fields = {"mode": "rows",
+                               "cuda_kernels": ["scatter_sum_sorted_kernel"]}
+                walk_fields["piece_walk"] = piece_walk_fields(name,
+                                                              ctx.row_ptr)
+                walk_fields["piece_walk"].update(
+                    max_abs_err=compare(pieces_out, p_out, mass, dtype,
+                                        f"{name} (pieces) at {ctx_name} "
+                                        f"{layer}"),
+                    one_piece_rows_equal_to_row_walk=(
+                        check_one_piece_rows_equal(
+                            pieces_out, k_out, ctx.row_ptr,
+                            f"{name} at {ctx_name} {layer}")),
+                    ms=timer.cold_ms(piece_walk))
+                del pieces_out
             del k_out, p_out, mass
             ms = timer.cold_ms(kernel)
             plain_ms = timer.cold_ms(plain, iters=10)
@@ -682,6 +760,7 @@ def time_kernel_cases(device, timer, contexts, replaces):
             if no_reuse is not None:
                 entry["bound_ms_if_gather_not_reused"] = (
                     no_reuse / H100_BYTES_PER_S * 1e3)
+            entry.update(walk_fields)
             entries.append(entry)
     return entries
 
@@ -926,22 +1005,32 @@ def longest_row(row_ptr) -> int:
     return int((row_ptr[1:] - row_ptr[:-1]).max())
 
 
-# The kernels that walk the work list of pieces (attend_cuda.recv_bwd_work).
+# The kernels that walk the work list of pieces of the receiver-sorted
+# stream (spmm_cuda.recv_bwd_work of row_ptr).
 PIECE_WALKS = ("sddmm_stats_agg_sorted", "attend_rho_sorted",
                "attend_recv_bwd_full_sorted")
 
 
 def piece_fields(row_ptr) -> dict:
-    """The work list those kernels walk over a stream: its longest row, its
+    """The work list a piece walk takes over a stream: its longest row, its
     pieces and its rows split into several pieces."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
-    work = A.recv_bwd_work(row_ptr)
+    work = K.recv_bwd_work(row_ptr)
     return {"longest_row": longest_row(row_ptr), "pieces": work.num_pieces,
             "split_rows": int(work.fix_rows.shape[0])}
 
 
-def time_attend_cases(device, timer, contexts, replaces, hub):
+def piece_walk_fields(name, row_ptr) -> dict:
+    """``piece_fields`` and the CUDA kernels a call of ``name`` launches
+    over that list: its piece walk, and its merge where rows are split."""
+    fields = piece_fields(row_ptr)
+    walk, merge = PIECE_KERNELS[name]
+    fields["cuda_kernels"] = [walk] + ([merge] if fields["split_rows"] else [])
+    return fields
+
+
+def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
     """The attention kernels and the sender finish (the fused-gather scatter
     reading ``v`` through ``bwd_perm``) at the shapes the GATv2 training runs
     give them: kernel, plain version, bound from bytes and operations. No
@@ -951,9 +1040,14 @@ def time_attend_cases(device, timer, contexts, replaces, hub):
     order for the finish) and the kernel's time on the same graph prepared
     without padded slots (``ms_unpadded``): where a padded tail, which
     ``prepare_graph`` puts in the last row, is walked serially, the two
-    times differ. The attention kernels' entries add the pieces and split
-    rows of the work list they walk, and their times on ``attend_sweep``'s
-    graph with and without its 20,000-slot hub row (``hub_row_ms``)."""
+    times differ. Every entry adds the pieces and split rows of the work
+    list it walks (the finish: over the sender-sorted stream) and the CUDA
+    kernels a call launches; the attention kernels' entries their times on
+    ``attend_sweep``'s graph with and without its 20,000-slot hub row
+    (``hub_row_ms``), the finish's its times on ``send_skewed_graph`` with
+    and without its 20,000-slot hub sender, its time as a row walk
+    (``ms_row_walk``) and the rows on which the two walks gave the same
+    bits (every row of at most one piece's slots)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -994,12 +1088,18 @@ def time_attend_cases(device, timer, contexts, replaces, hub):
             v, ctx.bwd_perm, ctx.senders_sorted, n)
         finish_mass = K.gather_scatter_sum_sorted_plain(
             v.float().abs(), ctx.bwd_perm, ctx.senders_sorted, n)
+        finish = K.gather_scatter_sum_sorted(
+            v, ctx.bwd_perm, ctx.senders_sorted, ctx.row_ptr_bwd, n)
         errs["gather_scatter_sum_sorted"] = compare(
-            K.gather_scatter_sum_sorted(v, ctx.bwd_perm, ctx.senders_sorted,
-                                        ctx.row_ptr_bwd, n),
-            finish_plain, finish_mass, dtype,
+            finish, finish_plain, finish_mass, dtype,
             f"sender finish at {ctx_name} {layer}")
-        del finish_plain, finish_mass
+        finish_rows = lambda: K.gather_scatter_sum_sorted(
+            v, ctx.bwd_perm, ctx.senders_sorted, ctx.row_ptr_bwd, n,
+            pieces=False)
+        one_piece = check_one_piece_rows_equal(
+            finish, finish_rows(), ctx.row_ptr_bwd,
+            f"sender finish at {ctx_name} {layer}")
+        del finish_plain, finish_mass, finish
         senders_long = ctx.senders.long()
         # The same graph and inputs over a stream without padded slots.
         bare = unpadded_context(ctx)
@@ -1106,12 +1206,15 @@ def time_attend_cases(device, timer, contexts, replaces, hub):
                 entry["bound_ms_if_gather_not_reused"] = (
                     (case["nbytes"] + e * d * es) / H100_BYTES_PER_S * 1e3)
             sender_order = name == "gather_scatter_sum_sorted"
-            entry["longest_row"] = longest_row(
-                ctx.row_ptr_bwd if sender_order else ctx.row_ptr)
+            entry.update(piece_walk_fields(
+                name, ctx.row_ptr_bwd if sender_order else ctx.row_ptr))
             if name in PIECE_WALKS:
-                entry.update(piece_fields(ctx.row_ptr))
                 entry["hub_row_ms"] = {label: times[name]
                                        for label, times in hub.items()}
+            else:  # the finish, on the hub sender of send_skewed_graph
+                entry["hub_row_ms"] = send_hub[name]
+                entry["one_piece_rows_equal_to_row_walk"] = one_piece
+                entry["ms_row_walk"] = timer.cold_ms(finish_rows, iters=10)
             entry["padded_slots"] = e - int(ctx.edge_mask.sum())
             entry["ms_unpadded"] = timer.cold_ms(unpadded[name], iters=10)
             entry["longest_row_unpadded"] = longest_row(
@@ -1182,10 +1285,13 @@ def modes_case(graph, ht, att, gout, drop, what):
     forward's statistics. Also held bit for bit: each mode against the
     cached one on the kernels' own forward, the score-and-statistics kernel
     against the forward's scores, ``m`` and ``l``, and a second launch of the
-    sender backward against the first. Returns each kernel's (and branch's)
-    largest absolute error."""
+    sender backward against the first. Then the permute finish over the same
+    sender order against its plain version, and its piece walk against its
+    row walk bit for bit on the sender rows of at most one piece. Returns
+    each kernel's (and branch's) largest absolute error."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     send, recv, row_ptr, valid = graph
     n = ht.shape[0]
@@ -1289,6 +1395,21 @@ def modes_case(graph, ht, att, gout, drop, what):
     errs["attend_send_bwd_sorted"] = compare(
         got, A.attend_send_bwd_sorted_plain(*send_args, **send_kw),
         send_mass, ht.dtype, f"{what} attend_send_bwd_sorted")
+    # The permute finish over the same sender order: the fused-gather
+    # scatter of the plain receiver backward's v through perm, its piece
+    # walk against the plain version and, on every sender row of at most one
+    # piece's slots, against its row walk bit for bit.
+    p_v = A.attend_recv_bwd_full_sorted_plain(
+        ht, gout, *g3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)[2]
+    finish = (p_v, perm.to(torch.int32), ss[1], ss[2], n)
+    got = K.gather_scatter_sum_sorted(*finish)
+    errs["gather_scatter_sum_sorted(sender finish)"] = compare(
+        got, K.gather_scatter_sum_sorted_plain(*finish[:3], n),
+        K.gather_scatter_sum_sorted_plain(p_v.float().abs(), *finish[1:3], n),
+        ht.dtype, f"{what} sender finish")
+    check_one_piece_rows_equal(
+        got, K.gather_scatter_sum_sorted(*finish, pieces=False), ss[2],
+        f"{what} sender finish")
     return errs
 
 
@@ -1315,9 +1436,12 @@ def send_skewed_graph(device, hub=20_000):
 def modes_sweep(device, timer):
     """``modes_case`` at every listed (H, F), both types, with and without
     a dropout mask, on ``send_skewed_graph``; then what its 20,000-slot hub
-    sender row costs the sender backward (the same graph timed with and
-    without that row, at the arxiv layer-1 width in bf16)."""
+    sender row costs the sender backward and the permute finish (the same
+    graph timed with and without that row, at the arxiv layer-1 width in
+    bf16; ``modes_case`` also holds every kernel on the graph without the
+    row)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     g = send_skewed_graph(device)
     graph = (g["idx"], g["recv"], g["row_ptr"], g["mask"])
@@ -1336,7 +1460,7 @@ def modes_sweep(device, timer):
                     worst[name] = max(worst.get(name, 0.0), err)
                 cases += len(errs)
     torch.cuda.synchronize()
-    hub = {}
+    hub = {"attend_send_bwd_sorted": {}, "gather_scatter_sum_sorted": {}}
     heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
     for label, sg in (("with_hub_sender", g),
                       ("without_hub_sender", send_skewed_graph(device, 0))):
@@ -1344,13 +1468,27 @@ def modes_sweep(device, timer):
                                          torch.bfloat16, sg["e"], False,
                                          device)
         graph = (sg["idx"], sg["recv"], sg["row_ptr"])
+        if label == "without_hub_sender":
+            errs = modes_case(graph + (sg["mask"],), ht, att, gout, None,
+                              f"modes without the hub sender bf16 H={heads} "
+                              f"F={f}")
+            for name, err in errs.items():
+                worst[name] = max(worst.get(name, 0.0), err)
+            cases += len(errs)
         _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att,
                                                    edge_valid=sg["mask"])
         rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph)
-        ss, valid_ss, _ = sender_order(sg["idx"], sg["recv"], sg["mask"],
-                                       sg["n"])
-        hub[label] = timer.cold_ms(lambda: A.attend_send_bwd_sorted(
-            ht, gout, *ss, att, m, l, rho, valid_ss=valid_ss), iters=10)
+        _, _, v = A.attend_recv_bwd_full_sorted(ht, gout, *graph, att,
+                                                scores, m, l, rho)
+        ss, valid_ss, perm = sender_order(sg["idx"], sg["recv"], sg["mask"],
+                                          sg["n"])
+        finish = (v, perm.to(torch.int32), ss[1], ss[2], sg["n"])
+        hub["attend_send_bwd_sorted"][label] = timer.cold_ms(
+            lambda: A.attend_send_bwd_sorted(ht, gout, *ss, att, m, l, rho,
+                                             valid_ss=valid_ss), iters=10)
+        hub["gather_scatter_sum_sorted"][label] = timer.cold_ms(
+            lambda: K.gather_scatter_sum_sorted(*finish), iters=10)
+        del v, scores, finish
     return cases, worst, hub
 
 
@@ -1406,12 +1544,14 @@ def time_wide_heads(device, timer, ctx):
     return out
 
 
-def time_mode_cases(device, timer, contexts, replaces):
+def time_mode_cases(device, timer, contexts, replaces, send_hub):
     """The mode branches, the sender backward and the two-pass forward's
     kernels at the shapes their runs give them: kernel, plain version, bound
     from bytes and operations, and the bound if no gathered row came from
-    the cache. No single PyTorch call computes any of them (null
-    ``library_ms``)."""
+    the cache; for the kernels that walk pieces, the work list and the CUDA
+    kernels a call launches, and for the sender backward its times on
+    ``send_skewed_graph`` with and without its hub sender (``send_hub``).
+    No single PyTorch call computes any of them (null ``library_ms``)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -1556,7 +1696,10 @@ def time_mode_cases(device, timer, contexts, replaces):
             if mode is not None:
                 entry["mode"] = mode
             if name in PIECE_WALKS:
-                entry.update(piece_fields(ctx.row_ptr))
+                entry.update(piece_walk_fields(name, ctx.row_ptr))
+            elif name == "attend_send_bwd_sorted":
+                entry.update(piece_walk_fields(name, ctx.row_ptr_bwd))
+                entry["hub_row_ms"] = send_hub[name]
             entries.append(entry)
         del scores, rho, cases
         torch.cuda.empty_cache()
@@ -2068,10 +2211,11 @@ def time_band_cases(device, timer, contexts, replaces):
             del windows
             continue
 
-        def residual(c):
+        def residual(c):  # the GCN's operator: the row walk (ops/csr.py)
             return K.gather_scatter_sum_sorted(
                 x, c.senders, c.receivers, c.row_ptr, n,
-                weights=c.edge_weight, self_weight=c.self_weight)
+                weights=c.edge_weight, self_weight=c.self_weight,
+                pieces=False)
 
         entries[-1]["tier_ms"] = timer.cold_ms(
             lambda: (B.band_matmul(x, *args), residual(ctx)), iters=10)
@@ -2511,8 +2655,11 @@ class PlainContext:
         return out
 
     def gather(self, h):
-        # f32 inside: autograd's index_select backward sums in the data's type
-        return h.float().index_select(0, self.ctx.senders).to(h.dtype)
+        # f64 inside: autograd's index_select backward sums in the data's
+        # type, serially in effect (atomics), and an f32 serial sum of a hub
+        # row's equal cotangents drifts by units where the kernel's sum in
+        # pieces does not
+        return h.double().index_select(0, self.ctx.senders).to(h.dtype)
 
     def sddmm_scores(self, ht, hj, att, *, negative_slope=0.2):
         from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
@@ -3330,11 +3477,11 @@ def main() -> int:
             replaces)
         attention_contexts = {"gat_arxiv": workload("gat_arxiv")[0],
                               "citeseer": workload("citeseer")[0]}
-        kernel_entries += time_attend_cases(device, timer, attention_contexts,
-                                            replaces, hub)
         modes_cases, modes_worst, send_hub = modes_sweep(device, timer)
+        kernel_entries += time_attend_cases(device, timer, attention_contexts,
+                                            replaces, hub, send_hub)
         kernel_entries += time_mode_cases(device, timer, attention_contexts,
-                                          replaces)
+                                          replaces, send_hub)
         composed_cases, composed_worst, composed_hub = composed_sweep(
             device, timer)
         kernel_entries += time_composed_cases(device, timer,
@@ -3355,7 +3502,7 @@ def main() -> int:
              wide_head_ms=time_wide_heads(device, timer,
                                           workload("gat_arxiv")[0]),
              hub_row_ms={**hub, "composed": composed_hub,
-                         "attend_send_bwd_sorted": send_hub},
+                         "sender_order": send_hub},
              timed=[{k: e[k] for k in ("name", "mode", "shape", "max_abs_err",
                                        "ms", "plain_ms", "library_ms",
                                        "bound_ms", "tier_ms",
@@ -3422,6 +3569,10 @@ def main() -> int:
     adamw = lambda lr: (lambda model: torch.optim.AdamW(
         model.parameters(), lr=lr, weight_decay=5e-4))
     spmm_only = {"gather_scatter_sum_sorted": 3}  # L1 fwd, L2 fwd, L2 bwd
+    # The GCN's operator takes the fused-gather scatter's row walk; every
+    # other caller (the gather's VJP, the attention's finishes) its piece
+    # walk, so each run's count of row walks is its GCN spmm calls.
+    gcn_rows = {"gather_scatter_sum_sorted(rows)": 3}
     # Per GATv2 layer: one fused forward; in the backward one rho, one
     # receiver-backward and one sender finish (the fused-gather scatter).
     # Both layers run the whole backward: the input features need no
@@ -3496,12 +3647,13 @@ def main() -> int:
               "arxiv-shaped context has the wrong size")
         emit("prepare_arxiv_shape", host_seconds=prepare_s)
         train("train_arxiv_shape", steps=8, per_step=spmm_only,
-              timed_iters=10)
+              per_step_modes=gcn_rows, timed_iters=10)
 
     if "train_directed" in phases:
         check(not workload("directed")[0].is_symmetric,
               "directed context must not be symmetric")
-        train("train_directed", steps=4, per_step=spmm_only, timed_iters=10)
+        train("train_directed", steps=4, per_step=spmm_only,
+              per_step_modes=gcn_rows, timed_iters=10)
     workloads.pop("directed", None)
 
     if "train_cora_shape" in phases:
@@ -3510,6 +3662,7 @@ def main() -> int:
         train("train_cora_shape", steps=40,
               per_step={"scatter_sum_sorted": 1, "expand_sorted": 1,
                         "gather_scatter_sum_sorted": 3},
+              per_step_modes={"gather_scatter_sum_sorted(rows)": 2},
               falling=mean_of_ends)
     workloads.pop("arxiv", None)
     torch.cuda.empty_cache()
@@ -3649,7 +3802,8 @@ def main() -> int:
              **locality)
         train("train_skewed_arxiv_shape", steps=8,
               per_step={"band_spmm": 3, "gather_scatter_sum_sorted": 3},
-              per_step_modes={"band_spmm(wgmma)": 3}, timed_iters=10,
+              per_step_modes={"band_spmm(wgmma)": 3, **gcn_rows},
+              timed_iters=10,
               same_graph=workload("skewed_plain")[:4], extra=locality,
               profile=True)
         # bench.py's best_* hoisting: S @ x once, on both contexts.

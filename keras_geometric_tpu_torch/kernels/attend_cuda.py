@@ -46,19 +46,24 @@ Source notes, one per kernel (all five are bound by bytes):
   A split row's ``d ht`` is its pieces' f32 shares, added in piece order by
   the second launch, which also sums the ``datt`` partials in a fixed order.
 - ``attend_send_bwd_sorted``: the sender part of ``d ht`` without ``v``: a
-  group per (sender row, head) walks the sender-sorted slots, gathers the
-  receiver's ``ht`` and ``g`` rows and its ``(m, l, rho)``, recomputes the
-  score, ``alpha``, ``ds`` and ``d_pre`` and sums ``alpha*keep*g[r] + d_pre``
-  in f32, rounded once. Padded slots are skipped before any gather.
+  group per (piece of a sender row, head) walks the sender-sorted slots,
+  gathers the receiver's ``ht`` and ``g`` rows and its ``(m, l, rho)``,
+  recomputes the score, ``alpha``, ``ds`` and ``d_pre`` and sums
+  ``alpha*keep*g[r] + d_pre`` in f32, rounded once. Padded slots are never
+  gathered.
 
 The forward, rho and the receiver backward walk pieces of at most
 ``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built once per ``row_ptr``
 tensor and kept beside it, at a context's first forward), so no group walks
-a long row, the padded tail or a hub, serially. Each group copies its
-piece's senders, scores (or validity) and keep factors into shared memory in
-one go, keeps the sender rows of the next slots in flight in a shared-memory
-ring filled by ``cp.async``, and never gathers a padded slot. Each of the
-three calls is two kernel launches (the piece walk, then the fixed-order
+a long row, the padded tail or a hub, serially; the sender backward walks
+the pieces of the sender-sorted stream (``row_ptr_bwd``'s list, built at a
+context's first backward, which the permute finish walks too). Each group
+copies its piece's senders (the sender backward: receivers, and their ``m``,
+``l`` and ``rho``), scores (or validity) and keep factors into shared memory
+in one go, keeps the gathered rows of the next slots in flight in a
+shared-memory ring filled by ``cp.async`` (the sender backward: each slot's
+receiver's ``ht`` and ``g`` rows), and never gathers a padded slot. Each of
+the four calls is two kernel launches (the piece walk, then the fixed-order
 combination of the split rows; the receiver backward's second launch also
 sums ``datt``) and counts one launch. No atomics: every result is
 bit-reproducible, and a row whose finite scores lie in one piece (every row
@@ -80,7 +85,6 @@ a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -88,10 +92,13 @@ import torch
 from . import _build
 from .spmm_cuda import (
     _DATA_DTYPES,
+    RECV_BWD_PIECE,
+    RecvBwdWork,
     _check_data,
     _check_index,
     _mask_arg,
     _raise_on_error,
+    recv_bwd_work,
 )
 
 __all__ = [
@@ -136,80 +143,6 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCH_COUNTS, MODE_LAUNCH_COUNTS):
         for name in counts:
             counts[name] = 0
-
-
-# ---------------------------------------------------------------------------
-# The work list of the kernels that walk pieces (the forward, rho and the
-# receiver backward).
-# ---------------------------------------------------------------------------
-
-# Slots a group of those kernels walks at most.
-RECV_BWD_PIECE = 32
-
-
-@dataclasses.dataclass(frozen=True)
-class RecvBwdWork:
-    """Pieces of the receiver-sorted stream for the kernels that walk them.
-
-    ``pieces`` ``[P, 4]`` int32: (row, first slot, end slot, share), in row
-    and slot order; every row has at least one piece (an empty row one empty
-    piece) and every slot lies in exactly one, of at most ``piece`` slots.
-    ``share`` is -1 where the piece is its whole row, else its row in the
-    ``[num_shares, D]`` f32 scratch of shares. ``fix_rows`` ``[R]`` int32 are
-    the rows split into several pieces, in order, and their shares are
-    ``fix_ptr[k] .. fix_ptr[k + 1]`` (``[R + 1]`` int32), in slot order.
-    """
-
-    pieces: torch.Tensor
-    fix_rows: torch.Tensor
-    fix_ptr: torch.Tensor
-    piece: int
-    num_shares: int
-
-    @property
-    def num_pieces(self) -> int:
-        return int(self.pieces.shape[0])
-
-
-def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
-    rp = row_ptr.long()
-    lengths = rp[1:] - rp[:-1]
-    counts = torch.clamp((lengths + piece - 1) // piece, min=1)
-    total = int(counts.sum())
-    n = lengths.shape[0]
-    row = torch.repeat_interleave(torch.arange(n, device=rp.device), counts,
-                                  output_size=total)
-    first = torch.cumsum(counts, 0) - counts  # each row's first piece
-    k = torch.arange(total, device=rp.device) - first[row]
-    lo = rp[row] + k * piece
-    hi = torch.minimum(lo + piece, rp[row + 1])
-    split = counts[row] > 1
-    share = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
-    pieces = torch.stack([row, lo, hi, share], 1).to(torch.int32).contiguous()
-    fix_rows = torch.nonzero(counts > 1).flatten()
-    fix_ptr = torch.zeros(fix_rows.shape[0] + 1, dtype=torch.long,
-                          device=rp.device)
-    fix_ptr[1:] = torch.cumsum(counts[fix_rows], 0)
-    return RecvBwdWork(pieces=pieces, fix_rows=fix_rows.to(torch.int32),
-                       fix_ptr=fix_ptr.to(torch.int32), piece=piece,
-                       num_shares=int(split.sum()))
-
-
-def recv_bwd_work(row_ptr: torch.Tensor,
-                  piece: int = RECV_BWD_PIECE) -> RecvBwdWork:
-    """The pieces for ``row_ptr`` (``[N + 1]``), on its device, that the
-    forward, rho and the receiver backward walk. Built once per ``row_ptr``
-    tensor (one host synchronisation, at the first forward of a context)
-    and kept on the tensor while it is not written to."""
-    if piece < 1:
-        raise ValueError(f"piece must be >= 1, got {piece}")
-    key = (row_ptr._version, piece)
-    cached = getattr(row_ptr, "_recv_bwd_work", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    work = _build_recv_bwd_work(row_ptr, piece)
-    row_ptr._recv_bwd_work = (key, work)
-    return work
 
 
 # ---------------------------------------------------------------------------
@@ -430,8 +363,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_attend_recv_bwd_full_sorted.restype = i32
     lib.kgt_attend_send_bwd_sorted.argtypes = [
-        vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp, i64, i32, i64,
-        f32, f32, i32, vp,
+        vp, vp, vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, vp, i32, vp, vp,
+        vp, vp, i64, i64, i32, i64, f32, f32, i32, vp,
     ]
     lib.kgt_attend_send_bwd_sorted.restype = i32
     lib.kgt_cuda_error_string.argtypes = [i32]
@@ -758,7 +691,9 @@ def attend_send_bwd_sorted(ht, g, receivers_ss, senders_sorted, row_ptr_bwd,
     """Sender side of the fused attention's backward, recomputed in sender
     order: ``d ht_send [N, H*F]`` in ``ht``'s type, ``d ht_send[j] = sum over
     the slots e with sender j of alpha*keep*g[r] + d_pre`` with ``r =
-    receivers_ss[e]``.
+    receivers_ss[e]``. On the card the kernel walks the pieces of
+    ``recv_bwd_work(row_ptr_bwd)``; a sender row split into pieces is the
+    sum of their f32 shares in piece order.
 
     ``receivers_ss`` / ``senders_sorted`` ``[E]`` int32 are the stream in
     sender-sorted order and ``row_ptr_bwd`` ``[N+1]`` the row pointers of
@@ -792,12 +727,15 @@ def attend_send_bwd_sorted(ht, g, receivers_ss, senders_sorted, row_ptr_bwd,
     if out.numel() == 0:
         return out
     lib = _library()
+    work = recv_bwd_work(row_ptr_bwd)
+    shares = _shares(work, d, device)
     with torch.cuda.device(device):
         code = lib.kgt_attend_send_bwd_sorted(
             ht.data_ptr(), g.data_ptr(), receivers_ss.data_ptr(),
-            row_ptr_bwd.data_ptr(), att_ptr, att_bf16, m.data_ptr(),
-            l.data_ptr(), rho.data_ptr(), valid_ptr, drop_ptr, drop_bf16,
-            out.data_ptr(), n, heads, f, float(negative_slope), float(eps),
+            *_work_args(work), att_ptr, att_bf16, m.data_ptr(), l.data_ptr(),
+            rho.data_ptr(), valid_ptr, drop_ptr, drop_bf16, out.data_ptr(),
+            None if shares is None else shares.data_ptr(), *_fix_args(work),
+            n, heads, f, float(negative_slope), float(eps),
             int(ht.dtype == torch.bfloat16), _stream(),
         )
     _raise_on_error(lib, code, "attend_send_bwd_sorted")

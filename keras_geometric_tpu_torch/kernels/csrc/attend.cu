@@ -83,15 +83,18 @@
 // shares by a sum. The per-slot arithmetic, not the walk's latency, bounds
 // these kernels at arxiv's shapes (PERF.md): the forward and rho run at four
 // blocks per SM, the receiver backward at two or three.
-// The aggregation from cached scores and the sender backward walk whole
-// rows, one group per (row, head): a row is a chain of dependent reads (row
-// pointer -> index -> gathered row -> shuffles) hidden only by the warps in
-// flight, so they are built for at least four blocks on a multiprocessor
-// (64 registers a thread). The sender backward's slot gathers the
-// receiver's ht and g rows and its (m, l, rho), three dependent gathers,
-// and a padded slot (masked) is skipped before any of them, so the padded
-// tail, which in sender order piles into the last row, costs one mask read
-// a slot.
+// The sender backward walks the pieces of the sender-sorted stream (the
+// list of row_ptr_bwd): a group stages its piece's receivers (-1 for a padded
+// slot), keep factors and the receivers' (m, l, rho) of its head in shared
+// memory, and keeps both of each slot's receiver rows, ht[r] and g[r], in
+// flight in two rings; a split sender row's f32 shares of d ht are added in
+// piece order by its second launch. So neither a hub sender nor the padded
+// tail, which in sender order piles into the last row, is walked serially,
+// and a padded slot costs one validity read. The aggregation from cached
+// scores walks whole rows, one group per (row, head): a row is a chain of
+// dependent reads (row pointer -> index -> gathered row -> shuffles) hidden
+// only by the warps in flight, so it is built for at least four blocks on a
+// multiprocessor (64 registers a thread).
 //
 // Wide heads (F > 256, lanes.cuh): a launch of its own instantiation (WIDE)
 // gives each group one 256-column slab of a (row or piece, head) pair. The
@@ -113,6 +116,7 @@
 // launch on the given stream, allocate nothing, do not synchronise, and
 // return cudaGetLastError().
 
+#include "cp_async.cuh"
 #include "lanes.cuh"
 
 namespace {
@@ -234,37 +238,6 @@ attend_aggregate_kernel(const float* __restrict__ scores,
 // ---------------------------------------------------------------------------
 
 constexpr int kRing = 4;  // sender rows in flight per group
-
-// Asynchronous copy of one pack (VEC values) into shared memory. cp.async
-// moves 4, 8 or 16 bytes; a 2-byte pack (bf16 at an odd F) is copied by the
-// thread itself.
-template <int BYTES>
-__device__ __forceinline__ void copy_async(uint32_t dst, const void* src) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src) : "memory");
-  } else if constexpr (BYTES == 8 || BYTES == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-                 "l"(src), "n"(BYTES) : "memory");
-  } else {
-    const uint16_t v = *static_cast<const uint16_t*>(src);
-    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
-  }
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t shared_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // A group's ring of kRing stages, each holding this lane's packs of one
 // slot's sender row: [stage][pack j][thread] packs of VEC values, so the
@@ -973,73 +946,246 @@ recv_bwd_finish_kernel(const float* __restrict__ partial,
 // The sender backward
 // ---------------------------------------------------------------------------
 
+// Blocks per SM the sender backward is built for (NVIDIA H100 80GB HBM3 at
+// 700 W, arxiv shapes, bf16 F = 64 / 40; PERF.md): three blocks (79
+// registers, no spills) took 0.775 / 0.779 ms, two (87) 0.954 / 0.965, four
+// (64, 104 bytes of spills) 1.144 / 1.002. Its ring holds two rows a slot,
+// so shared memory allows at most four blocks at those widths anyway.
+constexpr int kSendBwdMinBlocks = 3;
+
+// The sender backward's piece table in shared memory, after the block's two
+// rings: per slot the receiver (-1 for a padded slot), the keep factor, and
+// the receiver's m, l and rho for the group's head, `cap` of each.
+struct SendTable {
+  int32_t* recv;
+  float* keep;
+  float* m;
+  float* l;
+  float* rho;
+};
+
+__device__ __forceinline__ SendTable send_table(uint8_t* smem, int ring_bytes,
+                                                int lph, int cap) {
+  int32_t* recv = reinterpret_cast<int32_t*>(smem + ring_bytes) +
+                  static_cast<int64_t>(threadIdx.x / lph) * cap * 5;
+  float* keep = reinterpret_cast<float*>(recv + cap);
+  return SendTable{recv, keep, keep + cap, keep + 2 * cap, keep + 3 * cap};
+}
+
+// Dynamic shared memory of a sender-backward block: two rings (the
+// receivers' ht and g rows), then its groups' tables (20 bytes a slot). A
+// wide launch uses none.
 template <typename S, int VEC, int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+inline size_t send_smem(int lph, int cap) {
+  if constexpr (WIDE) {
+    return 0;
+  } else {
+    return 2 * SenderRing<S, VEC, NJ>::kBytes +
+           static_cast<size_t>(kThreads / lph) * cap * 20;
+  }
+}
+
+// Stages the table of the piece of n slots from slot lo: each lane reads the
+// receivers, validity and keep factors of its slots, then starts copying
+// those receivers' (m, l, rho) of head h (one commit group). The caller's
+// __syncwarp makes the receivers visible to the group; copy_wait and another
+// __syncwarp the statistics.
+__device__ __forceinline__ void stage_send_piece(
+    const SendTable& t, int64_t lo, int n,
+    const int32_t* __restrict__ receivers_ss,
+    const float* __restrict__ valid_ss, const void* __restrict__ drop_ss,
+    int drop_bf16, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ rho,
+    int heads, int h, const Geometry& q) {
+  __syncwarp(q.mask);  // the previous piece's table is read out
+  for (int i = q.lane; i < n; i += q.lph) {
+    const int64_t e = lo + i;
+    const bool ok = valid_ss == nullptr || valid_ss[e] != 0.0f;
+    const int32_t r = receivers_ss[e];
+    t.recv[i] = ok ? r : -1;
+    if (drop_ss != nullptr) t.keep[i] = load_scalar(drop_ss, drop_bf16,
+                                                    e * heads + h);
+    if (ok) {  // a padded slot's statistics are never read
+      const int64_t rh = static_cast<int64_t>(r) * heads + h;
+      copy_async<4>(shared_u32(t.m + i), m_in + rh);
+      copy_async<4>(shared_u32(t.l + i), l_in + rh);
+      copy_async<4>(shared_u32(t.rho + i), rho + rh);
+    }
+  }
+  copy_commit();
+}
+
+// The ring of the sender backward: slot j's receiver rows of ht and g land
+// in stage j % kRing of the two rings, one commit group a slot, as
+// ring_start / ring_next do it for one row; a padded slot is never copied.
+template <typename S, int VEC, int NJ>
+__device__ __forceinline__ void pair_fill(uint8_t* ring_ht, uint8_t* ring_g,
+                                          int stage, int32_t r,
+                                          const S* __restrict__ ht,
+                                          const S* __restrict__ g, int64_t d,
+                                          int64_t col0, int fk,
+                                          const Geometry& q) {
+  if (r >= 0) {
+    const int64_t off = static_cast<int64_t>(r) * d + col0;
+    SenderRing<S, VEC, NJ>::fill(ring_ht, stage, ht + off, fk, q);
+    SenderRing<S, VEC, NJ>::fill(ring_g, stage, g + off, fk, q);
+  }
+  copy_commit();
+}
+
+template <typename S, int VEC, int NJ, bool WIDE>
+__global__ void __launch_bounds__(kThreads, kSendBwdMinBlocks)
 attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
                        const int32_t* __restrict__ receivers_ss,
-                       const int32_t* __restrict__ row_ptr_bwd,
-                       const void* __restrict__ att, int att_bf16,
+                       const int4* __restrict__ pieces, int64_t n_pieces,
+                       int cap, const void* __restrict__ att, int att_bf16,
                        const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
                        const float* __restrict__ rho,
                        const float* __restrict__ valid_ss,
                        const void* __restrict__ drop_ss, int drop_bf16,
-                       S* __restrict__ out, int64_t n_rows, int heads, int f,
-                       int lph, float slope, float eps) {
+                       S* __restrict__ out, float* __restrict__ out_part,
+                       int heads, int f, int lph, float slope, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
-  const Item it = item_of<WIDE>(q.gid, heads, f);
-  const int64_t row = it.row;  // the sender
-  const int h = it.h;
+  // The grid holds a multiple of heads * slabs groups, so a group that
+  // strides over the (piece, head, slab) triples by the grid's size keeps
+  // its head and slab.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const int64_t n_items = n_pieces * per_row;
+  const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
+  const int h = mine.h;
+  const int fk = mine.fk;
   const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = it.col0;
+  const int64_t col0 = mine.col0;
   const int64_t hcol = static_cast<int64_t>(h) * f;
+  constexpr int kRingBytes = SenderRing<S, VEC, NJ>::kBytes;
+  uint8_t* ring_ht = smem;
+  uint8_t* ring_g = smem + kRingBytes;
+  const SendTable t = send_table(smem, 2 * kRingBytes, lph, cap);
 
-  float hs[NJ][VEC], a[NJ][VEC], acc[NJ][VEC];
-  load_lane<S, VEC, NJ>(ht + row * d + col0, it.fk, q, hs);
-  load_att<VEC, NJ>(att, att_bf16, col0, it.fk, q, a);
-  zero_lane<VEC, NJ>(acc);
+  float a[NJ][VEC];
+  load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
 
-  const int64_t hi = row_ptr_bwd[row + 1];
-  for (int64_t e = row_ptr_bwd[row]; e < hi; ++e) {
-    if (valid_ss != nullptr && valid_ss[e] == 0.0f) continue;  // padded slot
-    const int64_t r = receivers_ss[e];
-    float hr[NJ][VEC], gr[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + r * d + col0, it.fk, q, hr);
-    load_lane<S, VEC, NJ>(g + r * d + col0, it.fk, q, gr);
-    // The forward's score: receiver columns first, as it summed them.
-    float s;
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / per_row];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    // The next piece's header is read a piece ahead.
+    int4 pc_next = make_int4(0, 0, 0, -1);
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / per_row];
+    const int64_t row = pc.x;  // the sender
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    float hs[NJ][VEC], acc[NJ][VEC];
+    zero_lane<VEC, NJ>(acc);
+
     if constexpr (WIDE) {
-      s = gatv2_score_wide<S, VEC, NJ>(ht + r * d + hcol, ht + row * d + hcol,
-                                       att, att_bf16, hcol, f, slope, q);
-    } else {
-      s = gatv2_score<VEC, NJ>(hr, hs, a, slope, lph, q.mask);
-    }
-    const int64_t rh = r * heads + h;
-    const float alpha = expf(fminf(s - m_in[rh], 0.0f)) / (l_in[rh] + eps);
-    const float keep =
-        drop_ss == nullptr ? 1.0f
-                           : load_scalar(drop_ss, drop_bf16, e * heads + h);
-    float dalpha;
-    if constexpr (WIDE) {
-      dalpha = head_dot_wide<S, VEC, NJ>(g + r * d + hcol,
-                                         ht + row * d + hcol, f, q);
-    } else {
-      dalpha = group_sum(lane_dot<VEC, NJ>(gr, hs), lph, q.mask);
-    }
-    const float ds = alpha * (keep * dalpha - rho[rh]);
-    const float alpha_keep = alpha * keep;
+      // A wide head reads its rows slab by slab for each slot, from device
+      // memory (no ring, no staged table).
+      load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hs);
+      for (int64_t e = lo; e < lo + n; ++e) {
+        if (valid_ss != nullptr && valid_ss[e] == 0.0f) continue;  // padded
+        const int64_t r = receivers_ss[e];
+        float hr[NJ][VEC], gr[NJ][VEC];
+        load_lane<S, VEC, NJ>(ht + r * d + col0, fk, q, hr);
+        load_lane<S, VEC, NJ>(g + r * d + col0, fk, q, gr);
+        // The forward's score: receiver columns first, as it summed them.
+        const float s = gatv2_score_wide<S, VEC, NJ>(
+            ht + r * d + hcol, ht + row * d + hcol, att, att_bf16, hcol, f,
+            slope, q);
+        const int64_t rh = r * heads + h;
+        const float alpha =
+            expf(fminf(s - m_in[rh], 0.0f)) / (l_in[rh] + eps);
+        const float keep =
+            drop_ss == nullptr ? 1.0f
+                               : load_scalar(drop_ss, drop_bf16, e * heads + h);
+        const float dalpha = head_dot_wide<S, VEC, NJ>(
+            g + r * d + hcol, ht + row * d + hcol, f, q);
+        const float ds = alpha * (keep * dalpha - rho[rh]);
+        const float alpha_keep = alpha * keep;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+        for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float pre = hr[j][i] + hs[j][i];
-        const float d_pre = ds * a[j][i] * (pre > 0.0f ? 1.0f : slope);
-        acc[j][i] += alpha_keep * gr[j][i] + d_pre;
+          for (int i = 0; i < VEC; ++i) {
+            const float pre = hr[j][i] + hs[j][i];
+            const float d_pre = ds * a[j][i] * (pre > 0.0f ? 1.0f : slope);
+            acc[j][i] += alpha_keep * gr[j][i] + d_pre;
+          }
+        }
+      }
+    } else {
+      // The piece's receivers land, then their statistics and rows are
+      // copied while the sender's row is read.
+      stage_send_piece(t, lo, n, receivers_ss, valid_ss, drop_ss, drop_bf16,
+                       m_in, l_in, rho, heads, h, q);
+      __syncwarp(q.mask);  // every lane's receivers are in the table
+#pragma unroll
+      for (int i = 0; i < kRing; ++i) {
+        pair_fill<S, VEC, NJ>(ring_ht, ring_g, i, i < n ? t.recv[i] : -1, ht,
+                              g, d, col0, fk, q);
+      }
+      load_lane<S, VEC, NJ>(ht + row * d + col0, fk, q, hs);
+      copy_wait<kRing>();  // this lane's statistics copies have landed
+      __syncwarp(q.mask);  // and every lane's
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        const int32_t r = t.recv[j];
+        if (r >= 0) {  // else a padded slot
+          float hr[NJ][VEC], gr[NJ][VEC];
+          SenderRing<S, VEC, NJ>::read(ring_ht, stage, fk, q, hr);
+          SenderRing<S, VEC, NJ>::read(ring_g, stage, fk, q, gr);
+          // The forward's score: receiver columns first, as it summed them.
+          const float s = gatv2_score<VEC, NJ>(hr, hs, a, slope, lph, q.mask);
+          const float alpha = expf(fminf(s - t.m[j], 0.0f)) / (t.l[j] + eps);
+          const float keep = drop_ss == nullptr ? 1.0f : t.keep[j];
+          const float dalpha =
+              group_sum(lane_dot<VEC, NJ>(gr, hs), lph, q.mask);
+          const float ds = alpha * (keep * dalpha - t.rho[j]);
+          const float alpha_keep = alpha * keep;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float pre = hr[jj][i] + hs[jj][i];
+              const float d_pre = ds * a[jj][i] * (pre > 0.0f ? 1.0f : slope);
+              acc[jj][i] += alpha_keep * gr[jj][i] + d_pre;
+            }
+          }
+        }
+        const int ahead = j + kRing;
+        pair_fill<S, VEC, NJ>(ring_ht, ring_g, stage,
+                              ahead < n ? t.recv[ahead] : -1, ht, g, d, col0,
+                              fk, q);
+        stage = stage + 1 == kRing ? 0 : stage + 1;
       }
     }
+    if (pc.w < 0) {
+      store_lane<S, VEC, NJ>(out + row * d + col0, fk, q, acc);
+    } else {
+      store_share<VEC, NJ>(out_part + static_cast<int64_t>(pc.w) * d + col0,
+                           fk, q, acc);
+    }
+    pc = pc_next;
   }
-  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, acc);
+}
+
+// The sender backward's second launch, one thread per (split sender row,
+// column): its pieces' f32 shares added in piece order, rounded once.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+send_bwd_finish_kernel(const float* __restrict__ out_part,
+                       const int32_t* __restrict__ fix_rows,
+                       const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                       int64_t d, S* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_fix * d) return;
+  const int64_t k = i / d;
+  const int64_t c = i - k * d;
+  out[static_cast<int64_t>(fix_rows[k]) * d + c] =
+      Cvt<S>::from_f(sum_shares(out_part, d, fix_ptr, k, c));
 }
 
 // The work list's arguments: pieces 16-byte aligned (int4 loads), at least
@@ -1317,35 +1463,63 @@ int kgt_attend_recv_bwd_full_sorted(
 }
 
 // Sender-side backward: out [n_rows, heads*f] in the data's type, the sum
-// over each sender row's slots (row_ptr_bwd over the sender-sorted stream,
-// receivers_ss its receivers) of alpha*keep*g[r] + d_pre, recomputed from
-// ht, g, att and the receivers' m, l, rho [n_rows, heads] f32. valid_ss
-// [n_slots] f32 1/0 (null: all valid); drop_ss [n_slots, heads] (null: no
-// dropout) in sender-sorted order.
+// over each sender row's slots (the sender-sorted stream, receivers_ss its
+// receivers) of alpha*keep*g[r] + d_pre, recomputed from ht, g, att and the
+// receivers' m, l, rho [n_rows, heads] f32. valid_ss [n_slots] f32 1/0
+// (null: all valid); drop_ss [n_slots, heads] (null: no dropout) in
+// sender-sorted order. pieces, cap, fix_rows, fix_ptr and n_fix as for the
+// forward, over the sender-sorted stream; a split sender row's out is the
+// sum of its shares in out_part ([*, heads*f] f32 scratch), written before
+// it is read.
 int kgt_attend_send_bwd_sorted(
     const void* ht, const void* g, const int32_t* receivers_ss,
-    const int32_t* row_ptr_bwd, const void* att, int att_bf16,
-    const float* m, const float* l, const float* rho, const float* valid_ss,
-    const void* drop_ss, int drop_bf16, void* out, int64_t n_rows, int heads,
-    int64_t f, float slope, float eps, int is_bf16, void* stream) {
+    const int32_t* pieces, int64_t n_pieces, int cap, const void* att,
+    int att_bf16, const float* m, const float* l, const float* rho,
+    const float* valid_ss, const void* drop_ss, int drop_bf16, void* out,
+    float* out_part, const int32_t* fix_rows, const int32_t* fix_ptr,
+    int64_t n_fix, int64_t n_rows, int heads, int64_t f, float slope,
+    float eps, int is_bf16, void* stream) {
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t fix_blocks = finish_blocks(n_fix, d);
   if (ht == nullptr || g == nullptr || receivers_ss == nullptr ||
-      row_ptr_bwd == nullptr || att == nullptr || m == nullptr ||
-      l == nullptr || rho == nullptr || out == nullptr ||
-      !shape_ok(n_rows, heads, f)) {
+      att == nullptr || m == nullptr || l == nullptr || rho == nullptr ||
+      out == nullptr || !shape_ok(n_rows, heads, f) ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 out_part != nullptr && fix_rows != nullptr &&
+                     fix_ptr != nullptr,
+                 heads, f) ||
+      (n_fix > 0 && fix_blocks == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, g, out, out);
   const unsigned grid =
-      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
+      blocks_for_fixed_grid(n_pieces, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_SEND(S)                                                         \
-  attend_send_bwd_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(       \
-      static_cast<const S*>(ht), static_cast<const S*>(g), receivers_ss,    \
-      row_ptr_bwd, att, att_bf16, m, l, rho, valid_ss, drop_ss, drop_bf16,  \
-      static_cast<S*>(out), n_rows, heads, fi, lay.lph, slope, eps)
+  {                                                                         \
+    const cudaError_t err = launch_pieces(                                  \
+        attend_send_bwd_kernel<S, VEC, NJ, WIDE>, grid,                     \
+        send_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s,                       \
+        static_cast<const S*>(ht), static_cast<const S*>(g), receivers_ss,  \
+        work, n_pieces, cap, att, att_bf16, m, l, rho, valid_ss, drop_ss,   \
+        drop_bf16, static_cast<S*>(out), out_part, heads, fi, lay.lph,      \
+        slope, eps);                                                        \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_SEND)
 #undef KGT_SEND
+  if (n_fix > 0) {
+    const unsigned blocks = static_cast<unsigned>(fix_blocks);
+    if (is_bf16) {
+      send_bwd_finish_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+          out_part, fix_rows, fix_ptr, n_fix, d, static_cast<uint16_t*>(out));
+    } else {
+      send_bwd_finish_kernel<float><<<blocks, kThreads, 0, s>>>(
+          out_part, fix_rows, fix_ptr, n_fix, d, static_cast<float*>(out));
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,27 @@
 // An optional epilogue adds self_w[r] * src[r, :] (the densified diagonal of
 // the GCN operator) before the store.
 //
+// The fused-gather form has a second walk, over pieces (gather_scatter_pieces_
+// kernel): a row walk gives each row to one sub-warp, which walks its slots
+// one window after another, so one long row (a hub, or the padded tail, which
+// prepare_graph puts in the last row and which in sender order piles into the
+// last sender's row: 521 slots at CiteSeer's GATv2 shape) keeps the whole
+// kernel waiting on its dependent rounds of random reads. The piece walk takes
+// a host-built work list (spmm_cuda.recv_bwd_work, one per row_ptr tensor, the
+// list the attention kernels walk) that cuts every row into pieces of at most
+// 32 slots. A sub-warp per (piece, column tile) copies the piece's indices and
+// weights into shared memory in one go, then keeps the gathered packs of the
+// next kRingDepth slots in flight in a ring in shared memory (cp.async, one
+// commit group a slot) and sums them in f32 in slot order. (A register window
+// of eight packs loaded before its adds took 69-82 registers and ran 9-72%
+// slower at the finish's and the GCN's shapes on the H100, PERF.md.) A piece
+// that is its whole row stores the row, with the
+// epilogue, rounded once; a piece of a split row stores its f32 share, and a
+// second launch (gather_scatter_merge_kernel) adds each split row's shares in
+// piece order, applies the epilogue and rounds once. In both walks of the
+// fused-gather form a message is added with one fused multiply-add (fmaf), so
+// a row that is one piece gets the row walk's bits.
+//
 // expand_sorted_kernel replaces _expand_impl (expand_sorted) of the same
 // file: out[e, :] = rows[recv[e], :] * w[e], the scatter's transpose and its
 // VJP. The TPU kernel again multiplies by a one-hot matrix; here each
@@ -42,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -94,6 +117,38 @@ __device__ __forceinline__ float load_weight(const void* w, int w_bf16,
   return static_cast<const float*>(w)[i];
 }
 
+// One message into a row's sums: w * message, or nothing on a masked slot.
+// The messages form adds the rounded product; the fused-gather form adds with
+// one fused multiply-add, the same operation in its row walk and its piece
+// walk (an explicit fmaf, not left to the compiler's contraction).
+template <typename S, int VEC, bool GATHER>
+__device__ __forceinline__ void add_message(float (&acc)[VEC], float w, bool ok,
+                                            const Pack<S, VEC>& p) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    if constexpr (GATHER) {
+      if (ok) acc[j] = fmaf(w, Cvt<S>::to_f(p.v[j]), acc[j]);
+    } else {
+      const float v = w * Cvt<S>::to_f(p.v[j]);
+      acc[j] += ok ? v : 0.0f;
+    }
+  }
+}
+
+// The epilogue: self_w[row] * src[row, col .. col + VEC] into the sums.
+template <typename S, int VEC>
+__device__ __forceinline__ void add_diagonal(float (&acc)[VEC],
+                                             const void* __restrict__ self_w,
+                                             int self_w_bf16,
+                                             const S* __restrict__ src,
+                                             int64_t row, int64_t f,
+                                             int64_t col) {
+  const float sw = load_weight(self_w, self_w_bf16, row);
+  const Pack<S, VEC> p = load_pack<S, VEC>(src + row * f + col);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = fmaf(sw, Cvt<S>::to_f(p.v[j]), acc[j]);
+}
+
 template <typename S, int VEC, bool GATHER>
 __global__ void __launch_bounds__(kThreads)
 scatter_sum_sorted_kernel(const S* __restrict__ src,
@@ -136,11 +191,7 @@ scatter_sum_sorted_kernel(const S* __restrict__ src,
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float v = ww[k] * Cvt<S>::to_f(p[k].v[j]);
-        acc[j] += ok[k] ? v : 0.0f;
-      }
+      add_message<S, VEC, GATHER>(acc, ww[k], ok[k], p[k]);
     }
   }
   for (; e < hi; ++e) {
@@ -148,24 +199,151 @@ scatter_sum_sorted_kernel(const S* __restrict__ src,
     const float ww = load_weight(w, w_bf16, e);
     const bool ok = (mask == nullptr) || (mask[e] != 0);
     const Pack<S, VEC> p = load_pack<S, VEC>(src + r * f + col);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float v = ww * Cvt<S>::to_f(p.v[j]);
-      acc[j] += ok ? v : 0.0f;
-    }
+    add_message<S, VEC, GATHER>(acc, ww, ok, p);
   }
 
-  if (self_w != nullptr) {
-    const float sw = load_weight(self_w, self_w_bf16, row);
-    const Pack<S, VEC> p = load_pack<S, VEC>(src + row * f + col);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] += sw * Cvt<S>::to_f(p.v[j]);
-  }
+  if (self_w != nullptr) add_diagonal<S, VEC>(acc, self_w, self_w_bf16, src, row,
+                                              f, col);
 
   Pack<S, VEC> o;
 #pragma unroll
   for (int j = 0; j < VEC; ++j) o.v[j] = Cvt<S>::from_f(acc[j]);
   store_pack<S, VEC>(out + row * f + col, o);
+}
+
+// ---------------------------------------------------------------------------
+// The fused-gather form over pieces
+// ---------------------------------------------------------------------------
+
+constexpr int kRingDepth = 8;  // gathered rows in flight per lane
+
+// Bytes of the ring: kRingDepth stages of one pack a thread, [stage][thread].
+template <typename S, int VEC>
+__host__ __device__ constexpr int ring_bytes() {
+  return kRingDepth * kThreads * VEC * static_cast<int>(sizeof(S));
+}
+
+// Lanes of this thread's sub-warp of lpr lanes (a power of two, at most 32).
+__device__ __forceinline__ unsigned sub_mask(int lpr) {
+  if (lpr >= 32) return 0xffffffffu;
+  const int first = ((threadIdx.x & 31) / lpr) * lpr;
+  return ((1u << lpr) - 1u) << first;
+}
+
+// pieces[p] = (row, first slot, end slot, share): at most `cap` slots of one
+// row; share is -1 where the piece is its whole row, else its row in the f32
+// scratch `part` [*, f]. A sub-warp per (piece, column tile of lpr * VEC
+// columns). Shared memory: the ring, then per sub-warp `cap` indices and
+// `cap` weights where there are weights.
+template <typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gather_scatter_pieces_kernel(const S* __restrict__ src,
+                             const int32_t* __restrict__ idx,
+                             const int4* __restrict__ pieces, int64_t n_pieces,
+                             int cap, const void* __restrict__ w, int w_bf16,
+                             const void* __restrict__ self_w, int self_w_bf16,
+                             S* __restrict__ out, float* __restrict__ part,
+                             int64_t f, int lpr) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int sub = threadIdx.x / lpr;
+  const int lane = threadIdx.x - sub * lpr;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * (kThreads / lpr) + sub;
+  if (p >= n_pieces) return;  // the whole sub-warp
+  const int64_t col =
+      (static_cast<int64_t>(blockIdx.y) * lpr + lane) * VEC;
+  const int4 pc = pieces[p];
+  const int64_t lo = pc.y;
+  const int n = pc.z - pc.y;
+
+  // The piece's indices and weights, the sub-warp's lanes together (lanes
+  // past the row's width help too, then leave).
+  int32_t* t_idx = reinterpret_cast<int32_t*>(smem + ring_bytes<S, VEC>()) +
+                   static_cast<int64_t>(sub) * cap * (w != nullptr ? 2 : 1);
+  float* t_w = reinterpret_cast<float*>(t_idx + cap);
+  for (int i = lane; i < n; i += lpr) {
+    t_idx[i] = idx[lo + i];
+    if (w != nullptr) t_w[i] = load_weight(w, w_bf16, lo + i);
+  }
+  __syncwarp(sub_mask(lpr));
+  if (col >= f) return;
+
+  float acc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+  // Slot j's pack lands in stage j % kRingDepth, one commit group a slot
+  // (empty past the piece's end), so that waiting for all but the
+  // kRingDepth - 1 latest groups means slot j has landed; its stage is
+  // refilled with slot j + kRingDepth after use. Each lane copies and reads
+  // only its own packs.
+  constexpr int kPack = VEC * static_cast<int>(sizeof(S));
+  const uint32_t ring = shared_u32(smem);
+  const int mine = static_cast<int>(threadIdx.x) * kPack;
+#pragma unroll
+  for (int k = 0; k < kRingDepth; ++k) {
+    if (k < n) {
+      copy_async<kPack>(ring + k * kThreads * kPack + mine,
+                        src + static_cast<int64_t>(t_idx[k]) * f + col);
+    }
+    copy_commit();
+  }
+  int stage = 0;
+  for (int j = 0; j < n; ++j) {
+    copy_wait<kRingDepth - 1>();
+    const int at = stage * kThreads * kPack + mine;
+    const Pack<S, VEC> pk = *reinterpret_cast<const Pack<S, VEC>*>(smem + at);
+    add_message<S, VEC, true>(acc, w != nullptr ? t_w[j] : 1.0f, true, pk);
+    if (j + kRingDepth < n) {
+      copy_async<kPack>(
+          ring + at,
+          src + static_cast<int64_t>(t_idx[j + kRingDepth]) * f + col);
+    }
+    copy_commit();
+    stage = stage + 1 == kRingDepth ? 0 : stage + 1;
+  }
+
+  if (pc.w < 0) {  // the whole row
+    const int64_t row = pc.x;
+    if (self_w != nullptr) {
+      add_diagonal<S, VEC>(acc, self_w, self_w_bf16, src, row, f, col);
+    }
+    Pack<S, VEC> o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) o.v[j] = Cvt<S>::from_f(acc[j]);
+    store_pack<S, VEC>(out + row * f + col, o);
+  } else {  // a share of a split row
+    float* share = part + static_cast<int64_t>(pc.w) * f + col;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) share[j] = acc[j];
+  }
+}
+
+// The second launch, one thread per (split row, column): the row's shares
+// (rows fix_ptr[k] .. fix_ptr[k + 1] of part) added in piece order, the
+// epilogue, one rounding. A hub row has hundreds of shares: the unrolled loop
+// issues several loads before their adds, which stay in order.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+gather_scatter_merge_kernel(const float* __restrict__ part,
+                            const int32_t* __restrict__ fix_rows,
+                            const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                            const S* __restrict__ src,
+                            const void* __restrict__ self_w, int self_w_bf16,
+                            S* __restrict__ out, int64_t f) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_fix * f) return;
+  const int64_t k = i / f;
+  const int64_t c = i - k * f;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
+    acc += part[static_cast<int64_t>(p) * f + c];
+  }
+  const int64_t row = fix_rows[k];
+  if (self_w != nullptr) {
+    acc = fmaf(load_weight(self_w, self_w_bf16, row),
+               Cvt<S>::to_f(src[row * f + c]), acc);
+  }
+  out[row * f + c] = Cvt<S>::from_f(acc);
 }
 
 template <typename S, int VEC>
@@ -242,6 +420,31 @@ void launch_scatter(const void* src, const int32_t* idx,
 }
 
 template <typename S, int VEC>
+cudaError_t launch_pieces(const void* src, const int32_t* idx,
+                          const int4* pieces, int64_t n_pieces, int cap,
+                          const void* w, int w_bf16, const void* self_w,
+                          int self_w_bf16, void* out, float* part,
+                          int64_t f, cudaStream_t stream) {
+  int lpr;
+  dim3 grid;
+  pick_geometry(f, VEC, n_pieces, &lpr, &grid);
+  const size_t smem = ring_bytes<S, VEC>() +
+                      static_cast<size_t>(kThreads / lpr) * cap *
+                          (w != nullptr ? 8 : 4);
+  auto kernel = gather_scatter_pieces_kernel<S, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(src), idx, pieces, n_pieces, cap, w, w_bf16,
+      self_w, self_w_bf16, static_cast<S*>(out), part, f, lpr);
+  return cudaGetLastError();
+}
+
+template <typename S, int VEC>
 void launch_expand(const void* rows, const int32_t* recv, const void* w,
                    int w_bf16, const uint8_t* mask, void* out,
                    int64_t n_edges, int64_t f, cudaStream_t stream) {
@@ -290,6 +493,69 @@ int kgt_scatter_sum_sorted(const void* src, const int32_t* idx,
     }
   }
 #undef KGT_SCATTER
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused-gather form over pieces: the same out as kgt_scatter_sum_sorted
+// with idx and no mask. pieces [n_pieces, 4] int32 (row, first slot, end
+// slot, share row or -1), 16-byte aligned, each of at most cap slots, cover
+// every row of [0, n_rows) and every slot once; the n_fix rows fix_rows split
+// into several pieces are the sum of their shares fix_ptr[k] .. fix_ptr[k +
+// 1] in the f32 scratch part [*, f], written before it is read. Two launches:
+// the piece walk, then (n_fix > 0) the split rows' merge.
+int kgt_gather_scatter_pieces(const void* src, const int32_t* idx,
+                              const int32_t* pieces, int64_t n_pieces, int cap,
+                              const void* w, int w_bf16, const void* self_w,
+                              int self_w_bf16, void* out, float* part,
+                              const int32_t* fix_rows, const int32_t* fix_ptr,
+                              int64_t n_fix, int64_t n_rows, int64_t f,
+                              int is_bf16, void* stream) {
+  const int64_t fix_blocks = (n_fix * f + kThreads - 1) / kThreads;
+  // idx may be null only for a stream without slots (nothing reads it).
+  if (src == nullptr || pieces == nullptr || out == nullptr ||
+      n_rows <= 0 || f <= 0 || n_pieces < n_rows || cap < 1 || cap > 1024 ||
+      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 || n_fix < 0 ||
+      (n_fix > 0 && (part == nullptr || fix_rows == nullptr ||
+                     fix_ptr == nullptr)) ||
+      fix_blocks >= (static_cast<int64_t>(1) << 31) ||
+      n_pieces >= (static_cast<int64_t>(1) << 31) * (kThreads / 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = pick_vec(f, is_bf16 ? 2 : 4, src, out);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
+  cudaError_t err = cudaSuccess;
+#define KGT_PIECES(S, V)                                                    \
+  err = launch_pieces<S, V>(src, idx, work, n_pieces, cap, w, w_bf16,       \
+                            self_w, self_w_bf16, out, part, f, s)
+  if (is_bf16) {
+    switch (vec) {
+      case 8: KGT_PIECES(uint16_t, 8); break;
+      case 4: KGT_PIECES(uint16_t, 4); break;
+      case 2: KGT_PIECES(uint16_t, 2); break;
+      default: KGT_PIECES(uint16_t, 1); break;
+    }
+  } else {
+    switch (vec) {
+      case 4: KGT_PIECES(float, 4); break;
+      case 2: KGT_PIECES(float, 2); break;
+      default: KGT_PIECES(float, 1); break;
+    }
+  }
+#undef KGT_PIECES
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_fix > 0) {
+    const unsigned blocks = static_cast<unsigned>(fix_blocks);
+    if (is_bf16) {
+      gather_scatter_merge_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+          part, fix_rows, fix_ptr, n_fix, static_cast<const uint16_t*>(src),
+          self_w, self_w_bf16, static_cast<uint16_t*>(out), f);
+    } else {
+      gather_scatter_merge_kernel<float><<<blocks, kThreads, 0, s>>>(
+          part, fix_rows, fix_ptr, n_fix, static_cast<const float*>(src),
+          self_w, self_w_bf16, static_cast<float*>(out), f);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

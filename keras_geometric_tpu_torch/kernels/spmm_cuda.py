@@ -18,7 +18,17 @@ Source notes, one per kernel:
   message ``e`` is ``h[idx[e]]`` read inside the kernel, so the ``[E, F]``
   array never reaches device memory. Bound by bytes: the node array once, the
   output once, index and weight streams; the random row reads are served by L2
-  when the node array fits there.
+  when the node array fits there. It walks pieces of at most
+  ``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, the attention kernels'
+  work list, kept on the ``row_ptr`` tensor), so no sub-warp walks a long row
+  (a hub, or the padded tail that piles into the last sender row) serially:
+  each piece's indices and weights are staged in shared memory, the next
+  eight gathered rows kept in flight in a ``cp.async`` ring and summed in
+  f32 in slot order; a split row's f32 shares are added in piece order by a
+  second launch, which applies the diagonal epilogue and rounds once.
+  ``pieces=False`` takes the row walk (a sub-warp per row), which gives the
+  same bits on every row that is one piece; the GCN's operator takes it
+  (``ops/csr.py``).
 - ``expand_sorted`` replaces ``_expand_impl``: ``out[e] = rows[recv[e]]*w[e]``,
   one thread per (edge, 16-byte column chunk). Bound by the ``E*F`` write.
 - ``segment_max_sorted`` (``csrc/segment_max.cu``) replaces
@@ -46,6 +56,7 @@ a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -67,6 +78,9 @@ __all__ = [
     "segment_max_wide_raw_plain",
     "segment_max_wide_bwd_plain",
     "row_ptr_from_sorted",
+    "RECV_BWD_PIECE",
+    "RecvBwdWork",
+    "recv_bwd_work",
     "LAUNCH_COUNTS",
     "MODE_LAUNCH_COUNTS",
     "reset_launch_counts",
@@ -84,8 +98,10 @@ LAUNCH_COUNTS = {
 }
 
 # Launches of the wide segment max's backward with the ties split evenly (the
-# layers' rule), counted beside (not instead of) its own count.
-MODE_LAUNCH_COUNTS = {"segment_max_wide_bwd(ties_split)": 0}
+# layers' rule), and of the fused-gather form's row walk (``pieces=False``),
+# counted beside (not instead of) the kernel's own count.
+MODE_LAUNCH_COUNTS = {"segment_max_wide_bwd(ties_split)": 0,
+                      "gather_scatter_sum_sorted(rows)": 0}
 
 # Where the wide segment max leaves a row without an unmasked slot (the JAX
 # package's finite stand-in for -inf).
@@ -118,6 +134,84 @@ def row_ptr_from_sorted(receivers: torch.Tensor, num_nodes: int) -> torch.Tensor
         raise ValueError("receivers must be sorted (receiver-major CSR)")
     row_ptr = np.searchsorted(recv, np.arange(num_nodes + 1), side="left")
     return torch.from_numpy(row_ptr.astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The work list of the kernels that walk pieces: the fused-gather form here,
+# and the attention's forward, rho and both backwards (attend_cuda).
+# ---------------------------------------------------------------------------
+
+# Slots a group of those kernels walks at most.
+RECV_BWD_PIECE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class RecvBwdWork:
+    """Pieces of a sorted stream (receiver- or sender-sorted) for the kernels
+    that walk them.
+
+    ``pieces`` ``[P, 4]`` int32: (row, first slot, end slot, share), in row
+    and slot order; every row has at least one piece (an empty row one empty
+    piece) and every slot lies in exactly one, of at most ``piece`` slots.
+    ``share`` is -1 where the piece is its whole row, else its row in the
+    ``[num_shares, D]`` f32 scratch of shares. ``fix_rows`` ``[R]`` int32 are
+    the rows split into several pieces, in order, and their shares are
+    ``fix_ptr[k] .. fix_ptr[k + 1]`` (``[R + 1]`` int32), in slot order.
+    """
+
+    pieces: torch.Tensor
+    fix_rows: torch.Tensor
+    fix_ptr: torch.Tensor
+    piece: int
+    num_shares: int
+
+    @property
+    def num_pieces(self) -> int:
+        return int(self.pieces.shape[0])
+
+
+def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
+    rp = row_ptr.long()
+    lengths = rp[1:] - rp[:-1]
+    counts = torch.clamp((lengths + piece - 1) // piece, min=1)
+    total = int(counts.sum())
+    n = lengths.shape[0]
+    row = torch.repeat_interleave(torch.arange(n, device=rp.device), counts,
+                                  output_size=total)
+    first = torch.cumsum(counts, 0) - counts  # each row's first piece
+    k = torch.arange(total, device=rp.device) - first[row]
+    lo = rp[row] + k * piece
+    hi = torch.minimum(lo + piece, rp[row + 1])
+    split = counts[row] > 1
+    share = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
+    pieces = torch.stack([row, lo, hi, share], 1).to(torch.int32).contiguous()
+    fix_rows = torch.nonzero(counts > 1).flatten()
+    fix_ptr = torch.zeros(fix_rows.shape[0] + 1, dtype=torch.long,
+                          device=rp.device)
+    fix_ptr[1:] = torch.cumsum(counts[fix_rows], 0)
+    return RecvBwdWork(pieces=pieces, fix_rows=fix_rows.to(torch.int32),
+                       fix_ptr=fix_ptr.to(torch.int32), piece=piece,
+                       num_shares=int(split.sum()))
+
+
+def recv_bwd_work(row_ptr: torch.Tensor,
+                  piece: int = RECV_BWD_PIECE) -> RecvBwdWork:
+    """The pieces for ``row_ptr`` (``[N + 1]``), on its device, that the
+    kernels walk: ``row_ptr`` over the receiver-sorted stream for the
+    attention's forward, rho and receiver backward, ``row_ptr_bwd`` over the
+    sender-sorted one for its sender backward and the finish, and either for
+    the fused-gather scatter. Built once per ``row_ptr`` tensor (one host
+    synchronisation, at its first use) and kept on the tensor while it is not
+    written to."""
+    if piece < 1:
+        raise ValueError(f"piece must be >= 1, got {piece}")
+    key = (row_ptr._version, piece)
+    cached = getattr(row_ptr, "_recv_bwd_work", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    work = _build_recv_bwd_work(row_ptr, piece)
+    row_ptr._recv_bwd_work = (key, work)
+    return work
 
 
 def _row_ptr_or_raise(data, receivers, num_nodes, row_ptr):
@@ -187,6 +281,11 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, i32, vp, vp, i32, vp, i64, i64, i32, vp,
     ]
     lib.kgt_scatter_sum_sorted.restype = i32
+    lib.kgt_gather_scatter_pieces.argtypes = [
+        vp, vp, vp, i64, i32, vp, i32, vp, i32, vp, vp, vp, vp, i64, i64,
+        i64, i32, vp,
+    ]
+    lib.kgt_gather_scatter_pieces.restype = i32
     lib.kgt_expand_sorted.argtypes = [
         vp, vp, vp, i32, vp, vp, i64, i64, i32, vp,
     ]
@@ -280,6 +379,44 @@ def _launch_scatter(counter, src, idx, row_ptr, num_nodes, num_edges, weights,
     return out
 
 
+def _launch_gather_pieces(h, idx, row_ptr, num_nodes, weights, self_weight):
+    """The fused-gather form over the pieces of ``row_ptr``: the piece walk,
+    then the split rows' merge (one launch by the count)."""
+    device = h.device
+    _check_data("source", h)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    num_edges = idx.shape[0]
+    _check_index("idx", idx, num_edges, device)
+    w_ptr, w_bf16 = _scalar_arg("weights", weights, num_edges, device)
+    sw_ptr, sw_bf16 = _scalar_arg("self_weight", self_weight, num_nodes,
+                                  device)
+    if num_edges >= 2**31:
+        raise ValueError("edge count must stay below 2**31 (int32 indices)")
+    f = h.shape[1]
+    out = torch.empty(num_nodes, f, dtype=h.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    work = recv_bwd_work(row_ptr)
+    part = None
+    if work.num_shares:
+        part = torch.empty(work.num_shares, f, dtype=torch.float32,
+                           device=device)
+    with torch.cuda.device(device):
+        code = lib.kgt_gather_scatter_pieces(
+            h.data_ptr(), idx.data_ptr(), work.pieces.data_ptr(),
+            work.num_pieces, work.piece, w_ptr, w_bf16, sw_ptr, sw_bf16,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(),
+            int(work.fix_rows.shape[0]), num_nodes, f,
+            int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "gather_scatter_sum_sorted")
+    LAUNCH_COUNTS["gather_scatter_sum_sorted"] += 1
+    return out
+
+
 def _scatter_raw(messages, receivers, row_ptr, num_nodes, weights, mask):
     if messages.shape[0] != receivers.shape[0]:
         raise ValueError(
@@ -296,12 +433,16 @@ def _scatter_raw(messages, receivers, row_ptr, num_nodes, weights, mask):
 
 
 def gather_scatter_sum_sorted(h, idx, receivers, row_ptr, num_nodes, *,
-                              weights=None, self_weight=None):
+                              weights=None, self_weight=None, pieces=True):
     """``out[r] = sum_{e: receivers[e]=r} weights[e]*h[idx[e]] (+ self_weight[r]*h[r])``.
 
     The fused-gather form of the sorted scatter: no ``[E, F]`` array is
-    formed. ``receivers`` is sorted and ``row_ptr`` are its row pointers. Not
-    differentiable by itself; ``GraphContext.spmm`` wraps it with its VJP.
+    formed. ``receivers`` is sorted and ``row_ptr`` are its row pointers. On
+    the card the kernel walks the pieces of :func:`recv_bwd_work` (built at
+    the first call for a ``row_ptr`` tensor), or with ``pieces=False`` each
+    row whole; the two agree bit for bit on a row of at most
+    ``RECV_BWD_PIECE`` slots. Not differentiable by itself;
+    ``GraphContext.spmm`` wraps it with its VJP.
     """
     if self_weight is not None and h.shape[0] < num_nodes:
         raise ValueError("self_weight needs one source row per output row")
@@ -310,10 +451,15 @@ def gather_scatter_sum_sorted(h, idx, receivers, row_ptr, num_nodes, *,
             h, idx, receivers, num_nodes, weights=weights,
             self_weight=self_weight,
         )
-    return _launch_scatter(
+    if pieces:
+        return _launch_gather_pieces(h, idx, row_ptr, num_nodes, weights,
+                                     self_weight)
+    out = _launch_scatter(
         "gather_scatter_sum_sorted", h, idx, row_ptr, num_nodes, idx.shape[0],
         weights, None, self_weight,
     )
+    MODE_LAUNCH_COUNTS["gather_scatter_sum_sorted(rows)"] += 1
+    return out
 
 
 def _expand_raw(rows, receivers, weights, mask):

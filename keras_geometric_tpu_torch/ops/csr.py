@@ -580,6 +580,13 @@ class _Sddmm(torch.autograd.Function):
         return dht.to(ht.dtype), d_pre, datt, None, None
 
 
+# The GCN's operator (the three Functions below) takes the fused-gather
+# scatter's row walk (pieces=False): on the H100 its piece walk, which the
+# attention's finishes and the gather's VJP take, was 9% faster at the
+# arxiv-shaped GCN's first layer (F = 128) but 7% slower at its second (F =
+# 40), with and without the padded tail (PERF.md, section 6).
+
+
 class _SpmmSymmetric(torch.autograd.Function):
     """Weighted spmm over a symmetric adjacency: ``A^T = A``, so the
     cotangent flows through the same operator (re-entering the Function keeps
@@ -591,7 +598,7 @@ class _SpmmSymmetric(torch.autograd.Function):
         return spmm_cuda.gather_scatter_sum_sorted(
             h.contiguous(), graph.senders, graph.receivers, graph.row_ptr,
             graph.num_nodes, weights=graph.edge_weight,
-            self_weight=graph.self_weight,
+            self_weight=graph.self_weight, pieces=False,
         )
 
     @staticmethod
@@ -611,7 +618,7 @@ class _SpmmGeneral(torch.autograd.Function):
         return spmm_cuda.gather_scatter_sum_sorted(
             h.contiguous(), graph.senders, graph.receivers, graph.row_ptr,
             graph.num_nodes, weights=graph.edge_weight,
-            self_weight=graph.self_weight,
+            self_weight=graph.self_weight, pieces=False,
         )
 
     @staticmethod
@@ -628,7 +635,7 @@ class _SpmmGeneralTransposed(torch.autograd.Function):
         return spmm_cuda.gather_scatter_sum_sorted(
             g.contiguous(), graph.receivers_ss, graph.senders_sorted,
             graph.row_ptr_bwd, graph.num_nodes, weights=graph.edge_weight_ss,
-            self_weight=graph.self_weight,
+            self_weight=graph.self_weight, pieces=False,
         )
 
     @staticmethod
