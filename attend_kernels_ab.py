@@ -30,16 +30,27 @@ arxiv-shaped GCN's two layers (169,343 nodes padded to 169,472, 2 x
 cases and the sender finish are also timed as its row walk
 (``pieces=False``). ``--only=a,b`` keeps the named groups of cases
 (``attend``: the forward, rho and the receiver backward in every mode;
-``send``: the sender backward; ``finish``; ``gcn``; ``band``), so that a
-copy that changes one kernel is timed on that kernel alone. With
-``--ptxas`` it first prints, per copy, the registers and spills that ``nvcc
--Xptxas -v`` reports for the attention kernels' bf16 instantiations at the
-arxiv widths and their f32 ones at CiteSeer's, and for the fused-gather
-scatter's at bf16 (16-byte packs) and f32 (four-wide packs).
+``send``: the sender backward; ``finish``; ``gcn``; ``band``; ``window``:
+the window scatter at the windowed GATv2 run's two widths, H*F = 256 and
+160 in bf16, on its LPA-reordered community graph with
+``attend_window=1024``, beside ``index_add_`` over the eligible slots and,
+where a copy lists those slots in sender order, the row walk of that list,
+with the host seconds of that context's ``prepare_graph``;
+``composed``: the composed path's score kernel at the four GATv2 shapes on
+``hj = ht[senders]``, with whether its scores equal the fused forward's on
+every valid slot), so that a copy that changes one kernel is timed on that
+kernel alone. With ``--ptxas`` it first prints, per copy, the registers and
+spills that ``nvcc -Xptxas -v`` reports for the attention kernels' bf16
+instantiations at the arxiv widths and their f32 ones at CiteSeer's, for
+the fused-gather scatter's at bf16 (16-byte packs) and f32 (four-wide
+packs), and for the window scatter's and the score kernels' at those
+widths.
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent --gcn \
         --only=send,finish,gcn --unpadded
+    python3 attend_kernels_ab.py build/parent . . build/parent \
+        --only=window,composed --ptxas
 """
 
 from __future__ import annotations
@@ -49,13 +60,21 @@ import os
 import re
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
-GROUPS = ("attend", "send", "finish", "gcn", "band")
+GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed")
 # Template arguments of the instantiations --ptxas shows, per source.
 SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          "spmm.cu": ("unsigned short, 8>", "float, 4>",
-                     "unsigned short, 8, true>", "float, 4, true>")}
+                     "unsigned short, 8, true>", "float, 4, true>"),
+         "band.cu": ("unsigned short, 8>",),
+         "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
+                      "float, 2, 1, false>")}
+# The case group of each attention-shape case (the rest are its own group's).
+CASE_GROUP = {"sender finish": "finish", "sender finish (rows)": "finish",
+              "attend_send_bwd_sorted": "send",
+              "sddmm_scores_sorted": "composed"}
 
 
 def ptxas_report(root: str) -> list:
@@ -97,15 +116,19 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
     import keras_geometric_tpu_torch as kgt
     from keras_geometric_tpu_torch.kernels import _build
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     if not A.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"imported {A.__file__}, not the copy in {root}")
     device = torch.device("cuda")
-    gat = bool(groups & {"attend", "send", "finish"})
+    gat = bool(groups & {"attend", "send", "finish", "composed"})
     band = "band" in groups
+    window = "window" in groups
     _build.load_libraries(["spmm"] + (["attend"] if gat else [])
-                          + (["band"] if band else []))
+                          + (["sddmm"] if "composed" in groups else [])
+                          + (["band"] if band or window else []))
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
     has_pieces = "pieces" in inspect.signature(
         K.gather_scatter_sum_sorted).parameters
@@ -180,9 +203,52 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
             torch.cuda.empty_cache()
     if not gat:
         shapes = ()
-    if band:
-        from keras_geometric_tpu_torch.kernels import band_cuda as B
+    if window:
+        # chip_smoke.py's gat_skewed context: the community graph of arxiv's
+        # size relabelled by its LPA cluster order, with self-loops,
+        # edge_chunk=512 and attend_window=1024.
+        from keras_geometric_tpu_torch.data.datasets import community_graph
+        from keras_geometric_tpu_torch.ops import reorder
 
+        ei = community_graph(n, 2 * (1_166_243 // 2), seed=0)
+        src, dst = ei[0].astype(np.int64), ei[1].astype(np.int64)
+        inv = reorder.invert_order(reorder.cluster_order(src, dst, n))
+        start = time.perf_counter()
+        ctx = kgt.prepare_graph(np.stack([inv[src], inv[dst]]), n,
+                                add_self_loops=True, edge_chunk=512,
+                                pad_nodes=True, attend_window=1024,
+                                device=device)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - start
+        plan, tab = ctx.attw_plan, ctx.attw_sender
+        sel = tab >= 0
+        rows = plan.num_windows * plan.window
+        result["window"] = {"slots": tab.shape[0],
+                            "eligible": int(sel.sum()), "rows": rows,
+                            "prepare_graph_seconds": prepare_s}
+        gen = torch.Generator(device=device).manual_seed(13)
+        for layer, d in (("layer 1", 256), ("layer 2", 160)):
+            v = torch.randn(tab.shape[0], d, generator=gen,
+                            device=device).to(torch.bfloat16)
+            v_sel, senders = v[sel], tab[sel].long()
+            cases = {
+                "window_scatter_sum": lambda: B.window_scatter_sum(
+                    v, tab, plan),
+                "index_add_": lambda: torch.zeros(
+                    rows, d, dtype=v.dtype, device=device).index_add_(
+                        0, senders, v_sel),
+            }
+            if hasattr(plan, "scatter_idx"):  # the sender-order list
+                cases["window_scatter_sum (row walk)"] = lambda: (
+                    K.gather_scatter_sum_sorted(
+                        v, plan.scatter_idx, None, plan.scatter_row_ptr,
+                        rows, pieces=False))
+            result["window"][layer] = {case: cold_ms(fn)
+                                       for case, fn in cases.items()}
+            del v, v_sel, cases
+        del ctx, plan, tab
+        torch.cuda.empty_cache()
+    if band:
         gen = torch.Generator(device=device).manual_seed(13)
         n_pad, window, rb = 169_472, 1_024, 256
         nb = n_pad // rb
@@ -253,6 +319,13 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
 
                 finish = (v, ctx.bwd_perm, ctx.senders_sorted,
                           ctx.row_ptr_bwd, nodes)
+                hj = (ht.index_select(0, ctx.senders) if "composed" in groups
+                      else None)
+                # The copy's score kernel walks the pieces of row_ptr where
+                # its signature takes it.
+                k7a_kw = ({"row_ptr": ctx.row_ptr} if "row_ptr" in
+                          inspect.signature(D.sddmm_scores_sorted).parameters
+                          else {})
                 cases = {
                     "sddmm_stats_agg_sorted": lambda: (
                         A.sddmm_stats_agg_sorted(ht, *graph, att,
@@ -292,15 +365,22 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                                 ctx.row_ptr_bwd, att, m, l, rho,
                                 valid_ss=ctx.edge_mask_ss, drop_ss=drop_ss)),
                     })
-                if "attend" not in groups:
-                    cases = {k: fn for k, fn in cases.items()
-                             if k.startswith("sender finish")
-                             or k == "attend_send_bwd_sorted"}
-                if "send" not in groups:
-                    cases.pop("attend_send_bwd_sorted", None)
+                cases["sddmm_scores_sorted"] = lambda: (
+                    D.sddmm_scores_sorted(ht, hj, att, ctx.receivers,
+                                          **k7a_kw))
+                cases = {k: fn for k, fn in cases.items()
+                         if CASE_GROUP.get(k, "attend") in groups}
                 result[key][layer] = {case: cold_ms(fn)
                                       for case, fn in cases.items()}
-                del v, scores, cases, finish
+                if "composed" in groups:
+                    # One score function: the composed path's scores are the
+                    # fused forward's on every valid slot.
+                    k7a = D.sddmm_scores_sorted(ht, hj, att, ctx.receivers,
+                                                **k7a_kw)
+                    result[key][layer]["scores equal K9's"] = bool(
+                        torch.equal(k7a[valid], scores[valid]))
+                    del k7a
+                del v, scores, cases, finish, hj
             del ctx
             torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)

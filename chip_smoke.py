@@ -25,13 +25,20 @@ exit code and without the final line; so does a run of a subset of the phases
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
                 attention kernels at (H, F) in (4, 64), (4, 40), (8, 8),
                 (8, 6), (1, 7), with and without a dropout mask; the
-                composed path's score kernels at the same (H, F), its
+                composed path's score kernels at the same (H, F) (and at
+                the composed runs' shapes the score kernel bit for bit
+                against the fused forward's scores on ``hj = ht[senders]``),
+                its
                 softmax kernels at K in 1, 4, 8 with a row whose scores are
                 all -inf), the band SpMM at F in 1, 7, 40, 128, 256 and
                 W in 256, 512, 1024 (symmetric and transposed plans, a row
                 block with an empty band, the clamped last block), the window
-                scatter at F in 8, 40, 160, 256 (a window with no item, an
-                all -1 table, two launches bit for bit); the attention
+                scatter at F in 8, 40, 160, 256 (a window with no item, a
+                row of thousands of eligible slots, an all -1 table; held
+                against its sum in f64, two launches bit for bit, and bit
+                for bit against the row walk of its sender-order list on
+                every row of at most 32 eligible slots, as also at the
+                windowed GATv2 run's shapes); the attention
                 kernels' other modes (the forward without its scores, rho
                 and the receiver backward recomputing them, the receiver
                 backward without ``v``), the sender backward, the
@@ -350,6 +357,15 @@ PTXAS_SHOWN = {
     "gather_scatter_merge_kernelItE": "gather_scatter_merge_kernel<bf16>",
     "scatter_sum_sorted_kernelItLi8ELb1E":
         "scatter_sum_sorted_kernel<bf16, 8, gather> (the row walk)",
+    "window_scatter_kernelItLi8E":
+        "window_scatter_kernel<bf16, 8> (windowed GATv2)",
+    "window_scatter_merge_kernelItE": "window_scatter_merge_kernel<bf16>",
+    "sddmm_scores_kernelItLi8ELi1ELb0E":
+        "sddmm_scores_kernel<bf16, 8, 1> (composed arxiv)",
+    "sddmm_scores_kernelIfLi4ELi1ELb0E":
+        "sddmm_scores_kernel<f32, 4, 1> (composed CiteSeer L1)",
+    "sddmm_scores_kernelIfLi2ELi1ELb0E":
+        "sddmm_scores_kernel<f32, 2, 1> (composed CiteSeer L2)",
 }
 
 # The CUDA kernels each call of a piece-walking wrapper launches: the walk
@@ -384,8 +400,9 @@ def ptxas_report() -> dict:
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {source}")
         return proc.stderr.splitlines()
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        lines = [l for out in pool.map(one, ("band", "attend", "spmm"))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        lines = [l for out in pool.map(one, ("band", "attend", "spmm",
+                                              "sddmm"))
                  for l in out]
     report, shown = {}, None
     for line in lines:
@@ -1438,8 +1455,8 @@ def modes_sweep(device, timer):
     a dropout mask, on ``send_skewed_graph``; then what its 20,000-slot hub
     sender row costs the sender backward and the permute finish (the same
     graph timed with and without that row, at the arxiv layer-1 width in
-    bf16; ``modes_case`` also holds every kernel on the graph without the
-    row)."""
+    bf16, with each kernel's bound and the finish's plain version's time;
+    ``modes_case`` also holds every kernel on the graph without the row)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
@@ -1460,8 +1477,18 @@ def modes_sweep(device, timer):
                     worst[name] = max(worst.get(name, 0.0), err)
                 cases += len(errs)
     torch.cuda.synchronize()
-    hub = {"attend_send_bwd_sorted": {}, "gather_scatter_sum_sorted": {}}
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    hub = {"attend_send_bwd_sorted": {"bound_ms": {}},
+           "gather_scatter_sum_sorted": {"bound_ms": {}, "plain_ms": {}}}
     heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+
+    def bound_ms(nbytes, ops):
+        return max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3
+
     for label, sg in (("with_hub_sender", g),
                       ("without_hub_sender", send_skewed_graph(device, 0))):
         ht, att, gout, _ = attend_inputs(gen, sg["n"], heads, f,
@@ -1488,6 +1515,21 @@ def modes_sweep(device, timer):
                                              valid_ss=valid_ss), iters=10)
         hub["gather_scatter_sum_sorted"][label] = timer.cold_ms(
             lambda: K.gather_scatter_sum_sorted(*finish), iters=10)
+        hub["gather_scatter_sum_sorted"]["plain_ms"][label] = timer.cold_ms(
+            lambda: K.gather_scatter_sum_sorted_plain(v, finish[1], ss[1],
+                                                      sg["n"]),
+            iters=5, warmup=1)
+        # As time_mode_cases and time_attend_cases count them (bf16, no
+        # dropout): K10d reads ht, g and (m, l, rho) once and writes its
+        # output, with the sender-order index, receivers and validity; the
+        # finish reads every row of v once and writes the node rows.
+        n, e, d = sg["n"], sg["e"], heads * f
+        nodes, index = n * d * 2, e * 4 + (n + 1) * 4
+        hub["attend_send_bwd_sorted"]["bound_ms"][label] = bound_ms(
+            3 * nodes + index + e * 4 + 3 * n * heads * 4 + d * 2,
+            12 * e * d)
+        hub["gather_scatter_sum_sorted"]["bound_ms"][label] = bound_ms(
+            e * d * 2 + nodes + index, e * d)
         del v, scores, finish
     return cases, worst, hub
 
@@ -1792,7 +1834,7 @@ def softmax_case(recv, row_ptr, n, scores, out_dtype, what):
     return errs, m, l, alpha
 
 
-def sddmm_case(recv, ht, hj, att, ds, what):
+def sddmm_case(recv, row_ptr, ht, hj, att, ds, what):
     """The score kernel and its backward against their plain versions on one
     input, each element held to the tolerance of the module docstring."""
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
@@ -1803,7 +1845,7 @@ def sddmm_case(recv, ht, hj, att, ds, what):
              + hj.float().abs()).view(e, heads, f)
     s_mass = (z_abs * att.float().abs()).sum(-1)
     errs = {"sddmm_scores_sorted": compare(
-        D.sddmm_scores_sorted(ht, hj, att, recv),
+        D.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr),
         D.sddmm_scores_sorted_plain(ht, hj, att, recv), s_mass,
         torch.float32, f"{what} scores")}
     d_pre, datt = D.sddmm_bwd_sorted(ht, hj, att, ds, recv)
@@ -1871,18 +1913,26 @@ def composed_sweep(device, timer):
         for heads, f in ATTEND_SHAPES:
             ht, hj, att, ds = sddmm_inputs(gen, n, e, heads, f, dtype,
                                            g["mask"], device)
-            errs = sddmm_case(recv, ht, hj, att, ds,
+            errs = sddmm_case(recv, row_ptr, ht, hj, att, ds,
                               f"sddmm {str(dtype)[6:]} H={heads} F={f}")
             for name, err in errs.items():
                 worst[name] = max(worst[name], err)
             cases += len(errs)
     torch.cuda.synchronize()
     try:
-        D.sddmm_scores_sorted(ht.double(), hj.double(), att, recv)
+        D.sddmm_scores_sorted(ht.double(), hj.double(), att, recv,
+                              row_ptr=row_ptr)
     except TypeError:
         pass
     else:
         check(False, "float64 data must be refused on a CUDA tensor")
+    try:
+        D.sddmm_scores_sorted(ht, hj, att, recv)
+    except ValueError:
+        pass
+    else:
+        check(False, "the score kernel must refuse a CUDA tensor without "
+              "row_ptr")
 
     hub = {}
     heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
@@ -1902,7 +1952,8 @@ def composed_sweep(device, timer):
                 lambda: S.softmax_apply_sorted(scores, m, l, srecv),
                 iters=10),
             "sddmm_scores_sorted": timer.cold_ms(
-                lambda: D.sddmm_scores_sorted(ht, hj, att, srecv), iters=10),
+                lambda: D.sddmm_scores_sorted(ht, hj, att, srecv,
+                                              row_ptr=sptr), iters=10),
             "sddmm_bwd_sorted": timer.cold_ms(
                 lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, srecv),
                 iters=10),
@@ -1916,6 +1967,7 @@ def time_composed_cases(device, timer, contexts, replaces):
     single PyTorch call computes any of them (``torch.segment_reduce`` gives
     a row's max but not its sum of exponentials), so ``library_ms`` is
     null."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
     from keras_geometric_tpu_torch.kernels import softmax_cuda as S
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -1945,11 +1997,19 @@ def time_composed_cases(device, timer, contexts, replaces):
         hj = ht.index_select(0, ctx.senders)  # the gather the path runs
         ds = torch.randn(e, heads, generator=gen, device=device).masked_fill(
             ~valid[:, None], 0.0)
-        scores = D.sddmm_scores_sorted(ht, hj, att, recv).masked_fill(
-            ~valid[:, None], float("-inf"))
+        k7a = D.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr)
+        # One score function in one lane layout (ROADMAP D9): the composed
+        # path's scores are the fused forward's on every valid slot.
+        _, k9, _, _ = A.sddmm_stats_agg_sorted(
+            ht, ctx.senders, recv, row_ptr, att, edge_valid=valid)
+        check(torch.equal(k7a[valid], k9[valid]),
+              f"sddmm_scores_sorted at {ctx_name} {layer}: the scores differ "
+              f"from the fused forward's (K9's) on hj = ht[senders]")
+        scores = k7a.masked_fill(~valid[:, None], float("-inf"))
+        del k9
         errs, m, l, _ = softmax_case(recv, row_ptr, n, scores, torch.float32,
                                      f"softmax at {ctx_name} {layer}")
-        errs.update(sddmm_case(recv, ht, hj, att, ds,
+        errs.update(sddmm_case(recv, row_ptr, ht, hj, att, ds,
                                f"sddmm at {ctx_name} {layer}"))
         torch.cuda.empty_cache()
         index = e * 4
@@ -1972,7 +2032,8 @@ def time_composed_cases(device, timer, contexts, replaces):
                 no_reuse=2 * score_bytes + index + 2 * e * heads * 4,
                 ops=3 * e * heads),
             "sddmm_scores_sorted": dict(
-                kernel=lambda: D.sddmm_scores_sorted(ht, hj, att, recv),
+                kernel=lambda: D.sddmm_scores_sorted(ht, hj, att, recv,
+                                                     row_ptr=row_ptr),
                 plain=lambda: D.sddmm_scores_sorted_plain(ht, hj, att, recv),
                 # ht and hj read, receivers, att, scores written
                 nbytes=n * d * es + e * d * es + index + d * es
@@ -2013,6 +2074,16 @@ def time_composed_cases(device, timer, contexts, replaces):
                 # the normalisation).
                 entry["bound_ms_if_gather_not_reused"] = (
                     case["no_reuse"] / H100_BYTES_PER_S * 1e3)
+            if name == "sddmm_scores_sorted":
+                entry.update(piece_fields(row_ptr))
+                entry.update({
+                    "cuda_kernels": ["sddmm_scores_kernel"],
+                    "valid_slots_equal_to_fused_forward": int(valid.sum()),
+                    "parent_ms": None,
+                    "parent": "not measured here: attend_kernels_ab.py "
+                              "--only=composed times a parent copy beside "
+                              "this one",
+                })
             entries.append(entry)
         del hj, scores, cases
         torch.cuda.empty_cache()
@@ -2032,14 +2103,59 @@ def band_mass(x, band, base_idx, window, row_block):
                                window, row_block)
 
 
+def plan_on(plan, device):
+    """A plan (a dataclass of tensors and nested plans) with every tensor on
+    ``device``."""
+    moved = {}
+    for field in dataclasses.fields(plan):
+        value = getattr(plan, field.name)
+        if isinstance(value, torch.Tensor):
+            moved[field.name] = value.to(device)
+        elif dataclasses.is_dataclass(value):
+            moved[field.name] = plan_on(value, device)
+    return dataclasses.replace(plan, **moved)
+
+
+def window_scatter_f64(v, tab, plan):
+    """The window scatter summed in f64 (a serial f32 sum of a hub row's
+    thousands of terms drifts; the piece sums do not: ROADMAP D11)."""
+    sel = tab >= 0
+    out = torch.zeros(plan.num_windows * plan.window, v.shape[1],
+                      dtype=torch.float64, device=v.device)
+    return out.index_add_(0, tab[sel].long(), v[sel].double())
+
+
+def window_scatter_mass(v, tab, plan):
+    return window_scatter_f64(v.abs(), tab, plan).float()
+
+
+def window_scatter_checked(v, tab, plan, what):
+    """The window scatter's kernel, launched twice (the same bits), and held
+    bit for bit against the row walk of the same sender-order list (the
+    fused-gather scatter with ``pieces=False``) on every row of at most one
+    piece's slots. Returns the first launch's output."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    out = B.window_scatter_sum(v, tab, plan)
+    check(torch.equal(out, B.window_scatter_sum(v, tab, plan)),
+          f"{what}: two launches differ")
+    rows = K.gather_scatter_sum_sorted(
+        v, plan.scatter_idx, None, plan.scatter_row_ptr,
+        plan.num_windows * plan.window, pieces=False)
+    check_one_piece_rows_equal(out, rows, plan.scatter_row_ptr, what)
+    return out
+
+
 def band_sweep(device):
     """The band kernel at every F of ``BAND_WIDTHS``, both types, every window
     of ``BAND_WINDOWS``, over a symmetric and a directed plan (its transposed
     plan too) of a local graph with one row block whose band is empty; the
     window scatter at every F of ``SCATTER_WIDTHS``, both types, with a
-    window that no chunk chose, an all -1 table and two launches compared
-    bit for bit. Returns the number of comparisons and each kernel's worst
-    error."""
+    window that no chunk chose, a hub row of thousands of eligible slots and
+    an all -1 table, held against its sum in f64, launched twice and against
+    the row walk of its list (``window_scatter_checked``). Returns the number
+    of comparisons and each kernel's worst error."""
     from keras_geometric_tpu_torch.kernels import band_cuda as B
 
     rng = np.random.default_rng(12)
@@ -2085,7 +2201,9 @@ def band_sweep(device):
                     cases += 1
     torch.cuda.synchronize()
 
-    # Window scatter: senders near their receivers, window 3 never chosen.
+    # Window scatter: senders near their receivers, window 3 never chosen,
+    # the receivers of [4900, 5100) all sending from node 5000 (a row of
+    # thousands of eligible slots, cut into many pieces).
     window, chunk = ATTEND_WINDOW, 2048
     e = 200_000
     recv = np.sort(rng.integers(0, n, e))
@@ -2093,28 +2211,29 @@ def band_sweep(device):
     far = rng.random(e) < 0.3
     send[far] = rng.integers(0, n, int(far.sum()))
     send = np.where(send // window == 3, send + window, send)
+    send[(recv >= 4_900) & (recv < 5_100)] = 5_000
     e_pad = -(-e // chunk) * chunk
     send = np.concatenate([send, np.full(e_pad - e, n - 1)])
     plan, _, tab = B.build_window_scatter_plan(
         send, n, np.arange(e_pad) < e, window=window, edge_chunk=chunk)
     check(plan.work_chunk[plan.work_win == 3].tolist() == [0],
           "window scatter sweep: window 3 must be visited once, to zero it")
-    plan = dataclasses.replace(plan, win_ptr=plan.win_ptr.to(device),
-                               item_chunk=plan.item_chunk.to(device))
+    plan = plan_on(plan, device)
+    lengths = plan.scatter_row_ptr[1:] - plan.scatter_row_ptr[:-1]
+    check(int(lengths.max()) > 1_000 and not lengths[3 * window:4 * window]
+          .any().item(), "window scatter sweep: a hub row of more than "
+          "1,000 eligible slots and an empty window")
     tab = torch.from_numpy(tab).to(device)
     none = torch.full_like(tab, -1)
     for dtype in (torch.float32, torch.bfloat16):
         for f in SCATTER_WIDTHS:
             v = torch.randn(e_pad, f, generator=gen, device=device).to(dtype)
-            out = B.window_scatter_sum(v, tab, plan)
-            again = B.window_scatter_sum(v, tab, plan)
-            ref = B.window_scatter_sum_plain(v, tab, plan)
-            mass = B.window_scatter_sum_plain(v.float().abs(), tab, plan)
             tag = f"window_scatter_sum {str(dtype)[6:]} F={f}"
+            out = window_scatter_checked(v, tab, plan, tag)
             worst["window_scatter_sum"] = max(
                 worst["window_scatter_sum"],
-                compare(out, ref, mass, dtype, tag))
-            check(torch.equal(out, again), f"{tag}: two launches differ")
+                compare(out, window_scatter_f64(v, tab, plan).to(dtype),
+                        window_scatter_mass(v, tab, plan), dtype, tag))
             check(not out[3 * window:4 * window].any().item(),
                   f"{tag}: the unchosen window's rows must be zero")
             check(not B.window_scatter_sum(v, none, plan).any().item(),
@@ -2230,16 +2349,18 @@ def time_band_cases(device, timer, contexts, replaces):
     eligible = int(sel.sum())
     sel_senders = tab[sel].long()
     e = tab.shape[0]
+    work = plan.scatter_work
+    out_rows = plan.num_windows * plan.window
+    split_rows = int(work.fix_rows.shape[0])
     for layer, d in (("layer 1", GAT_ARXIV_HEADS * GAT_ARXIV_DIMS[0]),
                      ("layer 2", GAT_ARXIV_HEADS * GAT_ARXIV_DIMS[1])):
         v = torch.randn(e, d, generator=gen, device=device).to(torch.bfloat16)
-        err = compare(B.window_scatter_sum(v, tab, plan),
-                      B.window_scatter_sum_plain(v, tab, plan),
-                      B.window_scatter_sum_plain(v.float().abs(), tab, plan),
-                      torch.bfloat16, f"window_scatter_sum at gat_skewed "
-                      f"{layer}")
+        what = f"window_scatter_sum at gat_skewed {layer}"
+        err = compare(window_scatter_checked(v, tab, plan, what),
+                      window_scatter_f64(v, tab, plan).to(v.dtype),
+                      window_scatter_mass(v, tab, plan), torch.bfloat16,
+                      what)
         v_sel = v[sel]
-        out_rows = plan.num_windows * plan.window
         entries.append(entry(
             "window_scatter_sum", "train_gat_skewed_arxiv_shape",
             f"gat_skewed {layer}: E_pad={e} eligible={eligible} "
@@ -2250,10 +2371,31 @@ def time_band_cases(device, timer, contexts, replaces):
             lambda: torch.zeros(out_rows, d, dtype=v.dtype,
                                 device=device).index_add_(0, sel_senders,
                                                           v_sel),
-            # eligible rows of v once, sender_tab, out once, the item tables
+            # eligible rows of v once, sender_tab, out once, the reference's
+            # item tables (the same yardstick whatever implements it)
             eligible * d * 2 + e * 4 + out_rows * d * 2
             + (plan.num_windows + 1 + plan.num_work) * 4,
             eligible * d, H100_F32_OPS_PER_S))
+        entries[-1].update({
+            "longest_row": longest_row(plan.scatter_row_ptr),
+            "pieces": work.num_pieces, "split_rows": split_rows,
+            "cuda_kernels": ["window_scatter_kernel"]
+            + (["window_scatter_merge_kernel"] if split_rows else []),
+            # What the kernel reads beside the bound's count: the
+            # sender-order slot list, its row pointer, the pieces and the
+            # split rows' tables.
+            "table_bytes": (eligible + out_rows + 1) * 4
+            + work.num_pieces * 16 + (2 * split_rows + 1) * 4,
+            "ms_row_walk": timer.cold_ms(
+                lambda: K.gather_scatter_sum_sorted(
+                    v, plan.scatter_idx, None, plan.scatter_row_ptr,
+                    out_rows, pieces=False), iters=10),
+            "row_walk": "the fused-gather scatter's row walk over the same "
+                        "sender-order list",
+            "parent_ms": None,
+            "parent": "not measured here: attend_kernels_ab.py "
+                      "--only=window times a parent copy beside this one",
+        })
         # v over the plain context's slots (same count up to the padding).
         v_plain = v[: plain_ctx.senders.shape[0]]
         entries[-1]["tier_ms"] = timer.cold_ms(

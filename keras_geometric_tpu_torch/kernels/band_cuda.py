@@ -35,11 +35,18 @@ Source notes, one per kernel:
   the FMA units (never TF32). Each rounds once at the store.
 - ``window_scatter_sum`` replaces ``_win_scatter_kernel``
   (``band_pallas.py:249``), which contracts an equality one-hot on the TPU's
-  matrix unit: here the rows are summed directly. Bound by bytes: the
-  eligible rows of ``v``, ``sender_tab`` and the output once. A block holds
-  one window's ``[W, 32]`` f32 sums in shared memory; each warp owns a share
-  of the window's rows and adds its hits in plan and slot order, so the
-  result is the same bit for bit on every launch (no atomics).
+  matrix unit window by window: here the rows are summed directly. Bound by
+  bytes: the eligible rows of ``v``, ``sender_tab`` and the output once. The
+  plan lists the eligible slots in sender order (stable: ascending slot
+  order within a row), a row pointer over the windows' rows and that list's
+  work list of pieces of at most 32 slots (``spmm_cuda.recv_bwd_work``'s
+  builder), and the kernel is the fused-gather piece walk that the sender
+  finish takes (``csrc/gather_pieces.cuh``): each piece's slots staged, the
+  next eight ``v`` rows in flight in a ``cp.async`` ring, 16-byte packs, f32
+  sums in slot order, a row without a slot stored as zeros, a split row's
+  shares added in piece order by a second launch. A listed slot adds only
+  where ``sender_tab`` names its row. No atomics: the same bits on every
+  launch, and a serial sum's bits on every row of at most 32 eligible slots.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -55,7 +62,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .spmm_cuda import _check_data, _check_index, _raise_on_error
+from .spmm_cuda import (
+    RECV_BWD_PIECE,
+    RecvBwdWork,
+    _build_recv_bwd_work,
+    _check_data,
+    _check_index,
+    _raise_on_error,
+)
 
 __all__ = [
     "BandPlan",
@@ -100,13 +114,15 @@ def reset_launch_counts() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class WindowScatterPlan:
-    """Host-built work list for :func:`window_scatter_sum`.
+    """Host-built tables for :func:`window_scatter_sum`.
 
     ``work_win`` / ``work_chunk`` / ``work_flags`` are the reference's arrays
     (numpy): one item per (window, edge chunk) pair, window-major; bit 0 of a
     flag marks the first item of its window, bit 1 the last. The kernel reads
-    them as ``win_ptr`` (``[num_windows + 1]`` int32: window ``w``'s items
-    are ``item_chunk[win_ptr[w] : win_ptr[w + 1]]``) and ``item_chunk``.
+    the eligible slots in sender order instead: ``scatter_idx`` (the slots,
+    ascending within a row), ``scatter_row_ptr`` (row ``r``'s slots are
+    ``scatter_idx[scatter_row_ptr[r] : scatter_row_ptr[r + 1]]``, for every
+    row of every window) and ``scatter_work``, that list's pieces.
     """
 
     work_win: np.ndarray  # [Wk] int32: window index of item
@@ -116,8 +132,9 @@ class WindowScatterPlan:
     num_windows: int
     edge_chunk: int
     num_band_edges: int  # absorbed edge count
-    win_ptr: torch.Tensor  # [num_windows + 1] int32
-    item_chunk: torch.Tensor  # [Wk] int32
+    scatter_idx: torch.Tensor  # [num_band_edges] int32 slots of v
+    scatter_row_ptr: torch.Tensor  # [num_windows * window + 1] int32
+    scatter_work: RecvBwdWork  # pieces of scatter_row_ptr
 
     @property
     def num_work(self) -> int:
@@ -180,9 +197,8 @@ def build_window_scatter_plan(
     last[:-1] = (wins[1:] != wins[:-1]).astype(np.int32)
     work_win = wins.astype(np.int32)
     work_chunk = chunks.astype(np.int32)
-    win_ptr = np.searchsorted(
-        work_win, np.arange(num_windows + 1), side="left"
-    ).astype(np.int32)
+    idx, row_ptr = _sender_order(sender_tab, num_windows * window)
+    row_ptr = torch.from_numpy(row_ptr)
     plan = WindowScatterPlan(
         work_win=work_win,
         work_chunk=work_chunk,
@@ -191,10 +207,23 @@ def build_window_scatter_plan(
         num_windows=num_windows,
         edge_chunk=edge_chunk,
         num_band_edges=int(band_mask.sum()),
-        win_ptr=torch.from_numpy(win_ptr),
-        item_chunk=torch.from_numpy(work_chunk.copy()),
+        scatter_idx=torch.from_numpy(idx),
+        scatter_row_ptr=row_ptr,
+        scatter_work=_build_recv_bwd_work(row_ptr, RECV_BWD_PIECE),
     )
     return plan, band_mask, sender_tab
+
+
+def _sender_order(sender_tab: np.ndarray, num_rows: int):
+    """The slots with ``sender_tab >= 0``, stable-sorted by their entry
+    (ascending slot order within a row), and the ``[num_rows + 1]`` row
+    pointer over them: the kernel's list, built from ``sender_tab`` alone."""
+    slots = np.nonzero(sender_tab >= 0)[0]
+    rows = sender_tab[slots]
+    order = np.argsort(rows, kind="stable")
+    row_ptr = np.searchsorted(rows[order], np.arange(num_rows + 1),
+                              side="left")
+    return slots[order].astype(np.int32), row_ptr.astype(np.int32)
 
 
 def window_scatter_sum_plain(messages, sender_tab, plan):
@@ -226,18 +255,29 @@ def window_scatter_sum(
     if e >= 2**31:
         raise ValueError("slot count must stay below 2**31 (int32 indices)")
     _check_index("sender_tab", sender_tab, e, device)
-    _check_index("win_ptr", plan.win_ptr, plan.num_windows + 1, device)
-    _check_index("item_chunk", plan.item_chunk, plan.num_work, device)
-    out = torch.empty(plan.num_windows * plan.window, f,
-                      dtype=messages.dtype, device=device)
+    rows = plan.num_windows * plan.window
+    _check_index("scatter_idx", plan.scatter_idx, plan.num_band_edges, device)
+    _check_index("scatter_row_ptr", plan.scatter_row_ptr, rows + 1, device)
+    work = plan.scatter_work
+    if work.pieces.device != device:
+        raise ValueError(f"the plan's pieces lie on {work.pieces.device}, "
+                         f"data on {device}")
+    out = torch.empty(rows, f, dtype=messages.dtype, device=device)
     if out.numel() == 0:
         return out
+    part = None
+    if work.num_shares:
+        part = torch.empty(work.num_shares, f, dtype=torch.float32,
+                           device=device)
     lib = _library()
     with torch.cuda.device(device):
         code = lib.kgt_window_scatter_sum(
-            messages.data_ptr(), sender_tab.data_ptr(), plan.win_ptr.data_ptr(),
-            plan.item_chunk.data_ptr(), out.data_ptr(), plan.num_windows,
-            plan.window, plan.edge_chunk, e, f,
+            messages.data_ptr(), sender_tab.data_ptr(),
+            plan.scatter_idx.data_ptr(), work.pieces.data_ptr(),
+            work.num_pieces, work.piece,
+            None if part is None else part.data_ptr(),
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(),
+            int(work.fix_rows.shape[0]), out.data_ptr(), rows, f,
             int(messages.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -466,7 +506,7 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_band_matmul.restype = i32
     lib.kgt_window_scatter_sum.argtypes = [
-        vp, vp, vp, vp, vp, i64, i32, i32, i64, i64, i32, vp,
+        vp, vp, vp, vp, i64, i32, vp, vp, vp, i64, vp, i64, i64, i32, vp,
     ]
     lib.kgt_window_scatter_sum.restype = i32
     lib.kgt_cuda_error_string.argtypes = [i32]

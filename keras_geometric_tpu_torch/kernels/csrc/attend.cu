@@ -239,47 +239,9 @@ attend_aggregate_kernel(const float* __restrict__ scores,
 
 constexpr int kRing = 4;  // sender rows in flight per group
 
-// A group's ring of kRing stages, each holding this lane's packs of one
-// slot's sender row: [stage][pack j][thread] packs of VEC values, so the
-// threads of a warp touch consecutive words.
+// A group's ring of kRing stages of sender rows (lanes.cuh).
 template <typename S, int VEC, int NJ>
-struct SenderRing {
-  static constexpr int kPack = VEC * static_cast<int>(sizeof(S));
-  static constexpr int kBytes = kRing * NJ * kThreads * kPack;
-
-  __device__ static int offset(int stage, int j) {
-    return ((stage * NJ + j) * kThreads + static_cast<int>(threadIdx.x)) *
-           kPack;
-  }
-
-  // Starts the copies of this lane's packs of a head (its first column).
-  __device__ static void fill(uint8_t* ring, int stage, const S* head, int f,
-                              const Geometry& q) {
-    const uint32_t base = shared_u32(ring);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = pack_column<VEC>(q, j);
-      if (c < f) copy_async<kPack>(base + offset(stage, j), head + c);
-    }
-  }
-
-  // This lane's packs of a landed stage, zeros outside the head (as
-  // load_lane gives them).
-  __device__ static void read(const uint8_t* ring, int stage, int f,
-                              const Geometry& q, float (&out)[NJ][VEC]) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = pack_column<VEC>(q, j);
-      if (c < f) {
-        load_pack<S, VEC>(
-            reinterpret_cast<const S*>(ring + offset(stage, j)), out[j]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) out[j][i] = 0.0f;
-      }
-    }
-  }
-};
+using SenderRing = PackRing<S, VEC, NJ, kRing>;
 
 // A group's piece table in shared memory, after the block's rings: the
 // senders of the piece's slots, their flags (the cached score, or 0 / -inf

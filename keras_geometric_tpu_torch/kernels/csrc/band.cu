@@ -45,22 +45,28 @@
 //
 // window_scatter_kernel replaces _win_scatter_kernel behind
 // window_scatter_sum of the same file: for every window-eligible slot e
-// (sender_tab[e] >= 0) add v[e, :] into row sender_tab[e] of the output. The
-// TPU has no scatter and multiplies an equality one-hot on its matrix unit;
-// here the rows are summed directly. Bound by bytes: the eligible rows of v
-// once, sender_tab, the output once. Design: one block per (window, part of
-// up to 256 of its rows, tile of up to 32 columns) holds that part's
-// [rows, cols] f32 sums in shared memory (50 KB in all: four blocks per
-// SM). The block walks the window's edge chunks in plan order, 512 slots at
-// a time: its threads stage each slot's row in the part (or -1) in shared
-// memory, then each of its 8 warps, which owns 1/8 of the part's rows,
-// compacts the slots that hit its rows into a queue (ballot and prefix
-// count, in slot order), loads their v rows 16 at a time (one column per
-// lane, all 16 in flight) and adds them in queue order. A warp owns only a
-// few percent of the slots, so the queue is what keeps loads in flight. Every
-// (row, column) therefore gets its terms in plan and slot order from one
-// lane: no atomics, the result is the same bit for bit on every launch. The
-// whole [W, F] window is stored, zeros included, for every window.
+// (sender_tab[e] >= 0) add v[e, :] into row sender_tab[e] of the output,
+// every row of every window written, zeros included. The TPU has no scatter
+// and multiplies an equality one-hot on its matrix unit, window by window
+// over the receiver-sorted stream; here the rows are summed directly. Bound
+// by bytes: the eligible rows of v once, sender_tab, the output once. A walk
+// of the receiver-sorted stream per (window, column tile) would read every
+// slot's index once per tile and hold a window's sums in shared memory (such
+// a walk reached 13% of the bound on the H100, PERF.md). Instead the host lists
+// the eligible slots in sender order (stable, so ascending slot order within
+// a row) with a row pointer over the windows' rows and that list's work list
+// of pieces of at most 32 slots (band_cuda.build_window_scatter_plan), and
+// the kernel is the fused-gather piece walk of gather_pieces.cuh, which
+// spmm.cu's sender finish shares: a sub-warp per piece stages its slot
+// indices, keeps the next eight v rows in flight in a cp.async ring, 16-byte
+// packs a lane (a whole 512-byte row a warp at H*F = 256 in bf16), and sums
+// them in f32 in slot order; a row without a slot is one empty piece and is
+// stored as zeros; a split row's shares are added in piece order by a second
+// launch (window_scatter_merge_kernel). The walk is CHECKED: a slot adds to
+// its row only where sender_tab names that row, so a slot whose entry is -1
+// contributes nothing whatever the list says. No atomics: every launch gives
+// the same bits, and a row of at most 32 eligible slots gets the bits of a
+// serial sum in ascending slot order.
 //
 // The C entry points launch on the given stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError().
@@ -70,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "gather_pieces.cuh"
 
 namespace {
 
@@ -85,40 +93,12 @@ constexpr int kSlab = 32;       // window columns staged per step
 constexpr int kBf16Threads = 128;
 constexpr int kF32Threads = 256;
 constexpr int kF32Cols = 64;
-constexpr int kScatterThreads = 256;
-constexpr int kScatterWarps = kScatterThreads / 32;
-constexpr int kScatterCols = 32;
-constexpr int kScatterRows = 256;  // rows of a window per block, at most
-constexpr int kStage = 512;        // slots staged in shared memory at a time
-constexpr int kBatch = 16;         // v rows loaded ahead of their adds
 constexpr int kTmaRows = 256;      // rows of a row block, all in one CTA
 constexpr int kTmaK = 64;          // window columns of a ring stage
 constexpr int kTmaRingBytes = 192 * 1024;  // ring stages fill up to this
 constexpr int kTmaMaxN = 128;      // output columns of a CTA at most
 constexpr int kTmaConsumers = 256; // two warpgroups of 128 rows each
 constexpr int kTmaThreads = kTmaConsumers + 32;  // and one producer warp
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-template <typename S> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float to_f(float v) { return v; }
-  static __device__ __forceinline__ float from_f(float v) { return v; }
-};
-template <> struct Cvt<uint16_t> {
-  static __device__ __forceinline__ float to_f(uint16_t v) {
-    return bf16_bits_to_float(v);
-  }
-  static __device__ __forceinline__ uint16_t from_f(float v) {
-    return float_to_bf16_bits(v);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // K11, bf16: tensor-core fragments. NF fragments of 16 columns per warp.
@@ -595,84 +575,48 @@ band_f32_kernel(const float* __restrict__ x, const float* __restrict__ band,
 // K12: the window scatter.
 // ---------------------------------------------------------------------------
 
-template <typename S>
-__global__ void __launch_bounds__(kScatterThreads)
+template <typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
 window_scatter_kernel(const S* __restrict__ v,
                       const int32_t* __restrict__ sender_tab,
-                      const int32_t* __restrict__ win_ptr,
-                      const int32_t* __restrict__ item_chunk,
-                      S* __restrict__ out, int window, int part_rows,
-                      int edge_chunk, int64_t n_slots, int64_t f, int cols) {
-  extern __shared__ float smem[];
-  float* acc = smem;  // [part_rows, cols]
-  int* rows_s = reinterpret_cast<int*>(smem + part_rows * cols);  // [kStage]
-  // Per warp: (slot in the stage << 8) | row in the part, in slot order.
-  int* queue = rows_s + kStage + (threadIdx.x / 32) * kStage;
-  const int parts = window / part_rows;
-  const int64_t win = blockIdx.x / parts;
-  const int part = blockIdx.x % parts;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rows_per_warp = part_rows / kScatterWarps;
-  const int lo = warp * rows_per_warp;
-  const int hi = lo + rows_per_warp;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * cols + lane;
-  const bool in_tile = lane < cols;
-  const bool active = in_tile && col < f;
-  const int64_t base = win * window + static_cast<int64_t>(part) * part_rows;
+                      const int32_t* __restrict__ idx,
+                      const int4* __restrict__ pieces, int64_t n_pieces,
+                      int cap, S* __restrict__ out, float* __restrict__ part,
+                      int64_t f, int lpr) {
+  gather_pieces_walk<S, VEC, true>(v, idx, pieces, n_pieces, cap, nullptr, 0,
+                                   sender_tab, nullptr, 0, out, part, f, lpr);
+}
 
-  for (int r = lo; r < hi; ++r) {
-    if (in_tile) acc[r * cols + lane] = 0.0f;
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+window_scatter_merge_kernel(const float* __restrict__ part,
+                            const int32_t* __restrict__ fix_rows,
+                            const int32_t* __restrict__ fix_ptr,
+                            int64_t n_fix, S* __restrict__ out, int64_t f) {
+  merge_shares<S>(part, fix_rows, fix_ptr, n_fix, nullptr, nullptr, 0, out,
+                  f);
+}
+
+template <typename S, int VEC>
+cudaError_t launch_window_scatter(const void* v, const int32_t* sender_tab,
+                                  const int32_t* idx, const int4* pieces,
+                                  int64_t n_pieces, int cap, void* out,
+                                  float* part, int64_t f, cudaStream_t s) {
+  int lpr;
+  dim3 grid;
+  pick_geometry(f, VEC, n_pieces, &lpr, &grid);
+  const size_t smem = pieces_smem<S, VEC>(lpr, cap, true);
+  auto kernel = window_scatter_kernel<S, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
   }
-  for (int it = win_ptr[win]; it < win_ptr[win + 1]; ++it) {
-    const int64_t e0 = static_cast<int64_t>(item_chunk[it]) * edge_chunk;
-    const int64_t e1 = e0 + edge_chunk < n_slots ? e0 + edge_chunk : n_slots;
-    for (int64_t sb = e0; sb < e1; sb += kStage) {
-      const int n = static_cast<int>(e1 - sb < kStage ? e1 - sb : kStage);
-      __syncthreads();  // the previous stage is consumed
-      for (int i = threadIdx.x; i < kStage; i += kScatterThreads) {
-        int row = -1;
-        if (i < n) {
-          const int32_t s = sender_tab[sb + i];
-          const int64_t d = static_cast<int64_t>(s) - base;
-          if (s >= 0 && d >= 0 && d < part_rows) row = static_cast<int>(d);
-        }
-        rows_s[i] = row;
-      }
-      __syncthreads();
-      int count = 0;
-      for (int g = 0; g < n; g += 32) {
-        const int row_of_lane = rows_s[g + lane];
-        const bool mine = row_of_lane >= lo && row_of_lane < hi;
-        const unsigned hits = __ballot_sync(0xffffffffu, mine);
-        if (mine) {
-          queue[count + __popc(hits & ((1u << lane) - 1u))] =
-              ((g + lane) << 8) | row_of_lane;
-        }
-        count += __popc(hits);
-      }
-      __syncwarp();
-      for (int q0 = 0; q0 < count; q0 += kBatch) {  // warp-uniform
-        int ent[kBatch];
-        float val[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          ent[b] = q0 + b < count ? queue[q0 + b] : -1;
-          val[b] = 0.0f;
-          if (ent[b] >= 0 && active) {
-            val[b] = Cvt<S>::to_f(v[(sb + (ent[b] >> 8)) * f + col]);
-          }
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (ent[b] >= 0 && in_tile) acc[(ent[b] & 255) * cols + lane] += val[b];
-        }
-      }
-    }
-  }
-  for (int r = lo; r < hi; ++r) {
-    if (active) out[(base + r) * f + col] = Cvt<S>::from_f(acc[r * cols + lane]);
-  }
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const S*>(v), sender_tab, idx, pieces, n_pieces, cap,
+      static_cast<S*>(out), part, f, lpr);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
@@ -855,58 +799,49 @@ int kgt_band_matmul(const void* x, const void* band, const int32_t* base_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[win * window + j, :] = sum over the slots e of the chunks listed for
-// window win (item_chunk[win_ptr[win] .. win_ptr[win + 1]], edge_chunk slots
-// each) with sender_tab[e] == win * window + j of v[e, :]; every row of every
-// window is written. v and out share one type, f32 or bf16; v is
-// [n_slots, f], out [num_windows * window, f].
+// out[r, :] = sum over the eligible slots e with sender_tab[e] == r of
+// v[e, :], for every row r of [0, n_rows) (n_rows = num_windows * window),
+// zeros where there is none. v and out share one type, f32 or bf16; v is
+// [n_slots, f], out [n_rows, f]. idx [n_idx] int32 lists the eligible slots
+// in sender order and pieces [n_pieces, 4] int32 (row, first, end, share row
+// or -1: positions in idx), 16-byte aligned, each of at most cap of them,
+// cover every row and every listed slot once; the n_fix rows fix_rows split
+// into several pieces are the sum of their shares fix_ptr[k] .. fix_ptr[k +
+// 1] in the f32 scratch part [*, f], written before it is read. A listed
+// slot adds only where sender_tab names its piece's row. Two launches: the
+// piece walk, then (n_fix > 0) the split rows' merge.
 int kgt_window_scatter_sum(const void* v, const int32_t* sender_tab,
-                           const int32_t* win_ptr, const int32_t* item_chunk,
-                           void* out, int64_t num_windows, int window,
-                           int edge_chunk, int64_t n_slots, int64_t f,
-                           int is_bf16, void* stream) {
-  if (v == nullptr || sender_tab == nullptr || win_ptr == nullptr ||
-      item_chunk == nullptr || out == nullptr || num_windows <= 0 || window <= 0 || edge_chunk <= 0 ||
-      n_slots <= 0 || f <= 0 || num_windows >= (static_cast<int64_t>(1) << 31)) {
+                           const int32_t* idx, const int32_t* pieces,
+                           int64_t n_pieces, int cap, float* part,
+                           const int32_t* fix_rows, const int32_t* fix_ptr,
+                           int64_t n_fix, void* out, int64_t n_rows,
+                           int64_t f, int is_bf16, void* stream) {
+  // idx may be null only for a list without slots (nothing reads it).
+  if (v == nullptr || sender_tab == nullptr || out == nullptr ||
+      !piece_list_ok(pieces, n_pieces, n_rows, cap, n_fix, part, fix_rows,
+                     fix_ptr, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // A block owns up to kScatterRows rows of a window (the window is split
-  // into equal parts) and up to 32 columns, one per lane.
-  int part_rows = window < kScatterRows ? window : kScatterRows;
-  while (window % part_rows != 0 || part_rows % kScatterWarps != 0) {
-    --part_rows;
-  }
-  if (part_rows < kScatterWarps) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = kScatterCols;
-  const size_t smem = static_cast<size_t>(part_rows) * cols * sizeof(float) +
-                      (1 + kScatterWarps) * kStage * sizeof(int);
-  const int64_t tiles = (f + cols - 1) / cols;
-  const int64_t blocks = num_windows * (window / part_rows);
-  if (tiles >= 65536 || blocks >= (static_cast<int64_t>(1) << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(tiles), 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = cudaFuncSetAttribute(window_scatter_kernel<uint16_t>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    window_scatter_kernel<uint16_t><<<grid, kScatterThreads, smem, s>>>(
-        static_cast<const uint16_t*>(v), sender_tab, win_ptr, item_chunk,
-        static_cast<uint16_t*>(out), window, part_rows, edge_chunk, n_slots,
-        f, cols);
-  } else {
-    err = cudaFuncSetAttribute(window_scatter_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    window_scatter_kernel<float><<<grid, kScatterThreads, smem, s>>>(
-        static_cast<const float*>(v), sender_tab, win_ptr, item_chunk,
-        static_cast<float*>(out), window, part_rows, edge_chunk, n_slots, f,
-        cols);
+  const int vec = pick_vec(f, is_bf16 ? 2 : 4, v, out);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
+  cudaError_t err = cudaSuccess;
+#define KGT_WINDOW(S, V)                                                    \
+  err = launch_window_scatter<S, V>(v, sender_tab, idx, work, n_pieces,     \
+                                    cap, out, part, f, s)
+  KGT_VEC_DISPATCH(is_bf16, vec, KGT_WINDOW)
+#undef KGT_WINDOW
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_fix > 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((n_fix * f + kThreads - 1) / kThreads);
+    if (is_bf16) {
+      window_scatter_merge_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+          part, fix_rows, fix_ptr, n_fix, static_cast<uint16_t*>(out), f);
+    } else {
+      window_scatter_merge_kernel<float><<<blocks, kThreads, 0, s>>>(
+          part, fix_rows, fix_ptr, n_fix, static_cast<float*>(out), f);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // Shared device helpers of the attention kernels (attend.cu, sddmm.cu,
 // softmax.cu) and of segment_max.cu: storage types, packs of neighbouring
-// columns, sub-warp groups that own one head's columns, the GATv2 score and
-// the online softmax step that every score kernel shares, the launcher's
-// layout choice and the fixed-order reduction of per-group partials.
+// columns, sub-warp groups that own one head's columns, the ring of rows in
+// flight that the piece walks keep in shared memory, the GATv2 score and the
+// online softmax step that every score kernel shares, the launcher's layout
+// choice and the fixed-order reduction of per-group partials.
 //
 // A group of `lph` lanes (a power of two, at most a warp) owns one head's F
 // columns of one row or edge slot. A lane holds NJ packs of VEC neighbouring
@@ -29,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -189,6 +192,50 @@ __device__ __forceinline__ float gatv2_part(float part,
   }
   return part;
 }
+
+// A group's ring of DEPTH stages in shared memory, each holding this lane's
+// packs of one row's head (a gathered sender row, or a slot's row of a
+// contiguous stream): [stage][pack j][thread] packs of VEC values, so the
+// threads of a warp touch consecutive words. A lane copies (cp.async) and
+// reads only its own packs, so it needs no barrier, only its own waits.
+template <typename S, int VEC, int NJ, int DEPTH>
+struct PackRing {
+  static constexpr int kPack = VEC * static_cast<int>(sizeof(S));
+  static constexpr int kBytes = DEPTH * NJ * kThreads * kPack;
+
+  __device__ static int offset(int stage, int j) {
+    return ((stage * NJ + j) * kThreads + static_cast<int>(threadIdx.x)) *
+           kPack;
+  }
+
+  // Starts the copies of this lane's packs of a head (its first column).
+  __device__ static void fill(uint8_t* ring, int stage, const S* head, int f,
+                              const Geometry& q) {
+    const uint32_t base = shared_u32(ring);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = pack_column<VEC>(q, j);
+      if (c < f) copy_async<kPack>(base + offset(stage, j), head + c);
+    }
+  }
+
+  // This lane's packs of a landed stage, zeros outside the head (as
+  // load_lane gives them).
+  __device__ static void read(const uint8_t* ring, int stage, int f,
+                              const Geometry& q, float (&out)[NJ][VEC]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = pack_column<VEC>(q, j);
+      if (c < f) {
+        load_pack<S, VEC>(
+            reinterpret_cast<const S*>(ring + offset(stage, j)), out[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) out[j][i] = 0.0f;
+      }
+    }
+  }
+};
 
 // The GATv2 score of one (slot, head), sum_f att * leaky_relu(hi + hj), on
 // every lane of the group. Every kernel that computes or recomputes a score

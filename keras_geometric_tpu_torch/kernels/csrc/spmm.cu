@@ -33,21 +33,16 @@
 // one window after another, so one long row (a hub, or the padded tail, which
 // prepare_graph puts in the last row and which in sender order piles into the
 // last sender's row: 521 slots at CiteSeer's GATv2 shape) keeps the whole
-// kernel waiting on its dependent rounds of random reads. The piece walk takes
-// a host-built work list (spmm_cuda.recv_bwd_work, one per row_ptr tensor, the
+// kernel waiting on its dependent rounds of random reads. The piece walk
+// (gather_pieces.cuh, which band.cu's window scatter shares) takes a
+// host-built work list (spmm_cuda.recv_bwd_work, one per row_ptr tensor, the
 // list the attention kernels walk) that cuts every row into pieces of at most
-// 32 slots. A sub-warp per (piece, column tile) copies the piece's indices and
-// weights into shared memory in one go, then keeps the gathered packs of the
-// next kRingDepth slots in flight in a ring in shared memory (cp.async, one
-// commit group a slot) and sums them in f32 in slot order. (A register window
-// of eight packs loaded before its adds took 69-82 registers and ran 9-72%
-// slower at the finish's and the GCN's shapes on the H100, PERF.md.) A piece
-// that is its whole row stores the row, with the
-// epilogue, rounded once; a piece of a split row stores its f32 share, and a
-// second launch (gather_scatter_merge_kernel) adds each split row's shares in
-// piece order, applies the epilogue and rounds once. In both walks of the
-// fused-gather form a message is added with one fused multiply-add (fmaf), so
-// a row that is one piece gets the row walk's bits.
+// 32 slots, stages each piece's indices and weights, keeps the next eight
+// gathered rows in flight in a cp.async ring and sums them in f32 in slot
+// order; a split row's shares are added in piece order by a second launch
+// (gather_scatter_merge_kernel). In both walks of the fused-gather form a
+// message is added with one fused multiply-add (fmaf), so a row that is one
+// piece gets the row walk's bits.
 //
 // expand_sorted_kernel replaces _expand_impl (expand_sorted) of the same
 // file: out[e, :] = rows[recv[e], :] * w[e], the scatter's transpose and its
@@ -60,94 +55,11 @@
 // The C entry points launch on the given stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include "cp_async.cuh"
+#include "gather_pieces.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// Storage types: float for f32 data, raw uint16_t bits for bf16 data.
-template <typename S> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float to_f(float v) { return v; }
-  static __device__ __forceinline__ float from_f(float v) { return v; }
-};
-template <> struct Cvt<uint16_t> {
-  static __device__ __forceinline__ float to_f(uint16_t v) {
-    return bf16_bits_to_float(v);
-  }
-  static __device__ __forceinline__ uint16_t from_f(float v) {
-    return float_to_bf16_bits(v);
-  }
-};
-
-template <typename S, int VEC>
-struct alignas(sizeof(S) * VEC) Pack {
-  S v[VEC];
-};
-
-template <typename S, int VEC>
-__device__ __forceinline__ Pack<S, VEC> load_pack(const S* p) {
-  return *reinterpret_cast<const Pack<S, VEC>*>(p);
-}
-
-template <typename S, int VEC>
-__device__ __forceinline__ void store_pack(S* p, const Pack<S, VEC>& v) {
-  *reinterpret_cast<Pack<S, VEC>*>(p) = v;
-}
-
-// Per-edge (or per-node) scalar weight: 1 when absent, f32 or bf16 otherwise.
-__device__ __forceinline__ float load_weight(const void* w, int w_bf16,
-                                             int64_t i) {
-  if (w == nullptr) return 1.0f;
-  if (w_bf16) return bf16_bits_to_float(static_cast<const uint16_t*>(w)[i]);
-  return static_cast<const float*>(w)[i];
-}
-
-// One message into a row's sums: w * message, or nothing on a masked slot.
-// The messages form adds the rounded product; the fused-gather form adds with
-// one fused multiply-add, the same operation in its row walk and its piece
-// walk (an explicit fmaf, not left to the compiler's contraction).
-template <typename S, int VEC, bool GATHER>
-__device__ __forceinline__ void add_message(float (&acc)[VEC], float w, bool ok,
-                                            const Pack<S, VEC>& p) {
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    if constexpr (GATHER) {
-      if (ok) acc[j] = fmaf(w, Cvt<S>::to_f(p.v[j]), acc[j]);
-    } else {
-      const float v = w * Cvt<S>::to_f(p.v[j]);
-      acc[j] += ok ? v : 0.0f;
-    }
-  }
-}
-
-// The epilogue: self_w[row] * src[row, col .. col + VEC] into the sums.
-template <typename S, int VEC>
-__device__ __forceinline__ void add_diagonal(float (&acc)[VEC],
-                                             const void* __restrict__ self_w,
-                                             int self_w_bf16,
-                                             const S* __restrict__ src,
-                                             int64_t row, int64_t f,
-                                             int64_t col) {
-  const float sw = load_weight(self_w, self_w_bf16, row);
-  const Pack<S, VEC> p = load_pack<S, VEC>(src + row * f + col);
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = fmaf(sw, Cvt<S>::to_f(p.v[j]), acc[j]);
-}
 
 template <typename S, int VEC, bool GATHER>
 __global__ void __launch_bounds__(kThreads)
@@ -212,29 +124,9 @@ scatter_sum_sorted_kernel(const S* __restrict__ src,
 }
 
 // ---------------------------------------------------------------------------
-// The fused-gather form over pieces
+// The fused-gather form over pieces (gather_pieces.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kRingDepth = 8;  // gathered rows in flight per lane
-
-// Bytes of the ring: kRingDepth stages of one pack a thread, [stage][thread].
-template <typename S, int VEC>
-__host__ __device__ constexpr int ring_bytes() {
-  return kRingDepth * kThreads * VEC * static_cast<int>(sizeof(S));
-}
-
-// Lanes of this thread's sub-warp of lpr lanes (a power of two, at most 32).
-__device__ __forceinline__ unsigned sub_mask(int lpr) {
-  if (lpr >= 32) return 0xffffffffu;
-  const int first = ((threadIdx.x & 31) / lpr) * lpr;
-  return ((1u << lpr) - 1u) << first;
-}
-
-// pieces[p] = (row, first slot, end slot, share): at most `cap` slots of one
-// row; share is -1 where the piece is its whole row, else its row in the f32
-// scratch `part` [*, f]. A sub-warp per (piece, column tile of lpr * VEC
-// columns). Shared memory: the ring, then per sub-warp `cap` indices and
-// `cap` weights where there are weights.
 template <typename S, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_scatter_pieces_kernel(const S* __restrict__ src,
@@ -244,83 +136,11 @@ gather_scatter_pieces_kernel(const S* __restrict__ src,
                              const void* __restrict__ self_w, int self_w_bf16,
                              S* __restrict__ out, float* __restrict__ part,
                              int64_t f, int lpr) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int sub = threadIdx.x / lpr;
-  const int lane = threadIdx.x - sub * lpr;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * (kThreads / lpr) + sub;
-  if (p >= n_pieces) return;  // the whole sub-warp
-  const int64_t col =
-      (static_cast<int64_t>(blockIdx.y) * lpr + lane) * VEC;
-  const int4 pc = pieces[p];
-  const int64_t lo = pc.y;
-  const int n = pc.z - pc.y;
-
-  // The piece's indices and weights, the sub-warp's lanes together (lanes
-  // past the row's width help too, then leave).
-  int32_t* t_idx = reinterpret_cast<int32_t*>(smem + ring_bytes<S, VEC>()) +
-                   static_cast<int64_t>(sub) * cap * (w != nullptr ? 2 : 1);
-  float* t_w = reinterpret_cast<float*>(t_idx + cap);
-  for (int i = lane; i < n; i += lpr) {
-    t_idx[i] = idx[lo + i];
-    if (w != nullptr) t_w[i] = load_weight(w, w_bf16, lo + i);
-  }
-  __syncwarp(sub_mask(lpr));
-  if (col >= f) return;
-
-  float acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
-  // Slot j's pack lands in stage j % kRingDepth, one commit group a slot
-  // (empty past the piece's end), so that waiting for all but the
-  // kRingDepth - 1 latest groups means slot j has landed; its stage is
-  // refilled with slot j + kRingDepth after use. Each lane copies and reads
-  // only its own packs.
-  constexpr int kPack = VEC * static_cast<int>(sizeof(S));
-  const uint32_t ring = shared_u32(smem);
-  const int mine = static_cast<int>(threadIdx.x) * kPack;
-#pragma unroll
-  for (int k = 0; k < kRingDepth; ++k) {
-    if (k < n) {
-      copy_async<kPack>(ring + k * kThreads * kPack + mine,
-                        src + static_cast<int64_t>(t_idx[k]) * f + col);
-    }
-    copy_commit();
-  }
-  int stage = 0;
-  for (int j = 0; j < n; ++j) {
-    copy_wait<kRingDepth - 1>();
-    const int at = stage * kThreads * kPack + mine;
-    const Pack<S, VEC> pk = *reinterpret_cast<const Pack<S, VEC>*>(smem + at);
-    add_message<S, VEC, true>(acc, w != nullptr ? t_w[j] : 1.0f, true, pk);
-    if (j + kRingDepth < n) {
-      copy_async<kPack>(
-          ring + at,
-          src + static_cast<int64_t>(t_idx[j + kRingDepth]) * f + col);
-    }
-    copy_commit();
-    stage = stage + 1 == kRingDepth ? 0 : stage + 1;
-  }
-
-  if (pc.w < 0) {  // the whole row
-    const int64_t row = pc.x;
-    if (self_w != nullptr) {
-      add_diagonal<S, VEC>(acc, self_w, self_w_bf16, src, row, f, col);
-    }
-    Pack<S, VEC> o;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) o.v[j] = Cvt<S>::from_f(acc[j]);
-    store_pack<S, VEC>(out + row * f + col, o);
-  } else {  // a share of a split row
-    float* share = part + static_cast<int64_t>(pc.w) * f + col;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) share[j] = acc[j];
-  }
+  gather_pieces_walk<S, VEC, false>(src, idx, pieces, n_pieces, cap, w,
+                                    w_bf16, nullptr, self_w, self_w_bf16, out,
+                                    part, f, lpr);
 }
 
-// The second launch, one thread per (split row, column): the row's shares
-// (rows fix_ptr[k] .. fix_ptr[k + 1] of part) added in piece order, the
-// epilogue, one rounding. A hub row has hundreds of shares: the unrolled loop
-// issues several loads before their adds, which stay in order.
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
 gather_scatter_merge_kernel(const float* __restrict__ part,
@@ -329,21 +149,8 @@ gather_scatter_merge_kernel(const float* __restrict__ part,
                             const S* __restrict__ src,
                             const void* __restrict__ self_w, int self_w_bf16,
                             S* __restrict__ out, int64_t f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_fix * f) return;
-  const int64_t k = i / f;
-  const int64_t c = i - k * f;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int32_t p = fix_ptr[k]; p < fix_ptr[k + 1]; ++p) {
-    acc += part[static_cast<int64_t>(p) * f + c];
-  }
-  const int64_t row = fix_rows[k];
-  if (self_w != nullptr) {
-    acc = fmaf(load_weight(self_w, self_w_bf16, row),
-               Cvt<S>::to_f(src[row * f + c]), acc);
-  }
-  out[row * f + c] = Cvt<S>::from_f(acc);
+  merge_shares<S>(part, fix_rows, fix_ptr, n_fix, src, self_w, self_w_bf16,
+                  out, f);
 }
 
 template <typename S, int VEC>
@@ -372,31 +179,6 @@ expand_sorted_kernel(const S* __restrict__ rows,
     o.v[j] = Cvt<S>::from_f(ok ? v : 0.0f);
   }
   store_pack<S, VEC>(out + e * f + col, o);
-}
-
-// Widest vector (in elements) that divides the row width and keeps every row
-// of every array aligned to the vector's size.
-int pick_vec(int64_t f, int elem_size, const void* a, const void* b) {
-  const uintptr_t bits =
-      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
-  int vec = 16 / elem_size;
-  while (vec > 1 &&
-         (f % vec != 0 || bits % static_cast<uintptr_t>(vec * elem_size) != 0)) {
-    vec /= 2;
-  }
-  return vec;
-}
-
-// Lanes per row: the power of two that covers the row's chunks, at most a
-// warp; wider rows are split into column tiles along grid.y.
-void pick_geometry(int64_t f, int vec, int64_t n_items, int* lpr, dim3* grid) {
-  const int64_t chunks = (f + vec - 1) / vec;
-  int l = 1;
-  while (l < chunks && l < 32) l <<= 1;
-  const int per_block = kThreads / l;
-  *lpr = l;
-  *grid = dim3(static_cast<unsigned>((n_items + per_block - 1) / per_block),
-               static_cast<unsigned>((chunks + l - 1) / l), 1);
 }
 
 template <typename S, int VEC>
@@ -428,9 +210,7 @@ cudaError_t launch_pieces(const void* src, const int32_t* idx,
   int lpr;
   dim3 grid;
   pick_geometry(f, VEC, n_pieces, &lpr, &grid);
-  const size_t smem = ring_bytes<S, VEC>() +
-                      static_cast<size_t>(kThreads / lpr) * cap *
-                          (w != nullptr ? 8 : 4);
+  const size_t smem = pieces_smem<S, VEC>(lpr, cap, w != nullptr);
   auto kernel = gather_scatter_pieces_kernel<S, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -478,20 +258,7 @@ int kgt_scatter_sum_sorted(const void* src, const int32_t* idx,
 #define KGT_SCATTER(S, V)                                                  \
   launch_scatter<S, V>(src, idx, row_ptr, w, w_bf16, mask, self_w,         \
                        self_w_bf16, out, n_rows, f, s)
-  if (is_bf16) {
-    switch (vec) {
-      case 8: KGT_SCATTER(uint16_t, 8); break;
-      case 4: KGT_SCATTER(uint16_t, 4); break;
-      case 2: KGT_SCATTER(uint16_t, 2); break;
-      default: KGT_SCATTER(uint16_t, 1); break;
-    }
-  } else {
-    switch (vec) {
-      case 4: KGT_SCATTER(float, 4); break;
-      case 2: KGT_SCATTER(float, 2); break;
-      default: KGT_SCATTER(float, 1); break;
-    }
-  }
+  KGT_VEC_DISPATCH(is_bf16, vec, KGT_SCATTER)
 #undef KGT_SCATTER
   return static_cast<int>(cudaGetLastError());
 }
@@ -510,15 +277,10 @@ int kgt_gather_scatter_pieces(const void* src, const int32_t* idx,
                               const int32_t* fix_rows, const int32_t* fix_ptr,
                               int64_t n_fix, int64_t n_rows, int64_t f,
                               int is_bf16, void* stream) {
-  const int64_t fix_blocks = (n_fix * f + kThreads - 1) / kThreads;
   // idx may be null only for a stream without slots (nothing reads it).
-  if (src == nullptr || pieces == nullptr || out == nullptr ||
-      n_rows <= 0 || f <= 0 || n_pieces < n_rows || cap < 1 || cap > 1024 ||
-      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 || n_fix < 0 ||
-      (n_fix > 0 && (part == nullptr || fix_rows == nullptr ||
-                     fix_ptr == nullptr)) ||
-      fix_blocks >= (static_cast<int64_t>(1) << 31) ||
-      n_pieces >= (static_cast<int64_t>(1) << 31) * (kThreads / 32)) {
+  if (src == nullptr || out == nullptr ||
+      !piece_list_ok(pieces, n_pieces, n_rows, cap, n_fix, part, fix_rows,
+                     fix_ptr, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -528,24 +290,12 @@ int kgt_gather_scatter_pieces(const void* src, const int32_t* idx,
 #define KGT_PIECES(S, V)                                                    \
   err = launch_pieces<S, V>(src, idx, work, n_pieces, cap, w, w_bf16,       \
                             self_w, self_w_bf16, out, part, f, s)
-  if (is_bf16) {
-    switch (vec) {
-      case 8: KGT_PIECES(uint16_t, 8); break;
-      case 4: KGT_PIECES(uint16_t, 4); break;
-      case 2: KGT_PIECES(uint16_t, 2); break;
-      default: KGT_PIECES(uint16_t, 1); break;
-    }
-  } else {
-    switch (vec) {
-      case 4: KGT_PIECES(float, 4); break;
-      case 2: KGT_PIECES(float, 2); break;
-      default: KGT_PIECES(float, 1); break;
-    }
-  }
+  KGT_VEC_DISPATCH(is_bf16, vec, KGT_PIECES)
 #undef KGT_PIECES
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_fix > 0) {
-    const unsigned blocks = static_cast<unsigned>(fix_blocks);
+    const unsigned blocks =
+        static_cast<unsigned>((n_fix * f + kThreads - 1) / kThreads);
     if (is_bf16) {
       gather_scatter_merge_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
           part, fix_rows, fix_ptr, n_fix, static_cast<const uint16_t*>(src),
@@ -571,20 +321,7 @@ int kgt_expand_sorted(const void* rows, const int32_t* recv, const void* w,
   const int vec = pick_vec(f, is_bf16 ? 2 : 4, rows, out);
 #define KGT_EXPAND(S, V) \
   launch_expand<S, V>(rows, recv, w, w_bf16, mask, out, n_edges, f, s)
-  if (is_bf16) {
-    switch (vec) {
-      case 8: KGT_EXPAND(uint16_t, 8); break;
-      case 4: KGT_EXPAND(uint16_t, 4); break;
-      case 2: KGT_EXPAND(uint16_t, 2); break;
-      default: KGT_EXPAND(uint16_t, 1); break;
-    }
-  } else {
-    switch (vec) {
-      case 4: KGT_EXPAND(float, 4); break;
-      case 2: KGT_EXPAND(float, 2); break;
-      default: KGT_EXPAND(float, 1); break;
-    }
-  }
+  KGT_VEC_DISPATCH(is_bf16, vec, KGT_EXPAND)
 #undef KGT_EXPAND
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,9 +22,17 @@ Source notes, one per kernel (all three are bound by bytes):
 
 - ``sddmm_scores_sorted``: ``s[e, h] = sum_f att[h, f] *
   leaky_relu(ht[recv e] + hj[e])[hF + f]`` in f32. Reads ``hj`` once (most of
-  its bytes), ``ht`` rows that neighbouring slots share, writes ``[E, H]``.
-  A sub-warp group per (slot, head), packs of up to 16 bytes per lane, the
-  head's sum by shuffles.
+  its bytes), each receiver row once a piece, writes ``[E, H]``. It walks
+  the pieces of the receiver-sorted stream (:func:`spmm_cuda.recv_bwd_work`
+  of ``row_ptr``, at most 32 slots of one row, the list the attention
+  kernels walk): a fixed grid of sub-warp groups strides over the (piece,
+  head) items with its head held constant, keeps the head's columns of the
+  receiver row and of ``att`` in registers for the piece, streams the
+  piece's contiguous ``hj`` rows through a ``cp.async`` ring of eight
+  stages (16-byte packs per lane), reduces each score by shuffles and
+  writes the piece's scores from shared memory at its end. Its scores are
+  the fused forward's (K9's) bit for bit on ``hj = ht[senders]``: the same
+  score function in the same lane layout.
 - ``sddmm_bwd_sorted``: ``d_pre [E, H*F]`` (in ``hj``'s type) and ``datt``
   from ``ds [E, H]``. Reads ``hj`` and writes ``d_pre``; ``datt`` goes
   through per-group partials of a fixed grid and a second small kernel that
@@ -56,7 +64,14 @@ from .attend_cuda import (
     _scalar_matrix_arg,
     scores_and_stats_plain,
 )
-from .spmm_cuda import _check_data, _check_index, _mask_arg, _raise_on_error
+from .spmm_cuda import (
+    _check_data,
+    _check_index,
+    _mask_arg,
+    _raise_on_error,
+    _row_ptr_or_raise,
+    recv_bwd_work,
+)
 
 __all__ = [
     "sddmm_scores_sorted",
@@ -134,7 +149,7 @@ def _library() -> ctypes.CDLL:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     lib.kgt_sddmm_scores_sorted.argtypes = [
-        vp, vp, vp, vp, i32, vp, i64, i32, i64, f32, i32, vp,
+        vp, vp, vp, i64, i32, vp, i32, vp, i64, i32, i64, f32, i32, vp,
     ]
     lib.kgt_sddmm_scores_sorted.restype = i32
     lib.kgt_sddmm_bwd_partial_rows.argtypes = [vp, vp, vp, i64, i32, i64, i32]
@@ -174,29 +189,39 @@ def _check_operands(ht, hj, att, receivers):
     return heads, f, e
 
 
-def sddmm_scores_sorted(ht, hj, att, receivers, *, negative_slope=0.2):
+def sddmm_scores_sorted(ht, hj, att, receivers, *, negative_slope=0.2,
+                        row_ptr=None):
     """GATv2 scores ``[E, H]`` f32 over receiver-sorted slots.
 
     ``ht`` ``[N, H*F]`` and ``hj`` ``[E, H*F]`` (both f32 or both bf16),
     ``att`` ``[H, F]`` (f32 or bf16), ``receivers`` ``[E]`` int32 (the rows
-    of ``ht`` each slot adds to its sender row). Padded slots are computed
-    like any other; the caller masks them. Not differentiable by itself;
-    ``GraphContext.sddmm_scores`` wraps it with its backward.
+    of ``ht`` each slot adds to its sender row), sorted, and ``row_ptr``
+    ``[N+1]`` its row pointers (``row_ptr[0] == 0``, ``row_ptr[N] == E``):
+    required for a CUDA tensor, whose kernel walks their pieces (the plain
+    version, which a CPU tensor takes, does not read it). Padded slots are
+    computed like any other; the caller masks them. Not differentiable by
+    itself; ``GraphContext.sddmm_scores`` wraps it with its backward.
     """
     if not ht.is_cuda:
         return sddmm_scores_sorted_plain(ht, hj, att, receivers,
                                          negative_slope=negative_slope)
+    n = ht.shape[0]
+    row_ptr = _row_ptr_or_raise(ht, receivers, n, row_ptr)
     device = ht.device
     heads, f, e = _check_operands(ht, hj, att, receivers)
+    _check_index("row_ptr", row_ptr, n + 1, device)
     att_ptr, att_bf16 = _scalar_matrix_arg("att", att, (heads, f), device)
+    ht, hj = _aligned(ht), _aligned(hj)
     scores = torch.empty(e, heads, dtype=torch.float32, device=device)
     if hj.numel() == 0:
         return scores
     lib = _library()
+    work = recv_bwd_work(row_ptr)
     with torch.cuda.device(device):
         code = lib.kgt_sddmm_scores_sorted(
-            ht.data_ptr(), hj.data_ptr(), receivers.data_ptr(), att_ptr,
-            att_bf16, scores.data_ptr(), e, heads, f, float(negative_slope),
+            ht.data_ptr(), hj.data_ptr(), work.pieces.data_ptr(),
+            work.num_pieces, work.piece, att_ptr, att_bf16,
+            scores.data_ptr(), n, heads, f, float(negative_slope),
             int(ht.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )

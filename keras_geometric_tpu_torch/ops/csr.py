@@ -553,7 +553,8 @@ class _EdgeSoftmax(torch.autograd.Function):
 
 
 class _Sddmm(torch.autograd.Function):
-    """Score kernel forward; backward: the score-backward kernel (``d_pre``,
+    """Score kernel forward (over the pieces of ``graph.row_ptr``); backward:
+    the score-backward kernel (``d_pre``,
     ``d att``), then ``d ht`` as ``d_pre`` summed by receiver with the sorted
     scatter. ``d hj = d_pre`` returns to the caller's gather."""
 
@@ -561,7 +562,8 @@ class _Sddmm(torch.autograd.Function):
     def forward(ctx, ht, hj, att, graph, negative_slope):
         ht, hj, att = ht.contiguous(), hj.contiguous(), att.contiguous()
         scores = sddmm_cuda.sddmm_scores_sorted(
-            ht, hj, att, graph.receivers, negative_slope=negative_slope)
+            ht, hj, att, graph.receivers, negative_slope=negative_slope,
+            row_ptr=graph.row_ptr)
         ctx.save_for_backward(ht, hj, att)
         ctx.graph = graph
         ctx.negative_slope = negative_slope

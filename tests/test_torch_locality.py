@@ -169,16 +169,19 @@ def test_window_scatter_plan_equals_the_reference(e, far_frac, chunk):
     assert (got.window, got.num_windows, got.edge_chunk, got.num_band_edges,
             got.num_work) == (want.window, want.num_windows, want.edge_chunk,
                               want.num_band_edges, want.num_work)
-    # The kernel's table: window w's items are item_chunk[win_ptr[w]:...],
-    # every window has at least one (so every window is written).
-    win_ptr = got.win_ptr.numpy()
-    assert win_ptr[0] == 0 and win_ptr[-1] == got.num_work
-    assert (np.diff(win_ptr) >= 1).all()
-    for w in range(got.num_windows):
-        items = slice(win_ptr[w], win_ptr[w + 1])
-        assert (got.work_win[items] == w).all()
-        np.testing.assert_array_equal(got.item_chunk.numpy()[items],
-                                      got.work_chunk[items])
+    # The kernel's tables: row r's slots are the slots whose table entry is
+    # r, in ascending order; the work list has a piece for every row of
+    # every window (so every row is written).
+    rows = got.num_windows * got.window
+    idx = got.scatter_idx.numpy()
+    row_ptr = got.scatter_row_ptr.numpy()
+    assert row_ptr.shape == (rows + 1,) and row_ptr[0] == 0
+    assert row_ptr[-1] == idx.shape[0] == got.num_band_edges
+    for r in np.unique(tab[tab >= 0]):
+        np.testing.assert_array_equal(idx[row_ptr[r]:row_ptr[r + 1]],
+                                      np.nonzero(tab == r)[0])
+    pieces = got.scatter_work.pieces.numpy()
+    np.testing.assert_array_equal(np.unique(pieces[:, 0]), np.arange(rows))
 
 
 def test_window_scatter_plan_rejections():
@@ -314,11 +317,11 @@ def test_placement_and_weight_dtype_reach_the_plans():
     assert bf.band.base_idx.dtype == torch.int32
     assert bf.edge_weight.dtype == bf.full.edge_weight.dtype == torch.bfloat16
     assert bf.full.attw_res_weight.dtype == torch.float32
-    assert bf.full.attw_plan.win_ptr.dtype == torch.int32
+    assert bf.full.attw_plan.scatter_idx.dtype == torch.int32
     np.testing.assert_array_equal(
         bf.band.band.float().numpy(),
         ctx.band.band.to(torch.bfloat16).float().numpy())
     moved = ctx.to("cpu")
     assert moved.band.band.device.type == "cpu"
-    assert moved.full.attw_plan.item_chunk.device.type == "cpu"
+    assert moved.full.attw_plan.scatter_work.pieces.device.type == "cpu"
     assert moved.full.attw_plan.work_win is ctx.full.attw_plan.work_win

@@ -295,7 +295,7 @@ def test_cuda_kernels_match_plain_versions(heads, f, dtype):
         (softmax_cuda.softmax_stats_sorted(s, recv, row_ptr, N), (m, l)),
         ((softmax_cuda.softmax_apply_sorted(s, m, l, recv),),
          (softmax_cuda.softmax_apply_sorted_plain(s, m, l, recv),)),
-        ((sddmm_cuda.sddmm_scores_sorted(*args, recv),),
+        ((sddmm_cuda.sddmm_scores_sorted(*args, recv, row_ptr=row_ptr),),
          (sddmm_cuda.sddmm_scores_sorted_plain(*args, recv),)),
         (sddmm_cuda.sddmm_bwd_sorted(*args, ds, recv),
          sddmm_cuda.sddmm_bwd_sorted_plain(*args, ds, recv)),
@@ -315,4 +315,4 @@ def test_cuda_kernels_match_plain_versions(heads, f, dtype):
                                        atol=tol["atol"] * scale)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         sddmm_cuda.sddmm_scores_sorted(args[0].double(), args[1].double(),
-                                       args[2], recv)
+                                       args[2], recv, row_ptr=row_ptr)

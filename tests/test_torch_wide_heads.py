@@ -177,7 +177,7 @@ def test_cuda_wide_kernels_match_plain_versions(heads, f, dtype, drop):
         ht, g, *ss, att, m, l, rho,
         valid_ss=on(c["valid"][c["perm"]]).float(), drop_ss=drop_ss), "K10d")
     hj = ht.index_select(0, send.long()).contiguous()
-    k7a = sddmm_cuda.sddmm_scores_sorted(ht, hj, att, recv)
+    k7a = sddmm_cuda.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr)
     assert torch.equal(k7a[c["valid"]], scores[c["valid"]])
     ds = on(rng.standard_normal((c["e"], heads)).astype(np.float32))
     close(sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv),
