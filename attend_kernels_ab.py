@@ -36,21 +36,36 @@ the window scatter at the windowed GATv2 run's two widths, H*F = 256 and
 ``attend_window=1024``, beside ``index_add_`` over the eligible slots and,
 where a copy lists those slots in sender order, the row walk of that list,
 with the host seconds of that context's ``prepare_graph``;
-``composed``: the composed path's score kernel at the four GATv2 shapes on
-``hj = ht[senders]``, with whether its scores equal the fused forward's on
-every valid slot), so that a copy that changes one kernel is timed on that
-kernel alone. With ``--ptxas`` it first prints, per copy, the registers and
+``composed``: the composed path's score kernel (K7a), softmax statistics
+(K5) and score backward (K7b) at the four GATv2 shapes on ``hj =
+ht[senders]`` and the fused forward's scores, with whether K7a's scores
+equal the fused forward's on every valid slot and K5's ``(m, l)`` the
+fused forward's on every row and on the rows of one piece, and K5's and
+K7b's CUDA kernels timed apart by ``torch.profiler`` (the walk, then the
+second launch: K5's merge of split rows, K7b's sum of the ``datt``
+partials)), so that a copy that changes one kernel is timed on that
+kernel alone; beside K7b, a copy of ``hj`` into a tensor like it (the
+``[E, H*F]`` read and write that are most of K7b's bytes: what the card
+reaches on them). ``step``: the composed and the fused GATv2 training step
+of ``chip_smoke.py``'s arxiv-shaped run (its workload, model and Adam; 8
+steps first), each timed twice by two schemes in turn, both taken from
+this checkout so that every copy is timed by the same code: ``timed_steps``
+of this checkout's ``utils/profiling.py`` as ``chip_smoke.py`` calls it
+(``k_lo=2, k_hi=12, trials=2``, seconds x 1e3) and the mean of 10 steps
+after 2 (how ``step_ms`` was taken before ``timed_steps`` returned seconds).
+With ``--ptxas`` it first prints, per copy, the registers and
 spills that ``nvcc -Xptxas -v`` reports for the attention kernels' bf16
 instantiations at the arxiv widths and their f32 ones at CiteSeer's, for
 the fused-gather scatter's at bf16 (16-byte packs) and f32 (four-wide
-packs), and for the window scatter's and the score kernels' at those
-widths.
+packs), for the window scatter's and the score kernels' (K7a, K7b) at those
+widths, and for the softmax statistics' kernels.
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent --gcn \
         --only=send,finish,gcn --unpadded
     python3 attend_kernels_ab.py build/parent . . build/parent \
         --only=window,composed --ptxas
+    python3 attend_kernels_ab.py build/parent . . build/parent --only=step
 """
 
 from __future__ import annotations
@@ -63,18 +78,28 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed")
+GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed",
+          "step")
 # Template arguments of the instantiations --ptxas shows, per source.
 SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          "spmm.cu": ("unsigned short, 8>", "float, 4>",
                      "unsigned short, 8, true>", "float, 4, true>"),
          "band.cu": ("unsigned short, 8>",),
          "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
-                      "float, 2, 1, false>")}
+                      "float, 2, 1, false>"),
+         "softmax.cu": ("softmax_stats",)}
 # The case group of each attention-shape case (the rest are its own group's).
 CASE_GROUP = {"sender finish": "finish", "sender finish (rows)": "finish",
               "attend_send_bwd_sorted": "send",
-              "sddmm_scores_sorted": "composed"}
+              "sddmm_scores_sorted": "composed",
+              "softmax_stats_sorted": "composed",
+              "sddmm_bwd_sorted": "composed",
+              "hj copy": "composed"}
+# The CUDA kernels of a composed-path call, timed apart (a name matches the
+# kernels that contain it).
+SPLIT = {"softmax_stats_sorted": ("softmax_stats_kernel",
+                                  "softmax_stats_finish_kernel"),
+         "sddmm_bwd_sorted": ("sddmm_bwd_kernel", "reduce_partials_kernel")}
 
 
 def ptxas_report(root: str) -> list:
@@ -100,9 +125,76 @@ def ptxas_report(root: str) -> list:
             spill = re.search(r"(\d+) bytes spill stores", line)
             shown = kernel and any(a in kernel for a in shown_args)
             if shown and (regs or spill):
-                kname = re.search(r"::(\w+<[^>]*>)\(", kernel).group(1)
+                kname = re.search(r"::(\w+(?:<[^>]*>)?)\(", kernel).group(1)
                 out.append({"root": root, "kernel": kname,
                             "line": line.strip()})
+    return out
+
+
+def from_this_checkout(name: str, path: str):
+    """A module of this checkout loaded by its path, whichever copy of the
+    package the process imports."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(here, path))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # its dataclasses look themselves up there
+    spec.loader.exec_module(module)
+    return module
+
+
+def step_times(device) -> dict:
+    """Milliseconds per composed / fused GATv2 training step at the arxiv
+    shape, by both schemes in turn (see the module's docstring)."""
+    import torch
+
+    import keras_geometric_tpu_torch as kgt
+    from keras_geometric_tpu_torch.training import (
+        make_node_classification_step)
+
+    smoke = from_this_checkout("_ab_chip_smoke", "chip_smoke.py")
+    profiling = from_this_checkout(
+        "_ab_profiling", "keras_geometric_tpu_torch/utils/profiling.py")
+
+    def mean_ms(fn, warmup=2, iters=10):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    ctx, x, y, mask, _ = smoke.gat_arxiv_workload(device)
+    out = {}
+    for name, fused in (("composed", False), ("fused", True)):
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = kgt.GNNEncoder.for_context(
+            "gatv2", smoke.GAT_ARXIV_DIMS, input_dim=smoke.ARXIV_FEATS,
+            conv_kwargs={"heads": smoke.GAT_ARXIV_HEADS,
+                         "fused_attend": fused},
+            generator=gen, device=device)
+        step = make_node_classification_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-2),
+            compute_dtype=torch.bfloat16,
+            generator=torch.Generator(device=device).manual_seed(7))
+        fn = lambda: step(x, None, y, mask, context=ctx)  # noqa: E731
+        for _ in range(8):
+            fn()
+        times = {"timed_steps ms": [], "mean of 10 ms": []}
+        for _ in range(2):
+            times["timed_steps ms"].append(1e3 * profiling.timed_steps(
+                fn, k_lo=2, k_hi=12, trials=2))
+            times["mean of 10 ms"].append(mean_ms(fn))
+        out[name] = times
+        del model, step, fn
+        torch.cuda.empty_cache()
     return out
 
 
@@ -118,6 +210,7 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import band_cuda as B
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.kernels import softmax_cuda as S
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     if not A.__file__.startswith(os.path.abspath(root) + os.sep):
@@ -126,8 +219,10 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
     gat = bool(groups & {"attend", "send", "finish", "composed"})
     band = "band" in groups
     window = "window" in groups
-    _build.load_libraries(["spmm"] + (["attend"] if gat else [])
-                          + (["sddmm"] if "composed" in groups else [])
+    step = "step" in groups
+    _build.load_libraries(["spmm"] + (["attend"] if gat or step else [])
+                          + (["sddmm", "softmax"]
+                             if "composed" in groups or step else [])
                           + (["band"] if band or window else []))
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
     has_pieces = "pieces" in inspect.signature(
@@ -149,6 +244,29 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
         times = sorted(a.elapsed_time(b) for a, b in pairs)
         return times[len(times) // 2]
 
+    def split_ms(fn, names, iters=20, warmup=3):
+        """Device milliseconds per call of the CUDA kernels whose names
+        contain each of ``names``, from ``torch.profiler`` over ``iters``
+        calls, each behind the flush."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            for name in names:
+                if name in ev.key:
+                    out[name] += us / 1e3 / iters
+        return out
+
     rng = np.random.default_rng(0)
     n, e = 169_343, 1_335_586
     arxiv = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
@@ -163,6 +281,8 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
     has_modes = "attend_send_bwd_sorted" in A.LAUNCH_COUNTS
     result = {"root": root, "card": torch.cuda.get_device_name(0),
               "groups": sorted(groups)}
+    if "step" in groups:
+        result["step"] = step_times(device)
     if "gcn" in groups:
         # chip_smoke.py's arxiv_workload: the features are drawn first.
         half = 1_166_243 // 2
@@ -319,13 +439,18 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
 
                 finish = (v, ctx.bwd_perm, ctx.senders_sorted,
                           ctx.row_ptr_bwd, nodes)
-                hj = (ht.index_select(0, ctx.senders) if "composed" in groups
-                      else None)
-                # The copy's score kernel walks the pieces of row_ptr where
-                # its signature takes it.
-                k7a_kw = ({"row_ptr": ctx.row_ptr} if "row_ptr" in
-                          inspect.signature(D.sddmm_scores_sorted).parameters
-                          else {})
+                hj = ds = None
+                if "composed" in groups:
+                    hj = ht.index_select(0, ctx.senders)
+                    ds = torch.randn(slots, heads, generator=gen,
+                                     device=device).masked_fill(
+                                         ~valid[:, None], 0.0)
+                # The copy's score kernel and backward walk the pieces of
+                # row_ptr where their signatures take it.
+                k7a_kw, k7b_kw = (
+                    {"row_ptr": ctx.row_ptr} if "row_ptr" in
+                    inspect.signature(fn).parameters else {}
+                    for fn in (D.sddmm_scores_sorted, D.sddmm_bwd_sorted))
                 cases = {
                     "sddmm_stats_agg_sorted": lambda: (
                         A.sddmm_stats_agg_sorted(ht, *graph, att,
@@ -368,6 +493,15 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                 cases["sddmm_scores_sorted"] = lambda: (
                     D.sddmm_scores_sorted(ht, hj, att, ctx.receivers,
                                           **k7a_kw))
+                # K5 on the fused forward's scores (-inf on padded slots).
+                cases["softmax_stats_sorted"] = lambda: (
+                    S.softmax_stats_sorted(scores, ctx.receivers,
+                                           ctx.row_ptr, nodes))
+                cases["sddmm_bwd_sorted"] = lambda: D.sddmm_bwd_sorted(
+                    ht, hj, att, ds, ctx.receivers, **k7b_kw)
+                if hj is not None:
+                    hj_out = torch.empty_like(hj)
+                    cases["hj copy"] = lambda: hj_out.copy_(hj)
                 cases = {k: fn for k, fn in cases.items()
                          if CASE_GROUP.get(k, "attend") in groups}
                 result[key][layer] = {case: cold_ms(fn)
@@ -379,8 +513,22 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                                                 **k7a_kw)
                     result[key][layer]["scores equal K9's"] = bool(
                         torch.equal(k7a[valid], scores[valid]))
-                    del k7a
-                del v, scores, cases, finish, hj
+                    k5_m, k5_l = S.softmax_stats_sorted(
+                        scores, ctx.receivers, ctx.row_ptr, nodes)
+                    same = (k5_m == m).all(1) & (k5_l == l).all(1)
+                    one = lengths <= K.RECV_BWD_PIECE
+                    result[key][layer].update({
+                        "stats equal K9's on every row": bool(same.all()),
+                        "stats equal K9's on one-piece rows": bool(
+                            same[one].all()),
+                        "one-piece rows": int(one.sum()),
+                    })
+                    for name, names in SPLIT.items():
+                        result[key][layer][f"{name} split ms"] = split_ms(
+                            cases[name], names)
+                    del k7a, k5_m, k5_l
+                del v, scores, cases, finish, hj, ds
+                hj_out = None
             del ctx
             torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)

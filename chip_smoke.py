@@ -19,18 +19,22 @@ exit code and without the final line; so does a run of a subset of the phases
                 the registers and spills ``nvcc -Xptxas -v`` reports for the
                 TMA band kernel and the kernels that walk pieces (forward,
                 rho, both backwards, the fused-gather scatter and its row
-                walk);
+                walk, the composed path's score kernel, score backward and
+                softmax statistics);
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
                 attention kernels at (H, F) in (4, 64), (4, 40), (8, 8),
                 (8, 6), (1, 7), with and without a dropout mask; the
-                composed path's score kernels at the same (H, F) (and at
-                the composed runs' shapes the score kernel bit for bit
-                against the fused forward's scores on ``hj = ht[senders]``),
-                its
-                softmax kernels at K in 1, 4, 8 with a row whose scores are
-                all -inf), the band SpMM at F in 1, 7, 40, 128, 256 and
+                composed path's score kernels at the same (H, F) (the score
+                backward's ``d_pre`` and ``datt`` also bit for bit over two
+                launches, and refused without ``row_ptr``; at the composed
+                runs' shapes the score kernel bit for bit against the fused
+                forward's scores on ``hj = ht[senders]`` and the softmax
+                statistics of those scores bit for bit against the fused
+                forward's ``m`` and ``l`` on every row), its softmax kernels
+                at K in 1, 4, 8 with a row whose scores are all -inf), the
+                band SpMM at F in 1, 7, 40, 128, 256 and
                 W in 256, 512, 1024 (symmetric and transposed plans, a row
                 block with an empty band, the clamped last block), the window
                 scatter at F in 8, 40, 160, 256 (a window with no item, a
@@ -366,6 +370,15 @@ PTXAS_SHOWN = {
         "sddmm_scores_kernel<f32, 4, 1> (composed CiteSeer L1)",
     "sddmm_scores_kernelIfLi2ELi1ELb0E":
         "sddmm_scores_kernel<f32, 2, 1> (composed CiteSeer L2)",
+    "sddmm_bwd_kernelItLi8ELi1ELb0E":
+        "sddmm_bwd_kernel<bf16, 8, 1> (composed arxiv)",
+    "sddmm_bwd_kernelIfLi4ELi1ELb0E":
+        "sddmm_bwd_kernel<f32, 4, 1> (composed CiteSeer L1)",
+    "sddmm_bwd_kernelIfLi2ELi1ELb0E":
+        "sddmm_bwd_kernel<f32, 2, 1> (composed CiteSeer L2)",
+    "sddmm_bwd_kernelItLi8ELi1ELb1E": "sddmm_bwd_kernel<bf16, 8, 1, wide>",
+    "softmax_stats_kernelE": "softmax_stats_kernel",
+    "softmax_stats_finish_kernelE": "softmax_stats_finish_kernel",
 }
 
 # The CUDA kernels each call of a piece-walking wrapper launches: the walk
@@ -400,9 +413,9 @@ def ptxas_report() -> dict:
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {source}")
         return proc.stderr.splitlines()
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         lines = [l for out in pool.map(one, ("band", "attend", "spmm",
-                                              "sddmm"))
+                                              "sddmm", "softmax"))
                  for l in out]
     report, shown = {}, None
     for line in lines:
@@ -1028,12 +1041,13 @@ PIECE_WALKS = ("sddmm_stats_agg_sorted", "attend_rho_sorted",
                "attend_recv_bwd_full_sorted")
 
 
-def piece_fields(row_ptr) -> dict:
+def piece_fields(row_ptr, split_piece=None) -> dict:
     """The work list a piece walk takes over a stream: its longest row, its
-    pieces and its rows split into several pieces."""
+    pieces and its rows split into several pieces (``split_piece``: the
+    list's, as ``spmm_cuda.recv_bwd_work`` takes it)."""
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
-    work = K.recv_bwd_work(row_ptr)
+    work = K.recv_bwd_work(row_ptr, split_piece=split_piece)
     return {"longest_row": longest_row(row_ptr), "pieces": work.num_pieces,
             "split_rows": int(work.fix_rows.shape[0])}
 
@@ -1848,13 +1862,18 @@ def sddmm_case(recv, row_ptr, ht, hj, att, ds, what):
         D.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr),
         D.sddmm_scores_sorted_plain(ht, hj, att, recv), s_mass,
         torch.float32, f"{what} scores")}
-    d_pre, datt = D.sddmm_bwd_sorted(ht, hj, att, ds, recv)
+    d_pre, datt = D.sddmm_bwd_sorted(ht, hj, att, ds, recv, row_ptr=row_ptr)
     p_d_pre, p_datt = D.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv)
     datt_mass = (z_abs * ds.abs()[:, :, None]).sum(0)
     errs["sddmm_bwd_sorted"] = max(
         compare(d_pre, p_d_pre, p_d_pre.float().abs(), ht.dtype,
                 f"{what} d_pre"),
         compare(datt, p_datt, datt_mass, att.dtype, f"{what} datt"))
+    # datt is summed in a fixed order (no atomics): a second launch gives
+    # the same bits, and so does d_pre.
+    again = D.sddmm_bwd_sorted(ht, hj, att, ds, recv, row_ptr=row_ptr)
+    check(torch.equal(again[1], datt) and torch.equal(again[0], d_pre),
+          f"{what}: a second launch of sddmm_bwd_sorted gave other bits")
     return errs
 
 
@@ -1933,6 +1952,13 @@ def composed_sweep(device, timer):
     else:
         check(False, "the score kernel must refuse a CUDA tensor without "
               "row_ptr")
+    try:
+        D.sddmm_bwd_sorted(ht, hj, att, ds, recv)
+    except ValueError:
+        pass
+    else:
+        check(False, "the score backward must refuse a CUDA tensor without "
+              "row_ptr")
 
     hub = {}
     heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
@@ -1955,10 +1981,22 @@ def composed_sweep(device, timer):
                 lambda: D.sddmm_scores_sorted(ht, hj, att, srecv,
                                               row_ptr=sptr), iters=10),
             "sddmm_bwd_sorted": timer.cold_ms(
-                lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, srecv),
-                iters=10),
+                lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, srecv,
+                                           row_ptr=sptr), iters=10),
         }
     return cases, worst, hub
+
+
+# The composed path's kernels that walk the pieces of row_ptr: the CUDA
+# kernels every call launches, and those it adds where a row is split (K5's
+# merge of the split rows; K7b's second launch, the fixed-order sum of
+# datt's rows, runs always).
+COMPOSED_PIECE_KERNELS = {
+    "sddmm_scores_sorted": (("sddmm_scores_kernel",), ()),
+    "softmax_stats_sorted": (("softmax_stats_kernel",),
+                             ("softmax_stats_finish_kernel",)),
+    "sddmm_bwd_sorted": (("sddmm_bwd_kernel", "reduce_partials_kernel"), ()),
+}
 
 
 def time_composed_cases(device, timer, contexts, replaces):
@@ -2000,15 +2038,21 @@ def time_composed_cases(device, timer, contexts, replaces):
         k7a = D.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr)
         # One score function in one lane layout (ROADMAP D9): the composed
         # path's scores are the fused forward's on every valid slot.
-        _, k9, _, _ = A.sddmm_stats_agg_sorted(
+        _, k9, k9_m, k9_l = A.sddmm_stats_agg_sorted(
             ht, ctx.senders, recv, row_ptr, att, edge_valid=valid)
         check(torch.equal(k7a[valid], k9[valid]),
               f"sddmm_scores_sorted at {ctx_name} {layer}: the scores differ "
               f"from the fused forward's (K9's) on hj = ht[senders]")
         scores = k7a.masked_fill(~valid[:, None], float("-inf"))
-        del k9
         errs, m, l, _ = softmax_case(recv, row_ptr, n, scores, torch.float32,
                                      f"softmax at {ctx_name} {layer}")
+        # One online step in slot order over the same pieces, one merge in
+        # piece order (ROADMAP D13): the statistics of these scores are the
+        # fused forward's on every row, split rows included.
+        check(torch.equal(m, k9_m) and torch.equal(l, k9_l),
+              f"softmax_stats_sorted at {ctx_name} {layer}: (m, l) differ "
+              f"from the fused forward's (K9's) on its own scores")
+        del k9, k9_m, k9_l
         errs.update(sddmm_case(recv, row_ptr, ht, hj, att, ds,
                                f"sddmm at {ctx_name} {layer}"))
         torch.cuda.empty_cache()
@@ -2041,7 +2085,8 @@ def time_composed_cases(device, timer, contexts, replaces):
                 no_reuse=2 * e * d * es + index + d * es + score_bytes,
                 ops=4 * e * d),
             "sddmm_bwd_sorted": dict(
-                kernel=lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, recv),
+                kernel=lambda: D.sddmm_bwd_sorted(ht, hj, att, ds, recv,
+                                                  row_ptr=row_ptr),
                 plain=lambda: D.sddmm_bwd_sorted_plain(ht, hj, att, ds,
                                                        recv),
                 # ht, hj, receivers, att, ds read; d_pre and datt written
@@ -2074,16 +2119,23 @@ def time_composed_cases(device, timer, contexts, replaces):
                 # the normalisation).
                 entry["bound_ms_if_gather_not_reused"] = (
                     case["no_reuse"] / H100_BYTES_PER_S * 1e3)
-            if name == "sddmm_scores_sorted":
-                entry.update(piece_fields(row_ptr))
+            if name in COMPOSED_PIECE_KERNELS:
+                entry.update(piece_fields(
+                    row_ptr, D.BWD_SPLIT_PIECE
+                    if name == "sddmm_bwd_sorted" else None))
+                every, split = COMPOSED_PIECE_KERNELS[name]
                 entry.update({
-                    "cuda_kernels": ["sddmm_scores_kernel"],
-                    "valid_slots_equal_to_fused_forward": int(valid.sum()),
+                    "cuda_kernels": list(every) + (
+                        list(split) if entry["split_rows"] else []),
                     "parent_ms": None,
                     "parent": "not measured here: attend_kernels_ab.py "
                               "--only=composed times a parent copy beside "
                               "this one",
                 })
+            if name == "sddmm_scores_sorted":
+                entry["valid_slots_equal_to_fused_forward"] = int(valid.sum())
+            if name == "softmax_stats_sorted":
+                entry["rows_equal_to_fused_forward"] = n
             entries.append(entry)
         del hj, scores, cases
         torch.cuda.empty_cache()
@@ -3425,11 +3477,17 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses = [step(x, None, y, mask, context=ctx) for _ in range(steps)]
-    step_ms = timed_steps(lambda: step(x, None, y, mask, context=ctx),
-                          warmup=2, iters=timed_iters)
+    timing = dict(k_lo=2, k_hi=2 + timed_iters, trials=2)
+    timed = []  # the steps timed_steps takes count like the others
+
+    def timed_step():
+        timed.append(1)
+        return step(x, None, y, mask, context=ctx)
+
+    step_ms = 1e3 * timed_steps(timed_step, **timing)
     torch.cuda.synchronize()
     counts, modes = launch_counts(), mode_launch_counts()
-    total_steps = steps + 2 + timed_iters
+    total_steps = steps + len(timed)
     losses = [l.item() for l in losses]
     check(all(math.isfinite(l) for l in losses), f"{name}: loss not finite")
     check(falling(losses), f"{name}: loss did not fall: {losses}")
@@ -3457,9 +3515,8 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
             model, make_optimizer(model), compute_dtype=compute_dtype,
             generator=make_gen())
         s_ctx, s_x, s_y, s_mask = same_graph
-        same_graph_ms = timed_steps(
-            lambda: step(s_x, None, s_y, s_mask, context=s_ctx), warmup=2,
-            iters=timed_iters)
+        same_graph_ms = 1e3 * timed_steps(
+            lambda: step(s_x, None, s_y, s_mask, context=s_ctx), **timing)
         same_graph_peak_mb = torch.cuda.max_memory_allocated() / 2**20
     emit(name, steps=total_steps, losses=losses, step1_loss=k_loss,
          step1_loss_plain=p_loss, step1_loss_other_path=other_loss,
@@ -3960,11 +4017,11 @@ def main() -> int:
               f"precompute_propagation on the band context: max abs err "
               f"{err:.3e} against scale {scale:.3e}")
         emit("precompute_skewed_arxiv_shape", max_abs_err=err, scale=scale,
-             ms_with_band=timed_steps(
-                 lambda: kgt.precompute_propagation(ctx, xb), iters=10),
-             ms_without=timed_steps(
+             ms_with_band=1e3 * timed_steps(
+                 lambda: kgt.precompute_propagation(ctx, xb), k_hi=12),
+             ms_without=1e3 * timed_steps(
                  lambda: kgt.precompute_propagation(plain_ctx, xb),
-                 iters=10))
+                 k_hi=12))
         del xb, banded, plain
     workloads.pop("skewed_plain", None)
     if args.profile != "train_skewed_arxiv_shape":

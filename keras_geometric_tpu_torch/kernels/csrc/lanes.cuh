@@ -468,14 +468,15 @@ inline unsigned blocks_for_all(int64_t items, int heads, int lph) {
 }
 
 // The fixed grid of a kernel whose groups stride over the pairs with their
-// head held constant: enough blocks to fill the card, no more than the work
-// needs, rounded up to a multiple of `heads`.
-inline unsigned blocks_for_fixed_grid(int64_t items, int heads, int lph) {
+// head held constant: `per_sm` blocks a SM to fill the card, no more than
+// the work needs, rounded up to a multiple of `heads`.
+inline unsigned blocks_for_fixed_grid(int64_t items, int heads, int lph,
+                                      int per_sm = kBlocksPerSm) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  int64_t blocks = static_cast<int64_t>(sms) * kBlocksPerSm;
+  int64_t blocks = static_cast<int64_t>(sms) * per_sm;
   const int64_t all = blocks_for_all(items, heads, lph);
   if (blocks > all) blocks = all;
   blocks = (blocks + heads - 1) / heads * heads;

@@ -53,14 +53,29 @@
 // arxiv's and CiteSeer's widths) store whole lines. No slot's score depends
 // on another's, so a split row needs no merge.
 //
-// The backward is edge-parallel: it runs a fixed grid whose groups stride
-// over the (slot, head) pairs with their head held constant, read the head's
-// F-segment of ht[recv[e]] (neighbouring slots share a receiver, so the row
-// comes from L1/L2) and of hj[e], keep their datt partial in registers and
-// write it once; a second small kernel sums the partials in a fixed order.
-// No atomics, so datt is bit-reproducible. Padded slots are computed like
-// any other: their ds is 0 (alpha is 0 there), so they add nothing to d_pre
-// or datt. It moves the [E, D] stream of hj and the [E, D] write of d_pre.
+// The backward is bound by bytes too: the [E, D] stream of hj in and the
+// [E, D] write of d_pre out. Its predecessor, edge-parallel over (slot,
+// head) items, read recv[e] and then ht[recv[e]] for every slot and took
+// the time of its bound for re-reading that row from device memory on every
+// slot (PERF.md). It walks the same pieces as the score kernel, save that a
+// row longer than one piece (the padded tail, a hub) comes in pieces of 8
+// slots (sddmm_cuda.BWD_SPLIT_PIECE) that run side by side: at CiteSeer's
+// shapes the tail's 32-slot chains set the walk's time. A fixed grid of
+// groups strides over the (piece, head) items with its head (and a wide
+// head's slab) held constant, holds the head's columns of att for the whole
+// grid and of the piece's receiver row ht[r] for the whole piece, stages
+// the piece's ds values in shared memory (cp.async, the group's lanes
+// together), and streams the piece's contiguous hj rows through a ring of
+// kBwdRing stages (PackRing). Each slot's d_pre is its own, so the lanes of
+// a group store their packs straight from registers (the groups of a warp,
+// the heads of one piece, store whole lines) and a split row needs no
+// merge: the pieces serve only to read ht[r] once a piece. datt is a sum
+// over every slot: a group keeps its columns' partial in f32 registers
+// across its pieces; at the end the block sums its groups' partials in
+// group order into one row per block, and a second small kernel sums those
+// rows in a fixed order (reduce_partials, lanes.cuh). No atomics, so datt
+// is bit-reproducible. Padded slots are computed like any other: their ds
+// is 0 (alpha is 0 there), so they add nothing to d_pre or datt.
 //
 // The statistics kernel is row-parallel like attend.cu's forward: a group
 // per (receiver row, head) walks the row's slots, gathers each sender row and
@@ -76,7 +91,8 @@
 // (WIDE): the score kernels compute each score over the head's slabs in
 // order (gatv2_score_wide, the function attend.cu's wide kernels use; the
 // score kernel's wide groups read their rows from device memory, no ring),
-// the backward gives each group one slab, since its work is per column.
+// the backward gives each group one slab, since its work is per column, and
+// streams that slab through its ring as a narrow group streams its head.
 //
 // Offsets into data are 64-bit; indices are int32. The C entry points
 // launch on the given stream, allocate nothing, do not synchronise, and
@@ -238,53 +254,153 @@ sddmm_stats_kernel(const S* __restrict__ ht,
   }
 }
 
+// hj rows in flight per group; the backward's blocks per SM (76 registers,
+// no spills; four a SM ran 4.6% slower at composed arxiv L1 on an NVIDIA
+// H100 80GB HBM3 at 700 W, PERF.md); and its fixed grid in blocks a SM
+// (blocks_for_fixed_grid): two waves of the blocks that run at once. The
+// shared grid of 16 a SM ran 5.3 waves, and its partial last wave and its
+// 2,112 partial rows cost 4% at arxiv L2; one wave (3 a SM) ran 1% slower
+// at L1 (PERF.md).
+constexpr int kBwdRing = 8;
+constexpr int kBwdBlocksPerSm = 3;
+constexpr int kBwdGridPerSm = 2 * kBwdBlocksPerSm;
+
+template <typename S, int VEC, int NJ>
+using BwdRing = PackRing<S, VEC, NJ, kBwdRing>;
+
+// Dynamic shared memory of the backward: its groups' rings, then `cap` f32
+// ds values a group. After the walk the rings hold the block's datt
+// partials (kThreads * VEC * NJ f32, less than the rings' bytes).
+template <typename S, int VEC, int NJ>
+inline size_t bwd_smem(int lph, int cap) {
+  return BwdRing<S, VEC, NJ>::kBytes +
+         static_cast<size_t>(kThreads / lph) * cap * sizeof(float);
+}
+
+// pieces[p] = (row, first slot, end slot, share): at most `cap` slots of one
+// receiver row (the share is not read: every slot's d_pre is its own).
+// partial: one row of d f32 per block, the block's groups' datt partials.
 template <typename S, int VEC, int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 sddmm_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
-                 const int32_t* __restrict__ recv,
+                 const int4* __restrict__ pieces, int64_t n_pieces, int cap,
                  const void* __restrict__ att, int att_bf16,
                  const float* __restrict__ ds, S* __restrict__ d_pre,
-                 float* __restrict__ partial, int64_t n_slots, int heads,
-                 int f, int lph, float slope) {
+                 float* __restrict__ partial, int heads, int f, int lph,
+                 float slope) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const Geometry q = geometry(lph);
   // The grid holds a multiple of heads * slabs groups, so a group that
-  // strides over the (slot, head, slab) triples by the grid's size keeps its
-  // head and slab: every column's work is its own, so a wide head needs no
-  // more than its slab.
-  const int64_t n_groups =
-      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
-  const int64_t per_slot =
-      static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  // strides over the (piece, head, slab) triples by the grid's size keeps
+  // its head and slab.
+  const int groups = kThreads / lph;
+  const int64_t n_groups = static_cast<int64_t>(gridDim.x) * groups;
+  const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const int64_t n_items = n_pieces * per_row;
   const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
   const int h = mine.h;
   const int fk = mine.fk;
   const int64_t col0 = mine.col0;
   const int64_t d = static_cast<int64_t>(heads) * f;
+  float* tab = reinterpret_cast<float*>(smem + BwdRing<S, VEC, NJ>::kBytes) +
+               static_cast<int64_t>(threadIdx.x / lph) * cap;
 
-  float a[NJ][VEC], datt_acc[NJ][VEC];
+  float a[NJ][VEC], acc[NJ][VEC];
   load_att<VEC, NJ>(att, att_bf16, col0, fk, q, a);
-  zero_lane<VEC, NJ>(datt_acc);
+  zero_lane<VEC, NJ>(acc);
 
-  for (int64_t item = q.gid; item < n_slots * per_slot; item += n_groups) {
-    const int64_t e = item / per_slot;
-    float hi_row[NJ][VEC], row[NJ][VEC];
-    load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(recv[e]) * d + col0, fk,
-                          q, hi_row);
-    load_lane<S, VEC, NJ>(hj + e * d + col0, fk, q, row);
-    const float g = WIDE ? ds[e * heads + h] : ds[item];
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / per_row];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    // The next piece's header is read a piece ahead.
+    int4 pc_next = make_int4(0, 0, 0, -1);
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / per_row];
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    if (n > 0) {  // an empty row has nothing to read or write
+      const S* hj_piece = hj + lo * d + col0;  // slot lo + j at + j * d
+      S* out = d_pre + lo * d + col0;
+      // The piece's ds values of this head, the group's lanes together, as
+      // the oldest copy group; then slot j's row into stage j % kBwdRing,
+      // one commit group a slot (empty past the piece's end); the receiver's
+      // row is read meanwhile.
+      __syncwarp(q.mask);  // the previous piece's values are read out
+      for (int i = q.lane; i < n; i += lph) {
+        copy_async<4>(shared_u32(tab + i), ds + (lo + i) * heads + h);
+      }
+      copy_commit();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+      for (int k = 0; k < kBwdRing; ++k) {
+        if (k < n) BwdRing<S, VEC, NJ>::fill(smem, k, hj_piece + k * d, fk, q);
+        copy_commit();
+      }
+      float hi_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(ht + static_cast<int64_t>(pc.x) * d + col0, fk, q,
+                            hi_row);
+      copy_wait<kBwdRing>();  // the ds values have landed
+      __syncwarp(q.mask);     // every lane's share of them
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kBwdRing - 1>();  // slot j has landed in `stage`
+        float row[NJ][VEC];
+        BwdRing<S, VEC, NJ>::read(smem, stage, fk, q, row);
+        const float g = tab[j];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float pre = hi_row[j][i] + row[j][i];
-        const bool pos = pre > 0.0f;
-        datt_acc[j][i] += (pos ? pre : slope * pre) * g;
-        row[j][i] = g * a[j][i] * (pos ? 1.0f : slope);  // this lane's d_pre
+        for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            const float pre = hi_row[jj][i] + row[jj][i];
+            const bool pos = pre > 0.0f;
+            acc[jj][i] += (pos ? pre : slope * pre) * g;
+            row[jj][i] = g * a[jj][i] * (pos ? 1.0f : slope);  // d_pre
+          }
+        }
+        store_lane<S, VEC, NJ>(out + static_cast<int64_t>(j) * d, fk, q,
+                               row);
+        const int ahead = j + kBwdRing;
+        if (ahead < n) {
+          BwdRing<S, VEC, NJ>::fill(
+              smem, stage, hj_piece + static_cast<int64_t>(ahead) * d, fk, q);
+        }
+        copy_commit();
+        stage = stage + 1 == kBwdRing ? 0 : stage + 1;
       }
     }
-    store_lane<S, VEC, NJ>(d_pre + e * d + col0, fk, q, row);
+    pc = pc_next;
   }
-  store_partial<VEC, NJ>(partial, per_slot, d, col0, fk, q, datt_acc);
+
+  // datt: the block's groups' partials, summed column by column in group
+  // order into the block's row of partial.
+  copy_wait<0>();
+  __syncthreads();  // every ring is read out
+  float* buf = reinterpret_cast<float*>(smem);  // [thread][pack][value]
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      buf[(threadIdx.x * NJ + jj) * VEC + i] = acc[jj][i];
+    }
+  }
+  __syncthreads();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * groups;
+  for (int64_t c = threadIdx.x; c < d; c += kThreads) {
+    // Column c is (head hc, slab k, column cc of the slab); the block's
+    // groups that own it are g = g0, g0 + per_row, ... (item_of's order).
+    const int hc = static_cast<int>(c / f);
+    const int ch = static_cast<int>(c - static_cast<int64_t>(hc) * f);
+    const int k = WIDE ? ch / kSlab : 0;
+    const int cc = ch - k * kSlab;
+    const int64_t r = static_cast<int64_t>(k) * heads + hc;
+    const int pack = cc / VEC;
+    const int t = pack % lph;
+    const int at = ((t * NJ) + pack / lph) * VEC + (cc - pack * VEC);
+    float sum = 0.0f;
+    for (int64_t g = (r - first % per_row + per_row) % per_row; g < groups;
+         g += per_row) {
+      sum += buf[g * lph * NJ * VEC + at];
+    }
+    partial[static_cast<int64_t>(blockIdx.x) * d + c] = sum;
+  }
 }
 
 }  // namespace
@@ -360,48 +476,64 @@ int kgt_sddmm_stats_sorted(const void* ht, const int32_t* senders,
 }
 
 // Rows of the [rows, heads*f] f32 scratch that the backward needs for its
-// datt partials on the current device, for the same data pointers (their
-// alignment decides the layout, and the layout the number of groups); 0 for
-// a shape it does not take.
+// datt partials on the current device over n_pieces pieces, for the same
+// data pointers (their alignment decides the layout, and the layout the
+// grid): one per block; 0 for a shape it does not take.
 int64_t kgt_sddmm_bwd_partial_rows(const void* ht, const void* hj,
-                                   const void* d_pre, int64_t n_slots,
+                                   const void* d_pre, int64_t n_pieces,
                                    int heads, int64_t f, int is_bf16) {
-  if (!shape_ok(n_slots, heads, f)) return 0;
+  if (!shape_ok(n_pieces, heads, f)) return 0;
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
-  return partial_rows(n_slots, heads * lay.slabs, lay.lph);
+  return blocks_for_fixed_grid(n_pieces, heads * lay.slabs, lay.lph,
+                               kBwdGridPerSm);
 }
 
 // Backward: d_pre [n_slots, heads*f] in the data's type, datt [heads*f] f32,
-// from ds [n_slots, heads] f32. partial: scratch of
-// kgt_sddmm_bwd_partial_rows(...) rows, written before it is read.
-int kgt_sddmm_bwd_sorted(const void* ht, const void* hj, const int32_t* recv,
-                         const void* att, int att_bf16, const float* ds,
-                         void* d_pre, float* datt, float* partial,
-                         int64_t n_slots, int heads, int64_t f, float slope,
-                         int is_bf16, void* stream) {
-  if (ht == nullptr || hj == nullptr || recv == nullptr || att == nullptr ||
+// from ds [n_slots, heads] f32. ht [n_rows, heads*f], hj and d_pre [n_slots,
+// heads*f]: f32 (is_bf16 = 0) or bf16; att [heads, f] by its own flag.
+// pieces as for kgt_sddmm_scores_sorted. partial: scratch of
+// kgt_sddmm_bwd_partial_rows(..., n_pieces, ...) rows, written before it is
+// read.
+int kgt_sddmm_bwd_sorted(const void* ht, const void* hj, const int32_t* pieces,
+                         int64_t n_pieces, int cap, const void* att,
+                         int att_bf16, const float* ds, void* d_pre,
+                         float* datt, float* partial, int64_t n_rows,
+                         int heads, int64_t f, float slope, int is_bf16,
+                         void* stream) {
+  if (ht == nullptr || hj == nullptr || pieces == nullptr || att == nullptr ||
       ds == nullptr || d_pre == nullptr || datt == nullptr ||
-      partial == nullptr || !shape_ok(n_slots, heads, f)) {
+      partial == nullptr || n_rows <= 0 || n_pieces < n_rows || cap < 1 ||
+      cap > 1024 || reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
+      !shape_ok(n_pieces, heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, hj, d_pre, d_pre);
-  const unsigned grid =
-      blocks_for_fixed_grid(n_slots, heads * lay.slabs, lay.lph);
-  const int64_t p_rows = partial_rows(n_slots, heads * lay.slabs, lay.lph);
+  const unsigned grid = blocks_for_fixed_grid(
+      n_pieces, heads * lay.slabs, lay.lph, kBwdGridPerSm);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_BWD(S)                                                          \
-  sddmm_bwd_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(              \
-      static_cast<const S*>(ht), static_cast<const S*>(hj), recv, att,      \
-      att_bf16, ds, static_cast<S*>(d_pre), partial, n_slots, heads, fi,    \
-      lay.lph, slope)
+  {                                                                         \
+    auto kernel = sddmm_bwd_kernel<S, VEC, NJ, WIDE>;                       \
+    const size_t smem = bwd_smem<S, VEC, NJ>(lay.lph, cap);                 \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t attr = cudaFuncSetAttribute(                        \
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,              \
+          static_cast<int>(smem));                                          \
+      if (attr != cudaSuccess) return static_cast<int>(attr);               \
+    }                                                                       \
+    kernel<<<grid, kThreads, smem, s>>>(                                    \
+        static_cast<const S*>(ht), static_cast<const S*>(hj), work,         \
+        n_pieces, cap, att, att_bf16, ds, static_cast<S*>(d_pre), partial,  \
+        heads, fi, lay.lph, slope);                                         \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_BWD)
 #undef KGT_BWD
   const cudaError_t first = cudaGetLastError();
   if (first != cudaSuccess) return static_cast<int>(first);
-  return static_cast<int>(
-      reduce_partials(partial, datt, p_rows, static_cast<int64_t>(heads) * f,
-                      s));
+  return static_cast<int>(reduce_partials(
+      partial, datt, grid, static_cast<int64_t>(heads) * f, s));
 }
 
 const char* kgt_cuda_error_string(int code) {

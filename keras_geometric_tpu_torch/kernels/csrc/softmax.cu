@@ -16,15 +16,29 @@
 // The TPU kernels reach the rows through one-hot matrix products over a
 // boundary-encoded work list (that machine has no vector gather). Here:
 //
-// - stats: one warp per receiver row, its lanes striding over the row's
-//   slots row_ptr[r] .. row_ptr[r+1], so a 20,000-slot hub row is 625 loads
-//   a lane, not 20,000 dependent steps of one group. Each lane keeps an
-//   online (m, l) pair per head, the flash-attention recurrence
-//   l <- l * exp(m_old - m_new) + exp(s - m_new); the lanes merge their
-//   pairs by butterfly shuffles with the same rescaling. A lane or pair that
-//   has seen only -inf keeps m = -inf, l = 0 and is never rescaled, so
-//   exp(-inf - (-inf)) is never formed. Heads are taken eight at a time, so
-//   any K works. Bound by bytes (the [E, K] score stream, read once).
+// - stats: the pieces of the receiver-sorted stream that the attention
+//   kernels walk (spmm_cuda.recv_bwd_work(row_ptr): at most 32 slots of one
+//   row, every row at least one piece), one thread per (piece, head). A
+//   thread loads its piece's scores kStatsBatch slots at once (independent
+//   loads: one memory latency for a piece of up to kStatsBatch slots) and
+//   folds them in slot order with online_step (lanes.cuh), the step of the
+//   fused forward (attend.cu, K9): l <- l * exp(m_old - m_new) +
+//   exp(s - m_new), -inf slots skipped, so a lane that has seen only -inf
+//   keeps m = -inf, l = 0 and exp(-inf - (-inf)) is never formed. A row of
+//   one piece stores its (m, l); a split row (a hub, the padded tail)
+//   stores each piece's pair in scratch, and a second launch, a warp per
+//   (split row, head), merges them with the forward's merge
+//   (agg_finish_kernel): m = max m_p, l = sum in piece order over the
+//   pieces with a finite m_p of l_p exp(m_p - m), each piece's factor
+//   formed by its own lane and the sum taken in order. So on the same
+//   scores every row's (m, l) is the fused forward's, bit for bit. Bound
+//   by bytes (the [E, K] score stream, read once) in principle; the work
+//   is two expf a finite score, and at arxiv's shapes the two dependent
+//   loads a thread makes (its piece's header, then its scores) leave it at
+//   about a third of that bound (PERF.md). Its predecessor gave a warp to
+//   each row and merged the lanes' pairs by a five-step butterfly: on
+//   arxiv's rows of ~9 slots 23 of 32 lanes loaded nothing and every lane
+//   paid ~40 expf and ~40 shuffles a row, which set its time.
 // - apply: edge-parallel, one thread per (slot, head): no row walk, so a hub
 //   row is no hazard. Bound by bytes (scores in, alpha out).
 //
@@ -37,72 +51,111 @@
 
 namespace {
 
-constexpr int kHeadsPerPass = 8;  // heads a lane keeps (m, l) for at once
+// Slots whose scores a thread loads at once, and the statistics' blocks
+// per SM (48 registers). NVIDIA H100 80GB HBM3 at 700 W, composed arxiv
+// shapes, the walk alone: 0.023 ms, the same at three blocks a SM, 0.029
+// at six and 0.030 at eight (batches of 8) (PERF.md).
+constexpr int kStatsBatch = 16;
+constexpr int kStatsBlocksPerSm = 4;
 constexpr int kApplyBlocksPerSm = 32;
 
-// Merge of two online pairs: (m, l) absorbs (mo, lo).
-__device__ __forceinline__ void merge(float& m, float& l, float mo, float lo) {
-  const float m_new = fmaxf(m, mo);
-  if (m_new > -INFINITY) {  // else both are (-inf, 0) and stay so
-    l = l * expf(m - m_new) + lo * expf(mo - m_new);
-    m = m_new;
+// pieces[p] = (row, first slot, end slot, share): share -1 where the piece
+// is its whole row, else its row of m_part / l_part ([shares, heads]).
+__global__ void __launch_bounds__(kThreads, kStatsBlocksPerSm)
+softmax_stats_kernel(const float* __restrict__ scores,
+                     const int4* __restrict__ pieces, int64_t n_pieces,
+                     int heads, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ m_part,
+                     float* __restrict__ l_part) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_pieces * heads) return;
+  const int64_t p = i / heads;
+  const int h = static_cast<int>(i - p * heads);
+  const int4 pc = pieces[p];
+  const int n = pc.z - pc.y;
+  const float* s_h = scores + static_cast<int64_t>(pc.y) * heads + h;
+  float m = -INFINITY, l = 0.0f;
+  for (int j0 = 0; j0 < n; j0 += kStatsBatch) {
+    float s[kStatsBatch];
+#pragma unroll
+    for (int u = 0; u < kStatsBatch; ++u) {
+      s[u] = j0 + u < n ? s_h[static_cast<int64_t>(j0 + u) * heads]
+                        : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < kStatsBatch; ++u) {
+      if (s[u] > -INFINITY) {
+        float e;
+        online_step(s[u], m, l, e);
+      }
+    }
+  }
+  if (pc.w < 0) {
+    const int64_t r = static_cast<int64_t>(pc.x) * heads + h;
+    m_out[r] = m > -INFINITY ? m : 0.0f;
+    l_out[r] = l;
+  } else {  // m stays -inf where the piece saw no finite score
+    const int64_t r = static_cast<int64_t>(pc.w) * heads + h;
+    m_part[r] = m;
+    l_part[r] = l;
   }
 }
 
+// The split rows' (m, l) from their pieces' pairs, a warp per (split row,
+// head): the fused forward's merge (attend.cu's agg_finish_kernel) with the
+// same operations in the same order. m = the max of the pieces' m_p (a max
+// is exact in any order), then l in piece order: each lane forms its
+// piece's factor exp(m_p - m), and lane 0 adds l_p * factor piece by piece
+// as the forward's loop does. A piece without a finite score is skipped, so
+// a row whose finite scores lie in one piece gets that piece's pair.
 __global__ void __launch_bounds__(kThreads)
-softmax_stats_kernel(const float* __restrict__ scores,
-                     const int32_t* __restrict__ row_ptr,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int64_t n_rows, int heads) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= n_rows) return;  // the whole warp: one row per warp
+softmax_stats_finish_kernel(const float* __restrict__ m_part,
+                            const float* __restrict__ l_part,
+                            const int32_t* __restrict__ fix_rows,
+                            const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                            int heads, float* __restrict__ m_out,
+                            float* __restrict__ l_out) {
+  const int64_t w =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  if (w >= n_fix * heads) return;  // the whole warp
   const int lane = threadIdx.x & 31;
-  const int64_t lo = row_ptr[row], hi = row_ptr[row + 1];
-
-  for (int k0 = 0; k0 < heads; k0 += kHeadsPerPass) {
-    const int kc = min(kHeadsPerPass, heads - k0);  // the same on every lane
-    float m[kHeadsPerPass], l[kHeadsPerPass];
+  const int64_t k = w / heads;
+  const int h = static_cast<int>(w - k * heads);
+  const int32_t p0 = fix_ptr[k], p1 = fix_ptr[k + 1];
+  float m = -INFINITY;
+  for (int32_t p = p0 + lane; p < p1; p += 32) {
+    m = fmaxf(m, m_part[static_cast<int64_t>(p) * heads + h]);
+  }
 #pragma unroll
-    for (int k = 0; k < kHeadsPerPass; ++k) {
-      m[k] = -INFINITY;
-      l[k] = 0.0f;
+  for (int off = 16; off > 0; off >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  float l = 0.0f;
+  for (int32_t c = p0; c < p1; c += 32) {
+    const int32_t p = c + lane;
+    float mp = -INFINITY, lp = 0.0f, wp = 0.0f;
+    if (p < p1) {
+      mp = m_part[static_cast<int64_t>(p) * heads + h];
+      lp = l_part[static_cast<int64_t>(p) * heads + h];
+      if (mp > -INFINITY) wp = expf(mp - m);
     }
-    for (int64_t e = lo + lane; e < hi; e += 32) {
-      const float* s_e = scores + e * heads + k0;
-#pragma unroll
-      for (int k = 0; k < kHeadsPerPass; ++k) {
-        if (k < kc) {
-          const float s = s_e[k];
-          if (s > -INFINITY) {
-            const float m_new = fmaxf(m[k], s);
-            l[k] = l[k] * expf(m[k] - m_new) + expf(s - m_new);
-            m[k] = m_new;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < kHeadsPerPass; ++k) {
-        if (k < kc) {
-          const float mo = __shfl_xor_sync(0xffffffffu, m[k], off);
-          const float lo_k = __shfl_xor_sync(0xffffffffu, l[k], off);
-          merge(m[k], l[k], mo, lo_k);
-        }
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < kHeadsPerPass; ++k) {
-        if (k < kc) {
-          m_out[row * heads + k0 + k] = m[k] > -INFINITY ? m[k] : 0.0f;
-          l_out[row * heads + k0 + k] = l[k];
-        }
-      }
+    const int count = min(32, p1 - c);  // the same on every lane
+    for (int j = 0; j < count; ++j) {
+      const float mj = __shfl_sync(0xffffffffu, mp, j);
+      const float lj = __shfl_sync(0xffffffffu, lp, j);
+      const float wj = __shfl_sync(0xffffffffu, wp, j);
+      if (mj > -INFINITY) l += lj * wj;  // a piece without a finite score
     }
   }
+  if (lane == 0) {
+    const int64_t r = static_cast<int64_t>(fix_rows[k]) * heads + h;
+    m_out[r] = m > -INFINITY ? m : 0.0f;
+    l_out[r] = l;
+  }
+}
+
+unsigned blocks_for(int64_t items) {
+  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
 }
 
 template <typename O>
@@ -137,20 +190,34 @@ unsigned apply_blocks(int64_t total) {
 extern "C" {
 
 // m, l [n_rows, heads] f32 from scores [n_slots, heads] f32 (masked slots
-// -inf) and the row pointers of the sorted receivers.
-int kgt_softmax_stats_sorted(const float* scores, const int32_t* row_ptr,
-                             float* m, float* l, int64_t n_rows, int heads,
-                             void* stream) {
-  if (scores == nullptr || row_ptr == nullptr || m == nullptr ||
-      l == nullptr || n_rows <= 0 || heads < 1 ||
-      (n_rows + kThreads / 32 - 1) / (kThreads / 32) >= (1ll << 31)) {
+// -inf). pieces [n_pieces, 4] int32 (row, first slot, end slot, share),
+// 16-byte aligned: the pieces of the receiver-sorted stream's row pointers,
+// every row at least one; fix_rows [n_fix] the split rows, their shares
+// fix_ptr[k] .. fix_ptr[k + 1] ([n_fix + 1]) in piece order; m_part, l_part
+// [shares, heads] f32 scratch, written before they are read (unused when
+// n_fix == 0). Two launches when a row is split, else one.
+int kgt_softmax_stats_sorted(const float* scores, const int32_t* pieces,
+                             int64_t n_pieces, const int32_t* fix_rows,
+                             const int32_t* fix_ptr, int64_t n_fix, float* m,
+                             float* l, float* m_part, float* l_part,
+                             int64_t n_rows, int heads, void* stream) {
+  if (scores == nullptr || pieces == nullptr || m == nullptr ||
+      l == nullptr || n_rows <= 0 || heads < 1 || n_pieces < n_rows ||
+      n_fix < 0 || reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
+      (n_fix > 0 && (fix_rows == nullptr || fix_ptr == nullptr ||
+                     m_part == nullptr || l_part == nullptr)) ||
+      n_pieces * heads / kThreads >= (1ll << 31) - 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(
-      (n_rows + kThreads / 32 - 1) / (kThreads / 32));
-  softmax_stats_kernel<<<grid, kThreads, 0, s>>>(scores, row_ptr, m, l,
-                                                 n_rows, heads);
+  softmax_stats_kernel<<<blocks_for(n_pieces * heads), kThreads, 0, s>>>(
+      scores, reinterpret_cast<const int4*>(pieces), n_pieces, heads, m, l,
+      m_part, l_part);
+  const cudaError_t first = cudaGetLastError();
+  if (first != cudaSuccess || n_fix == 0) return static_cast<int>(first);
+  softmax_stats_finish_kernel<<<blocks_for(n_fix * heads * 32), kThreads, 0,
+                                s>>>(m_part, l_part, fix_rows, fix_ptr, n_fix,
+                                     heads, m, l);
   return static_cast<int>(cudaGetLastError());
 }
 

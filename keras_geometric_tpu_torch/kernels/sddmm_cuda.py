@@ -34,9 +34,20 @@ Source notes, one per kernel (all three are bound by bytes):
   the fused forward's (K9's) bit for bit on ``hj = ht[senders]``: the same
   score function in the same lane layout.
 - ``sddmm_bwd_sorted``: ``d_pre [E, H*F]`` (in ``hj``'s type) and ``datt``
-  from ``ds [E, H]``. Reads ``hj`` and writes ``d_pre``; ``datt`` goes
-  through per-group partials of a fixed grid and a second small kernel that
-  sums them in a fixed order: no atomics, so it is bit-reproducible.
+  from ``ds [E, H]``. Reads ``hj``, each receiver row once a piece, and
+  writes ``d_pre``. It walks the same pieces as the score kernel, save
+  that a row longer than one piece (the padded tail, a hub) is cut into
+  pieces of ``BWD_SPLIT_PIECE`` slots: its slots are independent, so those
+  pieces run side by side in short chains (at CiteSeer's shapes, where the
+  tail's 32-slot chains set the walk's time, it took 0.0108 -> 0.0075 ms
+  on an H100, PERF.md). A group
+  per (piece, head) holds the receiver row's and ``att``'s columns in
+  registers, stages the piece's ``ds`` in shared memory and streams the
+  piece's contiguous ``hj`` rows through a ``cp.async`` ring of eight
+  stages, storing each slot's ``d_pre`` from registers. ``datt`` goes
+  through per-group partials summed in group order into one row per block
+  and a second small kernel that sums those rows in a fixed order: no
+  atomics, so it is bit-reproducible.
 - ``sddmm_stats_sorted``: scores ``[E, H]`` f32 (``-inf`` on invalid slots)
   and the per-receiver online ``(m, l)`` in one pass over the receiver-sorted
   slots; a sub-warp group per (receiver row, head), the sender rows gathered
@@ -80,9 +91,14 @@ __all__ = [
     "sddmm_scores_sorted_plain",
     "sddmm_bwd_sorted_plain",
     "sddmm_stats_sorted_plain",
+    "BWD_SPLIT_PIECE",
     "LAUNCH_COUNTS",
     "reset_launch_counts",
 ]
+
+# Slots of a piece of a row longer than RECV_BWD_PIECE in the score
+# backward's work list.
+BWD_SPLIT_PIECE = 8
 
 # One plain integer per kernel entry, incremented where the kernel is
 # launched and nowhere else.
@@ -155,7 +171,8 @@ def _library() -> ctypes.CDLL:
     lib.kgt_sddmm_bwd_partial_rows.argtypes = [vp, vp, vp, i64, i32, i64, i32]
     lib.kgt_sddmm_bwd_partial_rows.restype = i64
     lib.kgt_sddmm_bwd_sorted.argtypes = [
-        vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32, i32, vp,
+        vp, vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32,
+        i32, vp,
     ]
     lib.kgt_sddmm_bwd_sorted.restype = i32
     lib.kgt_sddmm_stats_sorted.argtypes = [
@@ -230,18 +247,25 @@ def sddmm_scores_sorted(ht, hj, att, receivers, *, negative_slope=0.2,
     return scores
 
 
-def sddmm_bwd_sorted(ht, hj, att, dscores, receivers, *, negative_slope=0.2):
+def sddmm_bwd_sorted(ht, hj, att, dscores, receivers, *, negative_slope=0.2,
+                     row_ptr=None):
     """Backward of :func:`sddmm_scores_sorted` with respect to the
     pre-activation and ``att``: returns ``(d_pre [E, H*F] in hj's type,
     datt [H, F] in att's type)``. ``dscores`` is ``[E, H]`` f32. ``d_pre`` is
     the cotangent of both endpoints' rows: the caller returns it as ``d hj``
-    and sums it by receiver for ``d ht``.
+    and sums it by receiver for ``d ht``. ``row_ptr`` ``[N+1]`` (the row
+    pointers of the sorted ``receivers``) is required for a CUDA tensor,
+    whose kernel walks their pieces; the plain version, which a CPU tensor
+    takes, does not read it.
     """
     if not ht.is_cuda:
         return sddmm_bwd_sorted_plain(ht, hj, att, dscores, receivers,
                                       negative_slope=negative_slope)
+    n = ht.shape[0]
+    row_ptr = _row_ptr_or_raise(ht, receivers, n, row_ptr)
     device = ht.device
     heads, f, e = _check_operands(ht, hj, att, receivers)
+    _check_index("row_ptr", row_ptr, n + 1, device)
     att_ptr, att_bf16 = _scalar_matrix_arg("att", att, (heads, f), device)
     _check_like("dscores", dscores, (e, heads), torch.float32, device)
     d_pre = torch.empty_like(hj)
@@ -249,17 +273,19 @@ def sddmm_bwd_sorted(ht, hj, att, dscores, receivers, *, negative_slope=0.2):
     if hj.numel() == 0:
         return d_pre, datt.zero_().to(att.dtype)
     lib = _library()
+    work = recv_bwd_work(row_ptr, split_piece=BWD_SPLIT_PIECE)
     is_bf16 = int(ht.dtype == torch.bfloat16)
     with torch.cuda.device(device):
         partial_rows = lib.kgt_sddmm_bwd_partial_rows(
-            ht.data_ptr(), hj.data_ptr(), d_pre.data_ptr(), e, heads, f,
-            is_bf16)
+            ht.data_ptr(), hj.data_ptr(), d_pre.data_ptr(), work.num_pieces,
+            heads, f, is_bf16)
         partial = torch.empty(partial_rows, heads * f, dtype=torch.float32,
                               device=device)
         code = lib.kgt_sddmm_bwd_sorted(
-            ht.data_ptr(), hj.data_ptr(), receivers.data_ptr(), att_ptr,
-            att_bf16, dscores.data_ptr(), d_pre.data_ptr(), datt.data_ptr(),
-            partial.data_ptr(), e, heads, f, float(negative_slope), is_bf16,
+            ht.data_ptr(), hj.data_ptr(), work.pieces.data_ptr(),
+            work.num_pieces, work.piece, att_ptr, att_bf16,
+            dscores.data_ptr(), d_pre.data_ptr(), datt.data_ptr(),
+            partial.data_ptr(), n, heads, f, float(negative_slope), is_bf16,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on_error(lib, code, "sddmm_bwd_sorted")

@@ -7,15 +7,20 @@ their wrappers, their plain PyTorch versions, their launch counters and their
 argument checks. ``ops/csr.py`` wires them into ``GraphContext.edge_softmax``.
 
 The signatures take what the kernels walk instead of the reference's TPU
-work-list tables: ``row_ptr`` for the statistics (one warp per receiver row)
+work-list tables: ``row_ptr`` for the statistics (the pieces of its rows)
 and ``receivers`` for the normalisation (one thread per slot and head).
 
 Source notes, one per kernel (both are bound by bytes):
 
 - ``softmax_stats_sorted``: online per-row max ``m`` and normaliser ``l`` of
   ``[E, K]`` f32 scores; reads the score stream once, writes ``[N, K]`` twice.
-  A warp's lanes stride over a row's slots and merge their ``(m, l)`` pairs
-  by shuffles, so a hub row is spread over 32 lanes.
+  One thread per (piece, head) over the pieces of ``row_ptr``
+  (:func:`spmm_cuda.recv_bwd_work`, at most 32 slots of one row, the list
+  the attention kernels walk) loads its slots' scores sixteen at once and
+  folds them in order with the fused forward's online step; a split row (a
+  hub, the padded tail) is merged in piece order by a second launch with
+  the forward's merge. So ``(m, l)`` equals the fused forward's
+  (``attend_cuda.sddmm_stats_agg_sorted``) bit for bit on the same scores.
 - ``softmax_apply_sorted``: ``alpha = exp(s - m[r]) / (l[r] + eps)``, one
   thread per (slot, head); reads the scores and the receivers, writes alpha.
 
@@ -32,7 +37,7 @@ import torch
 
 from . import _build
 from .attend_cuda import _check_like
-from .spmm_cuda import _check_index, _raise_on_error
+from .spmm_cuda import _check_index, _raise_on_error, recv_bwd_work
 
 __all__ = [
     "softmax_stats_sorted",
@@ -96,7 +101,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("softmax")
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
-    lib.kgt_softmax_stats_sorted.argtypes = [vp, vp, vp, vp, i64, i32, vp]
+    lib.kgt_softmax_stats_sorted.argtypes = [
+        vp, vp, i64, vp, vp, i64, vp, vp, vp, vp, i64, i32, vp,
+    ]
     lib.kgt_softmax_stats_sorted.restype = i32
     lib.kgt_softmax_apply_sorted.argtypes = [
         vp, vp, vp, vp, vp, i64, i32, f32, i32, vp,
@@ -123,9 +130,10 @@ def softmax_stats_sorted(scores, receivers, row_ptr, num_nodes):
 
     ``scores`` f32 with masked slots already ``-inf``; ``receivers`` ``[E]``
     int32, sorted, and ``row_ptr`` ``[N+1]`` its row pointers
-    (``row_ptr[0] == 0``, ``row_ptr[N] == E``). Returns ``m`` (row max, 0 for
-    a row without a finite score) and ``l = sum exp(s - m)``, each
-    ``[num_nodes, K]`` f32.
+    (``row_ptr[0] == 0``, ``row_ptr[N] == E``), whose pieces the kernel
+    walks (the plain version, which a CPU tensor takes, reads
+    ``receivers``). Returns ``m`` (row max, 0 for a row without a finite
+    score) and ``l = sum exp(s - m)``, each ``[num_nodes, K]`` f32.
     """
     if not scores.is_cuda:
         return softmax_stats_sorted_plain(scores, receivers, num_nodes)
@@ -138,10 +146,18 @@ def softmax_stats_sorted(scores, receivers, row_ptr, num_nodes):
     if m.numel() == 0 or e == 0:  # no slot: every row is empty
         return m.zero_(), l.zero_()
     lib = _library()
+    work = recv_bwd_work(row_ptr)
+    # Each split row's pieces leave their (m, l) here for the merge.
+    m_part = torch.empty(work.num_shares, k, dtype=torch.float32,
+                         device=device)
+    l_part = torch.empty_like(m_part)
     with torch.cuda.device(device):
         code = lib.kgt_softmax_stats_sorted(
-            scores.data_ptr(), row_ptr.data_ptr(), m.data_ptr(), l.data_ptr(),
-            num_nodes, k, torch.cuda.current_stream(device).cuda_stream,
+            scores.data_ptr(), work.pieces.data_ptr(), work.num_pieces,
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(),
+            work.fix_rows.shape[0], m.data_ptr(), l.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), num_nodes, k,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on_error(lib, code, "softmax_stats_sorted")
     LAUNCH_COUNTS["softmax_stats_sorted"] += 1

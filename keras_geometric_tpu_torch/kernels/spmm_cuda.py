@@ -170,18 +170,22 @@ class RecvBwdWork:
         return int(self.pieces.shape[0])
 
 
-def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
+def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int,
+                         split_piece: int | None = None) -> RecvBwdWork:
     rp = row_ptr.long()
     lengths = rp[1:] - rp[:-1]
-    counts = torch.clamp((lengths + piece - 1) // piece, min=1)
+    size = torch.full_like(lengths, piece)
+    if split_piece is not None:  # rows longer than a piece: shorter pieces
+        size = torch.where(lengths > piece, split_piece, size)
+    counts = torch.clamp((lengths + size - 1) // size, min=1)
     total = int(counts.sum())
     n = lengths.shape[0]
     row = torch.repeat_interleave(torch.arange(n, device=rp.device), counts,
                                   output_size=total)
     first = torch.cumsum(counts, 0) - counts  # each row's first piece
     k = torch.arange(total, device=rp.device) - first[row]
-    lo = rp[row] + k * piece
-    hi = torch.minimum(lo + piece, rp[row + 1])
+    lo = rp[row] + k * size[row]
+    hi = torch.minimum(lo + size[row], rp[row + 1])
     split = counts[row] > 1
     share = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
     pieces = torch.stack([row, lo, hi, share], 1).to(torch.int32).contiguous()
@@ -194,23 +198,31 @@ def _build_recv_bwd_work(row_ptr: torch.Tensor, piece: int) -> RecvBwdWork:
                        num_shares=int(split.sum()))
 
 
-def recv_bwd_work(row_ptr: torch.Tensor,
-                  piece: int = RECV_BWD_PIECE) -> RecvBwdWork:
+def recv_bwd_work(row_ptr: torch.Tensor, piece: int = RECV_BWD_PIECE, *,
+                  split_piece: int | None = None) -> RecvBwdWork:
     """The pieces for ``row_ptr`` (``[N + 1]``), on its device, that the
     kernels walk: ``row_ptr`` over the receiver-sorted stream for the
     attention's forward, rho and receiver backward, ``row_ptr_bwd`` over the
     sender-sorted one for its sender backward and the finish, and either for
-    the fused-gather scatter. Built once per ``row_ptr`` tensor (one host
-    synchronisation, at its first use) and kept on the tensor while it is not
-    written to."""
+    the fused-gather scatter. ``split_piece`` (at most ``piece``): a row
+    longer than ``piece`` slots is cut into pieces of that many slots
+    instead, for a kernel whose slots are independent, so that a long row's
+    pieces run side by side in short chains (the score backward's). Built
+    once per ``row_ptr`` tensor and list (one host synchronisation, at its
+    first use) and kept on the tensor while it is not written to."""
     if piece < 1:
         raise ValueError(f"piece must be >= 1, got {piece}")
-    key = (row_ptr._version, piece)
-    cached = getattr(row_ptr, "_recv_bwd_work", None)
-    if cached is not None and cached[0] == key:
+    if split_piece is not None and not 1 <= split_piece <= piece:
+        raise ValueError(f"split_piece must lie in [1, {piece}], got "
+                         f"{split_piece}")
+    kept = getattr(row_ptr, "_recv_bwd_work", None)
+    if kept is None:
+        kept = row_ptr._recv_bwd_work = {}
+    cached = kept.get((piece, split_piece))
+    if cached is not None and cached[0] == row_ptr._version:
         return cached[1]
-    work = _build_recv_bwd_work(row_ptr, piece)
-    row_ptr._recv_bwd_work = (key, work)
+    work = _build_recv_bwd_work(row_ptr, piece, split_piece)
+    kept[(piece, split_piece)] = (row_ptr._version, work)
     return work
 
 

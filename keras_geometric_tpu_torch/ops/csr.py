@@ -553,10 +553,10 @@ class _EdgeSoftmax(torch.autograd.Function):
 
 
 class _Sddmm(torch.autograd.Function):
-    """Score kernel forward (over the pieces of ``graph.row_ptr``); backward:
-    the score-backward kernel (``d_pre``,
-    ``d att``), then ``d ht`` as ``d_pre`` summed by receiver with the sorted
-    scatter. ``d hj = d_pre`` returns to the caller's gather."""
+    """Score kernel forward; backward: the score-backward kernel (``d_pre``,
+    ``d att``), both over the pieces of ``graph.row_ptr``, then ``d ht`` as
+    ``d_pre`` summed by receiver with the sorted scatter. ``d hj = d_pre``
+    returns to the caller's gather."""
 
     @staticmethod
     def forward(ctx, ht, hj, att, graph, negative_slope):
@@ -576,7 +576,7 @@ class _Sddmm(torch.autograd.Function):
         graph = ctx.graph
         d_pre, datt = sddmm_cuda.sddmm_bwd_sorted(
             ht, hj, att, g.float().contiguous(), graph.receivers,
-            negative_slope=ctx.negative_slope)
+            negative_slope=ctx.negative_slope, row_ptr=graph.row_ptr)
         dht = spmm_cuda.scatter_sum_sorted(
             d_pre, graph.receivers, graph.num_nodes, row_ptr=graph.row_ptr)
         return dht.to(ht.dtype), d_pre, datt, None, None

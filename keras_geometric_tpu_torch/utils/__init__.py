@@ -1,5 +1,5 @@
-"""Utility tier: timing and roofline accounting."""
+"""Utility tier: timing, tracing and roofline accounting."""
 
-from .profiling import Roofline, timed_steps
+from .profiling import CHIP_SPECS, Roofline, timed_steps, trace
 
-__all__ = ["Roofline", "timed_steps"]
+__all__ = ["CHIP_SPECS", "Roofline", "timed_steps", "trace"]

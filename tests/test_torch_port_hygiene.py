@@ -32,7 +32,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "keras_geometric_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "attend_kernels_ab.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
     r"|(import|from)\s+keras_geometric_tpu(?!_torch)\b)", re.M)
@@ -317,7 +318,7 @@ def test_composed_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(
         sddmm_cuda.sddmm_scores_sorted(ht, hj, att, recv),
         sddmm_cuda.sddmm_scores_sorted_plain(ht, hj, att, recv))
-    got = sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv)
+    got = sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv, row_ptr=row_ptr)
     want = sddmm_cuda.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     send = torch.tensor([1, 2, 0, 3, 1, 0], dtype=torch.int32)
@@ -441,6 +442,87 @@ def test_timed_steps_refuses_to_time_without_a_card():
         pytest.skip("needs a machine without a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         profiling.timed_steps(lambda: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.timed_steps(lambda: None, k_lo=2, k_hi=10, trials=1)
+
+
+def test_timed_steps_takes_the_references_keywords_and_returns_seconds(
+        monkeypatch):
+    """The reference's signature (``k_lo=2, k_hi=22, trials=3``) and unit
+    (seconds per call), shown with stand-in events on a clock that advances
+    5 ms a call: the difference of the two runs, over their lengths."""
+    params = inspect.signature(profiling.timed_steps).parameters
+    assert {k: params[k].default for k in ("k_lo", "k_hi", "trials")} == {
+        "k_lo": 2, "k_hi": 22, "trials": 3}
+    calls = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.at = 5.0 * len(calls) + 0.25  # ms; 0.25 ms per record
+
+        def elapsed_time(self, other):
+            return other.at - self.at + 0.25
+
+    cuda = types.SimpleNamespace(is_available=lambda: True, Event=Event,
+                                 synchronize=lambda: None)
+    monkeypatch.setattr(profiling.torch, "cuda", cuda)
+    got = profiling.timed_steps(lambda: calls.append(1), k_lo=2, k_hi=10,
+                                trials=2)
+    assert got == pytest.approx(0.005, rel=1e-12)
+    assert len(calls) == 1 + 2 * (2 + 10)
+    with pytest.raises(ValueError):
+        profiling.timed_steps(lambda: None, k_lo=4, k_hi=4)
+
+
+def test_timed_steps_measures_again_then_raises_on_no_difference(
+        monkeypatch):
+    """A difference that noise leaves not positive is measured again over
+    longer runs (``k_lo`` doubled, ``k_hi`` quadrupled, the reference's
+    rule), at most three times; then it raises instead of returning another
+    quantity. Stand-in events: every run of the first measurement reads 1 ms
+    whatever its length, later ones 5 ms a call."""
+    calls, readings = [], []
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.at = 5.0 * len(calls)
+
+        def elapsed_time(self, other):
+            readings.append(1)
+            return 1.0 if len(readings) <= 4 else other.at - self.at
+
+    cuda = types.SimpleNamespace(is_available=lambda: True, Event=Event,
+                                 synchronize=lambda: None)
+    monkeypatch.setattr(profiling.torch, "cuda", cuda)
+    got = profiling.timed_steps(lambda: calls.append(1), k_lo=2, k_hi=10,
+                                trials=2)
+    assert got == pytest.approx(0.005, rel=1e-12)
+    assert len(calls) == 1 + 2 * (2 + 10) + 2 * (4 + 40)
+
+    class FlatEvent(Event):
+        def elapsed_time(self, other):
+            return 1.0
+
+    cuda.Event = FlatEvent
+    calls.clear()
+    with pytest.raises(RuntimeError, match="too short"):
+        profiling.timed_steps(lambda: calls.append(1), k_lo=1, k_hi=2,
+                              trials=1)
+    assert len(calls) == 1 + (1 + 2) + (2 + 8) + (4 + 32) + (8 + 128)
+
+
+def test_trace_writes_a_trace_into_its_directory(tmp_path):
+    log_dir = tmp_path / "trace"
+    with profiling.trace(str(log_dir)) as where:
+        torch.ones(8).add_(1)
+    assert where == str(log_dir)
+    assert (log_dir / "trace.json").stat().st_size > 0
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -526,6 +608,33 @@ def test_roofline_uses_the_cards_constants():
     rep = profiling.Roofline().add_matmul(4096, 4096, 4096).report(
         1e-3, tensor_cores=True)
     assert rep["bound_by"] == "operations"
+
+
+def test_roofline_reports_the_references_keys_beside_the_ports():
+    assert profiling.CHIP_SPECS["h100"] == (989.0, 67.0, 3350.0)
+    utils = importlib.import_module("keras_geometric_tpu_torch.utils")
+    for name in ("trace", "timed_steps", "Roofline", "CHIP_SPECS"):
+        assert name in profiling.__all__ and name in utils.__all__
+        assert getattr(utils, name) is getattr(profiling, name)
+    r = profiling.Roofline(chip="h100").add_spmm(1_000_000, 128, 100_000)
+    rep = r.report(1e-3)
+    assert rep["bound"] == "memory" and rep["bound_by"] == "bytes"
+    assert rep["speed_of_light_s"] == rep["bound_s"]
+    assert rep["efficiency"] == rep["roofline_share"] == rep["bound_s"] / 1e-3
+    np.testing.assert_allclose(rep["hbm_utilization"],
+                               r.bytes / 1e-3 / 3.35e12, rtol=1e-12)
+    np.testing.assert_allclose(rep["achieved_gbps"], r.bytes / 1e-3 / 1e9,
+                               rtol=1e-12)
+    mm = profiling.Roofline(chip="h100").add_matmul(4096, 4096, 4096)
+    f32, bf16 = mm.report(1e-3), mm.report(1e-3, use_bf16_peak=True)
+    assert f32["bound"] == bf16["bound"] == "compute"
+    np.testing.assert_allclose(f32["speed_of_light_s"], mm.flops / 67e12,
+                               rtol=1e-12)
+    np.testing.assert_allclose(bf16["speed_of_light_s"], mm.flops / 989e12,
+                               rtol=1e-12)
+    assert mm.report(1e-3, tensor_cores=True) == bf16
+    np.testing.assert_allclose(bf16["achieved_tflops"], mm.flops / 1e-3 / 1e12,
+                               rtol=1e-12)
 
 
 def test_native_fallbacks_are_bit_identical():

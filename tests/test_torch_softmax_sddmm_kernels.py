@@ -297,7 +297,7 @@ def test_cuda_kernels_match_plain_versions(heads, f, dtype):
          (softmax_cuda.softmax_apply_sorted_plain(s, m, l, recv),)),
         ((sddmm_cuda.sddmm_scores_sorted(*args, recv, row_ptr=row_ptr),),
          (sddmm_cuda.sddmm_scores_sorted_plain(*args, recv),)),
-        (sddmm_cuda.sddmm_bwd_sorted(*args, ds, recv),
+        (sddmm_cuda.sddmm_bwd_sorted(*args, ds, recv, row_ptr=row_ptr),
          sddmm_cuda.sddmm_bwd_sorted_plain(*args, ds, recv)),
     ]
     torch.cuda.synchronize()

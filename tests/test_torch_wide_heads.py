@@ -180,6 +180,7 @@ def test_cuda_wide_kernels_match_plain_versions(heads, f, dtype, drop):
     k7a = sddmm_cuda.sddmm_scores_sorted(ht, hj, att, recv, row_ptr=row_ptr)
     assert torch.equal(k7a[c["valid"]], scores[c["valid"]])
     ds = on(rng.standard_normal((c["e"], heads)).astype(np.float32))
-    close(sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv),
+    close(sddmm_cuda.sddmm_bwd_sorted(ht, hj, att, ds, recv,
+                                      row_ptr=row_ptr),
           sddmm_cuda.sddmm_bwd_sorted_plain(ht, hj, att, ds, recv), "K7b")
     torch.cuda.synchronize()
