@@ -46,7 +46,18 @@ second launch: K5's merge of split rows, K7b's sum of the ``datt``
 partials)), so that a copy that changes one kernel is timed on that
 kernel alone; beside K7b, a copy of ``hj`` into a tensor like it (the
 ``[E, H*F]`` read and write that are most of K7b's bytes: what the card
-reaches on them). ``step``: the composed and the fused GATv2 training step
+reaches on them). ``messages``: the messages-form scatter (K1's
+``scatter_sum_sorted``) and the expand (K2) at the shapes the training runs
+give them, on ``chip_smoke.py``'s contexts: the composed GATv2 arxiv and
+CiteSeer runs' messages (H*F = 256 / 160 bf16, 64 / 48 f32) and softmax row
+sums (H = 4 / 8, f32), the Cora-shaped GCN's weighted F = 16 and the
+Cora-shaped GraphSAGE's masked F = 1,433 / 16 (f32), and at H*F = 256 bf16
+and H = 4 f32 on ``chip_smoke.py``'s ``skewed_graph`` with its
+20,000-slot hub row and without it, each beside a copy of
+its ``[E, F]`` block into a like tensor (the bytes' ceiling the card
+reaches), with each CUDA kernel of a call timed apart by ``torch.profiler``
+(the one launch, or a walk and a split-row launch); ``--unpadded`` adds the
+same graphs prepared with ``edge_chunk=1``. ``step``: the composed and the fused GATv2 training step
 of ``chip_smoke.py``'s arxiv-shaped run (its workload, model and Adam; 8
 steps first), each timed twice by two schemes in turn, both taken from
 this checkout so that every copy is timed by the same code: ``timed_steps``
@@ -66,6 +77,8 @@ widths, and for the softmax statistics' kernels.
     python3 attend_kernels_ab.py build/parent . . build/parent \
         --only=window,composed --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent --only=step
+    python3 attend_kernels_ab.py build/parent . . build/parent \
+        --only=messages --unpadded --ptxas
 """
 
 from __future__ import annotations
@@ -79,11 +92,18 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed",
-          "step")
+          "messages", "step")
 # Template arguments of the instantiations --ptxas shows, per source.
 SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
+         # the fused gather's piece walk, its row walk; the messages form
+         # and expand (the parent's row walk of messages: "..., false>")
+         # without weights or mask, with weights (f32), with a mask (F=1433)
          "spmm.cu": ("unsigned short, 8>", "float, 4>",
-                     "unsigned short, 8, true>", "float, 4, true>"),
+                     "unsigned short, 8, true>", "float, 4, true>",
+                     "unsigned short, 8, false>", "float, 4, false>",
+                     "float, 1, false>", "unsigned short, 8, false, false>",
+                     "float, 4, false, false>", "float, 4, true, false>",
+                     "float, 1, false, true>"),
          "band.cu": ("unsigned short, 8>",),
          "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
                       "float, 2, 1, false>"),
@@ -99,7 +119,11 @@ CASE_GROUP = {"sender finish": "finish", "sender finish (rows)": "finish",
 # kernels that contain it).
 SPLIT = {"softmax_stats_sorted": ("softmax_stats_kernel",
                                   "softmax_stats_finish_kernel"),
-         "sddmm_bwd_sorted": ("sddmm_bwd_kernel", "reduce_partials_kernel")}
+         "sddmm_bwd_sorted": ("sddmm_bwd_kernel", "reduce_partials_kernel"),
+         # the parent's messages form (the row walk's template), the new one
+         "scatter_sum_sorted": ("scatter_sum_sorted_kernel",
+                                "scatter_messages_kernel"),
+         "expand_sorted": ("expand_sorted_kernel",)}
 
 
 def ptxas_report(root: str) -> list:
@@ -198,6 +222,91 @@ def step_times(device) -> dict:
     return out
 
 
+def message_times(device, chunks, cold_ms, split_ms) -> dict:
+    """K1's messages form and K2 at the training runs' shapes (see the
+    module's docstring), each beside a copy of its ``[E, F]`` block."""
+    import types
+
+    import torch
+
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    smoke = from_this_checkout("_ab_chip_smoke", "chip_smoke.py")
+
+    def hub_graph(dev, hub=20_000):
+        g = smoke.skewed_graph(dev, hub=hub)
+        return (types.SimpleNamespace(num_nodes=g["n"], receivers=g["recv"],
+                                      row_ptr=g["row_ptr"],
+                                      edge_mask=g["mask"]),)
+
+    gat_widths = [smoke.GAT_ARXIV_HEADS * d for d in smoke.GAT_ARXIV_DIMS]
+    cs_widths = [smoke.GAT_CITESEER_HEADS * d
+                 for d in smoke.GAT_CITESEER_DIMS]
+    f32, bf16 = torch.float32, torch.bfloat16
+    graphs = (  # context, (width, type, weighted, masked) of each case
+        ("composed arxiv", smoke.gat_arxiv_workload,
+         [(gat_widths[0], bf16, False, False),
+          (gat_widths[1], bf16, False, False),
+          (smoke.GAT_ARXIV_HEADS, f32, False, False)]),
+        ("composed citeseer", smoke.citeseer_workload,
+         [(cs_widths[0], f32, False, False), (cs_widths[1], f32, False, False),
+          (smoke.GAT_CITESEER_HEADS, f32, False, False)]),
+        ("cora", smoke.cora_workload, [(16, f32, True, False)]),
+        ("sage cora", lambda dev: smoke.cora_workload(dev, gcn=False),
+         [(1_433, f32, False, True), (16, f32, False, True)]),
+        ("hub", hub_graph, [(gat_widths[0], bf16, False, False),
+                            (smoke.GAT_ARXIV_HEADS, f32, False, False)]),
+        ("no hub", lambda dev: hub_graph(dev, hub=0),
+         [(gat_widths[0], bf16, False, False),
+          (smoke.GAT_ARXIV_HEADS, f32, False, False)]),
+    )
+    gen = torch.Generator(device=device).manual_seed(17)
+    out = {}
+    for name, workload, cases in graphs:
+        prepared = workload(device)[0]
+        for pad_name, _ in chunks:
+            if pad_name != "padded" and "hub" in name:
+                continue  # chip_smoke.skewed_graph has no unpadded twin
+            ctx = (prepared if pad_name == "padded"
+                   else smoke.unpadded_context(prepared))
+            n, e = ctx.num_nodes, ctx.receivers.shape[0]
+            lengths = ctx.row_ptr[1:] - ctx.row_ptr[:-1]
+            key = f"{name} {pad_name}"
+            out[key] = {"slots": e, "longest_row": int(lengths.max())}
+            for f, dtype, weighted, masked in cases:
+                msgs = torch.randn(e, f, generator=gen,
+                                   device=device).to(dtype)
+                rows = torch.randn(n, f, generator=gen,
+                                   device=device).to(dtype)
+                w = (torch.rand(e, generator=gen, device=device)
+                     if weighted else None)
+                mask = ctx.edge_mask if masked else None
+                if masked and mask is None:  # a stream without padding
+                    mask = torch.ones(e, dtype=torch.bool, device=device)
+                copy = torch.empty_like(msgs)
+                calls = {
+                    "scatter_sum_sorted": lambda: K.scatter_sum_sorted(
+                        msgs, ctx.receivers, n, row_ptr=ctx.row_ptr,
+                        weights=w, mask=mask),
+                    "expand_sorted": lambda: K._expand_raw(
+                        rows, ctx.receivers, w, mask),
+                    "[E, F] copy": lambda: copy.copy_(msgs),
+                }
+                times = {call: cold_ms(fn) for call, fn in calls.items()}
+                for call, names in SPLIT.items():
+                    if call in calls:
+                        times[f"{call} split ms"] = split_ms(calls[call],
+                                                             names)
+                out[key][f"F={f} {str(dtype)[6:]}"
+                         f"{' weighted' if weighted else ''}"
+                         f"{' masked' if masked else ''}"] = times
+                del msgs, rows, copy, calls
+            del ctx
+        del prepared
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_copy(root: str, unpadded: bool, groups: set) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import inspect
@@ -283,6 +392,8 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
               "groups": sorted(groups)}
     if "step" in groups:
         result["step"] = step_times(device)
+    if "messages" in groups:
+        result["messages"] = message_times(device, chunks, cold_ms, split_ms)
     if "gcn" in groups:
         # chip_smoke.py's arxiv_workload: the features are drawn first.
         half = 1_166_243 // 2

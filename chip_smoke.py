@@ -68,9 +68,14 @@ exit code and without the final line; so does a run of a subset of the phases
                 (the receiver walks also on the same graph without padded
                 slots, the kernels that walk pieces with their work list's
                 pieces and split rows and their times with and without the
-                hub row, the band kernel also on its wmma route at F = 7),
-                and the fused attention kernels at one head of 256 columns
-                against the wide heads;
+                hub row, the band kernel also on its wmma route at F = 7;
+                the messages-form scatter and expand also at the composed
+                CiteSeer and the Cora-shaped GraphSAGE shapes, each the same
+                bits over two calls, expand its plain version's bits, the
+                scatter an f64 sum's value and, at the Cora and CiteSeer
+                shapes, a serial slot-order walk's bits on every row of at
+                most one piece), and the fused attention kernels at one head
+                of 256 columns against the wide heads;
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
                 autograd over the plain versions, of ``GraphContext.attend``,
@@ -361,6 +366,18 @@ PTXAS_SHOWN = {
     "gather_scatter_merge_kernelItE": "gather_scatter_merge_kernel<bf16>",
     "scatter_sum_sorted_kernelItLi8ELb1E":
         "scatter_sum_sorted_kernel<bf16, 8, gather> (the row walk)",
+    "scatter_messages_kernelItLi8ELb0ELb0E":
+        "scatter_messages_kernel<bf16, 8> (composed arxiv messages)",
+    "scatter_messages_kernelIfLi4ELb0ELb0E":
+        "scatter_messages_kernel<f32, 4> (row sums, composed CiteSeer)",
+    "scatter_messages_kernelIfLi4ELb1ELb0E":
+        "scatter_messages_kernel<f32, 4, weights> (Cora GCN)",
+    "scatter_messages_kernelIfLi1ELb0ELb1E":
+        "scatter_messages_kernel<f32, 1, mask> (Cora GraphSAGE F=1433)",
+    "expand_sorted_kernelItLi8ELb0ELb0E":
+        "expand_sorted_kernel<bf16, 8> (composed arxiv)",
+    "expand_sorted_kernelIfLi4ELb0ELb0E":
+        "expand_sorted_kernel<f32, 4> (row sums, composed CiteSeer)",
     "window_scatter_kernelItLi8E":
         "window_scatter_kernel<bf16, 8> (windowed GATv2)",
     "window_scatter_merge_kernelItE": "window_scatter_merge_kernel<bf16>",
@@ -645,14 +662,55 @@ def sparse_library_ms(timer, rows_idx, cols_idx, values, shape, dense):
     return timer.cold_ms(lambda: torch.sparse.mm(a, dense), iters=10), None
 
 
+def slot_order_walk(msgs, weights, mask, row_ptr):
+    """The messages-form scatter of every row of at most one piece's slots
+    as a serial walk by torch ops: f32 products rounded, added in slot order
+    from 0, rounded once to the messages' type; and those rows' mask."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    terms = msgs.float()
+    if weights is not None:
+        terms = terms * weights.float()[:, None]
+    if mask is not None:
+        terms = torch.where(mask[:, None], terms, torch.zeros_like(terms))
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    one = lengths <= K.RECV_BWD_PIECE
+    acc = torch.zeros(lengths.shape[0], msgs.shape[1], dtype=torch.float32,
+                      device=msgs.device)
+    for j in range(K.RECV_BWD_PIECE):
+        rows = one & (lengths > j)
+        acc[rows] = acc[rows] + terms[(row_ptr[:-1][rows] + j).long()]
+    return acc.to(msgs.dtype), one
+
+
+def scatter_f64(msgs, receivers, num_nodes, weights, mask):
+    """The messages-form scatter summed in f64 (not rounded)."""
+    terms = msgs.double()
+    if weights is not None:
+        terms = terms * weights.double()[:, None]
+    if mask is not None:
+        terms = torch.where(mask[:, None], terms, torch.zeros_like(terms))
+    return torch.zeros(num_nodes, msgs.shape[1], dtype=torch.float64,
+                       device=msgs.device).index_add_(0, receivers.long(),
+                                                      terms)
+
+
 def time_kernel_cases(device, timer, contexts, replaces):
     """Kernel, plain version and library call at the layer-1 and layer-2
     shapes, each with its bound from bytes and operations. ``path`` names the
     training run that gives the kernel that shape, None where none does (the
     arxiv-shaped GCN runs never form messages, so they launch neither the
-    messages form nor expand; the composed GATv2 run launches both, without
+    messages form nor expand; the composed GATv2 runs launch both, without
     weights: the ``[E, H*F]`` messages and their gradient, and the softmax
-    backward's ``[E, 4]`` f32 row sums and their expansion)."""
+    backward's ``[E, H]`` f32 row sums and their expansion; the Cora-shaped
+    GraphSAGE (mean) both with the slot mask). The messages form and expand
+    also give their work list (the messages form's pieces; expand walks
+    none), their times on ``skewed_graph`` with its 20,000-slot hub row and
+    without it (``hub_row_ms``) and on the same graph without padded slots
+    (``ms_unpadded``), the same bits over two calls, expand its plain
+    version's bits, and the messages form the bits of a serial slot-order
+    walk on every row of at most one piece at the Cora and CiteSeer shapes
+    and an f64 sum's value everywhere."""
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BYTES_PER_S,
@@ -665,21 +723,41 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 "scatter_sum_sorted": None, "expand_sorted": None}
     composed = {"scatter_sum_sorted": "train_gat_arxiv_shape_composed",
                 "expand_sorted": "train_gat_arxiv_shape_composed"}
+    composed_cs = {"scatter_sum_sorted": "train_gat_citeseer_shape_composed",
+                   "expand_sorted": "train_gat_citeseer_shape_composed"}
     gat_width = [GAT_ARXIV_HEADS * d for d in GAT_ARXIV_DIMS]
-    for ctx_name, layer, f, dtype, kernels, weighted in (
-        ("arxiv", "layer 1", ARXIV_FEATS, torch.bfloat16, on_arxiv, True),
-        ("arxiv", "layer 2", ARXIV_CLASSES, torch.bfloat16, on_arxiv, True),
+    cs_width = [GAT_CITESEER_HEADS * d for d in GAT_CITESEER_DIMS]
+    hub_graphs = {"with_hub_row": skewed_graph(device),
+                  "without_hub_row": skewed_graph(device, hub=0)}
+    unpadded = {}
+    for (ctx_name, layer, f, dtype, kernels, weighted,
+         masked) in (
+        ("arxiv", "layer 1", ARXIV_FEATS, torch.bfloat16, on_arxiv, True,
+         False),
+        ("arxiv", "layer 2", ARXIV_CLASSES, torch.bfloat16, on_arxiv, True,
+         False),
         ("cora", "layer 2", 7, torch.float32,
-         {"gather_scatter_sum_sorted": "train_cora_shape"}, True),
+         {"gather_scatter_sum_sorted": "train_cora_shape"}, True, False),
         ("cora", "layer 1", 16, torch.float32,
          {"scatter_sum_sorted": "train_cora_shape",
-          "expand_sorted": "train_cora_shape"}, True),
+          "expand_sorted": "train_cora_shape"}, True, False),
         ("gat_arxiv", "layer 1 messages", gat_width[0], torch.bfloat16,
-         composed, False),
+         composed, False, False),
         ("gat_arxiv", "layer 2 messages", gat_width[1], torch.bfloat16,
-         composed, False),
+         composed, False, False),
         ("gat_arxiv", "softmax row sums", GAT_ARXIV_HEADS, torch.float32,
-         composed, False),
+         composed, False, False),
+        ("citeseer", "layer 1 messages", cs_width[0], torch.float32,
+         composed_cs, False, False),
+        ("citeseer", "layer 2 messages", cs_width[1], torch.float32,
+         composed_cs, False, False),
+        ("citeseer", "softmax row sums", GAT_CITESEER_HEADS, torch.float32,
+         composed_cs, False, False),
+        ("sage_cora", "layer 1 messages", 1_433, torch.float32,
+         {"scatter_sum_sorted": "train_sage_cora_shape"}, False, True),
+        ("sage_cora", "layer 2 messages", 16, torch.float32,
+         {"scatter_sum_sorted": "train_sage_cora_shape",
+          "expand_sorted": "train_sage_cora_shape"}, False, True),
     ):
         ctx = contexts[ctx_name]
         n, e = ctx.num_nodes, ctx.receivers.shape[0]
@@ -687,12 +765,17 @@ def time_kernel_cases(device, timer, contexts, replaces):
         h = torch.randn(n, f, generator=gen, device=device).to(dtype)
         msgs = torch.randn(e, f, generator=gen, device=device).to(dtype)
         w, sw = (ctx.edge_weight if weighted else None), ctx.self_weight
+        mask = ctx.edge_mask if masked else None
         ws = 0 if w is None else w.element_size()
+        ms_ = 0 if mask is None else 1
         w_abs = None if w is None else w.float().abs()
         w_lib = torch.ones(e, device=device) if w is None else w
+        if mask is not None:
+            w_lib = w_lib * mask
         edge_ids = torch.arange(e, device=device)
         for name, path in kernels.items():
             piece_walk = None
+            extra = {}
             if name == "gather_scatter_sum_sorted":
                 # The GCN's operator runs the row walk (ops/csr.py); the
                 # piece walk is held and timed beside it.
@@ -723,25 +806,37 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 ops = 2 * e * f + (0 if sw is None else 2 * n * f)
             elif name == "scatter_sum_sorted":
                 kernel = lambda: K.scatter_sum_sorted(
-                    msgs, ctx.receivers, n, row_ptr=ctx.row_ptr, weights=w)
+                    msgs, ctx.receivers, n, row_ptr=ctx.row_ptr, weights=w,
+                    mask=mask)
                 plain = lambda: K.scatter_sum_sorted_plain(
-                    msgs, ctx.receivers, n, weights=w)
+                    msgs, ctx.receivers, n, weights=w, mask=mask)
                 mass = K.scatter_sum_sorted_plain(
-                    msgs.float().abs(), ctx.receivers, n, weights=w_abs)
+                    msgs.float().abs(), ctx.receivers, n, weights=w_abs,
+                    mask=mask)
                 lib = (ctx.receivers, edge_ids, w_lib, (n, e), msgs)
-                nbytes = e * f * es + n * f * es + e * ws + (n + 1) * 4
+                nbytes = (e * f * es + n * f * es + e * (ws + ms_)
+                          + (n + 1) * 4)
                 no_reuse = None
                 ops = 2 * e * f
+                extra = piece_fields(ctx.row_ptr, K.SPLIT_PIECE)
+                extra["cuda_kernels"] = ["scatter_messages_kernel"]
             else:
                 kernel = lambda: K.expand_sorted(
-                    h, ctx.receivers, row_ptr=ctx.row_ptr, weights=w)
+                    h, ctx.receivers, row_ptr=ctx.row_ptr, weights=w) \
+                    if mask is None else K._expand_raw(h, ctx.receivers, w,
+                                                       mask)
                 plain = lambda: K.expand_sorted_plain(
-                    h, ctx.receivers, weights=w)
+                    h, ctx.receivers, weights=w, mask=mask)
                 mass = None
                 lib = (edge_ids, ctx.receivers, w_lib, (e, n), h)
-                nbytes = n * f * es + e * f * es + e * (4 + ws)
+                nbytes = n * f * es + e * f * es + e * (4 + ws + ms_)
                 no_reuse = None
                 ops = e * f
+                extra = {"longest_row": longest_row(ctx.row_ptr),
+                         "pieces": None, "split_rows": None,
+                         "work_list": "none: threads on the flat (slot, "
+                                      "pack) index of the output",
+                         "cuda_kernels": ["expand_sorted_kernel"]}
             k_out, p_out = kernel(), plain()
             if mass is None:
                 mass = p_out.float().abs()
@@ -764,6 +859,31 @@ def time_kernel_cases(device, timer, contexts, replaces):
                             f"{name} at {ctx_name} {layer}")),
                     ms=timer.cold_ms(piece_walk))
                 del pieces_out
+            else:
+                what = f"{name} at {ctx_name} {layer}"
+                check(torch.equal(k_out, kernel()),
+                      f"{what}: two calls give different bits")
+                extra["same_bits_over_two_calls"] = True
+                if name == "expand_sorted":
+                    check(torch.equal(k_out, p_out),
+                          f"{what}: not its plain version's bits")
+                else:
+                    extra["max_abs_err_against_f64"] = compare(
+                        k_out, scatter_f64(msgs, ctx.receivers, n, w,
+                                           mask).to(dtype),
+                        mass, dtype, f"{what} (against an f64 sum)")
+                    if ctx_name in ("cora", "citeseer", "sage_cora"):
+                        walk, one = slot_order_walk(msgs, w, mask,
+                                                    ctx.row_ptr)
+                        check(torch.equal(k_out[one], walk[one]),
+                              f"{what}: a row of one piece differs from "
+                              f"the serial slot-order walk")
+                        extra["one_piece_rows_equal_to_slot_order_walk"] = (
+                            int(one.sum()))
+                extra.update(time_messages_elsewhere(
+                    name, f, dtype, weighted, masked, hub_graphs,
+                    unpadded.setdefault(ctx_name, unpadded_context(ctx)),
+                    timer, gen))
             del k_out, p_out, mass
             ms = timer.cold_ms(kernel)
             plain_ms = timer.cold_ms(plain, iters=10)
@@ -778,7 +898,8 @@ def time_kernel_cases(device, timer, contexts, replaces):
                 "replaces": replaces[name], "path": path,
                 "shape": f"{ctx_name} {layer}: E={e} N={n} F={f} "
                          f"{str(dtype)[6:]} weights "
-                         f"{'none' if w is None else str(w.dtype)[6:]}",
+                         f"{'none' if w is None else str(w.dtype)[6:]}"
+                         f"{' masked' if mask is not None else ''}",
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -790,9 +911,50 @@ def time_kernel_cases(device, timer, contexts, replaces):
             if no_reuse is not None:
                 entry["bound_ms_if_gather_not_reused"] = (
                     no_reuse / H100_BYTES_PER_S * 1e3)
+            if extra:
+                extra.update(parent_ms=None, parent=(
+                    "not measured here: attend_kernels_ab.py "
+                    "--only=messages times a parent copy beside this one"))
             entry.update(walk_fields)
+            entry.update(extra)
             entries.append(entry)
+        del h, msgs
     return entries
+
+
+def time_messages_elsewhere(name, f, dtype, weighted, masked, hub_graphs,
+                            unpadded, timer, gen):
+    """The messages form's or expand's milliseconds at one width on
+    ``skewed_graph`` with and without its hub row (``hub_row_ms``), and on
+    the entry's graph prepared again without padded slots
+    (``ms_unpadded``, with that stream's longest row)."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    device = unpadded.receivers.device
+
+    def call(recv, row_ptr, n, e, w, mask):
+        if name == "scatter_sum_sorted":
+            msgs = torch.randn(e, f, generator=gen, device=device).to(dtype)
+            return lambda: K.scatter_sum_sorted(
+                msgs, recv, n, row_ptr=row_ptr, weights=w, mask=mask)
+        rows = torch.randn(n, f, generator=gen, device=device).to(dtype)
+        return lambda: K._expand_raw(rows, recv, w, mask)
+
+    hub_ms = {}
+    for label, g in hub_graphs.items():
+        fn = call(g["recv"], g["row_ptr"], g["n"], g["e"],
+                  g["w"] if weighted else None, g["mask"] if masked else None)
+        hub_ms[label] = timer.cold_ms(fn, iters=10)
+        del fn
+    e = unpadded.receivers.shape[0]
+    fn = call(unpadded.receivers, unpadded.row_ptr, unpadded.num_nodes, e,
+              torch.ones(e, device=device) if weighted else None,
+              torch.ones(e, dtype=torch.bool, device=device) if masked
+              else None)
+    out = {"hub_row_ms": hub_ms, "ms_unpadded": timer.cold_ms(fn),
+           "longest_row_unpadded": longest_row(unpadded.row_ptr)}
+    del fn
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3672,7 +3834,9 @@ def main() -> int:
         kernel_entries = time_kernel_cases(
             device, timer,
             {"arxiv": workload("arxiv")[0], "cora": workload("cora")[0],
-             "gat_arxiv": workload("gat_arxiv")[0]},
+             "gat_arxiv": workload("gat_arxiv")[0],
+             "citeseer": workload("citeseer")[0],
+             "sage_cora": workload("sage_cora")[0]},
             replaces)
         attention_contexts = {"gat_arxiv": workload("gat_arxiv")[0],
                               "citeseer": workload("citeseer")[0]}

@@ -76,6 +76,7 @@ from .attend_cuda import (
     scores_and_stats_plain,
 )
 from .spmm_cuda import (
+    SPLIT_PIECE,
     _check_data,
     _check_index,
     _mask_arg,
@@ -97,8 +98,8 @@ __all__ = [
 ]
 
 # Slots of a piece of a row longer than RECV_BWD_PIECE in the score
-# backward's work list.
-BWD_SPLIT_PIECE = 8
+# backward's work list (the messages-form scatter's list too).
+BWD_SPLIT_PIECE = SPLIT_PIECE
 
 # One plain integer per kernel entry, incremented where the kernel is
 # launched and nowhere else.

@@ -10,9 +10,16 @@ Source notes, one per kernel:
 
 - ``scatter_sum_sorted`` (messages form) replaces ``_scatter_impl`` /
   ``_scatter_block_impl``. Bound by bytes (``E*F`` message values read once,
-  ``N*F`` written, ``E`` weights, ``N`` row pointers). A sub-warp per receiver
-  row walks ``row_ptr[r]:row_ptr[r+1]`` with 16-byte loads across the feature
-  axis and f32 register accumulators; no atomics, one store per row.
+  ``N*F`` written, ``E`` weights, ``N`` row pointers). It walks the pieces of
+  ``recv_bwd_work(row_ptr, split_piece=SPLIT_PIECE)`` (a row of at most
+  ``RECV_BWD_PIECE`` slots whole, a longer one in pieces of ``SPLIT_PIECE``:
+  the score backward's list, kept on the same ``row_ptr``), one thread per
+  (piece, 16-byte column pack), each streaming its column of the piece's
+  contiguous block of messages with eight slots' loads in flight and adding
+  ``w * message`` rounded to f32 in slot order; a whole row is rounded once
+  at the store (a serial walk's bits). A split row's f32 shares are added in
+  piece order, in the same launch, by the piece that draws the row's last
+  arrival ticket (int tickets kept zeroed on ``row_ptr``, no float atomics).
 - ``gather_scatter_sum_sorted`` (fused-gather form of the same kernel) replaces
   the ``jnp.take`` + scatter pair inside ``_spmm_symmetric``/``_spmm_general``:
   message ``e`` is ``h[idx[e]]`` read inside the kernel, so the ``[E, F]``
@@ -30,7 +37,9 @@ Source notes, one per kernel:
   same bits on every row that is one piece; the GCN's operator takes it
   (``ops/csr.py``).
 - ``expand_sorted`` replaces ``_expand_impl``: ``out[e] = rows[recv[e]]*w[e]``,
-  one thread per (edge, 16-byte column chunk). Bound by the ``E*F`` write.
+  threads on the flat (edge, 16-byte column pack) index of the contiguous
+  ``[E, F]`` output (every warp stores 32 neighbouring packs at any F), 16
+  bytes of output a thread. Bound by the ``E*F`` write.
 - ``segment_max_sorted`` (``csrc/segment_max.cu``) replaces
   ``segment_max_sorted``'s ``_segment_max_kernel``: the per-row max of narrow
   ``[E, K]`` scores, ``-inf`` for a row without an unmasked slot, no VJP. Bound
@@ -79,6 +88,7 @@ __all__ = [
     "segment_max_wide_bwd_plain",
     "row_ptr_from_sorted",
     "RECV_BWD_PIECE",
+    "SPLIT_PIECE",
     "RecvBwdWork",
     "recv_bwd_work",
     "LAUNCH_COUNTS",
@@ -143,6 +153,10 @@ def row_ptr_from_sorted(receivers: torch.Tensor, num_nodes: int) -> torch.Tensor
 
 # Slots a group of those kernels walks at most.
 RECV_BWD_PIECE = 32
+# The pieces of a longer row in the lists of the kernels whose slots are
+# independent: the messages-form scatter's and the score backward's
+# (``sddmm_cuda.BWD_SPLIT_PIECE``), one list on a ``row_ptr``.
+SPLIT_PIECE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,6 +307,11 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, i32, vp, vp, i32, vp, i64, i64, i32, vp,
     ]
     lib.kgt_scatter_sum_sorted.restype = i32
+    lib.kgt_scatter_messages.argtypes = [
+        vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, vp, i64, vp, i64, i64,
+        i32, vp,
+    ]
+    lib.kgt_scatter_messages.restype = i32
     lib.kgt_gather_scatter_pieces.argtypes = [
         vp, vp, vp, i64, i32, vp, i32, vp, i32, vp, vp, vp, vp, i64, i64,
         i64, i32, vp,
@@ -362,15 +381,57 @@ def _raise_on_error(lib, code, what):
         raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
 
 
-def _launch_scatter(counter, src, idx, row_ptr, num_nodes, num_edges, weights,
-                    mask, self_weight):
+def _launch_rows(h, idx, row_ptr, num_nodes, weights, self_weight):
+    """The fused-gather form's row walk: a sub-warp per row."""
+    device = h.device
+    _check_data("source", h)
+    _check_index("row_ptr", row_ptr, num_nodes + 1, device)
+    num_edges = idx.shape[0]
+    _check_index("idx", idx, num_edges, device)
+    w_ptr, w_bf16 = _scalar_arg("weights", weights, num_edges, device)
+    sw_ptr, sw_bf16 = _scalar_arg("self_weight", self_weight, num_nodes, device)
+    if num_edges >= 2**31:
+        raise ValueError("edge count must stay below 2**31 (int32 indices)")
+    f = h.shape[1]
+    out = torch.empty(num_nodes, f, dtype=h.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.kgt_scatter_sum_sorted(
+            h.data_ptr(), idx.data_ptr(), row_ptr.data_ptr(), w_ptr, w_bf16,
+            None, sw_ptr, sw_bf16, out.data_ptr(), num_nodes, f,
+            int(h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, code, "gather_scatter_sum_sorted")
+    LAUNCH_COUNTS["gather_scatter_sum_sorted"] += 1
+    MODE_LAUNCH_COUNTS["gather_scatter_sum_sorted(rows)"] += 1
+    return out
+
+
+def _split_row_tickets(row_ptr, count):
+    """At least ``count`` int32 zeros on ``row_ptr``'s device, kept on the
+    tensor beside its work lists: the messages-form scatter's arrival tickets
+    (one per split row and column pack), which every launch leaves at zero.
+    Calls over one ``row_ptr`` run in order on one stream, so one set
+    serves them all."""
+    tickets = getattr(row_ptr, "_split_row_tickets", None)
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(max(count, 1), dtype=torch.int32,
+                              device=row_ptr.device)
+        row_ptr._split_row_tickets = tickets
+    return tickets
+
+
+def _launch_messages(src, row_ptr, num_nodes, weights, mask):
+    """The messages form over the pieces of ``row_ptr`` (split rows in pieces
+    of ``SPLIT_PIECE``), their shares merged in the same launch."""
     device = src.device
     _check_data("source", src)
     _check_index("row_ptr", row_ptr, num_nodes + 1, device)
-    if idx is not None:
-        _check_index("idx", idx, num_edges, device)
+    num_edges = src.shape[0]
     w_ptr, w_bf16 = _scalar_arg("weights", weights, num_edges, device)
-    sw_ptr, sw_bf16 = _scalar_arg("self_weight", self_weight, num_nodes, device)
     mask_ptr = _mask_arg(mask, num_edges, device)
     if num_edges >= 2**31:
         raise ValueError("edge count must stay below 2**31 (int32 indices)")
@@ -379,15 +440,25 @@ def _launch_scatter(counter, src, idx, row_ptr, num_nodes, num_edges, weights,
     if out.numel() == 0:
         return out
     lib = _library()
+    work = recv_bwd_work(row_ptr, split_piece=SPLIT_PIECE)
+    n_fix = int(work.fix_rows.shape[0])
+    part = tickets = None
+    if n_fix:
+        part = torch.empty(work.num_shares, f, dtype=torch.float32,
+                           device=device)
+        tickets = _split_row_tickets(row_ptr, n_fix * f)
     with torch.cuda.device(device):
-        code = lib.kgt_scatter_sum_sorted(
-            src.data_ptr(), None if idx is None else idx.data_ptr(),
-            row_ptr.data_ptr(), w_ptr, w_bf16, mask_ptr, sw_ptr, sw_bf16,
-            out.data_ptr(), num_nodes, f, int(src.dtype == torch.bfloat16),
+        code = lib.kgt_scatter_messages(
+            src.data_ptr(), work.pieces.data_ptr(), work.num_pieces,
+            work.piece, w_ptr, w_bf16, mask_ptr, out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(), n_fix,
+            None if tickets is None else tickets.data_ptr(), num_nodes, f,
+            int(src.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on_error(lib, code, counter)
-    LAUNCH_COUNTS[counter] += 1
+    _raise_on_error(lib, code, "scatter_sum_sorted")
+    LAUNCH_COUNTS["scatter_sum_sorted"] += 1
     return out
 
 
@@ -438,10 +509,7 @@ def _scatter_raw(messages, receivers, row_ptr, num_nodes, weights, mask):
         return scatter_sum_sorted_plain(
             messages, receivers, num_nodes, weights=weights, mask=mask
         )
-    return _launch_scatter(
-        "scatter_sum_sorted", messages, None, row_ptr, num_nodes,
-        messages.shape[0], weights, mask, None,
-    )
+    return _launch_messages(messages, row_ptr, num_nodes, weights, mask)
 
 
 def gather_scatter_sum_sorted(h, idx, receivers, row_ptr, num_nodes, *,
@@ -466,12 +534,7 @@ def gather_scatter_sum_sorted(h, idx, receivers, row_ptr, num_nodes, *,
     if pieces:
         return _launch_gather_pieces(h, idx, row_ptr, num_nodes, weights,
                                      self_weight)
-    out = _launch_scatter(
-        "gather_scatter_sum_sorted", h, idx, row_ptr, num_nodes, idx.shape[0],
-        weights, None, self_weight,
-    )
-    MODE_LAUNCH_COUNTS["gather_scatter_sum_sorted(rows)"] += 1
-    return out
+    return _launch_rows(h, idx, row_ptr, num_nodes, weights, self_weight)
 
 
 def _expand_raw(rows, receivers, weights, mask):
