@@ -46,7 +46,18 @@ second launch: K5's merge of split rows, K7b's sum of the ``datt``
 partials)), so that a copy that changes one kernel is timed on that
 kernel alone; beside K7b, a copy of ``hj`` into a tensor like it (the
 ``[E, H*F]`` read and write that are most of K7b's bytes: what the card
-reaches on them). ``messages``: the messages-form scatter (K1's
+reaches on them); the normalisation (K6) on seeded ``[E, H]`` f32 scores
+(``-inf`` on padded slots) and K5's statistics of them, beside a copy of
+those scores into a like tensor, with the SHA-256 of K6's f32 and bf16
+alpha bytes and of its inputs, so that the copies' bits can be compared.
+``two_pass``: the two-pass forward, K8 (``sddmm_stats_sorted``) and K10a
+(``attend_aggregate_sorted``), beside the one-pass forward K9 at the four
+GATv2 shapes (``--unpadded`` adds the streams without padded slots) and at
+4 heads of 64 in bf16 on ``chip_smoke.py``'s ``skewed_graph`` with its
+20,000-slot hub row and without it, with whether K8's scores, ``m`` and
+``l`` equal K9's (on every row, and on the rows of one piece) and K8's CUDA
+kernels timed apart by ``torch.profiler`` (the walk, then the merge of
+split rows). ``messages``: the messages-form scatter (K1's
 ``scatter_sum_sorted``) and the expand (K2) at the shapes the training runs
 give them, on ``chip_smoke.py``'s contexts: the composed GATv2 arxiv and
 CiteSeer runs' messages (H*F = 256 / 160 bf16, 64 / 48 f32) and softmax row
@@ -68,8 +79,8 @@ With ``--ptxas`` it first prints, per copy, the registers and
 spills that ``nvcc -Xptxas -v`` reports for the attention kernels' bf16
 instantiations at the arxiv widths and their f32 ones at CiteSeer's, for
 the fused-gather scatter's at bf16 (16-byte packs) and f32 (four-wide
-packs), for the window scatter's and the score kernels' (K7a, K7b) at those
-widths, and for the softmax statistics' kernels.
+packs), for the window scatter's and the score kernels' (K7a, K7b, K8) at
+those widths, and for the softmax kernels (K5 and its merge, K6).
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent --gcn \
@@ -79,6 +90,8 @@ widths, and for the softmax statistics' kernels.
     python3 attend_kernels_ab.py build/parent . . build/parent --only=step
     python3 attend_kernels_ab.py build/parent . . build/parent \
         --only=messages --unpadded --ptxas
+    python3 attend_kernels_ab.py build/parent . . build/parent \
+        --only=two_pass,composed --unpadded --ptxas
 """
 
 from __future__ import annotations
@@ -92,7 +105,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed",
-          "messages", "step")
+          "two_pass", "messages", "step")
 # Template arguments of the instantiations --ptxas shows, per source.
 SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          # the fused gather's piece walk, its row walk; the messages form
@@ -107,18 +120,25 @@ SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          "band.cu": ("unsigned short, 8>",),
          "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
                       "float, 2, 1, false>"),
-         "softmax.cu": ("softmax_stats",)}
-# The case group of each attention-shape case (the rest are its own group's).
-CASE_GROUP = {"sender finish": "finish", "sender finish (rows)": "finish",
-              "attend_send_bwd_sorted": "send",
-              "sddmm_scores_sorted": "composed",
-              "softmax_stats_sorted": "composed",
-              "sddmm_bwd_sorted": "composed",
-              "hj copy": "composed"}
-# The CUDA kernels of a composed-path call, timed apart (a name matches the
-# kernels that contain it).
+         "softmax.cu": ("softmax_stats", "softmax_apply")}
+# The case groups of each attention-shape case (the rest are attend's).
+CASE_GROUP = {"sender finish": ("finish",),
+              "sender finish (rows)": ("finish",),
+              "attend_send_bwd_sorted": ("send",),
+              "sddmm_scores_sorted": ("composed",),
+              "softmax_stats_sorted": ("composed",),
+              "softmax_apply_sorted": ("composed",),
+              "sddmm_bwd_sorted": ("composed",),
+              "hj copy": ("composed",), "scores copy": ("composed",),
+              "sddmm_stats_agg_sorted": ("attend", "two_pass"),
+              "sddmm_stats_sorted": ("two_pass",),
+              "attend_aggregate_sorted": ("two_pass",)}
+# The CUDA kernels of a call, timed apart (a name matches the kernels that
+# contain it): the piece walk, then the second launch.
 SPLIT = {"softmax_stats_sorted": ("softmax_stats_kernel",
                                   "softmax_stats_finish_kernel"),
+         "sddmm_stats_sorted": ("sddmm_stats_kernel",
+                                "softmax_stats_finish_kernel"),
          "sddmm_bwd_sorted": ("sddmm_bwd_kernel", "reduce_partials_kernel"),
          # the parent's messages form (the row walk's template), the new one
          "scatter_sum_sorted": ("scatter_sum_sorted_kernel",
@@ -307,6 +327,63 @@ def message_times(device, chunks, cold_ms, split_ms) -> dict:
     return out
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().contiguous().flatten().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def two_pass_hub_times(device, cold_ms, split_ms) -> dict:
+    """K8, K10a and K9 at the arxiv layer-1 width (4 heads of 64, bf16) on
+    ``chip_smoke.py``'s ``skewed_graph`` with its 20,000-slot hub row and
+    without it, K8's CUDA kernels apart, and whether K8's scores, ``m`` and
+    ``l`` equal K9's."""
+    import torch
+
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+
+    smoke = from_this_checkout("_ab_chip_smoke", "chip_smoke.py")
+    gen = torch.Generator(device=device).manual_seed(18)
+    out = {}
+    for label, hub in (("with hub row", 20_000), ("without hub row", 0)):
+        g = smoke.skewed_graph(device, hub=hub)
+        heads, f = 4, 64
+        ht = (0.5 * torch.randn(g["n"], heads * f, generator=gen,
+                                device=device)).to(torch.bfloat16)
+        att = (0.3 * torch.randn(heads, f, generator=gen,
+                                 device=device)).to(torch.bfloat16)
+        graph = (g["idx"], g["recv"], g["row_ptr"])
+        valid = g["mask"]
+        _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                                   edge_valid=valid)
+        k8 = D.sddmm_stats_sorted(ht, *graph, att, edge_valid=valid)
+        lengths = g["row_ptr"][1:] - g["row_ptr"][:-1]
+        calls = {
+            "sddmm_stats_sorted": lambda: D.sddmm_stats_sorted(
+                ht, *graph, att, edge_valid=valid),
+            "attend_aggregate_sorted": lambda: A.attend_aggregate_sorted(
+                scores, m, l, ht, *graph),
+            "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
+                ht, *graph, att, edge_valid=valid),
+        }
+        out[label] = {
+            "slots": int(valid.shape[0]), "longest_row": int(lengths.max()),
+            **{call: cold_ms(fn) for call, fn in calls.items()},
+            "sddmm_stats_sorted split ms": split_ms(
+                calls["sddmm_stats_sorted"], SPLIT["sddmm_stats_sorted"]),
+            "K8 equals K9": all(torch.equal(a, b)
+                                for a, b in zip(k8, (scores, m, l))),
+        }
+        del g, ht, scores, m, l, k8, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_copy(root: str, unpadded: bool, groups: set) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import inspect
@@ -325,13 +402,14 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
     if not A.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"imported {A.__file__}, not the copy in {root}")
     device = torch.device("cuda")
-    gat = bool(groups & {"attend", "send", "finish", "composed"})
+    gat = bool(groups & {"attend", "send", "finish", "composed", "two_pass"})
     band = "band" in groups
     window = "window" in groups
     step = "step" in groups
     _build.load_libraries(["spmm"] + (["attend"] if gat or step else [])
                           + (["sddmm", "softmax"]
-                             if "composed" in groups or step else [])
+                             if groups & {"composed", "two_pass"} or step
+                             else [])
                           + (["band"] if band or window else []))
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
     has_pieces = "pieces" in inspect.signature(
@@ -394,6 +472,8 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
         result["step"] = step_times(device)
     if "messages" in groups:
         result["messages"] = message_times(device, chunks, cold_ms, split_ms)
+    if "two_pass" in groups:
+        result["two_pass hub"] = two_pass_hub_times(device, cold_ms, split_ms)
     if "gcn" in groups:
         # chip_smoke.py's arxiv_workload: the features are drawn first.
         half = 1_166_243 // 2
@@ -613,8 +693,26 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                 if hj is not None:
                     hj_out = torch.empty_like(hj)
                     cases["hj copy"] = lambda: hj_out.copy_(hj)
+                    # K6 on seeded scores (-inf on padded slots) and K5's
+                    # statistics of them, beside a copy of those scores.
+                    k6_scores = (3.0 * torch.randn(
+                        slots, heads, generator=gen, device=device)
+                    ).masked_fill(~valid[:, None], float("-inf"))
+                    k6_m, k6_l = S.softmax_stats_sorted(
+                        k6_scores, ctx.receivers, ctx.row_ptr, nodes)
+                    k6_like = torch.empty_like(k6_scores)
+                    cases["softmax_apply_sorted"] = lambda: (
+                        S.softmax_apply_sorted(k6_scores, k6_m, k6_l,
+                                               ctx.receivers))
+                    cases["scores copy"] = lambda: k6_like.copy_(k6_scores)
+                # The two-pass forward as it is, beside K9 (above).
+                cases["sddmm_stats_sorted"] = lambda: D.sddmm_stats_sorted(
+                    ht, *graph, att, edge_valid=valid)
+                cases["attend_aggregate_sorted"] = lambda: (
+                    A.attend_aggregate_sorted(scores, m, l, ht, *graph,
+                                              drop_mask=drop))
                 cases = {k: fn for k, fn in cases.items()
-                         if CASE_GROUP.get(k, "attend") in groups}
+                         if set(CASE_GROUP.get(k, ("attend",))) & groups}
                 result[key][layer] = {case: cold_ms(fn)
                                       for case, fn in cases.items()}
                 if "composed" in groups:
@@ -634,10 +732,38 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                             same[one].all()),
                         "one-piece rows": int(one.sum()),
                     })
-                    for name, names in SPLIT.items():
-                        result[key][layer][f"{name} split ms"] = split_ms(
-                            cases[name], names)
-                    del k7a, k5_m, k5_l
+                    # K6's bits, to compare across copies: its f32 and bf16
+                    # alpha and the inputs they came from.
+                    result[key][layer]["softmax_apply_sorted sha256"] = {
+                        what: digest(t) for what, t in (
+                            ("scores, m, l", torch.cat([
+                                k6_scores.flatten(), k6_m.flatten(),
+                                k6_l.flatten()])),
+                            ("alpha f32", S.softmax_apply_sorted(
+                                k6_scores, k6_m, k6_l, ctx.receivers)),
+                            ("alpha bf16", S.softmax_apply_sorted(
+                                k6_scores, k6_m, k6_l, ctx.receivers,
+                                out_dtype=torch.bfloat16)))}
+                    del k7a, k5_m, k5_l, k6_scores, k6_m, k6_l, k6_like
+                if "two_pass" in groups:
+                    # K8 walks K9's pieces: its scores, m and l are K9's.
+                    k8 = D.sddmm_stats_sorted(ht, *graph, att,
+                                              edge_valid=valid)
+                    same = (k8[1] == m).all(1) & (k8[2] == l).all(1)
+                    one = lengths <= K.RECV_BWD_PIECE
+                    result[key][layer].update({
+                        "K8 scores equal K9's": bool(torch.equal(k8[0],
+                                                                 scores)),
+                        "K8 stats equal K9's on every row": bool(same.all()),
+                        "K8 stats equal K9's on one-piece rows": bool(
+                            same[one].all()),
+                        "one-piece rows": int(one.sum()),
+                    })
+                    del k8
+                for call, names in SPLIT.items():
+                    if call in cases:
+                        result[key][layer][f"{call} split ms"] = split_ms(
+                            cases[call], names)
                 del v, scores, cases, finish, hj, ds
                 hj_out = None
             del ctx

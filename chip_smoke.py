@@ -19,8 +19,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 the registers and spills ``nvcc -Xptxas -v`` reports for the
                 TMA band kernel and the kernels that walk pieces (forward,
                 rho, both backwards, the fused-gather scatter and its row
-                walk, the composed path's score kernel, score backward and
-                softmax statistics);
+                walk, the composed path's score kernel, score backward,
+                softmax statistics and normalisation, and the two-pass
+                forward's score-and-statistics kernel);
 2. ``kernels``  every kernel against its plain version on a skewed-degree
                 graph (hub row, empty rows, padded slots; bf16 and f32;
                 F in 128, 40, 16, 7; weighted / unweighted / masked; the
@@ -51,8 +52,8 @@ exit code and without the final line; so does a run of a subset of the phases
                 empty and an all-invalid sender row and the padded tail in
                 sender order, each mode also bit for bit against the cached
                 launch, the score-and-statistics kernel against the
-                forward's scores and ``m`` (and ``l`` on every row whose
-                finite scores lie in one piece of the forward's work list),
+                forward's scores, ``m`` and ``l`` on every row (the
+                20,000-slot hub receiver row and the padded tail included),
                 and two sender-backward launches against each other, the
                 permute finish on the same graph (the fused-gather scatter's
                 piece walk, and bit for bit its row walk on every sender row
@@ -396,6 +397,11 @@ PTXAS_SHOWN = {
     "sddmm_bwd_kernelItLi8ELi1ELb1E": "sddmm_bwd_kernel<bf16, 8, 1, wide>",
     "softmax_stats_kernelE": "softmax_stats_kernel",
     "softmax_stats_finish_kernelE": "softmax_stats_finish_kernel",
+    "softmax_apply_kernelIfLi4EE":
+        "softmax_apply_kernel<f32, 4> (composed arxiv, CiteSeer)",
+    "sddmm_stats_kernelItLi8ELi1ELb0E":
+        "sddmm_stats_kernel<bf16, 8, 1> (two-pass arxiv)",
+    "sddmm_stats_kernelItLi8ELi1ELb1E": "sddmm_stats_kernel<bf16, 8, 1, wide>",
 }
 
 # The CUDA kernels each call of a piece-walking wrapper launches: the walk
@@ -407,6 +413,8 @@ PIECE_KERNELS = {
                                     "recv_bwd_finish_kernel"),
     "attend_send_bwd_sorted": ("attend_send_bwd_kernel",
                                "send_bwd_finish_kernel"),
+    "sddmm_stats_sorted": ("sddmm_stats_kernel",
+                           "softmax_stats_finish_kernel"),
     "gather_scatter_sum_sorted": ("gather_scatter_pieces_kernel",
                                   "gather_scatter_merge_kernel"),
 }
@@ -1121,8 +1129,10 @@ def attend_inputs(gen, n, heads, f, dtype, num_slots, dropped, device):
 def attend_sweep(device, timer):
     """The attention kernels, every listed (H, F), both types, with and
     without a dropout mask, on the skewed graph; then what its 20,000-edge
-    hub row costs (the same graph timed with and without that row)."""
+    hub row costs (the same graph timed with and without that row), the
+    score-and-statistics kernel's too."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
 
     g = skewed_graph(device)
     n, e = g["n"], g["e"]
@@ -1177,6 +1187,10 @@ def attend_sweep(device, timer):
             "attend_recv_bwd_full_sorted": timer.cold_ms(
                 lambda: A.attend_recv_bwd_full_sorted(
                     ht, gout, *args, att, scores, m, l, rho), iters=10),
+            "sddmm_stats_sorted": timer.cold_ms(
+                lambda: D.sddmm_stats_sorted(ht, *args, att,
+                                             edge_valid=sg["mask"]),
+                iters=10),
         }
     return cases, worst, hub
 
@@ -1438,24 +1452,6 @@ def attend_modes(bwd_mode="permute", score_cache=True):
         csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = saved
 
 
-def one_piece_rows(recv, row_ptr, valid):
-    """Rows whose valid slots (all slots where ``valid`` is None) lie in one
-    piece of the attention kernels' work list, or that have none."""
-    from keras_geometric_tpu_torch.kernels import attend_cuda as A
-
-    n = row_ptr.shape[0] - 1
-    r = recv.long()
-    at = (torch.arange(r.shape[0], device=r.device)
-          - row_ptr.long()[r]) // A.RECV_BWD_PIECE
-    if valid is not None:
-        r, at = r[valid], at[valid]
-    first = torch.full((n,), -1, device=r.device).scatter_reduce(
-        0, r, at, "amin", include_self=False)
-    last = torch.full((n,), -1, device=r.device).scatter_reduce(
-        0, r, at, "amax", include_self=False)
-    return first == last
-
-
 def sender_order(send, recv, valid, n):
     """The receiver-sorted stream in sender-sorted order, as ``prepare_graph``
     builds it: ``((receivers_ss, senders_sorted, row_ptr_bwd), valid_ss f32
@@ -1505,16 +1501,13 @@ def modes_case(graph, ht, att, gout, drop, what):
     check(all(torch.equal(a, b) for a, b in zip(no_scores, (out, m, l))),
           f"{what}: the forward without its scores differs from the cached "
           f"launch")
-    # The score-and-statistics kernel walks each row serially, the forward
-    # in pieces: l agrees bit for bit where a row's finite scores lie in one
-    # piece (elsewhere the merge of the pieces rounds otherwise; the forward's
-    # l is held against the plain version below).
+    # The score-and-statistics kernel walks the forward's pieces with its
+    # online step and merges split rows with its merge (ROADMAP D9): scores,
+    # m and l agree bit for bit on every row, hubs and the padded tail too.
     stats = D.sddmm_stats_sorted(ht, *g3, att, edge_valid=valid)
-    one = one_piece_rows(recv, row_ptr, valid)
-    check(torch.equal(stats[0], scores) and torch.equal(stats[1], m) and
-          torch.equal(stats[2][one], l[one]),
-          f"{what}: sddmm_stats_sorted differs from the forward's scores, m, "
-          f"or l on a row whose finite scores lie in one piece")
+    check(all(torch.equal(a, b) for a, b in zip(stats, (scores, m, l))),
+          f"{what}: sddmm_stats_sorted differs from the forward's scores, m "
+          f"or l")
     rho = A.attend_rho_sorted(gout, scores, m, l, ht, *g3, drop_mask=drop)
     check(torch.equal(rho, A.attend_rho_sorted(
         gout, None, m, l, ht, *g3, drop_mask=drop, att=att,
@@ -1762,14 +1755,17 @@ def time_wide_heads(device, timer, ctx):
     return out
 
 
-def time_mode_cases(device, timer, contexts, replaces, send_hub):
+def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
     """The mode branches, the sender backward and the two-pass forward's
     kernels at the shapes their runs give them: kernel, plain version, bound
     from bytes and operations, and the bound if no gathered row came from
     the cache; for the kernels that walk pieces, the work list and the CUDA
-    kernels a call launches, and for the sender backward its times on
-    ``send_skewed_graph`` with and without its hub sender (``send_hub``).
-    No single PyTorch call computes any of them (null ``library_ms``)."""
+    kernels a call launches, for the sender backward its times on
+    ``send_skewed_graph`` with and without its hub sender (``send_hub``),
+    and for the score-and-statistics kernel its times on ``attend_sweep``'s
+    graph with and without its 20,000-slot hub row (``hub``) and on the same
+    graph prepared without padded slots (``ms_unpadded``). No single
+    PyTorch call computes any of them (null ``library_ms``)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
     from keras_geometric_tpu_torch.utils.profiling import (
@@ -1918,6 +1914,20 @@ def time_mode_cases(device, timer, contexts, replaces, send_hub):
             elif name == "attend_send_bwd_sorted":
                 entry.update(piece_walk_fields(name, ctx.row_ptr_bwd))
                 entry["hub_row_ms"] = send_hub[name]
+            if name == "sddmm_stats_sorted":
+                entry.update(piece_walk_fields(name, ctx.row_ptr))
+                entry["hub_row_ms"] = {label: times[name]
+                                       for label, times in hub.items()}
+                # The same graph and inputs over a stream without padded
+                # slots: what the padded tail's pieces cost.
+                bare = unpadded_context(ctx)
+                entry["padded_slots"] = e - int(valid.sum())
+                entry["ms_unpadded"] = timer.cold_ms(
+                    lambda: D.sddmm_stats_sorted(
+                        ht, bare.senders, bare.receivers, bare.row_ptr, att,
+                        edge_valid=bare.edge_mask), iters=10)
+                entry["longest_row_unpadded"] = longest_row(bare.row_ptr)
+                del bare
             entries.append(entry)
         del scores, rho, cases
         torch.cuda.empty_cache()
@@ -2166,7 +2176,8 @@ def time_composed_cases(device, timer, contexts, replaces):
     give them: kernel, plain version, bound from bytes and operations. No
     single PyTorch call computes any of them (``torch.segment_reduce`` gives
     a row's max but not its sum of exponentials), so ``library_ms`` is
-    null."""
+    null. The normalisation also gives the time of a copy of its ``[E, H]``
+    scores (``copy_ms``)."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
     from keras_geometric_tpu_torch.kernels import softmax_cuda as S
@@ -2298,6 +2309,14 @@ def time_composed_cases(device, timer, contexts, replaces):
                 entry["valid_slots_equal_to_fused_forward"] = int(valid.sum())
             if name == "softmax_stats_sorted":
                 entry["rows_equal_to_fused_forward"] = n
+            if name == "softmax_apply_sorted":
+                # The [E, H] f32 scores copied into a like tensor behind the
+                # same flush: the byte rate the card reaches on a block of
+                # this size, the normalisation's realistic floor.
+                like = torch.empty_like(scores)
+                entry["copy_ms"] = timer.cold_ms(lambda: like.copy_(scores),
+                                                 iters=10)
+                del like
             entries.append(entry)
         del hj, scores, cases
         torch.cuda.empty_cache()
@@ -3844,7 +3863,7 @@ def main() -> int:
         kernel_entries += time_attend_cases(device, timer, attention_contexts,
                                             replaces, hub, send_hub)
         kernel_entries += time_mode_cases(device, timer, attention_contexts,
-                                          replaces, send_hub)
+                                          replaces, hub, send_hub)
         composed_cases, composed_worst, composed_hub = composed_sweep(
             device, timer)
         kernel_entries += time_composed_cases(device, timer,

@@ -8,6 +8,7 @@
 //   sddmm_scores_kernel <- kernels/sddmm_pallas.py sddmm_scores_sorted
 //   sddmm_bwd_kernel    <- kernels/sddmm_pallas.py sddmm_bwd_sorted
 //   sddmm_stats_kernel  <- kernels/sddmm_pallas.py sddmm_stats_sorted
+//                          (+ merge_split_stats, recv_pieces.cuh)
 //
 // With ht [N, D] the transformed node rows (D = H*F, head h owns columns
 // h*F .. (h+1)*F), hj [E, D] the sender rows in slot order, att [H, F], and
@@ -77,15 +78,34 @@
 // is bit-reproducible. Padded slots are computed like any other: their ds
 // is 0 (alpha is 0 there), so they add nothing to d_pre or datt.
 //
-// The statistics kernel is row-parallel like attend.cu's forward: a group
-// per (receiver row, head) walks the row's slots, gathers each sender row and
-// keeps the online (m, l) in registers; it moves the node rows, the index
-// and validity streams and the [E, H] score write, and is bound by bytes.
-// Every score here is gatv2_score (lanes.cuh), the function attend.cu's
-// kernels use, in the same lane layout, and the statistics step is
-// online_step, the forward's: the score kernel's scores equal the one-pass
-// forward's on hj = ht[senders], and the statistics kernel's scores, m and l
-// equal the forward's, bit for bit.
+// The statistics kernel computes the fused forward (attend.cu's K9) minus
+// its aggregation, so it walks K9's work the same way: the pieces of
+// spmm_cuda.recv_bwd_work(row_ptr) (at most 32 slots of one row, every row
+// at least one piece), a fixed grid of groups striding over the (piece,
+// head) items with the head held constant and the next piece's header read
+// a piece ahead. A group stages its piece's senders and validity flags in
+// shared memory (stage_piece), keeps the sender rows of the next kRing
+// slots in flight in a cp.async ring (ring_start / ring_next; all three in
+// recv_pieces.cuh, shared with attend.cu) and never gathers a padded slot;
+// it holds its head's columns of the receiver row ht[r] and of att in
+// registers for the piece, folds the piece's scores in slot order with
+// online_step, keeps them in the piece table's unused keep column and
+// writes them at the piece's end, the group's lanes together. A piece that
+// is its whole row stores the row's (m, l); a split row's pieces leave
+// their (m_p, l_p) in f32 scratch, and a second launch merges them in
+// piece order with the forward's merge (merge_split_stats, which K5 also
+// takes). Every score here is gatv2_score (lanes.cuh), the function
+// attend.cu's kernels use, in the same lane layout, and the statistics
+// step and merge are the forward's: the score kernel's scores equal the
+// one-pass forward's on hj = ht[senders], and the statistics kernel's
+// scores, m and l equal the forward's on every row, bit for bit. Bound by
+// bytes in principle (the node rows, the index and validity streams, the
+// [E, H] score write), it issues per-slot arithmetic and shuffles like K9
+// (PERF.md). Its predecessor gave a group to each (row, head) and walked
+// the row serially, one dependent chain a slot (index, gather, score), so
+// the padded tail, which prepare_graph puts in the last row (351 slots at
+// arxiv), and any hub were single long chains that set its time, and a
+// padded slot was gathered and scored before it became -inf.
 //
 // A head wider than 256 columns (lanes.cuh) runs its own instantiation
 // (WIDE): the score kernels compute each score over the head's slabs in
@@ -99,6 +119,7 @@
 // return cudaGetLastError().
 
 #include "lanes.cuh"
+#include "recv_pieces.cuh"
 
 namespace {
 
@@ -204,53 +225,111 @@ sddmm_scores_kernel(const S* __restrict__ ht, const S* __restrict__ hj,
   }
 }
 
+// pieces[p] = (row, first slot, end slot, share): at most `cap` slots of one
+// receiver row; share -1 where the piece is its whole row, else its row of
+// m_part / l_part ([shares, heads]), which merge_split_stats combines.
 template <typename S, int VEC, int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 sddmm_stats_kernel(const S* __restrict__ ht,
                    const int32_t* __restrict__ senders,
-                   const int32_t* __restrict__ row_ptr,
+                   const int4* __restrict__ pieces, int64_t n_pieces, int cap,
                    const void* __restrict__ att, int att_bf16,
                    const uint8_t* __restrict__ valid,
                    float* __restrict__ scores, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int64_t n_rows, int heads,
-                   int f, int lph, float slope) {
+                   float* __restrict__ l_out, float* __restrict__ m_part,
+                   float* __restrict__ l_part, int heads, int f, int lph,
+                   float slope) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads) return;
-  const int64_t row = q.gid / heads;
-  const int h = static_cast<int>(q.gid - row * heads);
+  // One group per (piece, head), a wide one walking the head's slabs for
+  // each score; the grid holds a multiple of heads groups, so a group that
+  // strides over the pairs by the grid's size keeps its head.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int64_t n_items = n_pieces * heads;
+  const int h = static_cast<int>(q.gid % heads);
   const int64_t d = static_cast<int64_t>(heads) * f;
   const int64_t col0 = static_cast<int64_t>(h) * f;
+  // The table's keep column holds the piece's scores: there is no keep.
+  const PieceTable t =
+      piece_table(smem, SenderRing<S, VEC, NJ>::kBytes, lph, cap);
 
-  float hi_row[NJ][VEC], a[NJ][VEC];
-  if constexpr (!WIDE) {
-    load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
-    load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
-  }
-  float m = -INFINITY, l = 0.0f;
+  float a[NJ][VEC];
+  if constexpr (!WIDE) load_att<VEC, NJ>(att, att_bf16, col0, f, q, a);
 
-  const int64_t hi = row_ptr[row + 1];
-  for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    const S* sender = ht + static_cast<int64_t>(senders[e]) * d + col0;
-    float part;
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / heads];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    // The next piece's header is read a piece ahead.
+    int4 pc_next = make_int4(0, 0, 0, -1);
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / heads];
+    const int64_t row = pc.x;
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    float m = -INFINITY, l = 0.0f;
+
     if constexpr (WIDE) {
-      part = gatv2_score_wide<S, VEC, NJ>(ht + row * d + col0, sender, att,
-                                          att_bf16, col0, f, slope, q);
+      // Rows from device memory, slab by slab for each score (no ring).
+      for (int64_t e = lo; e < lo + n; ++e) {
+        float s = -INFINITY;
+        if (valid == nullptr || valid[e] != 0) {  // never gather a padded slot
+          s = gatv2_score_wide<S, VEC, NJ>(
+              ht + row * d + col0,
+              ht + static_cast<int64_t>(senders[e]) * d + col0, att, att_bf16,
+              col0, f, slope, q);
+          if (s > -INFINITY) {  // the same on every lane of the group
+            float p;
+            online_step(s, m, l, p);
+          }
+        }
+        if (q.lane == 0) scores[e * heads + h] = s;
+      }
     } else {
-      float hj[NJ][VEC];
-      load_lane<S, VEC, NJ>(sender, f, q, hj);
-      part = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+      // The piece's senders and validity land while the receiver's row is
+      // read; then the ring keeps the next kRing sender rows in flight.
+      stage_piece<true>(t, lo, n, senders, nullptr, valid, nullptr, 0, heads,
+                        h, q);
+      float hi_row[NJ][VEC];
+      load_lane<S, VEC, NJ>(ht + row * d + col0, f, q, hi_row);
+      piece_landed(q);
+      ring_start<S, VEC, NJ>(smem, t, n, ht, d, col0, f, q);
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        float s = -INFINITY;
+        if (t.flag[j] != -INFINITY) {
+          float hj[NJ][VEC];
+          SenderRing<S, VEC, NJ>::read(smem, stage, f, q, hj);
+          s = gatv2_score<VEC, NJ>(hi_row, hj, a, slope, lph, q.mask);
+          if (s > -INFINITY) {  // the same on every lane of the group
+            float p;
+            online_step(s, m, l, p);
+          }
+        }
+        if (q.lane == 0) t.keep[j] = s;
+        stage = ring_next<S, VEC, NJ>(smem, t, j, n, stage, ht, d, col0, f,
+                                      q);
+      }
+      // The piece's scores, the group's lanes together: the groups of a
+      // warp (the heads of one piece at arxiv's and CiteSeer's widths)
+      // store whole lines. (Lane 0 storing each score as it is made, as the
+      // fused forward does, measured 2% slower at arxiv's shapes, PERF.md.)
+      __syncwarp(q.mask);  // the piece's scores are in shared memory
+      for (int i = q.lane; i < n; i += lph) {
+        scores[(lo + i) * heads + h] = t.keep[i];
+      }
     }
-    const float s =
-        (valid == nullptr || valid[e] != 0) ? part : -INFINITY;
-    if (q.lane == 0) scores[e * heads + h] = s;
-    if (s > -INFINITY) {  // the same on every lane of the group
-      float p;
-      online_step(s, m, l, p);
+
+    if (q.lane == 0) {
+      if (pc.w < 0) {  // the whole row
+        m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
+        l_out[row * heads + h] = l;
+      } else {  // a share of a split row; m is -inf where no score was finite
+        m_part[static_cast<int64_t>(pc.w) * heads + h] = m;
+        l_part[static_cast<int64_t>(pc.w) * heads + h] = l;
+      }
     }
-  }
-  if (q.lane == 0) {
-    m_out[row * heads + h] = m > -INFINITY ? m : 0.0f;
-    l_out[row * heads + h] = l;
+    pc = pc_next;
   }
 }
 
@@ -448,31 +527,52 @@ int kgt_sddmm_scores_sorted(const void* ht, const void* hj,
 }
 
 // Scores [n_slots, heads] f32 (-inf where valid[e] == 0; valid null: all
-// valid) and m, l [n_rows, heads] f32 over the receiver-sorted stream
-// (row_ptr [n_rows + 1]); the sender rows ht[senders[e]] are read in the
-// kernel. ht f32 (is_bf16 = 0) or bf16; att by its own flag.
+// valid) and m, l [n_rows, heads] f32 over the receiver-sorted stream; the
+// sender rows ht[senders[e]] are read in the kernel. ht f32 (is_bf16 = 0) or
+// bf16; att by its own flag. pieces [n_pieces, 4] int32 (row, first slot,
+// end slot, share row or -1), each of at most cap slots, cover every row and
+// every slot once; the n_fix rows fix_rows split into several pieces take
+// their m, l from their shares fix_ptr[k] .. fix_ptr[k + 1] of the f32
+// scratch m_part, l_part [*, heads], written before they are read. Two
+// launches when a row is split, else one.
 int kgt_sddmm_stats_sorted(const void* ht, const int32_t* senders,
-                           const int32_t* row_ptr, const void* att,
-                           int att_bf16, const uint8_t* valid, float* scores,
-                           float* m, float* l, int64_t n_rows, int heads,
+                           const int32_t* pieces, int64_t n_pieces, int cap,
+                           const void* att, int att_bf16,
+                           const uint8_t* valid, float* scores, float* m,
+                           float* l, float* m_part, float* l_part,
+                           const int32_t* fix_rows, const int32_t* fix_ptr,
+                           int64_t n_fix, int64_t n_rows, int heads,
                            int64_t f, float slope, int is_bf16,
                            void* stream) {
-  if (ht == nullptr || senders == nullptr || row_ptr == nullptr ||
-      att == nullptr || scores == nullptr || m == nullptr || l == nullptr ||
-      !shape_ok(n_rows, heads, f)) {
+  if (ht == nullptr || senders == nullptr || att == nullptr ||
+      scores == nullptr || m == nullptr || l == nullptr ||
+      !shape_ok(n_rows, heads, f) ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 m_part != nullptr && l_part != nullptr &&
+                     fix_rows != nullptr && fix_ptr != nullptr,
+                 heads, f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, ht, ht, ht);
-  const unsigned grid = blocks_for_all(n_rows, heads, lay.lph);
+  const unsigned grid = blocks_for_fixed_grid(n_pieces, heads, lay.lph);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_STATS(S)                                                        \
-  sddmm_stats_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(            \
-      static_cast<const S*>(ht), senders, row_ptr, att, att_bf16, valid,    \
-      scores, m, l, n_rows, heads, fi, lay.lph, slope)
+  {                                                                         \
+    const cudaError_t err = launch_pieces(                                  \
+        sddmm_stats_kernel<S, VEC, NJ, WIDE>, grid,                         \
+        piece_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s,                      \
+        static_cast<const S*>(ht), senders, work, n_pieces, cap, att,       \
+        att_bf16, valid, scores, m, l, m_part, l_part, heads, fi, lay.lph,  \
+        slope);                                                             \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_STATS)
 #undef KGT_STATS
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      merge_split_stats(m_part, l_part, fix_rows, fix_ptr, n_fix, heads, m, l,
+                        s));
 }
 
 // Rows of the [rows, heads*f] f32 scratch that the backward needs for its

@@ -27,10 +27,11 @@
 //   keeps m = -inf, l = 0 and exp(-inf - (-inf)) is never formed. A row of
 //   one piece stores its (m, l); a split row (a hub, the padded tail)
 //   stores each piece's pair in scratch, and a second launch, a warp per
-//   (split row, head), merges them with the forward's merge
-//   (agg_finish_kernel): m = max m_p, l = sum in piece order over the
-//   pieces with a finite m_p of l_p exp(m_p - m), each piece's factor
-//   formed by its own lane and the sum taken in order. So on the same
+//   (split row, head; recv_pieces.cuh, shared with sddmm.cu's K8), merges
+//   them with the forward's merge (agg_finish_kernel): m = max m_p, l =
+//   sum in piece order over the pieces with a finite m_p of l_p exp(m_p -
+//   m), each piece's factor formed by its own lane and the sum taken in
+//   order. So on the same
 //   scores every row's (m, l) is the fused forward's, bit for bit. Bound
 //   by bytes (the [E, K] score stream, read once) in principle; the work
 //   is two expf a finite score, and at arxiv's shapes the two dependent
@@ -39,15 +40,32 @@
 //   each row and merged the lanes' pairs by a five-step butterfly: on
 //   arxiv's rows of ~9 slots 23 of 32 lanes loaded nothing and every lane
 //   paid ~40 expf and ~40 shuffles a row, which set its time.
-// - apply: edge-parallel, one thread per (slot, head): no row walk, so a hub
-//   row is no hazard. Bound by bytes (scores in, alpha out).
+// - apply: edge-parallel on the flat (slot, pack) index, a pack being up to
+//   four neighbouring heads (16 bytes of f32 scores: H = 4 is one pack a
+//   slot, H = 8 two; H = 6 takes packs of 2, an odd H or an unaligned
+//   pointer packs of 1, a template parameter of the same kernel). No row
+//   walk, so a hub row is no hazard. Bound by bytes: the scores and the
+//   receivers read once, the receivers' (m, l) rows once a row (sorted
+//   receivers: neighbouring items hit one row in L1), alpha written once.
+//   A thread serves one pack: its slot comes from a multiply-high and a
+//   shift (fast_div.cuh), not a 64-bit division, and it reads recv[e] once
+//   a pack. A launch too small to give every SM two blocks (CiteSeer's
+//   E * H = 106k) takes narrower packs, down to single heads, so that it
+//   spreads over the card. Its predecessor ran one thread per (slot, head)
+//   in a grid-stride loop: a 64-bit division, the H threads of a slot each
+//   reloading recv[e], and two dependent 4-byte gathers an element, with
+//   nothing independent in flight, at 40% of its bound at arxiv's shapes
+//   (PERF.md). Each element is expf(s - m) / (l + eps) with an IEEE
+//   division, as before: the same bits.
 //
 // Sums are f32 in registers, no atomics. Offsets into data are 64-bit;
 // indices and row_ptr are int32; row_ptr[0] must be 0 and row_ptr[N] the
 // slot count. The C entry points launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
 
+#include "fast_div.cuh"
 #include "lanes.cuh"
+#include "recv_pieces.cuh"
 
 namespace {
 
@@ -57,7 +75,6 @@ namespace {
 // at six and 0.030 at eight (batches of 8) (PERF.md).
 constexpr int kStatsBatch = 16;
 constexpr int kStatsBlocksPerSm = 4;
-constexpr int kApplyBlocksPerSm = 32;
 
 // pieces[p] = (row, first slot, end slot, share): share -1 where the piece
 // is its whole row, else its row of m_part / l_part ([shares, heads]).
@@ -101,88 +118,52 @@ softmax_stats_kernel(const float* __restrict__ scores,
   }
 }
 
-// The split rows' (m, l) from their pieces' pairs, a warp per (split row,
-// head): the fused forward's merge (attend.cu's agg_finish_kernel) with the
-// same operations in the same order. m = the max of the pieces' m_p (a max
-// is exact in any order), then l in piece order: each lane forms its
-// piece's factor exp(m_p - m), and lane 0 adds l_p * factor piece by piece
-// as the forward's loop does. A piece without a finite score is skipped, so
-// a row whose finite scores lie in one piece gets that piece's pair.
-__global__ void __launch_bounds__(kThreads)
-softmax_stats_finish_kernel(const float* __restrict__ m_part,
-                            const float* __restrict__ l_part,
-                            const int32_t* __restrict__ fix_rows,
-                            const int32_t* __restrict__ fix_ptr, int64_t n_fix,
-                            int heads, float* __restrict__ m_out,
-                            float* __restrict__ l_out) {
-  const int64_t w =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
-  if (w >= n_fix * heads) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
-  const int64_t k = w / heads;
-  const int h = static_cast<int>(w - k * heads);
-  const int32_t p0 = fix_ptr[k], p1 = fix_ptr[k + 1];
-  float m = -INFINITY;
-  for (int32_t p = p0 + lane; p < p1; p += 32) {
-    m = fmaxf(m, m_part[static_cast<int64_t>(p) * heads + h]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  }
-  float l = 0.0f;
-  for (int32_t c = p0; c < p1; c += 32) {
-    const int32_t p = c + lane;
-    float mp = -INFINITY, lp = 0.0f, wp = 0.0f;
-    if (p < p1) {
-      mp = m_part[static_cast<int64_t>(p) * heads + h];
-      lp = l_part[static_cast<int64_t>(p) * heads + h];
-      if (mp > -INFINITY) wp = expf(mp - m);
-    }
-    const int count = min(32, p1 - c);  // the same on every lane
-    for (int j = 0; j < count; ++j) {
-      const float mj = __shfl_sync(0xffffffffu, mp, j);
-      const float lj = __shfl_sync(0xffffffffu, lp, j);
-      const float wj = __shfl_sync(0xffffffffu, wp, j);
-      if (mj > -INFINITY) l += lj * wj;  // a piece without a finite score
-    }
-  }
-  if (lane == 0) {
-    const int64_t r = static_cast<int64_t>(fix_rows[k]) * heads + h;
-    m_out[r] = m > -INFINITY ? m : 0.0f;
-    l_out[r] = l;
-  }
-}
-
 unsigned blocks_for(int64_t items) {
   return static_cast<unsigned>((items + kThreads - 1) / kThreads);
 }
 
-template <typename O>
+// alpha for the flat item i = e * packs + c (c the pack of VEC heads) of
+// [0, n_items), one item a thread: slot e's pack c is VEC neighbouring
+// values at offset i * VEC of scores and alpha (packs * VEC == heads), and
+// at recv[e] * heads + c * VEC of m and l. (Two items a thread, their loads
+// issued before their gathers, measured 2% slower at composed arxiv L1 and
+// the same at L2 on an NVIDIA H100 80GB HBM3 at 700 W: other warps hide
+// the gathers' latency; a launch too small to fill the card takes narrower
+// packs instead, softmax_cuda._apply_vec; PERF.md.)
+template <typename O, int VEC>
 __global__ void __launch_bounds__(kThreads)
 softmax_apply_kernel(const float* __restrict__ scores,
                      const int32_t* __restrict__ recv,
                      const float* __restrict__ m, const float* __restrict__ l,
-                     O* __restrict__ alpha, int64_t n_slots, int heads,
-                     float eps) {
-  const int64_t total = n_slots * heads;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < total; i += stride) {
-    const int64_t e = i / heads;
-    const int64_t r = static_cast<int64_t>(recv[e]) * heads + (i - e * heads);
-    alpha[i] = Cvt<O>::from_f(expf(scores[i] - m[r]) / (l[r] + eps));
-  }
+                     O* __restrict__ alpha, uint32_t n_items, FastDiv packs,
+                     int heads, float eps) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_items) return;
+  const uint32_t e = fast_div(packs, i);
+  const uint32_t c = i - e * packs.d;
+  // The scores load beside the receiver; m and l then gather its row
+  // (receivers are sorted, so neighbouring items mostly hit one row).
+  const int64_t row = static_cast<int64_t>(recv[e]) * heads + c * VEC;
+  float s[VEC], mm[VEC], ll[VEC], a[VEC];
+  load_pack<float, VEC>(scores + static_cast<int64_t>(i) * VEC, s);
+  load_pack<float, VEC>(m + row, mm);
+  load_pack<float, VEC>(l + row, ll);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) a[j] = expf(s[j] - mm[j]) / (ll[j] + eps);
+  store_pack<O, VEC>(alpha + static_cast<int64_t>(i) * VEC, a);
 }
 
-unsigned apply_blocks(int64_t total) {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  const int64_t cap = static_cast<int64_t>(sms) * kApplyBlocksPerSm;
-  const int64_t need = (total + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(need < cap ? need : cap);
+template <typename O, int VEC>
+cudaError_t launch_apply(const float* scores, const int32_t* recv,
+                         const float* m, const float* l, void* alpha,
+                         int64_t n_slots, int heads, float eps,
+                         cudaStream_t s) {
+  const int64_t n_items = n_slots * (heads / VEC);
+  softmax_apply_kernel<O, VEC><<<blocks_for(n_items), kThreads, 0, s>>>(
+      scores, recv, m, l, static_cast<O*>(alpha),
+      static_cast<uint32_t>(n_items),
+      make_fast_div(static_cast<uint32_t>(heads / VEC)), heads, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -214,33 +195,39 @@ int kgt_softmax_stats_sorted(const float* scores, const int32_t* pieces,
       scores, reinterpret_cast<const int4*>(pieces), n_pieces, heads, m, l,
       m_part, l_part);
   const cudaError_t first = cudaGetLastError();
-  if (first != cudaSuccess || n_fix == 0) return static_cast<int>(first);
-  softmax_stats_finish_kernel<<<blocks_for(n_fix * heads * 32), kThreads, 0,
-                                s>>>(m_part, l_part, fix_rows, fix_ptr, n_fix,
-                                     heads, m, l);
-  return static_cast<int>(cudaGetLastError());
+  if (first != cudaSuccess) return static_cast<int>(first);
+  return static_cast<int>(
+      merge_split_stats(m_part, l_part, fix_rows, fix_ptr, n_fix, heads, m, l,
+                        s));
 }
 
-// alpha [n_slots, heads] in f32 (out_bf16 = 0) or bf16.
+// alpha [n_slots, heads] in f32 (out_bf16 = 0) or bf16, scores [n_slots,
+// heads] and m, l [*, heads] f32, in packs of vec heads (4, 2 or 1): vec
+// divides heads, and every pointer is aligned to its pack
+// (softmax_cuda._apply_vec picks it). n_slots * heads < 2^31.
 int kgt_softmax_apply_sorted(const float* scores, const int32_t* recv,
                              const float* m, const float* l, void* alpha,
-                             int64_t n_slots, int heads, float eps,
+                             int64_t n_slots, int heads, int vec, float eps,
                              int out_bf16, void* stream) {
+  const int out_size = out_bf16 ? 2 : 4;
   if (scores == nullptr || recv == nullptr || m == nullptr || l == nullptr ||
-      alpha == nullptr || n_slots <= 0 || heads < 1) {
+      alpha == nullptr || n_slots <= 0 || heads < 1 ||
+      n_slots * heads >= (static_cast<int64_t>(1) << 31) ||
+      (vec != 1 && vec != 2 && vec != 4) || heads % vec != 0 ||
+      !aligned_to(scores, vec * 4) || !aligned_to(m, vec * 4) ||
+      !aligned_to(l, vec * 4) || !aligned_to(alpha, vec * out_size)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = apply_blocks(n_slots * heads);
-  if (out_bf16) {
-    softmax_apply_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-        scores, recv, m, l, static_cast<uint16_t*>(alpha), n_slots, heads,
-        eps);
-  } else {
-    softmax_apply_kernel<float><<<grid, kThreads, 0, s>>>(
-        scores, recv, m, l, static_cast<float*>(alpha), n_slots, heads, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define KGT_APPLY(V)                                                        \
+  (out_bf16 ? launch_apply<uint16_t, V>(scores, recv, m, l, alpha, n_slots, \
+                                        heads, eps, s)                      \
+            : launch_apply<float, V>(scores, recv, m, l, alpha, n_slots,    \
+                                     heads, eps, s))
+  const cudaError_t err =
+      vec == 4 ? KGT_APPLY(4) : vec == 2 ? KGT_APPLY(2) : KGT_APPLY(1);
+#undef KGT_APPLY
+  return static_cast<int>(err);
 }
 
 const char* kgt_cuda_error_string(int code) {

@@ -74,6 +74,7 @@
 // The C entry points launch on the given stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError().
 
+#include "fast_div.cuh"
 #include "gather_pieces.cuh"
 
 namespace {
@@ -183,27 +184,6 @@ constexpr int kInFlight = 8;  // slots a messages-form thread loads at once
 template <typename S, int VEC>
 __host__ __device__ constexpr int expand_items() {
   return 16 / (VEC * static_cast<int>(sizeof(S)));
-}
-
-// x / d for 0 <= x < 2^31 by a multiply-high and a shift (d >= 1), so that a
-// thread finds its item from a flat index without an integer division.
-struct FastDiv {
-  uint32_t d, mul, shift;
-};
-
-inline FastDiv make_fast_div(uint32_t d) {
-  FastDiv q{d, 0, 0};
-  if (d > 1) {
-    uint32_t l = 0;
-    while ((1u << l) < d) ++l;  // ceil(log2(d))
-    q.mul = static_cast<uint32_t>(((uint64_t{1} << (31 + l)) + d - 1) / d);
-    q.shift = l - 1;
-  }
-  return q;
-}
-
-__device__ __forceinline__ uint32_t fast_div(const FastDiv& q, uint32_t x) {
-  return q.d == 1 ? x : __umulhi(x, q.mul) >> q.shift;
 }
 
 // VEC f32 values of a share row: stored, and read back from L2 (cg: the

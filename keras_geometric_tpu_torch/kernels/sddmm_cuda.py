@@ -50,11 +50,18 @@ Source notes, one per kernel (all three are bound by bytes):
   atomics, so it is bit-reproducible.
 - ``sddmm_stats_sorted``: scores ``[E, H]`` f32 (``-inf`` on invalid slots)
   and the per-receiver online ``(m, l)`` in one pass over the receiver-sorted
-  slots; a sub-warp group per (receiver row, head), the sender rows gathered
-  in the kernel. Reads the node rows and the sender and validity streams,
-  writes the scores and ``[N, H]`` twice. Its scores, ``m`` and ``l`` are the
-  one-pass forward's bit for bit (the same score and online-step functions,
-  ``csrc/lanes.cuh``).
+  slots, the sender rows gathered in the kernel. Reads the node rows and the
+  sender and validity streams, writes the scores and ``[N, H]`` twice. It
+  walks the fused forward's (``attend_cuda.sddmm_stats_agg_sorted``'s) work
+  the same way: the pieces of :func:`spmm_cuda.recv_bwd_work` of
+  ``row_ptr``, a sub-warp group per (piece, head) with the piece's senders
+  and validity staged in shared memory and a ``cp.async`` ring of sender
+  rows (a padded slot is never gathered), each piece folded in slot order
+  with the forward's online step and a split row's pieces merged in piece
+  order by a second launch with the forward's merge. So its scores, ``m``
+  and ``l`` are the one-pass forward's bit for bit on every row, hubs and
+  the padded tail included (the same score, online-step and merge
+  functions, ``csrc/lanes.cuh`` and ``csrc/recv_pieces.cuh``).
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -72,7 +79,10 @@ from .attend_cuda import (
     _aligned,
     _check_graph,
     _check_like,
+    _fix_args,
     _scalar_matrix_arg,
+    _shares,
+    _work_args,
     scores_and_stats_plain,
 )
 from .spmm_cuda import (
@@ -177,7 +187,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_sddmm_bwd_sorted.restype = i32
     lib.kgt_sddmm_stats_sorted.argtypes = [
-        vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, f32, i32, vp,
+        vp, vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i64,
+        i64, i32, i64, f32, i32, vp,
     ]
     lib.kgt_sddmm_stats_sorted.restype = i32
     lib.kgt_cuda_error_string.argtypes = [i32]
@@ -303,7 +314,9 @@ def sddmm_stats_sorted(ht, senders, receivers, row_ptr, att, *,
     ``att`` ``[H, F]``, ``edge_valid`` ``[E]`` bool (False on padded slots).
     Returns ``(scores [E, H] f32 with -inf on invalid slots, m [N, H] f32,
     l [N, H] f32)``: ``m`` is the row's max score (0 for a row without a
-    finite one) and ``l = sum exp(scores - m)``. With
+    finite one) and ``l = sum exp(scores - m)``. A CUDA tensor's kernel
+    walks the pieces of ``row_ptr`` (the plain version, which a CPU tensor
+    takes, reads ``receivers``). With
     ``attend_cuda.attend_aggregate_sorted`` it is the two-pass form of
     ``attend_cuda.sddmm_stats_agg_sorted``; not differentiable by itself.
     """
@@ -322,12 +335,18 @@ def sddmm_stats_sorted(ht, senders, receivers, row_ptr, att, *,
     if ht.numel() == 0:
         return scores, m, l
     lib = _library()
+    work = recv_bwd_work(row_ptr)
+    # The split rows' shares: m_p and l_p [num_shares, H].
+    shares = _shares(work, 2 * heads, device)
+    m_part = l_part = None
+    if shares is not None:
+        m_part, l_part = (t.data_ptr() for t in shares.chunk(2))
     with torch.cuda.device(device):
         code = lib.kgt_sddmm_stats_sorted(
-            ht.data_ptr(), senders.data_ptr(), row_ptr.data_ptr(), att_ptr,
+            ht.data_ptr(), senders.data_ptr(), *_work_args(work), att_ptr,
             att_bf16, valid_ptr, scores.data_ptr(), m.data_ptr(),
-            l.data_ptr(), n, heads, f, float(negative_slope),
-            int(ht.dtype == torch.bfloat16),
+            l.data_ptr(), m_part, l_part, *_fix_args(work), n, heads, f,
+            float(negative_slope), int(ht.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on_error(lib, code, "sddmm_stats_sorted")

@@ -21,8 +21,14 @@ Source notes, one per kernel (both are bound by bytes):
   hub, the padded tail) is merged in piece order by a second launch with
   the forward's merge. So ``(m, l)`` equals the fused forward's
   (``attend_cuda.sddmm_stats_agg_sorted``) bit for bit on the same scores.
-- ``softmax_apply_sorted``: ``alpha = exp(s - m[r]) / (l[r] + eps)``, one
-  thread per (slot, head); reads the scores and the receivers, writes alpha.
+- ``softmax_apply_sorted``: ``alpha = exp(s - m[r]) / (l[r] + eps)``; reads
+  the scores and the receivers, each receiver's ``(m, l)`` row, writes
+  alpha. Threads lie on the flat (slot, pack) index, a pack being up to four
+  neighbouring heads moved with one 16-byte load or store
+  (:func:`_apply_vec`), one pack a thread; a thread reads ``recv[e]`` once
+  a pack and finds its slot by a multiply-high and a shift. A launch too
+  small to give every SM two blocks takes narrower packs. Each element is the
+  plain version's formula with an IEEE division.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU. For
 a CUDA tensor it launches the kernel or raises.
@@ -106,7 +112,7 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_softmax_stats_sorted.restype = i32
     lib.kgt_softmax_apply_sorted.argtypes = [
-        vp, vp, vp, vp, vp, i64, i32, f32, i32, vp,
+        vp, vp, vp, vp, vp, i64, i32, i32, f32, i32, vp,
     ]
     lib.kgt_softmax_apply_sorted.restype = i32
     lib.kgt_cuda_error_string.argtypes = [i32]
@@ -123,6 +129,29 @@ def _check_scores(scores):
     if e * max(k, 1) >= 2**31:
         raise ValueError("E*K must stay below 2**31 (int32 indices)")
     return e, k
+
+
+# Threads a block of the normalisation kernel (csrc/lanes.cuh kThreads), and
+# the blocks a SM below which a launch takes narrower packs, so that a small
+# launch spreads over the card.
+_APPLY_THREADS = 256
+_APPLY_MIN_BLOCKS_PER_SM = 2
+
+
+def _apply_vec(heads, num_slots, sms, scores, m, l, alpha):
+    """Heads in a pack of the normalisation kernel, one pack a thread: the
+    widest of 4, 2 and 1 that divides ``heads`` and keeps ``scores``, ``m``,
+    ``l`` (f32) and ``alpha`` aligned to its pack (16 bytes of f32 at 4),
+    narrowed while its grid would give the card's ``sms`` SMs fewer than
+    ``_APPLY_MIN_BLOCKS_PER_SM`` blocks each (at CiteSeer's E * H = 106k:
+    single heads, 416 blocks, against 104 of 16-byte packs)."""
+    vec = next(v for v in (4, 2, 1) if heads % v == 0 and all(
+        t.data_ptr() % (v * t.element_size()) == 0
+        for t in (scores, m, l, alpha)))
+    while vec > 1 and (-(-num_slots * (heads // vec) // _APPLY_THREADS)
+                       < _APPLY_MIN_BLOCKS_PER_SM * sms):
+        vec //= 2
+    return vec
 
 
 def softmax_stats_sorted(scores, receivers, row_ptr, num_nodes):
@@ -190,10 +219,12 @@ def softmax_apply_sorted(scores, m, l, receivers, *, eps=1e-10,
     if alpha.numel() == 0:
         return alpha
     lib = _library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         code = lib.kgt_softmax_apply_sorted(
             scores.data_ptr(), receivers.data_ptr(), m.data_ptr(),
-            l.data_ptr(), alpha.data_ptr(), e, k, float(eps),
+            l.data_ptr(), alpha.data_ptr(), e, k,
+            _apply_vec(k, e, sms, scores, m, l, alpha), float(eps),
             int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
