@@ -55,9 +55,17 @@ alpha bytes and of its inputs, so that the copies' bits can be compared.
 GATv2 shapes (``--unpadded`` adds the streams without padded slots) and at
 4 heads of 64 in bf16 on ``chip_smoke.py``'s ``skewed_graph`` with its
 20,000-slot hub row and without it, with whether K8's scores, ``m`` and
-``l`` equal K9's (on every row, and on the rows of one piece) and K8's CUDA
-kernels timed apart by ``torch.profiler`` (the walk, then the merge of
-split rows). ``messages``: the messages-form scatter (K1's
+``l`` equal K9's (on every row, and on the rows of one piece), the SHA-256
+of K10a's output on the rows of at most one piece (to compare the copies'
+bits) and K8's and K10a's CUDA kernels timed apart by ``torch.profiler``
+(the walk, then the merge of split rows). ``narrow``: the narrow segment
+max (K3) over seeded ``[E, 4]`` scores in bf16 and f32 with the slot mask,
+on the arxiv-shaped GATv2 graph (``--unpadded`` adds it without padded
+slots) and on ``skewed_graph`` with its 20,000-slot hub row and without
+it, beside a copy of the scores and ``torch.segment_reduce``, with whether
+it equals its plain version; K3 and the copy are also timed behind the
+flush read back, so that no dirty line of the flush is written back while
+they run (``clean L2``). ``messages``: the messages-form scatter (K1's
 ``scatter_sum_sorted``) and the expand (K2) at the shapes the training runs
 give them, on ``chip_smoke.py``'s contexts: the composed GATv2 arxiv and
 CiteSeer runs' messages (H*F = 256 / 160 bf16, 64 / 48 f32) and softmax row
@@ -80,7 +88,8 @@ spills that ``nvcc -Xptxas -v`` reports for the attention kernels' bf16
 instantiations at the arxiv widths and their f32 ones at CiteSeer's, for
 the fused-gather scatter's at bf16 (16-byte packs) and f32 (four-wide
 packs), for the window scatter's and the score kernels' (K7a, K7b, K8) at
-those widths, and for the softmax kernels (K5 and its merge, K6).
+those widths, for the softmax kernels (K5 and its merge, K6) and for the
+narrow segment max (K3).
 
     python3 attend_kernels_ab.py build/parent . . build/parent --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent --gcn \
@@ -92,6 +101,8 @@ those widths, and for the softmax kernels (K5 and its merge, K6).
         --only=messages --unpadded --ptxas
     python3 attend_kernels_ab.py build/parent . . build/parent \
         --only=two_pass,composed --unpadded --ptxas
+    python3 attend_kernels_ab.py build/parent . . build/parent \
+        --only=two_pass,narrow --unpadded --ptxas
 """
 
 from __future__ import annotations
@@ -105,7 +116,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 GROUPS = ("attend", "send", "finish", "gcn", "band", "window", "composed",
-          "two_pass", "messages", "step")
+          "two_pass", "messages", "narrow", "step")
 # Template arguments of the instantiations --ptxas shows, per source.
 SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          # the fused gather's piece walk, its row walk; the messages form
@@ -120,7 +131,8 @@ SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
          "band.cu": ("unsigned short, 8>",),
          "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
                       "float, 2, 1, false>"),
-         "softmax.cu": ("softmax_stats", "softmax_apply")}
+         "softmax.cu": ("softmax_stats", "softmax_apply"),
+         "segment_max.cu": ("segment_max_sorted",)}
 # The case groups of each attention-shape case (the rest are attend's).
 CASE_GROUP = {"sender finish": ("finish",),
               "sender finish (rows)": ("finish",),
@@ -139,6 +151,8 @@ SPLIT = {"softmax_stats_sorted": ("softmax_stats_kernel",
                                   "softmax_stats_finish_kernel"),
          "sddmm_stats_sorted": ("sddmm_stats_kernel",
                                 "softmax_stats_finish_kernel"),
+         "attend_aggregate_sorted": ("attend_aggregate_kernel",
+                                     "shares_finish_kernel"),
          "sddmm_bwd_sorted": ("sddmm_bwd_kernel", "reduce_partials_kernel"),
          # the parent's messages form (the row walk's template), the new one
          "scatter_sum_sorted": ("scatter_sum_sorted_kernel",
@@ -327,6 +341,79 @@ def message_times(device, chunks, cold_ms, split_ms) -> dict:
     return out
 
 
+def narrow_times(device, chunks, cold_ms, clean_ms) -> dict:
+    """The narrow segment max (K3) over seeded ``[E, 4]`` scores in bf16 and
+    f32 with the slot mask, on ``chip_smoke.py``'s arxiv-shaped GATv2 graph
+    (``--unpadded`` adds it without padded slots) and on its
+    ``skewed_graph`` with the 20,000-slot hub row and without it, beside a
+    copy of the scores into a like tensor and ``torch.segment_reduce``, with
+    whether the kernel equals its plain version; K3 and the copy also behind
+    a flush read back (``clean_ms``)."""
+    import types
+
+    import torch
+
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    smoke = from_this_checkout("_ab_chip_smoke", "chip_smoke.py")
+
+    def hub_graph(dev, hub=20_000):
+        g = smoke.skewed_graph(dev, hub=hub)
+        return (types.SimpleNamespace(num_nodes=g["n"], receivers=g["recv"],
+                                      row_ptr=g["row_ptr"],
+                                      edge_mask=g["mask"]),)
+
+    graphs = (("arxiv", smoke.gat_arxiv_workload), ("hub", hub_graph),
+              ("no hub", lambda dev: hub_graph(dev, hub=0)))
+    gen = torch.Generator(device=device).manual_seed(19)
+    heads = smoke.GAT_ARXIV_HEADS
+    out = {}
+    for name, workload in graphs:
+        prepared = workload(device)[0]
+        for pad_name, _ in chunks:
+            if pad_name != "padded" and "hub" in name:
+                continue  # chip_smoke.skewed_graph has no unpadded twin
+            ctx = (prepared if pad_name == "padded"
+                   else smoke.unpadded_context(prepared))
+            n, e = ctx.num_nodes, ctx.receivers.shape[0]
+            lengths = ctx.row_ptr[1:] - ctx.row_ptr[:-1]
+            key = f"{name} {pad_name}"
+            out[key] = {"slots": e, "longest_row": int(lengths.max())}
+            mask = ctx.edge_mask
+            if mask is None:  # a stream without padding
+                mask = torch.ones(e, dtype=torch.bool, device=device)
+            for dtype in (torch.bfloat16, torch.float32):
+                scores = torch.randn(e, heads, generator=gen,
+                                     device=device).to(dtype)
+                copy = torch.empty_like(scores)
+                got = K.segment_max_sorted(scores, ctx.receivers, n,
+                                           row_ptr=ctx.row_ptr, mask=mask)
+                out[key][str(dtype)[6:]] = {
+                    "segment_max_sorted": cold_ms(
+                        lambda: K.segment_max_sorted(
+                            scores, ctx.receivers, n, row_ptr=ctx.row_ptr,
+                            mask=mask)),
+                    "[E, K] copy": cold_ms(lambda: copy.copy_(scores)),
+                    "segment_max_sorted, clean L2": clean_ms(
+                        lambda: K.segment_max_sorted(
+                            scores, ctx.receivers, n, row_ptr=ctx.row_ptr,
+                            mask=mask)),
+                    "[E, K] copy, clean L2": clean_ms(
+                        lambda: copy.copy_(scores)),
+                    "torch.segment_reduce": cold_ms(
+                        lambda: torch.segment_reduce(
+                            scores, "max", lengths=lengths, unsafe=True)),
+                    "equal to plain": bool(torch.equal(
+                        got, K.segment_max_sorted_plain(
+                            scores, ctx.receivers, n, mask=mask))),
+                }
+                del scores, copy, got
+            del ctx
+        del prepared
+        torch.cuda.empty_cache()
+    return out
+
+
 def digest(t) -> str:
     """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
     import hashlib
@@ -346,6 +433,7 @@ def two_pass_hub_times(device, cold_ms, split_ms) -> dict:
 
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
     smoke = from_this_checkout("_ab_chip_smoke", "chip_smoke.py")
     gen = torch.Generator(device=device).manual_seed(18)
@@ -371,11 +459,17 @@ def two_pass_hub_times(device, cold_ms, split_ms) -> dict:
             "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
                 ht, *graph, att, edge_valid=valid),
         }
+        one = lengths <= K.RECV_BWD_PIECE
         out[label] = {
             "slots": int(valid.shape[0]), "longest_row": int(lengths.max()),
             **{call: cold_ms(fn) for call, fn in calls.items()},
             "sddmm_stats_sorted split ms": split_ms(
                 calls["sddmm_stats_sorted"], SPLIT["sddmm_stats_sorted"]),
+            "attend_aggregate_sorted split ms": split_ms(
+                calls["attend_aggregate_sorted"],
+                SPLIT["attend_aggregate_sorted"]),
+            "K10a one-piece rows sha256": digest(
+                calls["attend_aggregate_sorted"]()[one]),
             "K8 equals K9": all(torch.equal(a, b)
                                 for a, b in zip(k8, (scores, m, l))),
         }
@@ -410,7 +504,8 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                           + (["sddmm", "softmax"]
                              if groups & {"composed", "two_pass"} or step
                              else [])
-                          + (["band"] if band or window else []))
+                          + (["band"] if band or window else [])
+                          + (["segment_max"] if "narrow" in groups else []))
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=device)
     has_pieces = "pieces" in inspect.signature(
         K.gather_scatter_sum_sorted).parameters
@@ -421,6 +516,26 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
         pairs = []
         for _ in range(iters):
             flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            pairs.append((start, stop))
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in pairs)
+        return times[len(times) // 2]
+
+    def clean_ms(fn, iters=20, warmup=3):
+        """cold_ms with the flush read back before each call: its dirty
+        lines are written back then, and the L2 holds clean lines, so a
+        call's misses write nothing back."""
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            flush.zero_()
+            flush.max()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -474,6 +589,8 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
         result["messages"] = message_times(device, chunks, cold_ms, split_ms)
     if "two_pass" in groups:
         result["two_pass hub"] = two_pass_hub_times(device, cold_ms, split_ms)
+    if "narrow" in groups:
+        result["narrow"] = narrow_times(device, chunks, cold_ms, clean_ms)
     if "gcn" in groups:
         # chip_smoke.py's arxiv_workload: the features are drawn first.
         half = 1_166_243 // 2
@@ -751,7 +868,10 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                                               edge_valid=valid)
                     same = (k8[1] == m).all(1) & (k8[2] == l).all(1)
                     one = lengths <= K.RECV_BWD_PIECE
+                    k10a = A.attend_aggregate_sorted(scores, m, l, ht,
+                                                     *graph, drop_mask=drop)
                     result[key][layer].update({
+                        "K10a one-piece rows sha256": digest(k10a[one]),
                         "K8 scores equal K9's": bool(torch.equal(k8[0],
                                                                  scores)),
                         "K8 stats equal K9's on every row": bool(same.all()),
@@ -759,7 +879,7 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
                             same[one].all()),
                         "one-piece rows": int(one.sum()),
                     })
-                    del k8
+                    del k8, k10a
                 for call, names in SPLIT.items():
                     if call in cases:
                         result[key][layer][f"{call} split ms"] = split_ms(

@@ -62,7 +62,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 attention kernels also at
                 the wide heads (H, F) in (1, 320), (2, 512), which walk a
                 head in 256-column slabs; the narrow segment max at K in
-                1, 4, 8 and the wide one, forward and both tie rules of its
+                1, 3, 4, 6, 8, 11, 16 (the scores also at an address off
+                their pack's alignment) and the wide one, forward and both
+                tie rules of its
                 backward, at F in 1, 7, 40, 128, 256, 320 on tied inputs
                 (bf16 and f32, with and without the slot mask), forwards bit
                 for bit; then timings at the shapes the training paths use
@@ -122,7 +124,11 @@ exit code and without the final line; so does a run of a subset of the phases
 10. ``attend_two_pass_arxiv_shape``  the two-pass forward (score-and-
                 statistics kernel, then the aggregation) at both arxiv-shaped
                 GATv2 layers against the one-pass forward: scores, ``m``,
-                ``l`` bit for bit, the output under the kernel tolerance;
+                ``l`` bit for bit, the output under the kernel tolerance
+                against the one-pass forward and the plain version; then
+                the aggregation at layer 1 with a dropout mask, and on the
+                kernel sweep's graph with and without its 20,000-slot hub
+                row;
 11. ``train_skewed_arxiv_shape``  the locality tier: a scrambled community
                 graph of 169,343 nodes and 1,166,242 edges relabelled by the
                 LPA cluster order, ``band_window=1024``, the GCN of run 4;
@@ -136,7 +142,9 @@ exit code and without the final line; so does a run of a subset of the phases
 13. ``segment_max_narrow_arxiv_shape``  the narrow segment max over random
                 ``[E, 4]`` scores (bf16 and f32) on run 6's graph, bit for bit
                 against its plain version and the softmax statistics kernel's
-                ``m`` (no module calls it: this is its path);
+                ``m`` (no module calls it: this is its path), then on the
+                kernel sweep's graph with and without its 20,000-slot hub
+                row, bit for bit;
 14. ``train_sage_pool_arxiv_shape`` and ``train_gin_max_arxiv_shape``  run 6's
                 graph and features, ``GraphSAGE((256, 40),
                 aggregator="pooling")`` and a GIN with ``aggregator="max"``,
@@ -218,7 +226,7 @@ BAND_WINDOW = ATTEND_WINDOW = 1024
 BAND_WIDTHS = (1, 7, 40, 128, 256)  # F of the band kernel sweep
 BAND_WINDOWS = (256, 512, 1024)
 SCATTER_WIDTHS = (8, 40, 160, 256)  # F of the window scatter sweep
-SEGMENT_MAX_HEADS = (1, 4, 8)  # K of the narrow segment max sweep
+SEGMENT_MAX_HEADS = (1, 3, 4, 6, 8, 11, 16)  # K of the narrow sweep
 SEGMENT_MAX_WIDTHS = (1, 7, 40, 128, 256, 320)  # F of the wide one
 
 SOURCES = {
@@ -359,7 +367,15 @@ PTXAS_SHOWN = {
         "attend_send_bwd_kernel<f32, 4, 1> (CiteSeer L1)",
     "attend_send_bwd_kernelItLi8ELi1ELb1E":
         "attend_send_bwd_kernel<bf16, 8, 1, wide>",
-    "send_bwd_finish_kernelItE": "send_bwd_finish_kernel<bf16>",
+    "shares_finish_kernelItE": "shares_finish_kernel<bf16> (K10a, K10d)",
+    "attend_aggregate_kernelItLi8ELi1ELb0E":
+        "attend_aggregate_kernel<bf16, 8, 1> (two-pass arxiv)",
+    "attend_aggregate_kernelItLi8ELi1ELb1E":
+        "attend_aggregate_kernel<bf16, 8, 1, wide>",
+    "segment_max_sorted_kernelItLi4ELb1E":
+        "segment_max_sorted_kernel<bf16, 4, mask> (narrow arxiv)",
+    "segment_max_sorted_kernelIfLi4ELb1E":
+        "segment_max_sorted_kernel<f32, 4, mask> (narrow arxiv)",
     "gather_scatter_pieces_kernelItLi8E":
         "gather_scatter_pieces_kernel<bf16, 8> (GCN arxiv, finish arxiv)",
     "gather_scatter_pieces_kernelIfLi4E":
@@ -412,7 +428,9 @@ PIECE_KERNELS = {
     "attend_recv_bwd_full_sorted": ("attend_recv_bwd_kernel",
                                     "recv_bwd_finish_kernel"),
     "attend_send_bwd_sorted": ("attend_send_bwd_kernel",
-                               "send_bwd_finish_kernel"),
+                               "shares_finish_kernel"),
+    "attend_aggregate_sorted": ("attend_aggregate_kernel",
+                                "shares_finish_kernel"),
     "sddmm_stats_sorted": ("sddmm_stats_kernel",
                            "softmax_stats_finish_kernel"),
     "gather_scatter_sum_sorted": ("gather_scatter_pieces_kernel",
@@ -438,9 +456,10 @@ def ptxas_report() -> dict:
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {source}")
         return proc.stderr.splitlines()
 
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         lines = [l for out in pool.map(one, ("band", "attend", "spmm",
-                                              "sddmm", "softmax"))
+                                              "sddmm", "softmax",
+                                              "segment_max"))
                  for l in out]
     report, shown = {}, None
     for line in lines:
@@ -1191,6 +1210,9 @@ def attend_sweep(device, timer):
                 lambda: D.sddmm_stats_sorted(ht, *args, att,
                                              edge_valid=sg["mask"]),
                 iters=10),
+            "attend_aggregate_sorted": timer.cold_ms(
+                lambda: A.attend_aggregate_sorted(scores, m, l, ht, *args),
+                iters=10),
         }
     return cases, worst, hub
 
@@ -1762,7 +1784,7 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
     the cache; for the kernels that walk pieces, the work list and the CUDA
     kernels a call launches, for the sender backward its times on
     ``send_skewed_graph`` with and without its hub sender (``send_hub``),
-    and for the score-and-statistics kernel its times on ``attend_sweep``'s
+    and for the two-pass forward's kernels their times on ``attend_sweep``'s
     graph with and without its 20,000-slot hub row (``hub``) and on the same
     graph prepared without padded slots (``ms_unpadded``). No single
     PyTorch call computes any of them (null ``library_ms``)."""
@@ -1914,20 +1936,27 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
             elif name == "attend_send_bwd_sorted":
                 entry.update(piece_walk_fields(name, ctx.row_ptr_bwd))
                 entry["hub_row_ms"] = send_hub[name]
-            if name == "sddmm_stats_sorted":
+            if run == "two_pass":
                 entry.update(piece_walk_fields(name, ctx.row_ptr))
                 entry["hub_row_ms"] = {label: times[name]
                                        for label, times in hub.items()}
                 # The same graph and inputs over a stream without padded
                 # slots: what the padded tail's pieces cost.
                 bare = unpadded_context(ctx)
+                b_graph = (bare.senders, bare.receivers, bare.row_ptr)
+                b_stats = D.sddmm_stats_sorted(ht, *b_graph, att,
+                                               edge_valid=bare.edge_mask)
+                unpadded = {
+                    "sddmm_stats_sorted": lambda: D.sddmm_stats_sorted(
+                        ht, *b_graph, att, edge_valid=bare.edge_mask),
+                    "attend_aggregate_sorted": lambda: (
+                        A.attend_aggregate_sorted(*b_stats, ht, *b_graph)),
+                }
                 entry["padded_slots"] = e - int(valid.sum())
-                entry["ms_unpadded"] = timer.cold_ms(
-                    lambda: D.sddmm_stats_sorted(
-                        ht, bare.senders, bare.receivers, bare.row_ptr, att,
-                        edge_valid=bare.edge_mask), iters=10)
+                entry["ms_unpadded"] = timer.cold_ms(unpadded[name],
+                                                     iters=10)
                 entry["longest_row_unpadded"] = longest_row(bare.row_ptr)
-                del bare
+                del bare, b_graph, b_stats, unpadded
             entries.append(entry)
         del scores, rho, cases
         torch.cuda.empty_cache()
@@ -1939,8 +1968,13 @@ def two_pass_phase(device, ctx, timer):
     arxiv-shaped GATv2 layers (random ``ht`` and ``att`` from a seed, bf16),
     against the one-pass forward on the same inputs: scores, ``m`` and ``l``
     bit for bit, the output under the tolerance of the module docstring
-    (mass: the sum of the absolute values of its terms). The launch counts
-    are read around the two-pass calls alone. Returns the counts."""
+    (mass: the sum of the absolute values of its terms), and against the
+    aggregation's plain version. The launch counts are read around the
+    two-pass calls alone. Then, outside them, the aggregation at layer 1
+    with a dropout mask against the one-pass forward and the plain version
+    under the same mask, and on ``skewed_graph`` (4 heads of 64, bf16) with
+    its 20,000-slot hub row and without it against the plain version (the
+    kernels line has its times there). Returns the counts."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
     from keras_geometric_tpu_torch.kernels import sddmm_cuda as D
 
@@ -1976,10 +2010,15 @@ def two_pass_phase(device, ctx, timer):
                              scores, m, l)
         err = compare(out, fused[0], mass["out_terms"], out.dtype,
                       f"two-pass {layer} out against the one-pass forward")
+        err_plain = compare(
+            out, A.attend_aggregate_sorted_plain(scores, m, l, ht, *graph),
+            mass["out_terms"], out.dtype,
+            f"two-pass {layer} out against the aggregation's plain version")
         check(bool(torch.isfinite(out).all()) and out.shape == ht.shape,
               f"two-pass {layer}: output not finite or of the wrong shape")
         report[layer] = {
             "out_max_abs_err_vs_one_pass": err,
+            "out_max_abs_err_vs_plain": err_plain,
             "scores_m_l_equal_bit_for_bit": True,
             "two_pass_ms": timer.cold_ms(lambda: A.attend_aggregate_sorted(
                 *D.sddmm_stats_sorted(ht, *graph, att,
@@ -1989,6 +2028,46 @@ def two_pass_phase(device, ctx, timer):
                 ht, *graph, att, edge_valid=ctx.edge_mask), iters=10),
         }
         del fused, mass
+
+    # Layer 1 with a dropout mask (it scales the numerator only).
+    (ht, att), (_, scores, m, l) = inputs[0], two_pass[0]
+    u = torch.rand(e, GAT_ARXIV_HEADS, generator=gen, device=device)
+    drop = torch.where(u < 0.7, 1.0 / 0.7, 0.0).to(torch.bfloat16)
+    out = A.attend_aggregate_sorted(scores, m, l, ht, *graph, drop_mask=drop)
+    fused = A.sddmm_stats_agg_sorted(ht, *graph, att,
+                                     edge_valid=ctx.edge_mask, drop_mask=drop)
+    mass = attend_masses(graph + (ctx.edge_mask,), ht, att, ht, drop,
+                         scores, m, l)["out_terms"]
+    report["layer 1 dropout mask"] = {
+        "out_max_abs_err_vs_one_pass": compare(
+            out, fused[0], mass, out.dtype,
+            "two-pass layer 1 with a dropout mask against the one-pass "
+            "forward"),
+        "out_max_abs_err_vs_plain": compare(
+            out, A.attend_aggregate_sorted_plain(scores, m, l, ht, *graph,
+                                                 drop_mask=drop),
+            mass, out.dtype, "two-pass layer 1 with a dropout mask against "
+            "the aggregation's plain version")}
+    del u, drop, out, fused, mass, two_pass
+
+    # A 20,000-slot hub row: its pieces run side by side.
+    for label, hub in (("with_hub_row", 20_000), ("without_hub_row", 0)):
+        g = skewed_graph(device, hub=hub)
+        ht, att, _, _ = attend_inputs(gen, g["n"], GAT_ARXIV_HEADS,
+                                      GAT_ARXIV_DIMS[0], torch.bfloat16,
+                                      g["e"], False, device)
+        args = (g["idx"], g["recv"], g["row_ptr"])
+        stats = D.sddmm_stats_sorted(ht, *args, att, edge_valid=g["mask"])
+        out = A.attend_aggregate_sorted(*stats, ht, *args)
+        mass = attend_masses(args + (g["mask"],), ht, att, ht, None,
+                             *stats)["out_terms"]
+        report[f"skewed_graph {label}"] = {
+            "slots": g["e"], "longest_row": longest_row(g["row_ptr"]),
+            "out_max_abs_err_vs_plain": compare(
+                out, A.attend_aggregate_sorted_plain(*stats, ht, *args),
+                mass, out.dtype,
+                f"two-pass aggregation on skewed_graph {label}")}
+        del g, ht, att, stats, out, mass
     emit("attend_two_pass_arxiv_shape", launches=counts, **report)
     return counts
 
@@ -2757,17 +2836,20 @@ def segment_max_sweep(device):
         for mask in (None, g["mask"]):
             what = f"{str(dtype)[6:]}{' masked' if mask is not None else ''}"
             for k in SEGMENT_MAX_HEADS:
-                scores = torch.randn(e, k, generator=gen,
-                                     device=device).to(dtype)
-                got = K.segment_max_sorted(scores, recv, n, row_ptr=row_ptr,
-                                           mask=mask)
-                check(torch.equal(got, K.segment_max_sorted_plain(
-                    scores, recv, n, mask=mask)),
-                    f"segment_max_sorted K={k} {what}: differs from its "
-                    f"plain version")
-                check(bool(torch.isinf(got[empty]).all()),
-                      f"segment_max_sorted K={k} {what}: empty rows not -inf")
-                cases += 1
+                for off in (0, 1):  # off: one element past an aligned start
+                    flat = torch.randn(e * k + off, generator=gen,
+                                       device=device).to(dtype)
+                    scores = flat[off:].view(e, k)
+                    got = K.segment_max_sorted(scores, recv, n,
+                                               row_ptr=row_ptr, mask=mask)
+                    check(torch.equal(got, K.segment_max_sorted_plain(
+                        scores, recv, n, mask=mask)),
+                        f"segment_max_sorted K={k} offset {off} {what}: "
+                        f"differs from its plain version")
+                    check(bool(torch.isinf(got[empty]).all()),
+                          f"segment_max_sorted K={k} {what}: empty rows not "
+                          f"-inf")
+                    cases += 1
             for f in SEGMENT_MAX_WIDTHS:
                 msgs = tied_messages(gen, e, f, dtype, device)
                 gout = torch.randn(n, f, generator=gen, device=device)
@@ -2810,7 +2892,9 @@ def time_segment_max_cases(device, timer, contexts, replaces):
     """The segment max kernels at the shapes their paths give them, on the
     arxiv-shaped GATv2 graph (1,505,280 slots, the GraphSAGE / GIN runs'
     context): the narrow one over ``[E, 4]`` scores in bf16 and f32
-    (``segment_max_narrow_arxiv_shape``), the wide forward and its backward
+    (``segment_max_narrow_arxiv_shape``; with its work list and its times on
+    ``skewed_graph`` with and without the 20,000-slot hub row,
+    ``hub_row_ms``), the wide forward and its backward
     with the ties split over the two layers' bf16 messages (``[E, 128]``,
     ``[E, 256]``) of ``train_sage_pool_arxiv_shape``. Bound: every input
     byte read once and every output byte written once, over the memory
@@ -2836,6 +2920,20 @@ def time_segment_max_cases(device, timer, contexts, replaces):
     gen = torch.Generator(device=device).manual_seed(21)
     entries = []
     index_bytes = e + (n + 1) * 4  # the mask and the row pointers
+    # The narrow kernel on skewed_graph with its 20,000-slot hub row and
+    # without it, [E, 4] scores with the slot mask.
+    hub_ms = {"bfloat16": {}, "float32": {}}
+    for label, hub in (("with_hub_row", 20_000), ("without_hub_row", 0)):
+        g = skewed_graph(device, hub=hub)
+        for dtype in (torch.bfloat16, torch.float32):
+            sc = torch.randn(g["e"], GAT_ARXIV_HEADS, generator=gen,
+                             device=device).to(dtype)
+            hub_ms[str(dtype)[6:]][label] = {
+                "slots": g["e"], "ms": timer.cold_ms(
+                    lambda: K.segment_max_sorted(
+                        sc, g["recv"], g["n"], row_ptr=g["row_ptr"],
+                        mask=g["mask"]))}
+        del g, sc
 
     def entry(name, path, shape, err, kernel, plain, library, scatter,
               nbytes, ops, not_reused=None):
@@ -2882,6 +2980,9 @@ def time_segment_max_cases(device, timer, contexts, replaces):
                                  device=device).scatter_reduce_(
                   0, index.expand(e, k), scores, "amax"),
               e * k * es + n * k * es + index_bytes, e * k)
+        entries[-1].update(piece_fields(row_ptr, K.SPLIT_PIECE))
+        entries[-1]["cuda_kernels"] = ["segment_max_sorted_kernel"]
+        entries[-1]["hub_row_ms"] = hub_ms[str(dtype)[6:]]
         del scores, got
     for layer, f in (("layer 1", ARXIV_FEATS), ("layer 2", HIDDEN)):
         msgs = tied_messages(gen, e, f, torch.bfloat16, device)
@@ -2934,7 +3035,10 @@ def segment_max_narrow_phase(device, ctx, timer):
     are read around those two calls alone. Each result is held bit for bit
     against the plain version, and on the rows with an unmasked slot against
     the softmax statistics kernel's ``m`` over the same scores (masked slots
-    at ``-inf``). Returns the counts."""
+    at ``-inf``). Then, outside those calls, the same on ``skewed_graph``
+    with its 20,000-slot hub row and without it (empty rows, a masked padded
+    tail): bit for bit against the plain version (the kernels line has its
+    times there). Returns the counts."""
     from keras_geometric_tpu_torch.kernels import softmax_cuda as S
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
@@ -2971,6 +3075,22 @@ def segment_max_narrow_phase(device, ctx, timer):
             "equal_to_plain_and_to_softmax_m": True,
             "ms": timer.cold_ms(lambda: K.segment_max_sorted(
                 scores, recv, n, row_ptr=row_ptr, mask=mask), iters=10)}
+    for label, hub in (("with_hub_row", 20_000), ("without_hub_row", 0)):
+        g = skewed_graph(device, hub=hub)
+        for dtype in (torch.bfloat16, torch.float32):
+            scores = torch.randn(g["e"], GAT_ARXIV_HEADS, generator=gen,
+                                 device=device).to(dtype)
+            args = (g["recv"], g["n"])
+            kw = dict(row_ptr=g["row_ptr"], mask=g["mask"])
+            out = K.segment_max_sorted(scores, *args, **kw)
+            check(torch.equal(out, K.segment_max_sorted_plain(
+                scores, *args, mask=g["mask"])),
+                f"segment_max_narrow on skewed_graph {label} "
+                f"{str(dtype)[6:]}: differs from its plain version")
+            report[f"skewed_graph {label} {str(dtype)[6:]}"] = {
+                "slots": g["e"], "longest_row": longest_row(g["row_ptr"]),
+                "equal_to_plain": True}
+        del g, scores, out
     emit("segment_max_narrow_arxiv_shape", launches=counts, slots=e,
          nodes=n, **report)
     return counts

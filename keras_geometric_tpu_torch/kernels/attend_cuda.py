@@ -34,7 +34,10 @@ Source notes, one per kernel (all five are bound by bytes):
   order by a second launch (the flash-decoding combine).
 - ``attend_aggregate_sorted``: ``out[r] = sum_e alpha*keep*ht[senders e]``
   from cached scores, ``m`` and ``l``; reads the node rows, the score stream,
-  writes the output. A group per (row, head).
+  writes the output. A group per (piece, head) of rho's work list, the
+  piece's scores staged as its flags (a slot whose score is ``-inf`` is never
+  gathered); a split row's output is its pieces' f32 shares added in piece
+  order by a second launch.
 - ``attend_rho_sorted``: ``rho[r, h] = sum_e alpha*keep*<g[r, h], ht[j, h]>``
   from the cached scores, or from scores recomputed in registers; reads two
   node arrays and the score stream, writes ``[N, H]``. A split row's ``rho``
@@ -52,10 +55,11 @@ Source notes, one per kernel (all five are bound by bytes):
   ``alpha*keep*g[r] + d_pre`` in f32, rounded once. Padded slots are never
   gathered.
 
-The forward, rho and the receiver backward walk pieces of at most
-``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built once per ``row_ptr``
-tensor and kept beside it, at a context's first forward), so no group walks
-a long row, the padded tail or a hub, serially; the sender backward walks
+The forward, the aggregation, rho and the receiver backward walk pieces of
+at most ``RECV_BWD_PIECE`` slots (:func:`recv_bwd_work`, built once per
+``row_ptr`` tensor and kept beside it, at a context's first forward), so no
+group walks a long row, the padded tail or a hub, serially; the sender
+backward walks
 the pieces of the sender-sorted stream (``row_ptr_bwd``'s list, built at a
 context's first backward, which the permute finish walks too). Each group
 copies its piece's senders (the sender backward: receivers, and their ``m``,
@@ -63,7 +67,7 @@ copies its piece's senders (the sender backward: receivers, and their ``m``,
 in one go, keeps the gathered rows of the next slots in flight in a
 shared-memory ring filled by ``cp.async`` (the sender backward: each slot's
 receiver's ``ht`` and ``g`` rows), and never gathers a padded slot. Each of
-the four calls is two kernel launches (the piece walk, then the fixed-order
+the five calls is two kernel launches (the piece walk, then the fixed-order
 combination of the split rows; the receiver backward's second launch also
 sums ``datt``) and counts one launch. No atomics: every result is
 bit-reproducible, and a row whose finite scores lie in one piece (every row
@@ -345,7 +349,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.kgt_sddmm_stats_agg_sorted.restype = i32
     lib.kgt_attend_aggregate_sorted.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, i32, vp, i64, i32, i64, f32, i32, vp,
+        vp, vp, vp, vp, vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, i64, i64,
+        i32, i64, f32, i32, vp,
     ]
     lib.kgt_attend_aggregate_sorted.restype = i32
     lib.kgt_attend_rho_sorted.argtypes = [
@@ -547,11 +552,14 @@ def attend_aggregate_sorted(scores, m, l, ht, senders, receivers, row_ptr, *,
     if out.numel() == 0:
         return out
     lib = _library()
+    work = recv_bwd_work(row_ptr)
+    shares = _shares(work, d, device)
     with torch.cuda.device(device):
         code = lib.kgt_attend_aggregate_sorted(
             scores.data_ptr(), m.data_ptr(), l.data_ptr(), ht.data_ptr(),
-            senders.data_ptr(), row_ptr.data_ptr(), drop_ptr, drop_bf16,
-            out.data_ptr(), n, heads, f, float(eps),
+            senders.data_ptr(), *_work_args(work), drop_ptr, drop_bf16,
+            out.data_ptr(), None if shares is None else shares.data_ptr(),
+            *_fix_args(work), n, heads, f, float(eps),
             int(ht.dtype == torch.bfloat16), _stream(),
         )
     _raise_on_error(lib, code, "attend_aggregate_sorted")

@@ -66,11 +66,11 @@
 // shares with sddmm.cu. At F = 64 in bf16 a head takes 8 lanes and a warp
 // four heads, so wide packs keep several heads busy with each operation a
 // warp issues.
-// The forward, rho and the receiver backward walk pieces: a host-built work
-// list (attend_cuda.recv_bwd_work, one per row_ptr tensor) cuts every row
-// into pieces of at most 32 slots, and a fixed grid of groups strides over
-// the (piece, head) items with its head held constant, reading the next
-// piece's header a piece ahead. So no group walks a long row serially (the
+// The forward, the aggregation, rho and the receiver backward walk pieces:
+// a host-built work list (attend_cuda.recv_bwd_work, one per row_ptr
+// tensor) cuts every row into pieces of at most 32 slots, and a fixed grid
+// of groups strides over the (piece, head) items with its head held
+// constant, reading the next piece's header a piece ahead. So no group walks a long row serially (the
 // padded tail, which prepare_graph puts in the last row, or a hub). A group
 // copies its piece's senders, scores (or validity) and keep factors into
 // shared memory in one go (cp.async, stage_piece), then keeps the sender
@@ -79,10 +79,11 @@
 // gathered. A piece that is its whole row stores its row's results as a
 // row walk would; the pieces of a split row leave f32 partials in scratch,
 // and a second launch combines them in piece order (no atomics): the
-// forward's per-piece (m, l, o) by the flash-decoding merge, rho's and dht's
-// shares by a sum. The per-slot arithmetic, not the walk's latency, bounds
-// these kernels at arxiv's shapes (PERF.md): the forward and rho run at four
-// blocks per SM, the receiver backward at two or three.
+// forward's per-piece (m, l, o) by the flash-decoding merge, the
+// aggregation's, rho's and dht's shares by a sum. The per-slot arithmetic,
+// not the walk's latency, bounds these kernels at arxiv's shapes (PERF.md):
+// the forward, the aggregation and rho run at four blocks per SM, the
+// receiver backward at two or three.
 // The sender backward walks the pieces of the sender-sorted stream (the
 // list of row_ptr_bwd): a group stages its piece's receivers (-1 for a padded
 // slot), keep factors and the receivers' (m, l, rho) of its head in shared
@@ -91,10 +92,10 @@
 // piece order by its second launch. So neither a hub sender nor the padded
 // tail, which in sender order piles into the last row, is walked serially,
 // and a padded slot costs one validity read. The aggregation from cached
-// scores walks whole rows, one group per (row, head): a row is a chain of
-// dependent reads (row pointer -> index -> gathered row -> shuffles) hidden
-// only by the warps in flight, so it is built for at least four blocks on a
-// multiprocessor (64 registers a thread).
+// scores stages its piece's scores as rho's flags, so a slot whose score is
+// -inf is never gathered either, and adds each slot's w * ht[sender] with
+// w = exp(s - m) / (l + eps) * keep: one exp and one division a slot, no
+// score and no online rescale.
 //
 // Wide heads (F > 256, lanes.cuh): a launch of its own instantiation (WIDE)
 // gives each group one 256-column slab of a (row or piece, head) pair. The
@@ -187,46 +188,6 @@ __device__ __forceinline__ float slot_alpha_wide(
   }
 }
 
-template <typename S, int VEC, int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-attend_aggregate_kernel(const float* __restrict__ scores,
-                        const float* __restrict__ m_in,
-                        const float* __restrict__ l_in,
-                        const S* __restrict__ ht,
-                        const int32_t* __restrict__ senders,
-                        const int32_t* __restrict__ row_ptr,
-                        const void* __restrict__ drop, int drop_bf16,
-                        S* __restrict__ out, int64_t n_rows, int heads, int f,
-                        int lph, float eps) {
-  const Geometry q = geometry(lph);
-  if (q.gid >= n_rows * heads * head_slabs<WIDE>(f)) return;
-  const Item it = item_of<WIDE>(q.gid, heads, f);
-  const int64_t row = it.row;
-  const int h = it.h;
-  const int64_t d = static_cast<int64_t>(heads) * f;
-  const int64_t col0 = it.col0;
-  const float m = m_in[row * heads + h];
-  const float denom = l_in[row * heads + h] + eps;
-
-  float o[NJ][VEC];
-  zero_lane<VEC, NJ>(o);
-  const int64_t hi = row_ptr[row + 1];
-  for (int64_t e = row_ptr[row]; e < hi; ++e) {
-    const float s = scores[e * heads + h];
-    if (!(s > -INFINITY)) continue;  // an invalid slot: alpha is 0
-    float hj[NJ][VEC];
-    const float keep = load_edge<S, VEC, NJ>(
-        ht, senders, drop, drop_bf16, e, d, col0, heads, h, it.fk, q, hj);
-    const float w = expf(s - m) / denom * keep;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) o[j][i] += w * hj[j][i];
-    }
-  }
-  store_lane<S, VEC, NJ>(out + row * d + col0, it.fk, q, o);
-}
-
 // ---------------------------------------------------------------------------
 // The shares of split rows. The piece walk itself (the work list, the staged
 // piece table, the ring of sender rows, launch_pieces) is recv_pieces.cuh's,
@@ -263,6 +224,23 @@ __device__ __forceinline__ float sum_shares(const float* __restrict__ part,
     acc += part[static_cast<int64_t>(p) * cols + c];
   }
   return acc;
+}
+
+// The second launch of the aggregation and of the sender backward, one
+// thread per (split row, column): its pieces' f32 shares added in piece
+// order, rounded once.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+shares_finish_kernel(const float* __restrict__ part,
+                     const int32_t* __restrict__ fix_rows,
+                     const int32_t* __restrict__ fix_ptr, int64_t n_fix,
+                     int64_t d, S* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_fix * d) return;
+  const int64_t k = i / d;
+  const int64_t c = i - k * d;
+  out[static_cast<int64_t>(fix_rows[k]) * d + c] =
+      Cvt<S>::from_f(sum_shares(part, d, fix_ptr, k, c));
 }
 
 // Blocks per SM the receiver backward is built for, by whether it writes v
@@ -597,6 +575,112 @@ rho_finish_kernel(const float* __restrict__ rho_part,
   const int64_t h = i - k * heads;
   rho[static_cast<int64_t>(fix_rows[k]) * heads + h] =
       sum_shares(rho_part, heads, fix_ptr, k, h);
+}
+
+// ---------------------------------------------------------------------------
+// The aggregation from cached scores
+// ---------------------------------------------------------------------------
+
+// Adds a slot's sender columns hj weighted by w to the output columns o, one
+// fused multiply-add a column in slot order (what `o += w * hj` compiles to).
+template <int VEC, int NJ>
+__device__ __forceinline__ void add_weighted(float w,
+                                             const float (&hj)[NJ][VEC],
+                                             float (&o)[NJ][VEC]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[j][i] = fmaf(w, hj[j][i], o[j][i]);
+  }
+}
+
+// One group per (piece, head, slab) of rho's work list: a slot whose cached
+// score is finite adds w * ht[sender] with w = exp(s - m) / (l + eps) * keep,
+// the slots of a piece in slot order. A piece that is its whole row stores
+// it, rounded once (so such a row has a serial walk's bits); a piece of a
+// split row stores its f32 share, and the second launch adds the shares in
+// piece order (shares_finish_kernel).
+template <typename S, int VEC, int NJ, bool WIDE>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+attend_aggregate_kernel(const float* __restrict__ scores,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const S* __restrict__ ht,
+                        const int32_t* __restrict__ senders,
+                        const int4* __restrict__ pieces, int64_t n_pieces,
+                        int cap, const void* __restrict__ drop, int drop_bf16,
+                        S* __restrict__ out, float* __restrict__ out_part,
+                        int heads, int f, int lph, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Geometry q = geometry(lph);
+  // The grid holds a multiple of heads * slabs groups, so a group that
+  // strides over the (piece, head, slab) triples by the grid's size keeps
+  // its head and slab.
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * (kThreads / lph);
+  const int64_t per_row = static_cast<int64_t>(heads) * head_slabs<WIDE>(f);
+  const int64_t n_items = n_pieces * per_row;
+  const Item mine = fixed_grid_item<WIDE>(q.gid, heads, f);
+  const int h = mine.h;
+  const int fk = mine.fk;
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t col0 = mine.col0;
+  const PieceTable t =
+      piece_table(smem, SenderRing<S, VEC, NJ>::kBytes, lph, cap);
+
+  int4 pc = make_int4(0, 0, 0, -1);
+  if (q.gid < n_items) pc = pieces[q.gid / per_row];
+  for (int64_t item = q.gid; item < n_items; item += n_groups) {
+    int4 pc_next = make_int4(0, 0, 0, -1);  // read a piece ahead
+    if (item + n_groups < n_items) pc_next = pieces[(item + n_groups) / per_row];
+    const int64_t row = pc.x;
+    const int64_t lo = pc.y;
+    const int n = pc.z - pc.y;
+    const float m = m_in[row * heads + h];
+    const float denom = l_in[row * heads + h] + eps;
+    float o[NJ][VEC];
+    zero_lane<VEC, NJ>(o);
+
+    if constexpr (WIDE) {
+      // Rows from device memory, slab by slab (no ring).
+      for (int64_t e = lo; e < lo + n; ++e) {
+        const float s = scores[e * heads + h];
+        if (!(s > -INFINITY)) continue;  // an invalid slot: alpha is 0
+        float hj[NJ][VEC];
+        const float keep = load_edge<S, VEC, NJ>(
+            ht, senders, drop, drop_bf16, e, d, col0, heads, h, fk, q, hj);
+        add_weighted<VEC, NJ>(expf(s - m) / denom * keep, hj, o);
+      }
+    } else {
+      // The piece's senders, scores and keep factors land in one go; a
+      // slot whose score is -inf is never gathered.
+      stage_piece<false>(t, lo, n, senders, scores, nullptr, drop, drop_bf16,
+                         heads, h, q);
+      piece_landed(q);
+      ring_start<S, VEC, NJ>(smem, t, n, ht, d, col0, fk, q);
+      int stage = 0;
+      for (int j = 0; j < n; ++j) {
+        copy_wait<kRing - 1>();
+        const float s = t.flag[j];
+        if (s > -INFINITY) {
+          float hj[NJ][VEC];
+          SenderRing<S, VEC, NJ>::read(smem, stage, fk, q, hj);
+          const float keep = drop == nullptr ? 1.0f : t.keep[j];
+          add_weighted<VEC, NJ>(expf(s - m) / denom * keep, hj, o);
+        }
+        stage =
+            ring_next<S, VEC, NJ>(smem, t, j, n, stage, ht, d, col0, fk, q);
+      }
+    }
+
+    if (pc.w < 0) {  // the whole row
+      store_lane<S, VEC, NJ>(out + row * d + col0, fk, q, o);
+    } else {  // a share of a split row
+      store_share<VEC, NJ>(out_part + static_cast<int64_t>(pc.w) * d + col0,
+                           fk, q, o);
+    }
+    pc = pc_next;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1020,22 +1104,6 @@ attend_send_bwd_kernel(const S* __restrict__ ht, const S* __restrict__ g,
   }
 }
 
-// The sender backward's second launch, one thread per (split sender row,
-// column): its pieces' f32 shares added in piece order, rounded once.
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-send_bwd_finish_kernel(const float* __restrict__ out_part,
-                       const int32_t* __restrict__ fix_rows,
-                       const int32_t* __restrict__ fix_ptr, int64_t n_fix,
-                       int64_t d, S* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_fix * d) return;
-  const int64_t k = i / d;
-  const int64_t c = i - k * d;
-  out[static_cast<int64_t>(fix_rows[k]) * d + c] =
-      Cvt<S>::from_f(sum_shares(out_part, d, fix_ptr, k, c));
-}
-
 // Blocks of a second launch with one thread per (split row, column) of
 // `cols` columns, 0 when the grid would not fit.
 inline int64_t finish_blocks(int64_t n_fix, int64_t cols) {
@@ -1110,30 +1178,58 @@ int kgt_sddmm_stats_agg_sorted(
 }
 
 // Aggregation from cached scores [n_slots, heads] (-inf on invalid slots)
-// and m, l [n_rows, heads], all f32; ht/out in the data's type.
+// and m, l [n_rows, heads], all f32; ht/out in the data's type. pieces, cap,
+// fix_rows, fix_ptr and n_fix as for the forward (rho's work list); a split
+// row's out is the sum of its shares in out_part ([*, heads*f] f32
+// scratch), written before it is read.
 int kgt_attend_aggregate_sorted(const float* scores, const float* m,
                                 const float* l, const void* ht,
-                                const int32_t* senders,
-                                const int32_t* row_ptr, const void* drop,
-                                int drop_bf16, void* out, int64_t n_rows,
-                                int heads, int64_t f, float eps, int is_bf16,
-                                void* stream) {
+                                const int32_t* senders, const int32_t* pieces,
+                                int64_t n_pieces, int cap, const void* drop,
+                                int drop_bf16, void* out, float* out_part,
+                                const int32_t* fix_rows,
+                                const int32_t* fix_ptr, int64_t n_fix,
+                                int64_t n_rows, int heads, int64_t f,
+                                float eps, int is_bf16, void* stream) {
+  const int64_t d = static_cast<int64_t>(heads) * f;
+  const int64_t fix_blocks = finish_blocks(n_fix, d);
   if (scores == nullptr || m == nullptr || l == nullptr || ht == nullptr ||
-      senders == nullptr || row_ptr == nullptr || out == nullptr ||
-      !shape_ok(n_rows, heads, f)) {
+      senders == nullptr || out == nullptr || !shape_ok(n_rows, heads, f) ||
+      !pieces_ok(pieces, n_pieces, n_rows, cap, n_fix,
+                 out_part != nullptr && fix_rows != nullptr &&
+                     fix_ptr != nullptr,
+                 heads, f) ||
+      (n_fix > 0 && fix_blocks == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = pick_layout(f, is_bf16 ? 2 : 4, ht, out, ht, out);
   const unsigned grid =
-      blocks_for_all(n_rows, heads * lay.slabs, lay.lph);
+      blocks_for_fixed_grid(n_pieces, heads * lay.slabs, lay.lph);
   const int fi = static_cast<int>(f);
+  const int4* work = reinterpret_cast<const int4*>(pieces);
 #define KGT_AGG(S)                                                          \
-  attend_aggregate_kernel<S, VEC, NJ, WIDE><<<grid, kThreads, 0, s>>>(      \
-      scores, m, l, static_cast<const S*>(ht), senders, row_ptr, drop,      \
-      drop_bf16, static_cast<S*>(out), n_rows, heads, fi, lay.lph, eps)
+  {                                                                         \
+    const cudaError_t err = launch_pieces(                                  \
+        attend_aggregate_kernel<S, VEC, NJ, WIDE>, grid,                    \
+        piece_smem<S, VEC, NJ, WIDE>(lay.lph, cap), s, scores, m, l,        \
+        static_cast<const S*>(ht), senders, work, n_pieces, cap, drop,      \
+        drop_bf16, static_cast<S*>(out), out_part, heads, fi, lay.lph,      \
+        eps);                                                               \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+  }
   KGT_DISPATCH(is_bf16, lay, KGT_AGG)
 #undef KGT_AGG
+  if (n_fix > 0) {
+    const unsigned blocks = static_cast<unsigned>(fix_blocks);
+    if (is_bf16) {
+      shares_finish_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+          out_part, fix_rows, fix_ptr, n_fix, d, static_cast<uint16_t*>(out));
+    } else {
+      shares_finish_kernel<float><<<blocks, kThreads, 0, s>>>(
+          out_part, fix_rows, fix_ptr, n_fix, d, static_cast<float*>(out));
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1334,10 +1430,10 @@ int kgt_attend_send_bwd_sorted(
   if (n_fix > 0) {
     const unsigned blocks = static_cast<unsigned>(fix_blocks);
     if (is_bf16) {
-      send_bwd_finish_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+      shares_finish_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
           out_part, fix_rows, fix_ptr, n_fix, d, static_cast<uint16_t*>(out));
     } else {
-      send_bwd_finish_kernel<float><<<blocks, kThreads, 0, s>>>(
+      shares_finish_kernel<float><<<blocks, kThreads, 0, s>>>(
           out_part, fix_rows, fix_ptr, n_fix, d, static_cast<float*>(out));
     }
   }

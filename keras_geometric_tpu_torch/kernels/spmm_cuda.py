@@ -43,8 +43,13 @@ Source notes, one per kernel:
 - ``segment_max_sorted`` (``csrc/segment_max.cu``) replaces
   ``segment_max_sorted``'s ``_segment_max_kernel``: the per-row max of narrow
   ``[E, K]`` scores, ``-inf`` for a row without an unmasked slot, no VJP. Bound
-  by bytes (the scores once, ``[N, K]`` written). A group of 8 lanes per row
-  strides over its slots, up to 8 columns per lane, then a butterfly max.
+  by bytes (the scores once, ``[N, K]`` written). It walks the messages
+  form's list (``recv_bwd_work(row_ptr, split_piece=SPLIT_PIECE)``), one
+  thread per (piece, pack of up to 16 bytes of a slot's heads), eight slots'
+  packs and mask bytes loaded at once; a split row's f32 shares are merged
+  in the same launch by the warp of the piece that draws the row's last
+  ticket (the tickets kept on ``row_ptr``, shared with the scatter). Every
+  row equals a serial walk's max, bit for bit.
 - ``segment_max_wide_raw`` / ``segment_max_wide_sorted`` (same source)
   replace ``_segment_max_wide_kernel`` and its custom VJP: the per-row max
   of wide ``[E, F]`` messages into ``[N, F]`` f32 (the ``-1e30`` sentinel on
@@ -154,8 +159,9 @@ def row_ptr_from_sorted(receivers: torch.Tensor, num_nodes: int) -> torch.Tensor
 # Slots a group of those kernels walks at most.
 RECV_BWD_PIECE = 32
 # The pieces of a longer row in the lists of the kernels whose slots are
-# independent: the messages-form scatter's and the score backward's
-# (``sddmm_cuda.BWD_SPLIT_PIECE``), one list on a ``row_ptr``.
+# independent: the messages-form scatter's, the narrow segment max's and the
+# score backward's (``sddmm_cuda.BWD_SPLIT_PIECE``), one list on a
+# ``row_ptr``.
 SPLIT_PIECE = 8
 
 
@@ -412,8 +418,9 @@ def _launch_rows(h, idx, row_ptr, num_nodes, weights, self_weight):
 
 def _split_row_tickets(row_ptr, count):
     """At least ``count`` int32 zeros on ``row_ptr``'s device, kept on the
-    tensor beside its work lists: the messages-form scatter's arrival tickets
-    (one per split row and column pack), which every launch leaves at zero.
+    tensor beside its work lists: the messages-form scatter's and the narrow
+    segment max's arrival tickets (one per split row and column pack), which
+    every launch leaves at zero.
     Calls over one ``row_ptr`` run in order on one stream, so one set
     serves them all."""
     tickets = getattr(row_ptr, "_split_row_tickets", None)
@@ -710,7 +717,9 @@ def segment_max_wide_bwd_plain(messages, maxv, g, receivers, num_nodes, *,
 def _segment_max_library() -> ctypes.CDLL:
     lib = _build.load_library("segment_max")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.kgt_segment_max_sorted.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
+    lib.kgt_segment_max_sorted.argtypes = [
+        vp, vp, i64, vp, vp, vp, vp, vp, i64, vp, i64, i32, i32, vp,
+    ]
     lib.kgt_segment_max_sorted.restype = i32
     lib.kgt_segment_max_wide_sorted.argtypes = [
         vp, vp, vp, vp, i64, i64, i32, i32, vp,
@@ -748,10 +757,21 @@ def _segment_max_narrow(scores, receivers, row_ptr, num_nodes, mask):
     if scores.shape[0] == 0:  # no slot to walk: every row is empty
         return out.fill_(float("-inf"))
     lib = _segment_max_library()
+    # The messages form's list: a split row's pieces run side by side.
+    work = recv_bwd_work(row_ptr, split_piece=SPLIT_PIECE)
+    n_fix = int(work.fix_rows.shape[0])
+    part = tickets = None
+    if n_fix:
+        part = torch.empty(work.num_shares, k, dtype=torch.float32,
+                           device=device)
+        tickets = _split_row_tickets(row_ptr, n_fix * k)
     with torch.cuda.device(device):
         code = lib.kgt_segment_max_sorted(
-            scores.data_ptr(), row_ptr.data_ptr(),
-            mask_ptr, out.data_ptr(), num_nodes, k,
+            scores.data_ptr(), work.pieces.data_ptr(), work.num_pieces,
+            mask_ptr, out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            work.fix_rows.data_ptr(), work.fix_ptr.data_ptr(), n_fix,
+            None if tickets is None else tickets.data_ptr(), num_nodes, k,
             int(scores.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
