@@ -152,7 +152,22 @@ exit code and without the final line; so does a run of a subset of the phases
                 wide segment max and its backward with the ties split;
 15. ``train_sage_cora_shape``  run 5's Cora-shaped graph without self-loops,
                 ``GraphSAGE((16, 7))`` (mean) with message dropout 0.5, f32,
-                AdamW: the per-edge mean (messages-form scatter).
+                AdamW: the per-edge mean (messages-form scatter);
+16. ``train_sage_minibatch_ogbn_arxiv``  the data tier and neighbour-sampled
+                GraphSAGE minibatch training on the repository's ogbn-arxiv
+                cache (``data/ogbn_arxiv``, 169,343 nodes, 2,332,486 edges):
+                ``NeighborSampler`` fanouts (25, 10), batch 512, ``SAGEConv``
+                128 -> 256 -> 40 (mean), Adam 1e-3, f32, features and labels
+                held on the card; 20 batches through ``prefetch``; step 1
+                against the same bucket's step on the CPU, the loss falling,
+                a checkpoint resumed bit for bit, sampled validation
+                accuracy, host and device times, the device's idle share
+                and the bucket's real against padded rows (no hand-written
+                kernel lies on this path: the aggregations are library ops,
+                as the reference's are XLA segment ops);
+17. ``train_gcn_ogbn_arxiv``  the full-graph GCN of run 4 on the same
+                dataset's own graph and train split, through ``prepare_graph``
+                (the fused-gather scatter, 3 launches a step).
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -202,7 +217,8 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_gat_citeseer_shape_send", "attend_two_pass_arxiv_shape",
           "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape",
           "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
-          "train_gin_max_arxiv_shape", "train_sage_cora_shape")
+          "train_gin_max_arxiv_shape", "train_sage_cora_shape",
+          "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -3853,6 +3869,69 @@ def profile_steps(step_fn, iters=10, top=14):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
 
+    rows = device_time_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "profiler recorded no device time")
+    return {
+        "steps": iters, "wall_ms_per_step": wall_ms / iters,
+        "device_busy_ms_per_step": busy_ms / iters,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernels_per_step": sum(r[2] for r in rows) / iters,
+        "top": [{"name": k[:80], "ms_per_step": us / 1e3 / iters,
+                 "calls_per_step": c / iters} for us, k, c in rows[:top]],
+    }
+
+
+# ---------------------------------------------------------------------------
+# The data tier: ogbn-arxiv from the repository's cache
+# ---------------------------------------------------------------------------
+
+OGBN_ARXIV_EDGES = 2_332_486  # the cache's symmetrized edges
+SAGE_FANOUTS, SAGE_BATCH, SAGE_BATCHES = (25, 10), 512, 20
+SAGE_VALID_NODES = 4_096
+
+
+def ogbn_arxiv_data():
+    """The tracked ogbn-arxiv cache (``data/ogbn_arxiv``) as host arrays:
+    the memory maps copied once, with the seconds that took."""
+    from keras_geometric_tpu_torch.data.datasets import OGBNodeDataset
+
+    start = time.perf_counter()
+    ds = OGBNodeDataset("ogbn-arxiv", root=str(
+        pathlib.Path(__file__).resolve().parent / "data"))
+    senders, receivers = ds.edges()
+    data = dict(
+        dataset=ds, edges=np.stack([np.array(senders), np.array(receivers)]),
+        x=np.array(ds.x), y=np.array(ds.y), split=ds.split_idx())
+    data["load_s"] = time.perf_counter() - start
+    return data
+
+
+def ogbn_arxiv_gcn_workload(device, data):
+    """``train_arxiv_shape``'s preparation of the dataset's own graph, with
+    its train split as the loss mask."""
+    import keras_geometric_tpu_torch as kgt
+
+    ds = data["dataset"]
+    start = time.perf_counter()
+    ctx = kgt.prepare_graph(
+        data["edges"], ds.num_nodes, add_self_loops=True, gcn_normalize=True,
+        symmetric=True, densify_self_loops=True, pad_nodes=True,
+        device=device)
+    prepare_s = time.perf_counter() - start
+    n_pad = ctx.num_nodes
+    x = np.pad(data["x"], ((0, n_pad - ds.num_nodes), (0, 0)))
+    y = np.pad(data["y"].astype(np.int64), (0, n_pad - ds.num_nodes))
+    mask = np.zeros(n_pad, bool)
+    mask[data["split"]["train"]] = True
+    dev = lambda arr: torch.from_numpy(arr).to(device)
+    return ctx.with_weight_dtype(torch.bfloat16), dev(x), dev(y), dev(mask), \
+        prepare_s
+
+
+def device_time_rows(prof) -> list:
+    """``(self device us, name, calls)`` of every kernel and copy a
+    ``torch.profiler`` run recorded, largest first."""
     def self_device_us(ev):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(ev, attr):
@@ -3867,17 +3946,224 @@ def profile_steps(step_fn, iters=10, top=14):
                    if ev.device_type == on_device
                    and not getattr(ev, "is_user_annotation", False)),
                   reverse=True)
-    rows = [r for r in rows if r[0] > 0]
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "profiler recorded no device time")
-    return {
-        "steps": iters, "wall_ms_per_step": wall_ms / iters,
-        "device_busy_ms_per_step": busy_ms / iters,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernels_per_step": sum(r[2] for r in rows) / iters,
-        "top": [{"name": k[:80], "ms_per_step": us / 1e3 / iters,
-                 "calls_per_step": c / iters} for us, k, c in rows[:top]],
-    }
+    return [r for r in rows if r[0] > 0]
+
+
+def sage_minibatch_phase(device, data) -> dict:
+    """Neighbour-sampled GraphSAGE minibatch training on ogbn-arxiv, as the
+    reference's example runs it (``examples/sage_minibatch.py``: fanouts
+    (25, 10), batch 512, 256 hidden, Adam 1e-3). Returns the launch counts
+    of the run that counts (all 0: no hand-written kernel on this path)."""
+    import itertools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from keras_geometric_tpu_torch import SAGEConv, native
+    from keras_geometric_tpu_torch.data.sampling import (
+        NeighborSampler,
+        prefetch,
+    )
+    from keras_geometric_tpu_torch.training import (
+        TrainState,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from keras_geometric_tpu_torch.training.sage_minibatch import (
+        make_sage_minibatch_step,
+        subgraph_to_arrays,
+    )
+    from keras_geometric_tpu_torch.utils import timed_steps
+
+    name = "train_sage_minibatch_ogbn_arxiv"
+    ds = data["dataset"]
+    n, feats, classes = ds.num_nodes, ds.num_feats, ds.num_classes
+    check((n, feats, classes) == (ARXIV_NODES, ARXIV_FEATS, ARXIV_CLASSES)
+          and data["edges"].shape[1] == OGBN_ARXIV_EDGES,
+          f"{name}: the dataset has the wrong size")
+    branch = "native" if native.available() else "numpy"
+    start = time.perf_counter()
+    make_sampler = lambda seed=0: NeighborSampler(data["edges"], n,
+                                                  SAGE_FANOUTS, seed=seed)
+    sampler = make_sampler()
+    sampler_build_s = time.perf_counter() - start
+    x_dev = torch.from_numpy(data["x"]).to(device)
+    y_dev = torch.from_numpy(data["y"]).to(device)
+    train_nodes = data["split"]["train"]
+
+    # Host time a batch, on a sampler of its own (the run's stream stays
+    # the example's): sampling, then the bucket's gather on the card.
+    timing_sampler = make_sampler(seed=1)
+    sample_s, to_arrays_s = [], []
+    for sub_seeds in np.split(train_nodes[:3 * SAGE_BATCH], 3):
+        start = time.perf_counter()
+        sub = timing_sampler.sample(sub_seeds, batch_size=SAGE_BATCH)
+        sample_s.append(time.perf_counter() - start)
+        start = time.perf_counter()
+        subgraph_to_arrays(sub, x_dev, y_dev)
+        torch.cuda.synchronize()
+        to_arrays_s.append(time.perf_counter() - start)
+
+    def make_layers(dev, gen):
+        return torch.nn.ModuleList([
+            SAGEConv(HIDDEN, input_dim=feats, generator=gen, device=dev),
+            SAGEConv(classes, input_dim=HIDDEN, activation=None,
+                     generator=gen, device=dev)])
+
+    def make_run(dev, seed=0, optimizer=None):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        layers = make_layers(dev, gen)
+        opt = (optimizer or (lambda p: torch.optim.Adam(p, lr=1e-3)))(
+            layers.parameters())
+        step, infer = make_sage_minibatch_step(tuple(layers), classes, opt,
+                                               generator=gen)
+        return TrainState(layers, opt, generator=gen), step, infer
+
+    def grads_of(layers):
+        return {k: p.grad.detach().clone()
+                for k, p in layers.named_parameters()}
+
+    # Step 1 on the card against the same bucket's step on the CPU: the
+    # run's first bucket (a sampler of the same seed draws it), the same
+    # initial weights, an optimizer that leaves them where they are.
+    first = next(make_sampler().epoch(train_nodes, SAGE_BATCH))
+    sgd = lambda p: torch.optim.SGD(p, lr=0.0)
+    card, card_step, _ = make_run(device, optimizer=sgd)
+    host, host_step, _ = make_run("cpu", optimizer=sgd)
+    host.model.load_state_dict({k: v.cpu() for k, v in
+                                card.model.state_dict().items()})
+    card_loss = card_step(subgraph_to_arrays(first, x_dev, y_dev)).item()
+    host_loss = host_step(subgraph_to_arrays(first, data["x"], data["y"],
+                                             device="cpu")).item()
+    check(math.isfinite(card_loss) and abs(card_loss - host_loss) <= 1e-4,
+          f"{name}: step-1 loss {card_loss} vs the CPU path's {host_loss}")
+    grad_err = 0.0
+    host_grads = grads_of(host.model)
+    for key, g in grads_of(card.model).items():
+        scale = host_grads[key].abs().max().item()
+        err = (g.cpu() - host_grads[key]).abs().max().item()
+        check(math.isfinite(err) and err <= 2e-4 * max(scale, 1e-12),
+              f"{name}: step-1 gradient of {key}: err {err:.3e} against "
+              f"scale {scale:.3e}")
+        grad_err = max(grad_err, err / max(scale, 1e-12))
+    del card, host, host_grads
+
+    # The run that counts: 20 batches through prefetch (the worker samples
+    # on the host; copies and launches happen here), traced for the
+    # device's idle share; then the same 20 again untraced for wall time.
+    state, step, infer = make_run(device)
+    real_rows, real_edges = [], [[] for _ in SAGE_FANOUTS]
+
+    def batches(seed=None):
+        s = sampler if seed is None else make_sampler(seed)
+        return prefetch(itertools.islice(s.epoch(train_nodes, SAGE_BATCH),
+                                         SAGE_BATCHES), depth=2)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for sub in batches():
+            real_rows.append(int(sub.node_mask.sum()))
+            for k, (_, _, emask) in enumerate(sub.layers):
+                real_edges[k].append(int(emask.sum()))
+            losses.append(step(subgraph_to_arrays(sub, x_dev, y_dev)))
+            state.step += 1
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - start) * 1e3
+    counts, modes = launch_counts(), mode_launch_counts()
+    check(not any(counts.values()) and not any(modes.values()),
+          f"{name}: hand-written kernels launched on the minibatch path: "
+          f"{counts} {modes}")
+    check(len(losses) == SAGE_BATCHES, f"{name}: {len(losses)} batches")
+    losses = [l.item() for l in losses]
+    check(all(math.isfinite(l) for l in losses), f"{name}: loss not finite")
+    check(abs(losses[0] - card_loss) <= 1e-4,
+          f"{name}: the run's step-1 loss {losses[0]} vs {card_loss}")
+    check(sum(losses[-5:]) < sum(losses[:5]),
+          f"{name}: loss did not fall: {losses}")
+    busy_ms = sum(r[0] for r in device_time_rows(prof)) / 1e3
+    check(busy_ms > 0, f"{name}: the profiler recorded no device time")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    untimed = make_run(device)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for sub in batches(seed=2):
+        untimed[1](subgraph_to_arrays(sub, x_dev, y_dev))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3 / SAGE_BATCHES
+    del untimed
+
+    # Save, restore into a fresh model, optimizer and generator, and take
+    # the next step both ways: the same loss and weights, bit for bit
+    # (deterministic index_add_ on the card, for both steps).
+    ckpt = pathlib.Path(__file__).resolve().parent / "build" / "ckpt_sage"
+    nxt = subgraph_to_arrays(next(make_sampler(seed=3).epoch(
+        train_nodes, SAGE_BATCH)), x_dev, y_dev)
+    save_checkpoint(str(ckpt), state, config={"fanouts": SAGE_FANOUTS})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss_on = step(nxt)
+        fresh, fresh_step, _ = make_run(device, seed=11)
+        restore_checkpoint(str(ckpt), fresh)
+        loss_restored = fresh_step(nxt)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(fresh.step == SAGE_BATCHES and torch.equal(loss_on, loss_restored)
+          and all(torch.equal(a, b) for a, b in zip(
+              state.model.state_dict().values(),
+              fresh.model.state_dict().values())),
+          f"{name}: the restored run's next step differs from the "
+          f"uninterrupted one")
+    del fresh, fresh_step
+
+    # Device time of one step on one fixed bucket.
+    step_ms = 1e3 * timed_steps(lambda: step(nxt), k_lo=2, k_hi=12,
+                                trials=2)
+
+    # Sampled validation accuracy, as the example measures it.
+    correct = total = 0
+    for sub in sampler.epoch(data["split"]["valid"][:SAGE_VALID_NODES],
+                             SAGE_BATCH):
+        batch = subgraph_to_arrays(sub, x_dev, y_dev)
+        pred = infer(batch)[:SAGE_BATCH].argmax(-1)
+        hit = (pred == batch["y_seed"]) & batch["seed_mask"]
+        correct += int(hit.sum())
+        total += int(batch["seed_mask"].sum())
+    check(total == SAGE_VALID_NODES, f"{name}: {total} validation nodes")
+
+    caps = [SAGE_BATCH]
+    for f in SAGE_FANOUTS:
+        caps.append(caps[-1] * f)
+    emit(name, is_synthetic=ds.is_synthetic, sampler_branch=branch,
+         nodes=n, edges=int(data["edges"].shape[1]),
+         fanouts=list(SAGE_FANOUTS), batch_size=SAGE_BATCH,
+         batches=SAGE_BATCHES, losses=losses, step1_loss=card_loss,
+         step1_loss_cpu=host_loss, step1_grad_rel_err=grad_err,
+         checkpoint_resumed_bit_for_bit=True,
+         valid_accuracy_sampled=correct / total,
+         host_ms_per_batch={
+             "sample": 1e3 * sum(sample_s) / len(sample_s),
+             "subgraph_to_arrays": 1e3 * sum(to_arrays_s) / len(to_arrays_s)},
+         step_ms=step_ms, wall_ms_per_batch=wall_ms,
+         wall_ms_per_batch_traced=traced_ms / SAGE_BATCHES,
+         device_busy_ms_per_batch=busy_ms / SAGE_BATCHES,
+         device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
+         rows={"real_mean": sum(real_rows) / len(real_rows),
+               "padded": sum(caps)},
+         edge_slots={f"layer_{k}": {"real_mean": sum(v) / len(v),
+                                    "padded": caps[k] * SAGE_FANOUTS[k]}
+                     for k, v in enumerate(real_edges)},
+         peak_memory_mb=peak_mb, launches_per_step=0,
+         launches_per_step_why="the aggregations are library ops "
+         "(ops/segment.py), as the reference's are XLA segment ops",
+         load_seconds=data["load_s"], sampler_build_seconds=sampler_build_s,
+         x_on_card_mb=x_dev.numel() * 4 / 2**20)
+    return counts
 
 
 def main() -> int:
@@ -3959,7 +4245,10 @@ def main() -> int:
                   dev, workload("skewed_graph"), attend_window=ATTEND_WINDOW,
                   **gat_kw),
               "gat_skewed_plain": lambda dev: prepared_on(
-                  dev, workload("skewed_graph"), **gat_kw)}
+                  dev, workload("skewed_graph"), **gat_kw),
+              "ogbn_arxiv": lambda dev: ogbn_arxiv_data(),
+              "gcn_ogbn_arxiv": lambda dev: ogbn_arxiv_gcn_workload(
+                  dev, workload("ogbn_arxiv"))}
 
     def workload(name):
         if name not in workloads:
@@ -4119,6 +4408,8 @@ def main() -> int:
                                       adam_slow, torch.bfloat16),
         "train_sage_cora_shape": ("sage_cora", sage_cora_model, adamw(0.01),
                                   None),
+        "train_gcn_ogbn_arxiv": ("gcn_ogbn_arxiv", arxiv_model, adam,
+                                 torch.bfloat16),
     }
     # The attention's module constants (ATTEND_BWD_MODE, ATTEND_SCORE_CACHE)
     # of the runs that set them; every other run keeps the defaults.
@@ -4354,6 +4645,34 @@ def main() -> int:
               timed_iters=10, same_graph=workload("gat_skewed_plain")[:4],
               extra=locality)
     workloads.pop("gat_skewed_plain", None)
+    if args.profile != "train_gat_skewed_arxiv_shape":
+        workloads.pop("gat_skewed", None)
+    torch.cuda.empty_cache()
+
+    # The data tier: the repository's ogbn-arxiv cache, sampled minibatches
+    # of GraphSAGE (no hand-written kernel: library segment ops), then the
+    # full-graph GCN of train_arxiv_shape on the dataset's own graph.
+    if "train_sage_minibatch_ogbn_arxiv" in phases:
+        path_launches["train_sage_minibatch_ogbn_arxiv"] = (
+            sage_minibatch_phase(device, workload("ogbn_arxiv")))
+        path_mode_launches["train_sage_minibatch_ogbn_arxiv"] = (
+            mode_launch_counts())
+        torch.cuda.empty_cache()
+    if "train_gcn_ogbn_arxiv" in phases:
+        ctx, _, _, mask, prepare_s = workload("gcn_ogbn_arxiv")
+        ds = workload("ogbn_arxiv")["dataset"]
+        check(ctx.num_real_edges == ds.num_edges and
+              ctx.num_nodes == 169_472 and ctx.is_symmetric and
+              int(mask.sum()) == len(workload("ogbn_arxiv")["split"]["train"]),
+              "the ogbn-arxiv context has the wrong size")
+        emit("prepare_gcn_ogbn_arxiv", host_seconds=prepare_s,
+             load_seconds=workload("ogbn_arxiv")["load_s"],
+             is_synthetic=ds.is_synthetic, stream_edges=ctx.num_real_edges,
+             train_nodes=int(mask.sum()))
+        train("train_gcn_ogbn_arxiv", steps=20, per_step=spmm_only,
+              per_step_modes=gcn_rows, timed_iters=10, profile=True)
+    if args.profile != "train_gcn_ogbn_arxiv":
+        workloads.pop("gcn_ogbn_arxiv", None)
 
     if args.profile is not None:
         from keras_geometric_tpu_torch.training import (

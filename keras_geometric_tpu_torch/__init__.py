@@ -13,11 +13,14 @@ with hand-written band SpMM and window scatter kernels); and GIN and
 GraphSAGE with all six aggregators (``GINConv``, ``SAGEConv``, ``GIN``,
 ``GraphSAGE``, ``propagate`` / ``MessagePassing``, ``aggregate``,
 ``PoolingAggregator``), whose max and pooling paths on a context run the
-hand-written segment max kernel. Entry points run on a CUDA device unless the
-caller passes another.
+hand-written segment max kernel; and the data tier (``Graph``, ``GraphData``,
+``batch_graphs``, the dataset loaders, the neighbour sampler) with
+neighbour-sampled GraphSAGE minibatch training, checkpoints and metrics.
+Entry points run on a CUDA device unless the caller passes another.
 """
 
 from ._version import __version__
+from .graph import Graph
 from .models.gnn import GAT, GCN, GIN, GNNEncoder, GraphSAGE
 from .nn.aggregators import PoolingAggregator, aggregate
 from .nn.gatv2_conv import GATv2Conv
@@ -29,10 +32,28 @@ from .nn.sage_conv import SAGEConv
 from .ops.csr import GraphContext, prepare_graph
 from .ops.graph_ops import add_self_loops, ensure_edge_index, gcn_norm
 from .ops.precompute import precompute_propagation
+from .utils.data_utils import GraphData, batch_graphs
+
+
+def compute_gcn_normalization(edge_index, num_nodes):
+    """The reference's name for :func:`gcn_norm`."""
+    return gcn_norm(edge_index, num_nodes)
+
+
+def get_dataset_classes():
+    """The dataset loaders, imported on first call."""
+    from .data.datasets import CiteSeerDataset, CoraDataset, PubMedDataset
+
+    return {
+        "CoraDataset": CoraDataset,
+        "CiteSeerDataset": CiteSeerDataset,
+        "PubMedDataset": PubMedDataset,
+    }
 
 
 __all__ = [
     "__version__",
+    "Graph",
     "Module",
     "Dense",
     "MLP",
@@ -55,4 +76,8 @@ __all__ = [
     "add_self_loops",
     "gcn_norm",
     "ensure_edge_index",
+    "compute_gcn_normalization",
+    "GraphData",
+    "batch_graphs",
+    "get_dataset_classes",
 ]

@@ -1,1 +1,1 @@
-"""Data tier: synthetic graph generators (ported so far)."""
+"""Data tier: dataset loaders and neighbor sampling."""

@@ -1,17 +1,147 @@
-"""Synthetic graph generators.
+"""Synthetic graph generators for tests and benchmarks.
 
-Counterpart of the JAX package's ``data/datasets/synthetic.py``. Ported so
-far: :func:`community_graph`, which draws the same random numbers in the same
-order as the reference's, so a seed gives the same edges, bit for bit. The
-generators that return a ``GraphData`` (``synthetic_graph``,
-``synthetic_planetoid``) and ``rmat_edges`` come with the data tier.
+Counterpart of the JAX package's ``data/datasets/synthetic.py``: deterministic
+random graphs with the shape profile (node / edge / feature / class counts) of
+the datasets they stand in for, so the full train / eval path runs without a
+download. Every generator draws the same random numbers in the same order as
+the reference's, so a seed gives the same arrays, bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["community_graph"]
+from ...utils.data_utils import GraphData
+
+__all__ = [
+    "synthetic_graph",
+    "synthetic_planetoid",
+    "rmat_edges",
+    "community_graph",
+    "PLANETOID_STATS",
+]
+
+# (num_nodes, num_directed_edges, num_features, num_classes) of the Planetoid
+# datasets.
+PLANETOID_STATS = {
+    "cora": (2708, 10858, 1433, 7),
+    "citeseer": (3327, 9464, 3703, 6),
+    "pubmed": (19717, 88676, 500, 3),
+}
+
+
+def synthetic_graph(
+    num_nodes: int,
+    num_edges: int,
+    num_features: int,
+    *,
+    num_classes: int | None = None,
+    seed: int = 0,
+    symmetric: bool = True,
+    dtype=np.float32,
+) -> GraphData:
+    """Uniform random graph with optional symmetric (undirected) edges."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((num_nodes, num_features)).astype(dtype)
+    e = num_edges // 2 if symmetric else num_edges
+    senders = rng.integers(0, num_nodes, size=e, dtype=np.int64)
+    receivers = rng.integers(0, num_nodes, size=e, dtype=np.int64)
+    if symmetric:
+        s = np.concatenate([senders, receivers])
+        r = np.concatenate([receivers, senders])
+    else:
+        s, r = senders, receivers
+    edge_index = np.stack([s, r]).astype(np.int32)
+    y = None
+    if num_classes is not None:
+        y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    return GraphData(x=x, edge_index=edge_index, y=y)
+
+
+def synthetic_planetoid(name: str = "cora", seed: int = 0) -> GraphData:
+    """A synthetic stand-in matching a Planetoid dataset's shape profile.
+
+    Adds the standard Planetoid split masks (train/val/test) as extras:
+    20 per class train, 500 val, 1000 test.
+    """
+    name = name.lower()
+    if name not in PLANETOID_STATS:
+        raise ValueError(f"Unknown planetoid dataset: {name}")
+    n, e, f, c = PLANETOID_STATS[name]
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, c, size=n).astype(np.int32)
+    # Homophilous edges (like real citation graphs): 80% of edges connect
+    # same-label nodes, so neighbor aggregation reinforces the signal.
+    n_undirected = e // 2
+    senders = rng.integers(0, n, size=n_undirected)
+    receivers = np.empty(n_undirected, np.int64)
+    same = rng.random(n_undirected) < 0.8
+    by_label = [np.where(y == cls)[0] for cls in range(c)]
+    receivers[~same] = rng.integers(0, n, size=int((~same).sum()))
+    for cls in range(c):
+        sel = same & (y[senders] == cls)
+        receivers[sel] = rng.choice(by_label[cls], size=int(sel.sum()))
+    edge_index = np.stack(
+        [np.concatenate([senders, receivers]), np.concatenate([receivers, senders])]
+    ).astype(np.int32)
+    # Weak per-class feature signal on top of noise.
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    x[np.arange(n), y % f] += 2.0
+    train_mask = np.zeros(n, bool)
+    for cls in range(c):
+        ids = np.where(y == cls)[0]
+        train_mask[rng.choice(ids, size=min(20, len(ids)), replace=False)] = True
+    rest = np.where(~train_mask)[0]
+    rng.shuffle(rest)
+    val_mask = np.zeros(n, bool)
+    test_mask = np.zeros(n, bool)
+    val_mask[rest[:500]] = True
+    test_mask[rest[500:1500]] = True
+    return GraphData(
+        x=x,
+        edge_index=edge_index,
+        y=y,
+        train_mask=train_mask,
+        val_mask=val_mask,
+        test_mask=test_mask,
+    )
+
+
+def rmat_edges(
+    scale: int,
+    num_edges: int,
+    *,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    seed: int = 0,
+    symmetric: bool = True,
+    drop_self_loops: bool = True,
+) -> np.ndarray:
+    """R-MAT (Kronecker) edge generator, the Graph500 standard.
+
+    Produces a ``[2, E]`` int32 edge index over ``2**scale`` nodes with a
+    power-law degree distribution and hierarchical community structure, the
+    two properties of real citation / social graphs that a uniform random
+    graph lacks. Quadrant probabilities default to the canonical (0.57,
+    0.19, 0.19, 0.05).
+    """
+    rng = np.random.default_rng(seed)
+    e = num_edges // 2 if symmetric else num_edges
+    s = np.zeros(e, np.int64)
+    r = np.zeros(e, np.int64)
+    for _ in range(scale):
+        u = rng.random(e)
+        right = u >= a + c  # sender high bit
+        down = (u >= a) & (u < a + c) | (u >= a + b + c)
+        s = 2 * s + right
+        r = 2 * r + down
+    if drop_self_loops:
+        keep = s != r
+        s, r = s[keep], r[keep]
+    if symmetric:
+        s, r = np.concatenate([s, r]), np.concatenate([r, s])
+    return np.stack([s, r]).astype(np.int32)
 
 
 def community_graph(

@@ -14,7 +14,13 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["available", "coo_to_csr_perm", "gcn_norm_weights", "in_degree"]
+__all__ = [
+    "available",
+    "coo_to_csr_perm",
+    "gcn_norm_weights",
+    "uniform_sample",
+    "in_degree",
+]
 
 _LIB_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "native",
@@ -38,6 +44,10 @@ def _lib() -> ctypes.CDLL | None:
     ]
     lib.kgt_gcn_norm.argtypes = [
         i32p, i32p, ctypes.c_int64, ctypes.c_int64, f32p,
+    ]
+    lib.kgt_uniform_sample.argtypes = [
+        i32p, i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+        i64p,
     ]
     lib.kgt_in_degree.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64, i64p]
     return lib
@@ -84,6 +94,47 @@ def gcn_norm_weights(
     out = np.empty(e, np.float32)
     lib.kgt_gcn_norm(senders, receivers, e, num_nodes, out)
     return out
+
+
+def uniform_sample(
+    sorted_senders: np.ndarray,
+    row_ptr: np.ndarray,
+    seeds: np.ndarray,
+    fanout: int,
+    seed: int = 0,
+) -> np.ndarray:
+    """Uniform in-neighbor sampling: ``[len(seeds), fanout]`` int64, -1 pad.
+
+    A node of degree at most ``fanout`` keeps all its in-neighbors in CSR
+    order; a larger one draws ``fanout`` of them without replacement. The
+    library draws with ``std::mt19937_64`` seeded by ``seed``, the fallback
+    with ``np.random.default_rng(seed).choice`` once per such node: the two
+    give different (equally uniform) samples.
+    """
+    sorted_senders = np.ascontiguousarray(sorted_senders, np.int32)
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    seeds = np.ascontiguousarray(seeds, np.int64)
+    b = seeds.shape[0]
+    lib = _lib()
+    if lib is None:
+        rng = np.random.default_rng(seed)
+        out = np.full((b, fanout), -1, np.int64)
+        for i, v in enumerate(seeds):
+            lo, hi = int(row_ptr[v]), int(row_ptr[v + 1])
+            deg = hi - lo
+            if deg == 0:
+                continue
+            if deg <= fanout:
+                out[i, :deg] = sorted_senders[lo:hi]
+            else:
+                pick = rng.choice(deg, size=fanout, replace=False)
+                out[i] = sorted_senders[lo + pick]
+        return out
+    out = np.empty(b * fanout, np.int64)
+    lib.kgt_uniform_sample(
+        sorted_senders, row_ptr, seeds, b, fanout, seed, out
+    )
+    return out.reshape(b, fanout)
 
 
 def in_degree(receivers: np.ndarray, num_nodes: int) -> np.ndarray:

@@ -9,7 +9,8 @@ needs. Semantics pinned by the reference:
   ``d`` the receiver in-degree (self-loops already present count), inf -> 0.
 
 The tensor functions run on whatever device their inputs lie on; the CSR
-helpers are host numpy and run once per graph.
+and padding helpers are host numpy and run once per graph (``pad_edges``:
+masked dummy edges on node ``N - 1``; ``pad_nodes``: zero rows).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ __all__ = [
     "coo_to_csr",
     "round_up",
     "CSRGraph",
+    "pad_edges",
+    "pad_nodes",
 ]
 
 
@@ -169,3 +172,32 @@ def coo_to_csr(
         num_nodes=num_nodes,
         num_edges=num_edges,
     )
+
+
+def pad_edges(
+    edge_index: np.ndarray, target_e: int, num_nodes: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a ``[2, E]`` COO edge list to ``[2, target_e]`` with masked dummies."""
+    edge_index = np.asarray(edge_index, np.int32)
+    if edge_index.shape[0] != 2:
+        edge_index = edge_index.T
+    e = edge_index.shape[1]
+    if target_e < e:
+        raise ValueError(f"target_e={target_e} < E={e}")
+    dummy = max(num_nodes - 1, 0)
+    pad = np.full((2, target_e - e), dummy, np.int32)
+    mask = np.arange(target_e) < e
+    return np.concatenate([edge_index, pad], axis=1), mask
+
+
+def pad_nodes(
+    x: np.ndarray, target_n: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Zero-pad node features ``[N, F]`` to ``[target_n, F]`` with a mask."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    if target_n < n:
+        raise ValueError(f"target_n={target_n} < N={n}")
+    pad = np.zeros((target_n - n,) + x.shape[1:], dtype=x.dtype)
+    mask = np.arange(target_n) < n
+    return np.concatenate([x, pad], axis=0), mask

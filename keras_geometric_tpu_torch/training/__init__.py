@@ -1,6 +1,15 @@
-"""Training tier: losses, metrics, step factories."""
+"""Training tier: train state, steps, checkpointing, metrics."""
 
+from .checkpoint import (
+    load_config,
+    restore_checkpoint,
+    save_checkpoint,
+    save_config,
+)
+from .metrics import MetricLogger
 from .train import (
+    TrainState,
+    label_nll,
     make_eval_fn,
     make_node_classification_step,
     masked_accuracy,
@@ -8,8 +17,15 @@ from .train import (
 )
 
 __all__ = [
+    "TrainState",
     "make_node_classification_step",
     "make_eval_fn",
     "masked_accuracy",
     "masked_softmax_cross_entropy",
+    "label_nll",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "save_config",
+    "load_config",
+    "MetricLogger",
 ]

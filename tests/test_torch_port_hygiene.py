@@ -53,7 +53,29 @@ MODULES = [
     "data/datasets/synthetic.py",
     "kernels/csrc/segment_max.cu", "nn/aggregators.py",
     "nn/message_passing.py", "nn/gin_conv.py", "nn/sage_conv.py",
+    "graph.py", "utils/__init__.py", "utils/data_utils.py",
+    "data/sampling.py", "data/datasets/base.py", "data/datasets/cora.py",
+    "data/datasets/citation.py", "data/datasets/ogb.py",
+    "training/__init__.py", "training/metrics.py", "training/checkpoint.py",
+    "training/sage_minibatch.py",
 ]
+# The data tier and minibatch training: the modules it added or extended.
+DATA_TIER_MODULES = [
+    "graph.py", "utils/data_utils.py", "utils/__init__.py",
+    "ops/graph_ops.py", "native.py", "data/__init__.py",
+    "data/sampling.py", "data/datasets/__init__.py",
+    "data/datasets/base.py", "data/datasets/synthetic.py",
+    "data/datasets/cora.py", "data/datasets/citation.py",
+    "data/datasets/ogb.py", "training/train.py", "training/metrics.py",
+    "training/checkpoint.py", "training/sage_minibatch.py",
+    "training/__init__.py", "__init__.py",
+]
+# The reference's top-level names the port does not have yet: graph-level
+# readout (pooling), which comes next; and the port's own additions.
+M8_NAMES = {"AttentionPooling", "BatchGlobalPooling", "GlobalPooling",
+            "Set2Set", "global_pool", "batch_pool"}
+PORT_ADDITIONS = {"GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE",
+                  "GraphContext", "prepare_graph", "precompute_propagation"}
 
 
 @pytest.mark.parametrize("rel", MODULES)
@@ -97,6 +119,59 @@ def test_importing_the_port_does_not_import_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == kgt_torch.__version__
+
+
+@pytest.mark.parametrize("rel", DATA_TIER_MODULES)
+def test_data_tier_module_imports_neither_jax_nor_the_reference(rel):
+    path = PORT / rel
+    assert path.is_file()
+    text = path.read_text()
+    assert not FORBIDDEN.search(text), rel
+    assert not re.search(r"keras_geometric_tpu[^_]", text), rel
+    name = "keras_geometric_tpu_torch." + rel[:-3].replace("/", ".")
+    module = importlib.import_module(name.removesuffix(".__init__"))
+    assert module.__name__.startswith("keras_geometric_tpu_torch")
+
+
+def test_importing_the_data_tier_loads_no_build_and_no_jax():
+    code = (
+        "import sys, torch\n"
+        "import keras_geometric_tpu_torch.data.sampling, "
+        "keras_geometric_tpu_torch.data.datasets, "
+        "keras_geometric_tpu_torch.training, "
+        "keras_geometric_tpu_torch.training.sage_minibatch, "
+        "keras_geometric_tpu_torch.utils, keras_geometric_tpu_torch.graph\n"
+        "from keras_geometric_tpu_torch.kernels import _build\n"
+        "assert _build.BUILD_SECONDS == {}, _build.BUILD_SECONDS\n"
+        "assert _build.load_library.cache_info().currsize == 0\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'optax', 'orbax', 'keras_geometric_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_package_exports_differ_from_the_reference_by_the_readout_only():
+    ref = importlib.import_module("keras_geometric_tpu")
+    assert set(ref.__all__) - set(kgt_torch.__all__) == M8_NAMES
+    assert set(kgt_torch.__all__) - set(ref.__all__) == PORT_ADDITIONS
+    for name in kgt_torch.__all__:
+        assert hasattr(kgt_torch, name), name
+    for sub in ("training", "utils", "data.datasets"):
+        ref_sub = importlib.import_module(f"keras_geometric_tpu.{sub}")
+        port_sub = importlib.import_module(f"keras_geometric_tpu_torch.{sub}")
+        assert set(ref_sub.__all__) <= set(port_sub.__all__), sub
+    classes = kgt_torch.get_dataset_classes()
+    assert sorted(classes) == sorted(ref.get_dataset_classes())
+    ei = np.array([[0, 1, 2], [1, 2, 0]])
+    np.testing.assert_allclose(
+        kgt_torch.compute_gcn_normalization(ei, 3).numpy(),
+        np.asarray(ref.compute_gcn_normalization(ei, 3)), rtol=1e-6)
 
 
 def test_importing_builds_and_loads_nothing():
@@ -422,9 +497,13 @@ def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
            kgt_torch.GNNEncoder.__init__, kgt_torch.Dense.__init__,
            kgt_torch.MLP.__init__, kgt_torch.GATv2Conv.__init__,
            kgt_torch.GINConv.__init__, kgt_torch.SAGEConv.__init__,
-           kgt_torch.PoolingAggregator.__init__],
+           kgt_torch.PoolingAggregator.__init__,
+           kgt_torch.Graph.from_edge_index, kgt_torch.GraphData.to_graph,
+           kgt_torch.utils.batch_graphs_padded],
     ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP",
-         "GATv2Conv", "GINConv", "SAGEConv", "PoolingAggregator"])
+         "GATv2Conv", "GINConv", "SAGEConv", "PoolingAggregator",
+         "Graph.from_edge_index", "GraphData.to_graph",
+         "batch_graphs_padded"])
 def test_entry_points_default_to_the_cuda_device(fn):
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
@@ -635,6 +714,15 @@ def test_roofline_reports_the_references_keys_beside_the_ports():
     assert mm.report(1e-3, tensor_cores=True) == bf16
     np.testing.assert_allclose(bf16["achieved_tflops"], mm.flops / 1e-3 / 1e12,
                                rtol=1e-12)
+
+
+def test_subgraph_to_arrays_defaults_to_the_card():
+    from keras_geometric_tpu_torch.training import sage_minibatch
+
+    assert "device=None" in str(inspect.signature(
+        sage_minibatch.subgraph_to_arrays))
+    assert 'device = "cuda" if device is None' in inspect.getsource(
+        sage_minibatch.subgraph_to_arrays)
 
 
 def test_native_fallbacks_are_bit_identical():
