@@ -4,7 +4,9 @@ hold each against its plain PyTorch version, and train the 2-layer GCN and the
 2-layer GATv2 (fused and composed attention, the fused attention's other
 backward and score-cache modes, and both models on the locality tier), and
 GraphSAGE and GIN (their max and pooling paths through the segment max
-kernel) through the package's entry points.
+kernel) through the package's entry points; then GraphSAGE minibatch and
+GIN graph classification on the library ops, the readouts, and the twins
+of the examples.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -167,7 +169,28 @@ exit code and without the final line; so does a run of a subset of the phases
                 as the reference's are XLA segment ops);
 17. ``train_gcn_ogbn_arxiv``  the full-graph GCN of run 4 on the same
                 dataset's own graph and train split, through ``prepare_graph``
-                (the fused-gather scatter, 3 launches a step).
+                (the fused-gather scatter, 3 launches a step);
+18. ``train_gin_graph_classification``  BASELINE.json config 3 as
+                ``examples_torch/graph_classification.py`` builds it: 200
+                synthetic graphs of 10-23 nodes (seed 0), buckets of 768
+                nodes / 6,144 edges / 33 graph slots, ``GraphClassifier(GIN(
+                (32,) * 5, mlp_hidden=(32,)), 3)``, Adam 1e-3, f32; readout
+                ``sum`` for the example's 30 epochs (150 steps) and its test
+                accuracy, ``mean`` and ``max`` for 11 steps; each: step 1
+                against the CPU path, the loss falling, ``step_ms``, device
+                busy time and idle share, peak memory, 0 hand-written
+                launches (the edge-list GIN and the readout are library ops);
+19. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
+                every mode, with and without a node mask, on tied maxes, and
+                ``AttentionPooling`` and ``Set2Set`` (3 steps), forward and
+                backward against the CPU path (f32 1e-5, bf16 2e-2 of the
+                largest entry), on the encoder's output for one padded batch
+                and on one graph of 100,000 nodes x 128 features;
+20. ``examples_torch``  each of the ten twins of ``examples/`` in
+                ``examples_torch/`` (and ``node_classification.py --dataset
+                pubmed``) as a process of its own on the card, at the
+                fewest epochs its flags allow: every exit code 0, all of
+                them within three minutes.
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -218,7 +241,9 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape",
           "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
           "train_gin_max_arxiv_shape", "train_sage_cora_shape",
-          "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv")
+          "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv",
+          "train_gin_graph_classification", "readouts_on_card",
+          "examples_torch")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -4166,6 +4191,630 @@ def sage_minibatch_phase(device, data) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Graph classification (BASELINE.json config 3), the readouts, the examples
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+GC_GRAPHS, GC_CLASSES, GC_BATCH, GC_HIDDEN = 200, 3, 32, 32
+GC_TRAIN, GC_EPOCHS, GC_SHORT_STEPS = 160, 30, 11  # short runs: step 1 + 10
+READOUT_NODES, READOUT_FEATS = 100_000, 128
+# The twins of examples/ at the fewest epochs their flags allow.
+EXAMPLE_RUNS = (
+    ("graph_classification.py", ("--epochs", "1")),
+    ("pooling_readouts.py", ()),
+    ("node_classification.py", ("--epochs", "1")),
+    ("node_classification.py", ("--epochs", "1", "--dataset", "pubmed")),
+    ("gatv2_attention.py", ("--epochs", "1")),
+    ("locality_banded_gcn.py", ("--epochs", "1")),
+    ("sage_minibatch.py", ("--epochs", "1")),
+    ("simple_gcn.py", ()),
+    ("simple_gin.py", ()),
+    ("simple_gatv2.py", ()),
+    ("simple_sage.py", ()),
+)
+EXAMPLES_SECONDS = 180
+# The twins whose path runs hand-written kernels, driven in process: steps of
+# each counted run, and each kernel's launches per step (as the same model's
+# training phases launch them: node classification as train_cora_shape, its
+# first layer's dropout on the edge messages; the banded GCN's four spmm
+# calls, both layers forward and backward, each one band product and one row
+# walk over the residual edges, f32 on the band kernel's FMA route).
+TWIN_STEPS = 10
+TWIN_LAUNCHES = {
+    "node_classification": (
+        {"scatter_sum_sorted": 1, "expand_sorted": 1,
+         "gather_scatter_sum_sorted": 3},
+        {"gather_scatter_sum_sorted(rows)": 2}),
+    "locality_banded_gcn": (
+        {"band_spmm": 4, "gather_scatter_sum_sorted": 4},
+        {"band_spmm(fma)": 4, "gather_scatter_sum_sorted(rows)": 4}),
+}
+
+
+def example_module(name: str):
+    """A twin of ``examples/`` loaded as a module: its functions, not its
+    ``main``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def relative_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest difference over the largest entry of ``want`` (on the host)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = max(want.abs().max().item(), 1e-12)
+    return (got - want).abs().max().item() / scale
+
+
+def graph_classification_phase(device) -> dict:
+    """GIN graph classification as ``examples_torch/graph_classification.py``
+    builds it: 200 synthetic graphs of 10-23 nodes (seed 0), buckets of 768
+    nodes and 6,144 edges holding 32 graphs and the dummy, the 5-layer GIN
+    at width 32 and Adam 1e-3, f32. Readout ``sum`` for the example's 30
+    epochs and its test accuracy; ``mean`` and ``max`` for 11 steps. Returns
+    the launch counts of the runs (all 0: no hand-written kernel lies on
+    this path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keras_geometric_tpu_torch.utils import timed_steps
+
+    name = "train_gin_graph_classification"
+    gc = example_module("graph_classification")
+    graphs, _, classes = gc.make_dataset(GC_GRAPHS, GC_CLASSES, seed=0)
+    num_graphs = GC_BATCH + 1
+    sizes = [g.num_nodes for g in graphs]
+    check(classes == GC_CLASSES and len(graphs) == GC_GRAPHS
+          and min(sizes) >= 10 and max(sizes) <= 23,
+          f"{name}: the dataset has the wrong size")
+
+    def chunks(steps):
+        """The example's batches: each epoch a shuffle of the 160 training
+        graphs (numpy, seed 0) cut into 5 batches of 32."""
+        rng, order, out = np.random.default_rng(0), np.arange(GC_TRAIN), []
+        while len(out) < steps:
+            rng.shuffle(order)
+            for i in range(0, GC_TRAIN - GC_BATCH + 1, GC_BATCH):
+                out.append([graphs[j] for j in order[i:i + GC_BATCH]])
+        return out[:steps]
+
+    def make_run(dev, readout):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = gc.make_model(GC_HIDDEN, classes, readout, device=dev,
+                              generator=gen)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        return model, gc.make_train_step(model, opt, num_graphs)
+
+    reset_launch_counts()
+    runs = {}
+    for readout, steps in (("sum", GC_EPOCHS * GC_TRAIN // GC_BATCH),
+                           ("mean", GC_SHORT_STEPS), ("max", GC_SHORT_STEPS)):
+        what = f"{name} ({readout})"
+        batches = chunks(steps)
+        model, step = make_run(device, readout)
+        host, host_step = make_run("cpu", readout)
+        host.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+
+        # Step 1 on the card against the same step on the CPU path, then
+        # the run goes on from the card's step 1.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g, y, _ = gc.batch_to_arrays(batches[0], GC_BATCH, device)
+        card_loss = step(g, y).item()
+        g_cpu, y_cpu, _ = gc.batch_to_arrays(batches[0], GC_BATCH, "cpu")
+        host_loss = host_step(g_cpu, y_cpu).item()
+        # The loss within 1e-4 of its magnitude: the first losses run to the
+        # thousands (5 layers of sum aggregation at random weights).
+        check(math.isfinite(card_loss) and abs(card_loss - host_loss)
+              <= 1e-4 * max(1.0, abs(host_loss)),
+              f"{what}: step-1 loss {card_loss} vs the CPU path's {host_loss}")
+        host_grads = dict(host.named_parameters())
+        grad_err = 0.0
+        for key, p in model.named_parameters():
+            err = relative_err(p.grad, host_grads[key].grad)
+            check(math.isfinite(err) and err <= 2e-4,
+                  f"{what}: step-1 gradient of {key}: {err:.3e} of its "
+                  f"largest entry")
+            grad_err = max(grad_err, err)
+        del host, host_step, host_grads
+
+        losses = [torch.tensor(card_loss)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for chunk in batches[1:]:
+                g, y, _ = gc.batch_to_arrays(chunk, GC_BATCH, device)
+                losses.append(step(g, y))
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - start) * 1e3
+        losses = [float(l) for l in losses]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"{what}: {len(losses)} losses, or one not finite")
+        first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last5 < first5, f"{what}: the mean loss of the last 5 steps "
+              f"{last5} is not below the first 5's {first5}")
+        rows = device_time_rows(prof)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        check(busy_ms > 0, f"{what}: the profiler recorded no device time")
+        run = dict(steps=steps, step1_loss=card_loss,
+                   step1_loss_cpu=host_loss, step1_grad_rel_err=grad_err,
+                   loss_first5_mean=first5, loss_last5_mean=last5,
+                   losses=losses if steps <= GC_SHORT_STEPS else
+                   losses[:5] + losses[-5:],
+                   wall_ms_per_step_traced=traced_ms / (steps - 1),
+                   device_busy_ms_per_step=busy_ms / (steps - 1),
+                   device_idle_share=max(0.0, 1.0 - busy_ms / traced_ms),
+                   kernels_per_step=sum(r[2] for r in rows) / (steps - 1),
+                   top=[{"name": k[:60], "ms_per_step": us / 1e3 / (steps - 1)}
+                        for us, k, _ in rows[:5]],
+                   peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20)
+        if readout == "sum":  # the example's test accuracy, graphs 160-191
+            predict = gc.make_predict(model, num_graphs)
+            correct = total = 0
+            for i in range(GC_TRAIN, GC_GRAPHS - GC_BATCH + 1, GC_BATCH):
+                g, y, _ = gc.batch_to_arrays(graphs[i:i + GC_BATCH],
+                                             GC_BATCH, device)
+                valid = y >= 0
+                correct += int(((predict(g) == y) & valid).sum())
+                total += int(valid.sum())
+            check(total == GC_BATCH, f"{what}: {total} test graphs")
+            run["test_accuracy"] = correct / total
+        # Device time of one step on one fixed bucket (more Adam steps).
+        g, y, _ = gc.batch_to_arrays(batches[0], GC_BATCH, device)
+        run["step_ms"] = 1e3 * timed_steps(lambda: step(g, y), k_lo=2,
+                                           k_hi=12, trials=2)
+        runs[readout] = run
+        del model, step
+
+    counts, modes = launch_counts(), mode_launch_counts()
+    check(not any(counts.values()) and not any(modes.values()),
+          f"{name}: hand-written kernels launched on the graph "
+          f"classification path: {counts} {modes}")
+    emit(name, graphs=GC_GRAPHS, batch_size=GC_BATCH,
+         node_bucket=24 * GC_BATCH, edge_bucket=24 * 8 * GC_BATCH,
+         graph_slots=num_graphs, model=f"GraphClassifier(GIN(({GC_HIDDEN},) "
+         f"* 5, mlp_hidden=({GC_HIDDEN},)), {classes})", runs=runs,
+         launches_per_step=0, launches_per_step_why="the edge-list GIN "
+         "aggregates and the readout pools with library segment ops "
+         "(ops/segment.py), as the reference's run XLA's")
+    return counts
+
+
+def readout_errors(got, ref) -> list:
+    """Errors of ``(out, d x, parameter gradients)`` against ``ref``: the
+    first two each over its own largest entry in ``ref``, the gradients over
+    the largest entry of them all (0 for a module without parameters)."""
+    errs = [relative_err(a, b) for a, b in zip(got[:2], ref[:2])]
+    grads = 0.0
+    if ref[2]:
+        scale = max(b.abs().max().item() for b in ref[2])
+        grads = max((a - b).abs().max().item()
+                    for a, b in zip(got[2], ref[2])) / max(scale, 1e-12)
+    return [e if math.isfinite(e) else math.inf for e in errs + [grads]]
+
+
+# The readouts' limits: the largest error of the card's result against the
+# same computation in f64 on the CPU, of the largest entry. One limit for
+# each type, wider for two kinds of case where the f32 or bf16 result itself,
+# on the CPU path as on the card, lies near the type's limit (readings on an
+# NVIDIA H100 80GB HBM3, 700.00 W):
+# - a serial f32 sum of 100,000 rows into one graph (``index_add``), whose
+#   rounding grows with the count: the card read 1.1e-5-1.5e-5, the CPU
+#   path 6.0e-6-1.1e-5;
+# - ``Set2Set`` in bf16, three LSTM steps and attentions rounded in turn:
+#   the card read 1.3e-2-1.6e-2, the CPU path 1.3e-2-1.8e-2.
+# A wrong result lies further: the bf16 sums and means read 2.2e-3 or more
+# against the f32 limit, and with the mask left out the sums, means and
+# attentions read 3.7e-2 or more.
+READOUT_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+READOUT_WIDER_LIMITS = {
+    ("BatchGlobalPooling(sum)", "large", torch.float32): 5e-5,
+    ("BatchGlobalPooling(mean)", "large", torch.float32): 5e-5,
+    ("Set2Set", "batch", torch.bfloat16): 4e-2,
+    ("Set2Set", "large", torch.bfloat16): 4e-2,
+}
+
+
+def readout_limit(label: str, which: str, dtype) -> float:
+    return READOUT_WIDER_LIMITS.get((label, which, dtype),
+                                    READOUT_LIMITS[dtype])
+
+
+def readouts_phase(device, timer) -> dict:
+    """Every readout forward and backward on the card, in f32 and bf16, held
+    against the same computation in f64 on the CPU (the inputs and weights
+    of each type, widened) at a fixed limit (``readout_limit``); the CPU
+    path in the same type is read against the f64 result too, and card
+    against CPU is reported beside. Each error is of the largest entry (the
+    parameters' gradients: of the largest entry of them all), for the
+    output, the input's gradient and the parameters' gradients apart. A
+    control reads each masked case on the card with its mask left out
+    against the masked f64 result: how far a wrong result lies.
+    Inputs: the encoder's output on one padded batch of the graph
+    classification (its graph ids and node mask), scaled to a root mean
+    square of 1 (at random weights it reaches 1e3, where the attention's
+    ``tanh`` saturates and a one-unit change of an input moves the
+    gradients by up to their whole size); and one graph of 100,000 nodes x
+    128 features (a long softmax and long sums over the node axis). Rows 3
+    and 7 tie every column's max, and the masks keep them."""
+    import keras_geometric_tpu_torch as kgt
+
+    name = "readouts_on_card"
+    gc = example_module("graph_classification")
+    graphs, _, classes = gc.make_dataset(GC_GRAPHS, GC_CLASSES, seed=0)
+    model = gc.make_model(GC_HIDDEN, classes, device=device,
+                          generator=torch.Generator(device).manual_seed(0))
+    g, _, num_graphs = gc.batch_to_arrays(graphs[:GC_BATCH], GC_BATCH, device)
+    with torch.no_grad():
+        h = model.encoder(g.x, g.edge_index, edge_mask=g.edge_mask)
+    encoder_abs_max = h.abs().max().item()
+    h = h / h.pow(2).mean().sqrt()
+    h[[3, 7]] = h.max(0).values + 1.0  # rows of graph 0 (10 nodes or more)
+    rng = np.random.default_rng(23)
+    big = rng.standard_normal((READOUT_NODES, READOUT_FEATS)).astype(
+        np.float32)
+    big[[3, 7]] = big.max(0) + 1.0
+    big_mask = rng.random(READOUT_NODES) < 0.9
+    big_mask[[3, 7]] = True
+    inputs = {
+        "batch": (h, g.node_mask, g.batch, num_graphs),
+        "large": (torch.from_numpy(big).to(device),
+                  torch.from_numpy(big_mask).to(device),
+                  torch.zeros(READOUT_NODES, dtype=torch.int32,
+                              device=device), 1),
+    }
+    gen = torch.Generator(device).manual_seed(1)
+    reset_launch_counts()
+    results, worst, failed = [], {}, []
+    for which, (x, mask, batch, n_graphs) in inputs.items():
+        feats = x.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = str(dtype)[6:]
+            cases = []
+            for masked in (False, True):
+                for pooling in ("mean", "max", "sum"):
+                    cases += [
+                        (f"GlobalPooling({pooling})", masked,
+                         kgt.GlobalPooling(pooling), False),
+                        (f"BatchGlobalPooling({pooling})", masked,
+                         kgt.BatchGlobalPooling(pooling), True)]
+                cases += [
+                    ("AttentionPooling", masked, kgt.AttentionPooling(
+                        input_dim=feats, generator=gen, device=device),
+                     False),
+                    ("Set2Set", masked, kgt.Set2Set(
+                        8, processing_steps=3, input_dim=feats,
+                        generator=gen, device=device), False)]
+            xd = x.to(dtype)
+            for label, masked, module, batched in cases:
+                module = module.to(dtype).eval()
+                cot = []
+
+                def copy_to(dev, dt):
+                    if not list(module.parameters()):
+                        return module
+                    out = type(module).from_config(
+                        module.get_config(), input_dim=feats, device=dev,
+                        dtype=dt).eval()
+                    out.load_state_dict({k: v.to(dev, dt) for k, v in
+                                         module.state_dict().items()})
+                    return out
+
+                def fwd_bwd(mod, v, masked=masked, batched=batched):
+                    dev = v.device
+                    v = v.detach().clone().requires_grad_()
+                    nm = mask.to(dev) if masked else None
+                    if batched:
+                        out = mod(v, batch.to(dev), n_graphs, node_mask=nm)
+                    else:
+                        out = mod(v, node_mask=nm)
+                    if not cot:
+                        cot.append(torch.from_numpy(rng.standard_normal(
+                            tuple(out.shape))).to(dtype))
+                    out.backward(cot[0].to(dev, out.dtype))
+                    grads = [p.grad for p in mod.parameters()]
+                    for p in mod.parameters():
+                        p.grad = None
+                    return out.detach(), v.grad, grads
+
+                def on_host(result):
+                    out, dx, grads = result
+                    return (out.double().cpu(), dx.double().cpu(),
+                            [g.double().cpu() for g in grads])
+
+                x_cpu = xd.cpu()
+                card = on_host(fwd_bwd(module, xd))
+                host = on_host(fwd_bwd(copy_to("cpu", dtype), x_cpu))
+                ref = on_host(fwd_bwd(copy_to("cpu", torch.float64),
+                                      x_cpu.double()))
+                errs = {"card_vs_f64": readout_errors(card, ref),
+                        "cpu_vs_f64": readout_errors(host, ref),
+                        "card_vs_cpu": readout_errors(card, host)}
+                if masked:
+                    errs["mask_dropped_vs_f64"] = readout_errors(on_host(
+                        fwd_bwd(module, xd, masked=False)), ref)
+                limit = readout_limit(label, which, dtype)
+                what = (f"{label} on {which}, {kind}, "
+                        f"{'masked' if masked else 'no mask'}")
+                if not max(errs["card_vs_f64"]) <= limit:
+                    failed.append(f"{what}: {max(errs['card_vs_f64']):.3e}")
+                entry = dict(readout=label, input=which, dtype=kind,
+                             masked=masked, limit=limit,
+                             **{k: max(v) for k, v in errs.items()},
+                             by_part={k: dict(zip(("out", "dx", "params"), v))
+                                      for k, v in errs.items()})
+                if which == "large" and masked:
+                    entry["ms_fwd_bwd"] = timer.cold_ms(
+                        lambda: fwd_bwd(module, xd), iters=10)
+                results.append(entry)
+                key = f"{label}/{kind}"
+                worst[key] = {k: max(entry[k], worst.get(key, {}).get(k, 0.0))
+                              for k in errs}
+    counts = launch_counts()
+    emit(name, comparisons=len(results), worst=worst, cases=results,
+         card_vs_cpu_within={str(d)[6:]: sum(
+             e["card_vs_cpu"] <= READOUT_LIMITS[d] for e in results
+             if e["dtype"] == str(d)[6:]) for d in READOUT_LIMITS},
+         batch_shape=list(h.shape), encoder_abs_max=encoder_abs_max,
+         batch_abs_max=h.abs().max().item(),
+         large_shape=[READOUT_NODES, READOUT_FEATS])
+    check(not failed, f"{name}: the card's result is past its limit against "
+          f"f64 (of the largest entry): {failed}")
+    check(not any(counts.values()), f"{name}: hand-written kernels "
+          f"launched by the readouts: {counts}")
+    return counts
+
+
+def step1_of(model, step) -> tuple:
+    """Loss and gradients (on the host) of one step of ``step``."""
+    loss = step().item()
+    return loss, {k: p.grad.detach().double().cpu()
+                  for k, p in model.named_parameters()}
+
+
+def step1_held(what, got, want) -> dict:
+    """Step 1 against step 1 by another path: the loss within 1e-4 of its
+    magnitude, every gradient within 2e-4 of its largest entry."""
+    (loss, grads), (want_loss, want_grads) = got, want
+    check(math.isfinite(loss) and abs(loss - want_loss)
+          <= 1e-4 * max(1.0, abs(want_loss)),
+          f"{what}: step-1 loss {loss} vs {want_loss}")
+    grad_err = 0.0
+    for key, want_grad in want_grads.items():
+        err = relative_err(grads[key], want_grad)
+        check(math.isfinite(err) and err <= 2e-4,
+              f"{what}: step-1 gradient of {key}: {err:.3e} of its largest "
+              f"entry")
+        grad_err = max(grad_err, err)
+    return dict(loss=loss, loss_other=want_loss, grad_rel_err=grad_err)
+
+
+def counted_twin_run(what, twin, step, per_step) -> dict:
+    """``TWIN_STEPS`` steps of a twin's training run on the card, its launch
+    counts zeroed just before and read just after; each kernel launched
+    ``per_step`` times a step, the losses finite and falling."""
+    expected, expected_modes = per_step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = [step() for _ in range(TWIN_STEPS)]
+    torch.cuda.synchronize()
+    counts, modes = launch_counts(), mode_launch_counts()
+    losses = [float(l) for l in losses]
+    check(counts == {k: expected.get(k, 0) * TWIN_STEPS for k in counts},
+          f"{what}: launch counts {counts}, expected {expected} a step")
+    check(modes == {k: expected_modes.get(k, 0) * TWIN_STEPS for k in modes},
+          f"{what}: mode launch counts {modes}, expected {expected_modes} "
+          f"a step")
+    check(all(map(math.isfinite, losses)) and
+          sum(losses[-3:]) < sum(losses[:3]),
+          f"{what}: losses not finite or not falling: {losses}")
+    return dict(twin=twin, steps=TWIN_STEPS, losses=losses,
+                launches=counts, mode_launches=modes)
+
+
+def time_twin_band_cases(device, timer, ctx) -> list:
+    """The band kernel on its f32 (FMA) route at the banded twin's shapes:
+    its band, layer 1 at F = 64 and layer 2 at F = 16, as the kernels line
+    times the bf16 routes (kernel, plain version, ``torch.bmm`` over the row
+    blocks with the ``x`` windows gathered beforehand, the bound from bytes
+    and f32 operations)."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    replaces = replaced_tpu_kernels()
+    plan = ctx.band
+    n, window, rb = plan.n_pad, plan.window, plan.row_block
+    nb = n // rb
+    args = (plan.band, plan.base_idx, window, rb)
+    gen = torch.Generator(device=device).manual_seed(13)
+    entries = []
+    for layer, f in (("layer 1", 64), ("layer 2", 16)):
+        x = torch.randn(n, f, generator=gen, device=device)
+        route = B.band_route(f, window, rb, x.dtype)
+        what = (f"banded twin {layer}: n_pad={n} W={window} F={f} f32 "
+                f"band edges={plan.num_edges} route={route}")
+        err = compare(B.band_matmul(x, *args), B.band_matmul_plain(x, *args),
+                      band_mass(x, *args), torch.float32, what)
+        rows = (plan.base_idx.long() * (window // 2))[:, None] + torch.arange(
+            window, device=device)
+        windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
+        band3 = plan.band.view(nb, rb, window)
+        # band once, x once, out once, base_idx; f32 operations
+        t_bytes = (n * window * 4 + 2 * n * f * 4 + nb * 4) \
+            / H100_BYTES_PER_S * 1e3
+        t_ops = 2 * n * window * f / H100_F32_OPS_PER_S * 1e3
+        entries.append({
+            "name": "band_spmm", "route": "cuda",
+            "source": SOURCES[REPLACES["band_spmm"][0]],
+            "replaces": replaces["band_spmm"], "path": "examples_torch",
+            "shape": what, "mode": route, "launches": 0,
+            "max_abs_err": err,
+            "ms": timer.cold_ms(lambda: B.band_matmul(x, *args), iters=10),
+            "plain_ms": timer.cold_ms(lambda: B.band_matmul_plain(x, *args),
+                                      iters=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": timer.cold_ms(lambda: torch.bmm(band3, windows),
+                                        iters=10),
+            "library": "torch.bmm over the row blocks, x windows gathered "
+                       "beforehand"})
+        del windows
+    return entries
+
+
+def twins_on_card(device, timer) -> tuple:
+    """The twins whose path runs hand-written kernels, in process through
+    their own functions: ``node_classification.py`` on Cora and on PubMed
+    (K1, K2), ``locality_banded_gcn.py`` at its 20,000 nodes (K11 on its
+    f32 route, K1). For each: step 1 through the kernels against step 1
+    through their plain versions on the card (the same weights and dropout
+    draws), step 1 on the card against the same step on the CPU path (the
+    same weights, dropout off: the twin's CPU path takes the edge list, the
+    banded twin a context on the CPU), then a counted run of the twin's own
+    configuration; last, the band kernel timed at the banded twin's shapes.
+    Returns the counted runs' summed launch and mode counts and the band
+    kernel's entries for the kernels line."""
+    cpu = torch.device("cpu")
+    runs, counts, modes = [], {}, {}
+
+    def add(run):
+        runs.append(run)
+        for total, part in ((counts, run["launches"]),
+                            (modes, run["mode_launches"])):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+
+    nc = example_module("node_classification")
+    for dataset in ("cora", "pubmed"):
+        what = f"examples_torch: node_classification.py --dataset {dataset}"
+        args = nc.parse_args(["--dataset", dataset])
+        graph, classes = nc.load_graph(dataset)
+        on_card, on_cpu = (nc.graph_tensors(graph, device),
+                           nc.graph_tensors(graph, cpu))
+        ctx = nc.prepare_context(graph, device)
+        check(ctx is not None, f"{what}: no context on the card")
+        in_dim = on_card["x"].shape[1]
+
+        def build(dev, t, context, dropout, optimizer=None):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            model = nc.make_model(in_dim, args.hidden, classes, dropout,
+                                  context=context is not None, device=dev,
+                                  generator=gen)
+            forward = nc.make_forward(model, t["x"], t["edge_index"],
+                                      context, gen)
+            opt = (optimizer or (lambda m: torch.optim.SGD(
+                m.parameters(), lr=0.0)))(model)
+            return model, nc.make_train_step(model, forward, t["y"],
+                                             t["train_mask"], opt)
+
+        vs_plain = step1_held(
+            f"{what}: kernels vs their plain versions",
+            step1_of(*build(device, on_card, ctx, args.dropout)),
+            step1_of(*build(device, on_card, PlainContext(ctx),
+                            args.dropout)))
+        card = build(device, on_card, ctx, 0.0)
+        host = build(cpu, on_cpu, None, 0.0)
+        host[0].load_state_dict({k: v.cpu() for k, v in
+                                 card[0].state_dict().items()})
+        vs_cpu = step1_held(f"{what}: card vs the CPU path",
+                            step1_of(*card), step1_of(*host))
+        del card, host
+        _, step = build(device, on_card, ctx, args.dropout,
+                        lambda m: torch.optim.AdamW(
+                            m.parameters(), lr=args.lr,
+                            weight_decay=args.weight_decay))
+        run = counted_twin_run(what, "node_classification.py", step,
+                               TWIN_LAUNCHES["node_classification"])
+        add(dict(run, args=["--dataset", dataset],
+                 nodes=int(on_card["x"].shape[0]),
+                 edges=int(on_card["edge_index"].shape[1]), features=in_dim,
+                 stream_edges=ctx.num_real_edges,
+                 step1_vs_plain=vs_plain, step1_vs_cpu=vs_cpu))
+
+    lb = example_module("locality_banded_gcn")
+    what = "examples_torch: locality_banded_gcn.py"
+    args = lb.parse_args([])
+    graph = lb.make_graph(args.nodes)
+    ctx, x, y, mask = lb.prepare(graph, device)
+    ctx_cpu, x_cpu, y_cpu, mask_cpu = lb.prepare(graph, cpu)
+    check(ctx.num_band_edges > 0 and ctx.band.band.dtype == torch.float32,
+          f"{what}: no f32 band on the card")
+
+    def build_banded(dev, context, xs, ys, ms, optimizer=None):
+        enc = lb.make_encoder(dev, torch.Generator(device=dev).manual_seed(0))
+        opt = (optimizer or (lambda m: torch.optim.SGD(
+            m.parameters(), lr=0.0)))(enc)
+        return enc, lb.make_train_step(enc, opt, context, xs, ys, ms)
+
+    vs_plain = step1_held(
+        f"{what}: kernels vs their plain versions",
+        step1_of(*build_banded(device, ctx, x, y, mask)),
+        step1_of(*build_banded(device, PlainContext(ctx), x, y, mask)))
+    card = build_banded(device, ctx, x, y, mask)
+    host = build_banded(cpu, ctx_cpu, x_cpu, y_cpu, mask_cpu)
+    host[0].load_state_dict({k: v.cpu() for k, v in
+                             card[0].state_dict().items()})
+    vs_cpu = step1_held(f"{what}: card vs the CPU path", step1_of(*card),
+                        step1_of(*host))
+    del card, host, ctx_cpu
+    _, step = build_banded(device, ctx, x, y, mask, lambda m: torch.optim.Adam(
+        m.parameters(), lr=1e-2))
+    run = counted_twin_run(what, "locality_banded_gcn.py", step,
+                           TWIN_LAUNCHES["locality_banded_gcn"])
+    add(dict(run, args=[], nodes=args.nodes, padded_nodes=ctx.num_nodes,
+             band_edges=ctx.num_band_edges, residual_edges=ctx.num_real_edges,
+             features=int(x.shape[1]), step1_vs_plain=vs_plain,
+             step1_vs_cpu=vs_cpu))
+    entries = time_twin_band_cases(device, timer, ctx)
+    emit("examples_torch_in_process", runs=runs, band_kernel=entries)
+    return counts, modes, entries
+
+
+def examples_phase() -> dict:
+    """Each twin of ``examples/`` as a subprocess on the card (four at a
+    time), at the fewest epochs its flags allow; every exit code 0, the
+    whole phase under three minutes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    name = "examples_torch"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def run(script, args):
+        start = time.perf_counter()
+        try:  # a child past its time is killed, and the phase fails
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples_torch" / script),
+                 *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=EXAMPLES_SECONDS)
+        except subprocess.TimeoutExpired:
+            code, out, err = "timeout", "", ""
+        else:
+            code, out, err = proc.returncode, proc.stdout, proc.stderr
+        return {"script": script, "args": list(args), "exit_code": code,
+                "seconds": time.perf_counter() - start,
+                "last_lines": out.strip().splitlines()[-3:],
+                "stderr_tail": err.strip().splitlines()[-5:] if code else []}
+
+    start = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        runs = list(pool.map(lambda a: run(*a), EXAMPLE_RUNS))
+    wall = time.perf_counter() - start
+    emit(name, runs=runs, wall_seconds=wall)
+    for r in runs:
+        check(r["exit_code"] == 0, f"{name}: {r['script']} {r['args']} "
+              f"exited {r['exit_code']}: {r['stderr_tail']}")
+    check(wall < EXAMPLES_SECONDS, f"{name}: took {wall:.1f} s")
+    return {"wall_seconds": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="train_arxiv_shape",
@@ -4673,6 +5322,25 @@ def main() -> int:
               per_step_modes=gcn_rows, timed_iters=10, profile=True)
     if args.profile != "train_gcn_ogbn_arxiv":
         workloads.pop("gcn_ogbn_arxiv", None)
+    torch.cuda.empty_cache()
+
+    # Graph classification (BASELINE.json config 3) and the readouts: the
+    # edge-list GIN and the pooling run library ops, no hand-written kernel.
+    # Then each twin of examples/ in a process of its own.
+    if "train_gin_graph_classification" in phases:
+        path_launches["train_gin_graph_classification"] = (
+            graph_classification_phase(device))
+        path_mode_launches["train_gin_graph_classification"] = (
+            mode_launch_counts())
+    if "readouts_on_card" in phases:
+        path_launches["readouts_on_card"] = readouts_phase(device, timer)
+        path_mode_launches["readouts_on_card"] = mode_launch_counts()
+    if "examples_torch" in phases:
+        (path_launches["examples_torch"],
+         path_mode_launches["examples_torch"], entries) = twins_on_card(
+             device, timer)
+        kernel_entries += entries
+        examples_phase()
 
     if args.profile is not None:
         from keras_geometric_tpu_torch.training import (

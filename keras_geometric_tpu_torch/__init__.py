@@ -15,8 +15,12 @@ GraphSAGE with all six aggregators (``GINConv``, ``SAGEConv``, ``GIN``,
 ``PoolingAggregator``), whose max and pooling paths on a context run the
 hand-written segment max kernel; and the data tier (``Graph``, ``GraphData``,
 ``batch_graphs``, the dataset loaders, the neighbour sampler) with
-neighbour-sampled GraphSAGE minibatch training, checkpoints and metrics.
-Entry points run on a CUDA device unless the caller passes another.
+neighbour-sampled GraphSAGE minibatch training, checkpoints and metrics; and
+the graph-level readout (``GlobalPooling``, ``BatchGlobalPooling``,
+``AttentionPooling``, ``Set2Set``, ``global_pool``, ``batch_pool``) with
+``models.GraphClassifier``, on the library segment ops. Every layer and
+model has the reference's config round-trip (``get_config`` /
+``from_config``). Entry points run on a CUDA device unless the caller passes another.
 """
 
 from ._version import __version__
@@ -28,6 +32,13 @@ from .nn.gcn_conv import GCNConv
 from .nn.gin_conv import GINConv
 from .nn.message_passing import MessagePassing, propagate
 from .nn.module import MLP, Dense, Module
+from .nn.pooling.attention_pooling import AttentionPooling, Set2Set
+from .nn.pooling.global_pooling import (
+    BatchGlobalPooling,
+    GlobalPooling,
+    batch_pool,
+    global_pool,
+)
 from .nn.sage_conv import SAGEConv
 from .ops.csr import GraphContext, prepare_graph
 from .ops.graph_ops import add_self_loops, ensure_edge_index, gcn_norm
@@ -65,6 +76,12 @@ __all__ = [
     "GINConv",
     "GATv2Conv",
     "SAGEConv",
+    "GlobalPooling",
+    "BatchGlobalPooling",
+    "AttentionPooling",
+    "Set2Set",
+    "global_pool",
+    "batch_pool",
     "GNNEncoder",
     "GCN",
     "GIN",

@@ -28,9 +28,13 @@ def params_from_jax(
     {"kernel", "bias"}}, "eps"}``, ``eps`` only when trainable), a
     ``SAGEConv`` (``{"pool_mlp": {"kernel", "bias"}, "lin_neigh": {"kernel"},
     "lin_self": {"kernel"}, "bias"}``, as far as its options give them), a
-    ``PoolingAggregator`` (``{"mlp": {"kernel", "bias"}}``) or a
+    ``PoolingAggregator`` (``{"mlp": {"kernel", "bias"}}``), a
     ``GNNEncoder`` / ``GCN`` / ``GIN`` / ``GAT`` / ``GraphSAGE``
-    (``{"layer_i": {...}}``).
+    (``{"layer_i": {...}}``), a ``GraphClassifier`` (``{"encoder": {...},
+    "head_i": {"kernel", "bias"}}``), an ``AttentionPooling``
+    (``{"attention_transform": {...}, "attention_score": {...}}``) or a
+    ``Set2Set`` (``{"lstm": {"kernel" [F, 4u], "recurrent_kernel" [u, 4u],
+    "bias" [4u]}, "attention_dense": {...}}``).
     """
     out: dict[str, torch.Tensor] = {}
 

@@ -1,5 +1,5 @@
-"""Model compositions: multi-layer GNN encoders."""
+"""Model compositions: multi-layer GNN encoders and task heads."""
 
-from .gnn import GAT, GCN, GIN, GNNEncoder, GraphSAGE
+from .gnn import GAT, GCN, GIN, GNNEncoder, GraphClassifier, GraphSAGE
 
-__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE"]
+__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE", "GraphClassifier"]

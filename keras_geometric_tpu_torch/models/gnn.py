@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``models/gnn.py``: the canonical stacks are
 first-class modules so training and benchmarks share one definition: the
-GCN, GIN, GATv2 and GraphSAGE families.
+GCN, GIN, GATv2 and GraphSAGE families, and ``GraphClassifier`` (an encoder,
+a batched readout and a Dense head for graph-level tasks).
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ from torch import nn
 from ..nn.gatv2_conv import GATv2Conv
 from ..nn.gcn_conv import GCNConv
 from ..nn.gin_conv import GINConv
-from ..nn.module import dropout, get_activation
+from ..nn.module import Dense, Module, dropout, get_activation
+from ..nn.pooling.global_pooling import batch_pool
 from ..nn.sage_conv import SAGEConv
 
-__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE"]
+__all__ = ["GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE", "GraphClassifier"]
 
 _FAMILIES = {"gcn": GCNConv, "gin": GINConv, "gatv2": GATv2Conv,
              "sage": SAGEConv}
@@ -32,7 +34,7 @@ def _layer_out_dim(layer: nn.Module) -> int:
     return layer.output_dim
 
 
-class GNNEncoder(nn.Module):
+class GNNEncoder(Module):
     """A stack of conv layers with inter-layer activation (+ dropout).
 
     ``conv``: layer family name (``'gcn'`` | ``'gin'`` | ``'gatv2'`` |
@@ -62,6 +64,9 @@ class GNNEncoder(nn.Module):
     ):
         super().__init__()
         hidden_dims = tuple(hidden_dims)
+        # The reference keeps the pairs sorted by key, and so its config.
+        conv_kwargs = tuple(sorted(dict(conv_kwargs).items()))
+        self._keep_config(locals())
         if not hidden_dims:
             raise ValueError("hidden_dims must be non-empty")
         if conv not in _FAMILIES:
@@ -167,3 +172,71 @@ def GraphSAGE(hidden_dims: tuple[int, ...], aggregator: str = "mean",
     """GraphSAGE stack; every layer aggregates with ``aggregator``."""
     return GNNEncoder("sage", tuple(hidden_dims),
                       conv_kwargs=(("aggregator", aggregator),), **kwargs)
+
+
+class GraphClassifier(Module):
+    """Encoder, batched readout and Dense head for graph-level tasks.
+
+    ``encoder`` is a built :class:`GNNEncoder`, or its config (a dict, as
+    ``from_config`` hands it over), which is then built here with
+    ``input_dim``. The readout is :func:`batch_pool` with ``readout`` in
+    ``'sum'`` | ``'mean'`` | ``'max'``; the head is ``head_0 .. head_k``:
+    a Dense layer with ``relu`` for each width of ``head_hidden``, then a
+    linear one to ``num_classes``. Sub-modules mirror the reference's tree
+    (``{"encoder": {"layer_i": ...}, "head_i": {"kernel", "bias"}}``).
+    """
+
+    def __init__(
+        self,
+        encoder: GNNEncoder | dict,
+        num_classes: int,
+        readout: str = "mean",
+        head_hidden: tuple[int, ...] = (),
+        *,
+        input_dim: int | None = None,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if isinstance(encoder, dict):
+            encoder = GNNEncoder.from_config(
+                encoder, input_dim=input_dim, generator=generator,
+                device=device, dtype=dtype)
+        self._keep_config(locals())
+        self.encoder = encoder
+        self.num_classes = num_classes
+        self.readout = readout
+        widths = tuple(head_hidden) + (num_classes,)
+        self.num_head_layers = len(widths)
+        dim = encoder.output_dim
+        for i, units in enumerate(widths):
+            layer = Dense(
+                units, input_dim=dim,
+                activation="relu" if i < len(widths) - 1 else None,
+                generator=generator, device=device, dtype=dtype,
+            )
+            self.add_module(f"head_{i}", layer)
+            dim = units
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        edge_index: torch.Tensor,
+        batch: torch.Tensor,
+        num_graphs: int,
+        *,
+        edge_mask: torch.Tensor | None = None,
+        node_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``[num_graphs, num_classes]`` logits; ``batch[i]`` is node ``i``'s
+        graph id (a padded batch's padded nodes carry the dummy id and are
+        masked by ``node_mask``)."""
+        h = self.encoder(x, edge_index, edge_mask=edge_mask,
+                         node_mask=node_mask, generator=generator)
+        pooled = batch_pool(h, batch, num_graphs, self.readout,
+                            node_mask=node_mask)
+        for i in range(self.num_head_layers):
+            pooled = getattr(self, f"head_{i}")(pooled)
+        return pooled

@@ -1,4 +1,5 @@
-"""Neural network layers: building blocks, message passing and conv layers."""
+"""Neural network layers: building blocks, message passing, conv layers and
+pooling."""
 
 from .aggregators import (
     AGGREGATORS,
@@ -11,6 +12,7 @@ from .gcn_conv import GCNConv
 from .gin_conv import GINConv
 from .message_passing import MessagePassing, propagate
 from .module import MLP, Dense, Module, dropout, get_activation, get_initializer
+from .pooling import AttentionPooling, BatchGlobalPooling, GlobalPooling, Set2Set
 from .sage_conv import SAGEConv
 
 __all__ = [
@@ -30,4 +32,8 @@ __all__ = [
     "GINConv",
     "GATv2Conv",
     "SAGEConv",
+    "GlobalPooling",
+    "BatchGlobalPooling",
+    "AttentionPooling",
+    "Set2Set",
 ]

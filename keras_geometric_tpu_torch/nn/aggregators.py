@@ -12,10 +12,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch import nn
 
 from ..ops import segment
-from .module import Dense
+from .module import Dense, Module
 
 __all__ = [
     "aggregate",
@@ -60,7 +59,7 @@ def aggregate(
     )
 
 
-class PoolingAggregator(nn.Module):
+class PoolingAggregator(Module):
     """Learnable pooling aggregation: ``max_j Dense(units, act)(m_j)``.
 
     The messages pass through one Dense layer (the sub-module ``mlp``, so
@@ -83,6 +82,7 @@ class PoolingAggregator(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         self.units = units
         self.mlp = Dense(
             units,

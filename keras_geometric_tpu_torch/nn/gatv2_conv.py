@@ -32,12 +32,12 @@ from torch import nn
 from ..ops import csr, edge_dropout
 from ..ops.graph_ops import add_self_loops, ensure_edge_index
 from ..ops.segment import segment_softmax, segment_sum
-from .module import get_initializer
+from .module import Module, get_initializer
 
 __all__ = ["GATv2Conv"]
 
 
-class GATv2Conv(nn.Module):
+class GATv2Conv(Module):
     """GATv2 multi-head attention convolution.
 
     Parameters are ``kernel`` ``[input_dim, heads*output_dim]``, ``att``
@@ -65,6 +65,7 @@ class GATv2Conv(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.heads = heads

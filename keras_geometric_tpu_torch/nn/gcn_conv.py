@@ -26,12 +26,12 @@ from torch import nn
 
 from ..ops import spmm
 from ..ops.graph_ops import add_self_loops, ensure_edge_index, gcn_norm
-from .module import dropout, get_initializer
+from .module import Module, dropout, get_initializer
 
 __all__ = ["GCNConv"]
 
 
-class GCNConv(nn.Module):
+class GCNConv(Module):
     """GCN convolution with optional self-loops and symmetric normalization.
 
     Parameters are ``kernel`` ``[input_dim, output_dim]`` and ``bias``
@@ -54,6 +54,7 @@ class GCNConv(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.use_bias = use_bias

@@ -27,14 +27,14 @@ from torch import nn
 
 from ..ops.graph_ops import ensure_edge_index
 from .aggregators import aggregate
-from .module import MLP
+from .module import MLP, Module
 
 __all__ = ["GINConv"]
 
 _VALID_AGGREGATORS = ("mean", "max", "sum")
 
 
-class GINConv(nn.Module):
+class GINConv(Module):
     """GIN convolution with a configurable MLP and a fixed or trainable eps."""
 
     def __init__(
@@ -56,6 +56,7 @@ class GINConv(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         if aggregator not in _VALID_AGGREGATORS:
             raise ValueError(
                 f"Invalid aggregator: {aggregator}. "

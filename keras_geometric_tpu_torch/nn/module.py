@@ -6,12 +6,15 @@ explicit ``torch.Generator``, and training mode is the module's own
 ``train()``/``eval()`` state. Modules create their parameters on the CUDA
 device unless the caller passes another ``device``. Kernels keep the reference's ``[in, out]``
 layout (``x @ kernel``), so parameter trees carry over without a transpose.
+Every layer and model derives from :class:`Module`, which gives the
+reference's config round-trip (``get_config`` / ``from_config``).
 """
 
 from __future__ import annotations
 
+import inspect
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch import nn
@@ -27,9 +30,62 @@ __all__ = [
 ]
 
 
-# The reference's base class of every layer; here every layer is a
-# ``torch.nn.Module``, so the name points there.
-Module = nn.Module
+# Constructor arguments that say where and how a module is built, not what
+# it is. The reference's ``init`` takes them (the input width, the key, the
+# dtype), so its config has none of them.
+_BUILD_ARGS = ("input_dim", "generator", "device", "dtype")
+
+
+class Module(nn.Module):
+    """Base of the port's layers and models: a ``torch.nn.Module`` whose
+    constructor arguments, less the build arguments, are its config.
+
+    A subclass calls ``self._keep_config(locals())`` right after
+    ``super().__init__()``, before it binds a new local name (an argument it
+    normalises first is recorded as normalised). ``get_config()`` then
+    returns the reference's dict for the same
+    arguments: ``class_name``, every field, tuples as lists, nested modules as
+    their configs. ``from_config(config, *, input_dim, ...)`` rebuilds the
+    module; the reference's config has no input width (its ``init`` takes
+    one), so the caller passes it. Keys the constructor does not take are
+    ignored, as the reference ignores them.
+    """
+
+    def _keep_config(self, args: dict[str, Any]) -> None:
+        self._config = {k: v for k, v in args.items()
+                        if k not in _BUILD_ARGS + ("self", "__class__")}
+
+    def get_config(self) -> dict[str, Any]:
+        cfg = {"class_name": type(self).__name__}
+        for name, value in self._config.items():
+            if isinstance(value, Module):
+                value = value.get_config()
+            elif isinstance(value, tuple):
+                value = list(value)
+            cfg[name] = value
+        return cfg
+
+    @classmethod
+    def from_config(
+        cls,
+        config: dict[str, Any],
+        *,
+        input_dim: int | None = None,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+        dtype: torch.dtype = torch.float32,
+    ) -> "Module":
+        params = inspect.signature(cls).parameters
+        needs = params.get("input_dim")
+        if (needs is not None and needs.default is inspect.Parameter.empty
+                and input_dim is None):
+            raise ValueError(f"{cls.__name__}.from_config needs input_dim=")
+        kwargs = {k: v for k, v in config.items()
+                  if k in params and k not in _BUILD_ARGS}
+        build = {"input_dim": input_dim, "generator": generator,
+                 "device": device, "dtype": dtype}
+        kwargs.update({k: v for k, v in build.items() if k in params})
+        return cls(**kwargs)
 
 
 def _fans(shape) -> tuple[int, int]:
@@ -170,7 +226,7 @@ def dropout(
     return torch.where(keep_mask, x / keep, torch.zeros_like(x))
 
 
-class Dense(nn.Module):
+class Dense(Module):
     """Affine transform ``x @ kernel (+ bias)`` with optional activation."""
 
     def __init__(
@@ -187,6 +243,7 @@ class Dense(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         self.units = units
         self.input_dim = input_dim
         self.activation = activation
@@ -212,7 +269,7 @@ class Dense(nn.Module):
         return get_activation(self.activation)(out)
 
 
-class MLP(nn.Module):
+class MLP(Module):
     """Dense stack: hidden layers with activation (+dropout), linear output:
     ``[Dense(h, act) + Dropout]* + Dense(out, linear)``; sub-layers are named
     ``dense_0 .. dense_k``."""
@@ -233,6 +290,7 @@ class MLP(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         self.dropout_rate = dropout_rate
         dims = tuple(hidden_dims) + (output_dim,)
         self.num_layers = len(dims)

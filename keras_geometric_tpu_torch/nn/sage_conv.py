@@ -33,14 +33,14 @@ from torch import nn
 from ..ops.graph_ops import ensure_edge_index
 from ..ops.segment import segment_max
 from .aggregators import aggregate
-from .module import Dense, dropout, get_activation
+from .module import Dense, Module, dropout, get_activation
 
 __all__ = ["SAGEConv"]
 
 _VALID_AGGREGATORS = ("mean", "max", "sum", "min", "std", "pooling")
 
 
-class SAGEConv(nn.Module):
+class SAGEConv(Module):
     """GraphSAGE convolution with six aggregation strategies."""
 
     def __init__(
@@ -63,6 +63,7 @@ class SAGEConv(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self._keep_config(locals())
         if aggregator not in _VALID_AGGREGATORS:
             raise ValueError(
                 f"Invalid aggregator '{aggregator}'. "

@@ -8,6 +8,8 @@ from .graph_ops import (
     coo_to_csr,
     ensure_edge_index,
     gcn_norm,
+    pad_edges,
+    pad_nodes,
     round_up,
     sort_edges_by_receiver,
 )
@@ -35,6 +37,8 @@ __all__ = [
     "coo_to_csr",
     "ensure_edge_index",
     "gcn_norm",
+    "pad_edges",
+    "pad_nodes",
     "round_up",
     "sort_edges_by_receiver",
     "segment_count",

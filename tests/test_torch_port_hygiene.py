@@ -5,6 +5,7 @@ its entry points default to the CUDA device.
 
 import importlib.util
 import inspect
+import os
 import pathlib
 import re
 import subprocess
@@ -33,7 +34,8 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "keras_geometric_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "attend_kernels_ab.py"]
+                                           ROOT / "attend_kernels_ab.py"] + \
+    sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
     r"|(import|from)\s+keras_geometric_tpu(?!_torch)\b)", re.M)
@@ -58,6 +60,9 @@ MODULES = [
     "data/datasets/citation.py", "data/datasets/ogb.py",
     "training/__init__.py", "training/metrics.py", "training/checkpoint.py",
     "training/sage_minibatch.py",
+    "nn/pooling/__init__.py", "nn/pooling/global_pooling.py",
+    "nn/pooling/attention_pooling.py", "models/__init__.py",
+    "utils/device.py",
 ]
 # The data tier and minibatch training: the modules it added or extended.
 DATA_TIER_MODULES = [
@@ -70,10 +75,15 @@ DATA_TIER_MODULES = [
     "training/checkpoint.py", "training/sage_minibatch.py",
     "training/__init__.py", "__init__.py",
 ]
-# The reference's top-level names the port does not have yet: graph-level
-# readout (pooling), which comes next; and the port's own additions.
-M8_NAMES = {"AttentionPooling", "BatchGlobalPooling", "GlobalPooling",
-            "Set2Set", "global_pool", "batch_pool"}
+# The graph-level readout and the modules it added or extended.
+READOUT_MODULES = [
+    "nn/pooling/__init__.py", "nn/pooling/global_pooling.py",
+    "nn/pooling/attention_pooling.py", "nn/module.py", "nn/__init__.py",
+    "models/gnn.py", "models/__init__.py", "ops/__init__.py", "convert.py",
+]
+# The reference's top-level names the port does not have (none since the
+# graph-level readout landed); and the port's own additions.
+M8_NAMES = set()
 PORT_ADDITIONS = {"GNNEncoder", "GCN", "GIN", "GAT", "GraphSAGE",
                   "GraphContext", "prepare_graph", "precompute_propagation"}
 
@@ -108,7 +118,9 @@ def test_importing_the_port_does_not_import_jax():
         "keras_geometric_tpu_torch.ops.edge_dropout, "
         "keras_geometric_tpu_torch.kernels.band_cuda, "
         "keras_geometric_tpu_torch.ops.reorder, "
-        "keras_geometric_tpu_torch.data.datasets\n"
+        "keras_geometric_tpu_torch.data.datasets, "
+        "keras_geometric_tpu_torch.nn.pooling, "
+        "keras_geometric_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keras_geometric_tpu' or "
         "m.startswith('keras_geometric_tpu.') or m == 'optax']\n"
@@ -121,8 +133,7 @@ def test_importing_the_port_does_not_import_jax():
     assert proc.stdout.strip() == kgt_torch.__version__
 
 
-@pytest.mark.parametrize("rel", DATA_TIER_MODULES)
-def test_data_tier_module_imports_neither_jax_nor_the_reference(rel):
+def _imports_neither_jax_nor_the_reference(rel):
     path = PORT / rel
     assert path.is_file()
     text = path.read_text()
@@ -131,6 +142,16 @@ def test_data_tier_module_imports_neither_jax_nor_the_reference(rel):
     name = "keras_geometric_tpu_torch." + rel[:-3].replace("/", ".")
     module = importlib.import_module(name.removesuffix(".__init__"))
     assert module.__name__.startswith("keras_geometric_tpu_torch")
+
+
+@pytest.mark.parametrize("rel", DATA_TIER_MODULES)
+def test_data_tier_module_imports_neither_jax_nor_the_reference(rel):
+    _imports_neither_jax_nor_the_reference(rel)
+
+
+@pytest.mark.parametrize("rel", READOUT_MODULES)
+def test_readout_module_imports_neither_jax_nor_the_reference(rel):
+    _imports_neither_jax_nor_the_reference(rel)
 
 
 def test_importing_the_data_tier_loads_no_build_and_no_jax():
@@ -162,7 +183,7 @@ def test_package_exports_differ_from_the_reference_by_the_readout_only():
     assert set(kgt_torch.__all__) - set(ref.__all__) == PORT_ADDITIONS
     for name in kgt_torch.__all__:
         assert hasattr(kgt_torch, name), name
-    for sub in ("training", "utils", "data.datasets"):
+    for sub in ("training", "utils", "data.datasets", "ops", "nn", "models"):
         ref_sub = importlib.import_module(f"keras_geometric_tpu.{sub}")
         port_sub = importlib.import_module(f"keras_geometric_tpu_torch.{sub}")
         assert set(ref_sub.__all__) <= set(port_sub.__all__), sub
@@ -499,11 +520,15 @@ def test_scatter_sum_dispatcher_on_cpu_is_the_segment_sum():
            kgt_torch.GINConv.__init__, kgt_torch.SAGEConv.__init__,
            kgt_torch.PoolingAggregator.__init__,
            kgt_torch.Graph.from_edge_index, kgt_torch.GraphData.to_graph,
-           kgt_torch.utils.batch_graphs_padded],
+           kgt_torch.utils.batch_graphs_padded,
+           kgt_torch.models.GraphClassifier.__init__,
+           kgt_torch.AttentionPooling.__init__, kgt_torch.Set2Set.__init__,
+           kgt_torch.Module.from_config],
     ids=["prepare_graph", "GCNConv", "GNNEncoder", "Dense", "MLP",
          "GATv2Conv", "GINConv", "SAGEConv", "PoolingAggregator",
          "Graph.from_edge_index", "GraphData.to_graph",
-         "batch_graphs_padded"])
+         "batch_graphs_padded", "GraphClassifier", "AttentionPooling",
+         "Set2Set", "Module.from_config"])
 def test_entry_points_default_to_the_cuda_device(fn):
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
@@ -764,3 +789,56 @@ def test_graph_ops_host_helpers_match_reference():
         tgo.ensure_edge_index(np.zeros(3))
     with pytest.raises(ValueError, match=r"\[2, E\]"):
         tgo.ensure_edge_index(np.zeros((3, 3)))
+
+
+def _flags(path):
+    return dict(re.findall(r'add_argument\("(--[\w-]+)"(.*)\)\s*$',
+                           path.read_text(), re.M))
+
+
+def test_every_example_has_a_twin_with_its_flags_and_chip_smoke_runs_it():
+    examples = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    twins = sorted(p.name for p in (ROOT / "examples_torch").glob("*.py"))
+    assert twins == examples and len(twins) == 10
+    for name in twins:
+        ref, twin = (_flags(ROOT / "examples" / name),
+                     _flags(ROOT / "examples_torch" / name))
+        assert twin == {**ref, "--device": ', default="cuda"'}, name
+        text = (ROOT / "examples_torch" / name).read_text()
+        assert "device = pick_device(args.device)" in text, name
+        # the port's one device rule, imported, not a copy of it
+        assert re.search(r"^from keras_geometric_tpu_torch\.utils import "
+                         r"(.*, )?pick_device\b", text, re.M), name
+        assert "def pick_device" not in text, name
+    module = _chip_smoke_module()
+    assert {script for script, _ in module.EXAMPLE_RUNS} == set(twins)
+    assert ("node_classification.py",
+            ("--epochs", "1", "--dataset", "pubmed")) in module.EXAMPLE_RUNS
+    for script, args in module.EXAMPLE_RUNS:  # the fewest epochs allowed
+        assert ("--epochs" in _flags(ROOT / "examples_torch" / script)) == (
+            args[:2] == ("--epochs", "1")), script
+    assert module.PHASES[-3:] == ("train_gin_graph_classification",
+                                  "readouts_on_card", "examples_torch")
+
+
+@pytest.mark.parametrize("script", ["simple_gcn.py", "pooling_readouts.py"])
+def test_a_twin_without_a_card_raises_instead_of_moving_to_cpu(script):
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, f"examples_torch/{script}"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and not proc.stdout
+
+
+def test_pick_device_names_the_device_and_never_moves_to_the_cpu():
+    from keras_geometric_tpu_torch.utils import pick_device
+
+    assert pick_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pick_device("cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pick_device()
