@@ -4,9 +4,11 @@ hold each against its plain PyTorch version, and train the 2-layer GCN and the
 2-layer GATv2 (fused and composed attention, the fused attention's other
 backward and score-cache modes, and both models on the locality tier), and
 GraphSAGE and GIN (their max and pooling paths through the segment max
-kernel) through the package's entry points; then GraphSAGE minibatch and
-GIN graph classification on the library ops, the readouts, and the twins
-of the examples.
+kernel) through the package's entry points; then GraphSAGE minibatch,
+partitioned full-graph training on ``torch.distributed`` (a mesh of one
+card, and a four-partition plan as four processes on it), GIN graph
+classification on the library ops, the readouts, and the twins of the
+examples.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -170,7 +172,41 @@ exit code and without the final line; so does a run of a subset of the phases
 17. ``train_gcn_ogbn_arxiv``  the full-graph GCN of run 4 on the same
                 dataset's own graph and train split, through ``prepare_graph``
                 (the fused-gather scatter, 3 launches a step);
-18. ``train_gin_graph_classification``  BASELINE.json config 3 as
+18. ``train_distributed_arxiv_shape``  partitioned full-graph training
+                (``parallel/``) on an NCCL process group of one rank (a
+                ``file://`` store under ``build/``) and a mesh ``(1,)``:
+                ``train_arxiv_shape``'s graph partitioned with the GCN
+                normalization and self-loops folded in, its kernel plan,
+                ``distributed_gcn_encoder((256, 40))`` (run 4's weights),
+                20 steps of ``make_distributed_train_step`` (bf16 IO / f32
+                masters, Adam); then run 6's fused GATv2 over an attend
+                plan (the no-cache kernels over the exchanged table). Each:
+                step 1 against the single-device port at the same weights
+                (the GATv2 in the no-cache mode), the bf16 limits below;
+                launches a step exactly as predicted (``DIST_GCN_PER_STEP``,
+                ``DIST_GAT_PER_STEP``) and no fallback taken; the
+                evaluation function's accuracy; ``step_ms``, device busy
+                time and idle share beside the single-device run's, timed
+                in the same call; the group destroyed at the end;
+19. ``distributed_partitions_arxiv_shape``  a P = 4 plan of run 11's
+                community graph in ``community_partition_order`` (halo size
+                and comm fraction beside the cluster order alone and the
+                uniform graph's), each partition a process of its own on
+                the one card, the four in a gloo group (NCCL takes one rank
+                a card) whose all-to-all carries the halo rows: each runs
+                the public ``spmm_local_overlapped`` (the local and remote
+                K1 streams at F = 128 / 40 bf16), ``pooled_max_local``
+                (the two streams' K4 maxes at F = 128 / 256 f32, columns
+                of distinct values) and ``attend_local`` (H = 4, F = 64),
+                forward and backward; launches per rank exactly as
+                predicted; the outputs and gradients reassembled and held
+                against the single-device context's ops and the plain
+                versions (K4's forward bit for bit; elsewhere the kernel
+                tolerance plus a unit in the last place of the sum of the
+                parts' absolute values, for parts rounded to bf16 before
+                they are added), each check's limit and largest reference
+                reported, and each shown to fail an output of zeros;
+20. ``train_gin_graph_classification``  BASELINE.json config 3 as
                 ``examples_torch/graph_classification.py`` builds it: 200
                 synthetic graphs of 10-23 nodes (seed 0), buckets of 768
                 nodes / 6,144 edges / 33 graph slots, ``GraphClassifier(GIN(
@@ -180,13 +216,13 @@ exit code and without the final line; so does a run of a subset of the phases
                 against the CPU path, the loss falling, ``step_ms``, device
                 busy time and idle share, peak memory, 0 hand-written
                 launches (the edge-list GIN and the readout are library ops);
-19. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
+21. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
                 every mode, with and without a node mask, on tied maxes, and
                 ``AttentionPooling`` and ``Set2Set`` (3 steps), forward and
                 backward against the CPU path (f32 1e-5, bf16 2e-2 of the
                 largest entry), on the encoder's output for one padded batch
                 and on one graph of 100,000 nodes x 128 features;
-20. ``examples_torch``  each of the ten twins of ``examples/`` in
+22. ``examples_torch``  each of the ten twins of ``examples/`` in
                 ``examples_torch/`` (and ``node_classification.py --dataset
                 pubmed``) as a process of its own on the card, at the
                 fewest epochs its flags allow: every exit code 0, all of
@@ -223,6 +259,7 @@ import json
 import math
 import os
 import pathlib
+import pickle
 import re
 import subprocess
 import sys
@@ -242,6 +279,8 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
           "train_gin_max_arxiv_shape", "train_sage_cora_shape",
           "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv",
+          "train_distributed_arxiv_shape",
+          "distributed_partitions_arxiv_shape",
           "train_gin_graph_classification", "readouts_on_card",
           "examples_torch")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
@@ -576,19 +615,39 @@ ATOL, RTOL_MASS = 1e-6, 2e-5
 ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 
 
-def compare(kernel_out, plain_out, mass, dtype, what):
+def compare(kernel_out, plain_out, mass, dtype, what, partials=None,
+            report=False):
     """max |kernel - plain|, checked element by element against
-    ``ATOL + RTOL_MASS * mass + ULP[dtype] * |plain|``."""
+    ``ATOL + RTOL_MASS * mass + ULP[dtype] * (|plain| + partials)``.
+
+    ``partials``: for a result added up from parts that were each rounded
+    to ``dtype`` first (the partitions' or the streams'), the sum of the
+    parts' absolute values (or a bound above it), element by element; each
+    rounding adds at most half a unit of its part. ``report=True`` returns,
+    instead of the error, a dict: the error, the limit where the error comes
+    nearest it, the largest limit, the largest ``|plain|``, and the share
+    of elements where an output of zeros would exceed the limit (above 0:
+    zeros fail the check)."""
     check(kernel_out.shape == plain_out.shape and
           kernel_out.dtype == plain_out.dtype, f"{what}: shape/dtype differ")
     k, p = kernel_out.float(), plain_out.float()
     check(bool(torch.isfinite(k).all()), f"{what}: kernel output not finite")
     err = (k - p).abs()
     allowed = ATOL + RTOL_MASS * mass + ULP[dtype] * p.abs()
-    ratio = (err / allowed).max().item()
+    if partials is not None:
+        allowed = allowed + ULP[dtype] * partials
+    ratios = err / allowed
+    ratio = ratios.max().item()
     check(ratio <= 1.0, f"{what}: kernel disagrees with its plain version "
           f"(max abs err {err.max().item():.3e}, {ratio:.2f}x the tolerance)")
-    return err.max().item()
+    if not report:
+        return err.max().item()
+    worst = int(ratios.argmax())
+    return {"max_abs_err": err.max().item(), "err_over_limit": ratio,
+            "limit_at_worst": allowed.reshape(-1)[worst].item(),
+            "max_limit": allowed.max().item(),
+            "max_abs_reference": p.abs().max().item(),
+            "zeros_fail_share": (p.abs() > allowed).float().mean().item()}
 
 
 def skewed_graph(device, n=20_000, seed=1, hub=20_000):
@@ -1031,16 +1090,19 @@ def time_messages_elsewhere(name, f, dtype, weighted, masked, hub_graphs,
 
 
 def attend_restated(ctx, ht, att, drop_mask=None, negative_slope=0.2,
-                    eps=1e-10):
+                    eps=1e-10, ht_send=None):
     """``GraphContext.attend`` written with differentiable library ops over
     the same edge order, validity mask and dropout mask, f32 inside: autograd
-    over this is the oracle for the hand-written backward. For comparison
-    only."""
+    over this is the oracle for the hand-written backward. ``ht_send``:
+    the sender rows of every slot (``ht[senders]``) as a tensor of their
+    own, whose gradient is then each slot's sender part apart from the
+    receiver part in ``ht``'s. For comparison only."""
     n, (heads, f) = ht.shape[0], att.shape
     s, r = ctx.senders.long(), ctx.receivers.long()
     e = s.shape[0]
     rows = ht.float()
-    hj = rows.index_select(0, s).view(e, heads, f)
+    hj = (rows.index_select(0, s) if ht_send is None
+          else ht_send.float()).view(e, heads, f)
     hi = rows.index_select(0, r).view(e, heads, f)
     z = torch.nn.functional.leaky_relu(hi + hj, negative_slope)
     alpha = edge_softmax_restated(ctx, (z * att.float()).sum(-1), eps)
@@ -3541,10 +3603,9 @@ def gin_sage_autograd_phase(device):
 # ---------------------------------------------------------------------------
 
 
-def arxiv_workload(device, symmetric: bool):
-    """The uniform arxiv-shaped workload, rebuilt with numpy from seed 0."""
-    import keras_geometric_tpu_torch as kgt
-
+def arxiv_arrays(symmetric: bool):
+    """The uniform arxiv-shaped graph's features, edges and labels, rebuilt
+    with numpy from seed 0."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((ARXIV_NODES, ARXIV_FEATS)).astype(np.float32)
     half = ARXIV_EDGES // 2
@@ -3557,6 +3618,14 @@ def arxiv_workload(device, symmetric: bool):
         c = rng.integers(0, ARXIV_NODES, half).astype(np.int32)
         d = rng.integers(0, ARXIV_NODES, half).astype(np.int32)
         edges = np.stack([np.concatenate([a, c]), np.concatenate([b, d])])
+    return x, edges, y
+
+
+def arxiv_workload(device, symmetric: bool):
+    """The uniform arxiv-shaped workload, rebuilt with numpy from seed 0."""
+    import keras_geometric_tpu_torch as kgt
+
+    x, edges, y = arxiv_arrays(symmetric)
     start = time.perf_counter()
     ctx = kgt.prepare_graph(
         edges, ARXIV_NODES, add_self_loops=True, gcn_normalize=True,
@@ -3611,18 +3680,26 @@ def cora_workload(device, gcn=True):
     return ctx, dev(x), dev(y), dev(mask)
 
 
-def gat_arxiv_workload(device):
-    """The reference suite's arxiv-sized GATv2 workload, rebuilt with numpy
-    from seed 0: random directed edges plus one self-loop per node."""
-    import keras_geometric_tpu_torch as kgt
-
+def gat_arxiv_arrays():
+    """The reference suite's arxiv-sized GATv2 graph (random directed edges;
+    the self-loops are added at preparation), rebuilt with numpy from seed
+    0: features, edges, labels."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((ARXIV_NODES, ARXIV_FEATS)).astype(np.float32)
     edges = np.stack([rng.integers(0, ARXIV_NODES, GAT_ARXIV_EDGES),
                       rng.integers(0, ARXIV_NODES, GAT_ARXIV_EDGES)])
     y = rng.integers(0, ARXIV_CLASSES, ARXIV_NODES).astype(np.int64)
+    return x, edges.astype(np.int32), y
+
+
+def gat_arxiv_workload(device):
+    """The reference suite's arxiv-sized GATv2 workload: random directed
+    edges plus one self-loop per node."""
+    import keras_geometric_tpu_torch as kgt
+
+    x, edges, y = gat_arxiv_arrays()
     start = time.perf_counter()
-    ctx = kgt.prepare_graph(edges.astype(np.int32), ARXIV_NODES,
+    ctx = kgt.prepare_graph(edges, ARXIV_NODES,
                             add_self_loops=True, device=device)
     prepare_s = time.perf_counter() - start
     dev = lambda arr: torch.from_numpy(arr).to(device)
@@ -4815,6 +4892,826 @@ def examples_phase() -> dict:
     return {"wall_seconds": wall}
 
 
+# ---------------------------------------------------------------------------
+# Partitioned full-graph training on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 20
+DIST_PARTS = 4  # the partitions of distributed_partitions_arxiv_shape
+# Their processes' time limit (they take about 25 s on one card).
+DIST_RANKS_SECONDS = 240
+# Launches per step, predicted from the bodies (parallel/spmd.py,
+# kernel_plan.py, attend_plan.py) before the first run. GCN: per layer the
+# overlapped spmm runs the fused-gather scatter's row walk over the local
+# and the remote stream, forward and (x @ W needs its gradient) backward.
+# GATv2: per layer the fused forward without the score cache, rho and the
+# receiver backward recomputing the scores, and the sender finish.
+DIST_GCN_PER_STEP = {"gather_scatter_sum_sorted": 8}
+DIST_GCN_MODES = {"gather_scatter_sum_sorted(rows)": 8}
+DIST_GAT_PER_STEP = {"sddmm_stats_agg_sorted": 2, "attend_rho_sorted": 2,
+                     "attend_recv_bwd_full_sorted": 2,
+                     "gather_scatter_sum_sorted": 2}
+DIST_GAT_MODES = {"sddmm_stats_agg_sorted(emit_scores=False)": 2,
+                  "attend_rho_sorted(scores=None)": 2,
+                  "attend_recv_bwd_full_sorted(scores=None)": 2}
+# The bf16 limits of step 1 (PERF.md section 2): the loss, and each gradient
+# against its largest entry.
+BF16_LOSS_TOL, BF16_GRAD_TOL = 2e-2, 5e-2
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A process group of one rank on the card (NCCL), through a
+    ``file://`` store under the git-ignored ``build/``, destroyed when the
+    block ends."""
+    import datetime
+
+    import torch.distributed as dist
+
+    store = ROOT / "build" / f"dist_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def held_step1(what, got, want):
+    """Step 1's loss and gradients against another path's, at the bf16
+    limits; returns the gradients' largest error relative to their scale."""
+    (loss, grads), (w_loss, w_grads) = got, want
+    check(math.isfinite(loss) and abs(loss - w_loss) <= BF16_LOSS_TOL,
+          f"{what}: step-1 loss {loss} vs {w_loss}")
+    worst = 0.0
+    check(set(grads) == set(w_grads), f"{what}: parameter names differ")
+    for key, wg in w_grads.items():
+        scale = wg.abs().max().item()
+        err = (grads[key] - wg).abs().max().item()
+        check(math.isfinite(err) and err <= BF16_GRAD_TOL * max(scale, 1e-12),
+              f"{what}: step-1 gradient of {key}: err {err:.3e} against "
+              f"scale {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-12))
+    return worst
+
+
+def kernel_entry(timer, replaces, name, path, shape, kernel, plain, err,
+                 nbytes, ops, *, mode=None, library=None, extra=None):
+    """One entry of the kernels line: the kernel's and its plain version's
+    times, its bound from bytes and operations, and the library call's time
+    (``library``: ``(label, fn)``) where one computes the same function."""
+    from keras_geometric_tpu_torch.utils.profiling import (
+        H100_BYTES_PER_S,
+        H100_F32_OPS_PER_S,
+    )
+
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    library_ms, label = None, "none: no single PyTorch call computes this"
+    if library is not None:
+        label, library_ms = library
+    entry = {
+        "name": name, "route": "cuda", "source": SOURCES[REPLACES[name][0]],
+        "replaces": replaces[name], "path": path, "shape": shape,
+        "launches": 0, "max_abs_err": err, "ms": timer.cold_ms(kernel,
+                                                               iters=10),
+        "plain_ms": timer.cold_ms(plain, iters=5, warmup=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "library": label, **(extra or {})}
+    if mode is not None:
+        entry["mode"] = mode
+    return entry
+
+
+def stream_entries(timer, replaces, path, label, st, source, dtype, what):
+    """The fused-gather scatter's row walk (K1) over one stream of a kernel
+    plan (``st``: a ``StreamShard``; ``source``: its gather source), against
+    its plain version, with ``torch.sparse.mm`` beside it."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    w = st.weight.to(dtype)
+    args = (source, st.senders, st.receivers, st.row_ptr, st.num_local)
+    kernel = lambda: K.gather_scatter_sum_sorted(*args, weights=w,
+                                                 pieces=False)
+    plain = lambda: K.gather_scatter_sum_sorted_plain(
+        source, st.senders, st.receivers, st.num_local, weights=w)
+    mass = K.gather_scatter_sum_sorted_plain(
+        source.float().abs(), st.senders, st.receivers, st.num_local,
+        weights=w.float().abs())
+    err = compare(kernel(), plain(), mass, dtype, what)
+    s_rows, f = source.shape
+    e, es = st.senders.shape[0], source.element_size()
+    nbytes = (s_rows + st.num_local) * f * es + e * (4 + es) + \
+        (st.num_local + 1) * 4
+    library_ms, note = sparse_library_ms(
+        timer, st.receivers, st.senders, w, (st.num_local, s_rows), source)
+    return [kernel_entry(
+        timer, replaces, "gather_scatter_sum_sorted", path,
+        f"{label}: E={e} (real {st.num_real}) L={st.num_local} S={s_rows} "
+        f"F={f} {str(dtype)[6:]}", kernel, plain, err, nbytes, 2 * e * f,
+        mode="rows", library=("torch.sparse.mm on a CSR tensor", library_ms),
+        extra={"library_note": note} if note else None)]
+
+
+def table_attend_entries(timer, replaces, path, label, ctx, heads, f, dtype,
+                         gen, device):
+    """The no-cache attention kernels and the sender finish over a table
+    context (``[h_local | halo]`` rows, ``attend_plan``), each against its
+    plain version (``modes_case``) and timed."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    n, e, d = ctx.num_nodes, ctx.senders.shape[0], heads * f
+    es = 2 if dtype == torch.bfloat16 else 4
+    ht, att, gout, _ = attend_inputs(gen, n, heads, f, dtype, e, False,
+                                     device)
+    graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
+    valid = ctx.edge_mask
+    errs = modes_case(graph + (valid,), ht, att, gout, None,
+                      f"{path} {label}")
+    out, m, l = A.sddmm_stats_agg_sorted(ht, *graph, att, edge_valid=valid,
+                                         emit_scores=False)
+    rho = A.attend_rho_sorted(gout, None, m, l, ht, *graph, att=att,
+                              edge_valid=valid)
+    _, _, v = A.attend_recv_bwd_full_sorted(ht, gout, *graph, att, None, m,
+                                            l, rho, edge_valid=valid)
+    del out
+    nodes, stats = n * d * es, 2 * n * heads * 4
+    index = e * 4 + (n + 1) * 4
+    recompute = dict(att=att, edge_valid=valid)
+    finish = (v, ctx.bwd_perm, ctx.senders_sorted, ctx.row_ptr_bwd, n)
+    shape = f"{label}: E={e} N={n} H={heads} F={f} {str(dtype)[6:]}"
+    cases = [
+        ("sddmm_stats_agg_sorted", "emit_scores=False",
+         lambda: A.sddmm_stats_agg_sorted(ht, *graph, att, edge_valid=valid,
+                                          emit_scores=False),
+         lambda: A.sddmm_stats_agg_sorted_plain(
+             ht, *graph, att, edge_valid=valid, emit_scores=False),
+         2 * nodes + index + e + stats + d * es, 8 * e * d),
+        ("attend_rho_sorted", "scores=None",
+         lambda: A.attend_rho_sorted(gout, None, m, l, ht, *graph,
+                                     **recompute),
+         lambda: A.attend_rho_sorted_plain(gout, None, m, l, ht, *graph,
+                                           **recompute),
+         2 * nodes + index + e + stats + n * heads * 4 + d * es, 6 * e * d),
+        ("attend_recv_bwd_full_sorted", "scores=None",
+         lambda: A.attend_recv_bwd_full_sorted(ht, gout, *graph, att, None,
+                                               m, l, rho, edge_valid=valid),
+         lambda: A.attend_recv_bwd_full_sorted_plain(
+             ht, gout, *graph, att, None, m, l, rho, edge_valid=valid),
+         3 * nodes + index + e + stats + n * heads * 4 + d * (es + 4)
+         + e * d * es, 16 * e * d),
+        # v read once, the output written, the sender-order streams.
+        ("gather_scatter_sum_sorted", None,
+         lambda: K.gather_scatter_sum_sorted(*finish),
+         lambda: K.gather_scatter_sum_sorted_plain(*finish[:3], n),
+         e * d * es + nodes + 2 * e * 4 + (n + 1) * 4, 2 * e * d),
+    ]
+    entries = []
+    for name, mode, kernel, plain, nbytes, ops in cases:
+        key = (f"{name}({mode})" if mode else
+               "gather_scatter_sum_sorted(sender finish)")
+        entries.append(kernel_entry(
+            timer, replaces, name, path, shape, kernel, plain, errs[key],
+            nbytes, ops, mode=mode,
+            extra=piece_walk_fields(name, ctx.row_ptr_bwd
+                                    if mode is None else ctx.row_ptr)))
+    del ht, gout, m, l, rho, v, finish, cases
+    torch.cuda.empty_cache()
+    return entries
+
+
+def distributed_training_phase(device, timer, workload, arxiv_model,
+                               gat_arxiv_model, replaces):
+    """``train_distributed_arxiv_shape``: the distributed step and
+    evaluation function on a mesh of one card. Returns the run's launches,
+    mode launches and kernel entries."""
+    import torch.distributed as dist
+
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.parallel import attend_plan as par_ap
+    from keras_geometric_tpu_torch.parallel import spmd as par_spmd
+    from keras_geometric_tpu_torch.training import (
+        make_node_classification_step,
+    )
+    from keras_geometric_tpu_torch.utils import timed_steps
+
+    name = "train_distributed_arxiv_shape"
+    phase_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    make_gen = lambda: torch.Generator(device=device).manual_seed(7)
+    adam = lambda model: torch.optim.Adam(model.parameters(), lr=1e-2)
+    counts, modes, entries, runs = {}, {}, [], {}
+    with one_rank_group():
+        mesh = par.make_mesh((1,), device_type="cuda")
+        check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+              f"{name}: the mesh is not an NCCL mesh on the card")
+        gcn_ctx, gcn_x, gcn_y, gcn_mask = workload("arxiv")[:4]
+        gat_ctx, gat_x, gat_y, gat_mask = workload("gat_arxiv")[:4]
+        x, edges, y = arxiv_arrays(symmetric=True)
+        start = time.perf_counter()
+        pg = par.partition_graph(edges, ARXIV_NODES, 1, gcn_normalize=True,
+                                 add_self_loops=True)
+        kp = par.build_kernel_plan(pg)
+        gcn_plan_s = time.perf_counter() - start
+        masks = {"train_mask": np.ones(ARXIV_NODES, bool)}
+        gcn_data = par.shard_partitioned_graph(pg, mesh, x=x, y=y,
+                                               masks=masks, kernel_plan=kp)
+        gx, gedges, gy = gat_arxiv_arrays()
+        start = time.perf_counter()
+        gpg = par.partition_graph(gedges, ARXIV_NODES, 1, add_self_loops=True)
+        gkp = par.build_kernel_plan(gpg)
+        gap = par_ap.build_attend_plan(gpg)
+        gat_plan_s = time.perf_counter() - start
+        start = time.perf_counter()
+        gat_data = par.shard_partitioned_graph(
+            gpg, mesh, x=gx, y=gy, masks=masks, kernel_plan=gkp,
+            attend_plan=gap)
+        gat_shard_s = time.perf_counter() - start
+        check(gat_data["ap"].context.num_real_edges
+              == GAT_ARXIV_EDGES + ARXIV_NODES,
+              f"{name}: the attend plan's table has the wrong edge count")
+
+        def dist_gcn_model():
+            model = par.distributed_gcn_encoder(
+                (HIDDEN, ARXIV_CLASSES), input_dim=ARXIV_FEATS, device=device)
+            model.load_state_dict(arxiv_model().state_dict())
+            return model
+
+        def dist_step1(make_model, data):
+            model = make_model()
+            step = par.make_distributed_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.0), mesh,
+                compute_dtype=bf16, generator=make_gen())
+            loss = step(data).item()
+            return loss, {k: p.grad.detach().clone()
+                          for k, p in model.named_parameters()}
+
+        # The data's kernel (and attend) shard picks the kernelized body.
+        for run, make_model, data, single, single_modes, per_step, \
+                per_mode in (
+                ("gcn", dist_gcn_model, gcn_data,
+                 (arxiv_model, gcn_ctx, gcn_x, gcn_y, gcn_mask),
+                 ("permute", True), DIST_GCN_PER_STEP, DIST_GCN_MODES),
+                ("gatv2", gat_arxiv_model, gat_data,
+                 (gat_arxiv_model, gat_ctx, gat_x, gat_y, gat_mask),
+                 ("permute", False), DIST_GAT_PER_STEP, DIST_GAT_MODES)):
+            # Step 1 against the single-device port at the same weights
+            # (GCN: its densified self-loops against the streamed ones here;
+            # GATv2: in the no-cache mode the distributed body runs).
+            got = dist_step1(make_model, data)
+            with attend_modes(*single_modes):
+                want = first_step(single[0], make_gen, *single[1:], bf16)
+            grad_err = held_step1(f"{name} {run}", got, want)
+
+            model = make_model()
+            step = par.make_distributed_train_step(
+                model, adam(model), mesh, compute_dtype=bf16,
+                generator=make_gen())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            for key in par_spmd.FALLBACK_COUNTS:
+                par_spmd.FALLBACK_COUNTS[key] = 0
+            losses = [step(data) for _ in range(DIST_STEPS)]
+            timed = []
+
+            def timed_step():
+                timed.append(1)
+                return step(data)
+
+            step_ms = 1e3 * timed_steps(timed_step, k_lo=2, k_hi=12,
+                                        trials=2)
+            torch.cuda.synchronize()
+            run_counts, run_modes = launch_counts(), mode_launch_counts()
+            total = DIST_STEPS + len(timed)
+            losses = [l.item() for l in losses]
+            check(all(math.isfinite(l) for l in losses) and
+                  losses[-1] < losses[0],
+                  f"{name} {run}: loss not finite or not falling: {losses}")
+            expected = {k: per_step.get(k, 0) * total for k in run_counts}
+            check(run_counts == expected, f"{name} {run}: launch counts "
+                  f"{run_counts}, expected {expected}")
+            expected = {k: per_mode.get(k, 0) * total for k in run_modes}
+            check(run_modes == expected, f"{name} {run}: mode launch counts "
+                  f"{run_modes}, expected {expected}")
+            check(not any(par_spmd.FALLBACK_COUNTS.values()),
+                  f"{name} {run}: a fallback was taken: "
+                  f"{par_spmd.FALLBACK_COUNTS}")
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            for k, v in run_counts.items():
+                counts[k] = counts.get(k, 0) + v
+            for k, v in run_modes.items():
+                modes[k] = modes.get(k, 0) + v
+            evaluate = par.make_distributed_eval_fn(
+                model, mesh, compute_dtype=bf16)
+            accuracy = evaluate(data, data["train_mask"]).item()
+            check(0.0 <= accuracy <= 1.0, f"{name} {run}: accuracy "
+                  f"{accuracy}")
+            traced = profile_steps(lambda: step(data), iters=5, top=8)
+            # The single-device run of the same model, timed and traced in
+            # this call beside it.
+            s_model = single[0]()
+            s_step = make_node_classification_step(
+                s_model, adam(s_model), compute_dtype=bf16,
+                generator=make_gen())
+            s_args = single[2:]
+            with attend_modes(*single_modes):
+                s_fn = lambda: s_step(s_args[0], None, *s_args[1:],
+                                      context=single[1])
+                single_ms = 1e3 * timed_steps(s_fn, k_lo=2, k_hi=12,
+                                              trials=2)
+                single_traced = profile_steps(s_fn, iters=5, top=4)
+            runs[run] = dict(
+                steps=total, losses=losses, step1_loss=got[0],
+                step1_loss_single_device=want[0],
+                step1_grad_rel_err_vs_single_device=grad_err,
+                launches_per_step=per_step, launches=run_counts,
+                mode_launches_per_step=per_mode, mode_launches=run_modes,
+                fallbacks=dict(par_spmd.FALLBACK_COUNTS), step_ms=step_ms,
+                peak_memory_mb=peak_mb, eval_accuracy=accuracy,
+                profile=traced, single_device_step_ms=single_ms,
+                single_device_profile=single_traced)
+            del model, step, s_model, s_step, evaluate
+            torch.cuda.empty_cache()
+
+        # The kernels at the shapes of this path: the GCN's local stream at
+        # both layers (F = 256: the distributed layer transforms before it
+        # propagates), the attention over the table context at layer 1.
+        gen = torch.Generator(device=device).manual_seed(31)
+        st = gcn_data["kp"].loc
+        for layer, f in (("layer 1", HIDDEN), ("layer 2", ARXIV_CLASSES)):
+            h = torch.randn(st.num_source_rows, f, generator=gen,
+                            device=device).to(bf16)
+            entries += stream_entries(
+                timer, replaces, name, f"GCN local stream, {layer}", st, h,
+                bf16, f"{name} local stream {layer}")
+        entries += table_attend_entries(
+            timer, replaces, name, "GATv2 table, layer 1",
+            gat_data["ap"].context, GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0], bf16,
+            gen, device)
+        del gcn_data, gat_data
+    check(not dist.is_initialized(), f"{name}: the process group was not "
+          "destroyed")
+    emit(name, runs=runs, world_size=1, mesh=[1], backend="nccl",
+         group_destroyed=True, gcn_plan_seconds=gcn_plan_s,
+         gat_plan_seconds=gat_plan_s, gat_shard_seconds=gat_shard_s,
+         halo_size=kp.halo_size, remote_edges=int(kp.rem.num_real[0]),
+         seconds=time.perf_counter() - phase_start)
+    torch.cuda.empty_cache()
+    return counts, modes, entries
+
+
+def halo_report(pg, plan):
+    """A partition's halo size, comm fraction and edge split."""
+    owners = pg.senders_global // pg.nodes_per_part
+    remote = pg.edge_mask & (owners != np.arange(pg.num_parts)[:, None])
+    return dict(halo_size=plan.halo_size, comm_fraction=plan.comm_fraction,
+                remote_edge_fraction=float(remote.sum() / pg.edge_mask.sum()),
+                edges=int(pg.edge_mask.sum()), parts=pg.num_parts,
+                nodes_per_part=pg.nodes_per_part)
+
+
+def partition_inputs(device, n_pad):
+    """``distributed_partitions_arxiv_shape``'s inputs over the ``n_pad``
+    global rows, drawn from one seed: the same values in every process that
+    calls this. Returns the spmm inputs and cotangents (bf16, F = 128 / 40),
+    the max's (f32, F = 128 / 256; columns of distinct values), the
+    attention's ``(ht, att, g)`` and the generator, drawn that far."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(41)
+    rand = lambda *shape, dtype=torch.float32: torch.randn(
+        *shape, generator=gen, device=device).to(dtype)
+    inputs = {f: (rand(n_pad, f, dtype=bf16), rand(n_pad, f, dtype=bf16))
+              for f in (ARXIV_FEATS, ARXIV_CLASSES)}
+    # Columns of distinct values: no two senders tie, so the single-device
+    # kernel rule (each tied element gets the whole cotangent) and the
+    # distributed one (torch.maximum splits a tie across the two streams)
+    # give the same gradients; the CPU tests pin both rules on ties.
+    distinct = lambda f: (torch.rand(f, n_pad, generator=gen, device=device)
+                          .argsort(dim=1).T.float() / n_pad - 0.5)
+    max_inputs = {f: (distinct(f).contiguous(), rand(n_pad, f))
+                  for f in (128, 256)}
+    heads, f_att = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+    ht = (0.5 * rand(n_pad, heads * f_att)).to(bf16)
+    att = (0.3 * rand(heads, f_att)).to(bf16)
+    g_att = rand(n_pad, heads * f_att, dtype=bf16)
+    return inputs, max_inputs, (ht, att, g_att), gen
+
+
+def partition_rank(rank, store, out_dir):
+    """One rank of ``distributed_partitions_arxiv_shape``, a process of its
+    own on the card: its partition's public per-rank bodies
+    (``spmm_local_overlapped``, ``pooled_max_local``, ``attend_local``),
+    forward and backward, over a gloo group of ``DIST_PARTS`` ranks, whose
+    all-to-all carries the halo rows between the processes (NCCL takes one
+    rank a card). Writes its rows of every output and gradient, its
+    ``d att`` and the launches of the run to ``out_dir``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.kernels import _build
+    from keras_geometric_tpu_torch.parallel import attend_plan as par_ap
+    from keras_geometric_tpu_torch.parallel import kernel_plan as par_kp
+    from keras_geometric_tpu_torch.parallel.mesh import local_device
+
+    out = pathlib.Path(out_dir)
+    try:
+        _build.load_libraries(sorted(SOURCES))  # the parent built them
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=DIST_PARTS, timeout=datetime.timedelta(seconds=120))
+        mesh = par.make_mesh((DIST_PARTS,), device_type="cuda")
+        group, device = mesh.get_group("graph"), local_device(mesh)
+        with open(out / "plans.pkl", "rb") as f:
+            kp, ap = pickle.load(f)
+        kshard = par_kp.plan_device_data(kp, rank, device)
+        tshard = par_ap.plan_device_data(ap, rank, device)
+        L = kp.nodes_per_part
+        rows = slice(rank * L, (rank + 1) * L)
+        inputs, max_inputs, (ht, att, g_att), _ = partition_inputs(
+            device, DIST_PARTS * L)
+        result = {}
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launch_counts()
+        for f, (h, g) in inputs.items():
+            x = h[rows].clone().requires_grad_()
+            o = par_kp.spmm_local_overlapped(x, kshard, group=group)
+            o.backward(g[rows])
+            result[f"spmm_F{f}"] = (o.detach(), x.grad)
+        for f, (h, g) in max_inputs.items():
+            x = h[rows].clone().requires_grad_()
+            o = par_kp.pooled_max_local(x, kshard, lambda m: m, group=group)
+            o.backward(g[rows])
+            result[f"max_F{f}"] = (o.detach(), x.grad)
+        x, a = ht[rows].clone().requires_grad_(), att.clone().requires_grad_()
+        o = par_ap.attend_local(x, a, tshard, group=group)
+        o.backward(g_att[rows])
+        result["attention"] = (o.detach(), x.grad, a.grad)
+        torch.cuda.synchronize()
+        result = {k: tuple(t.cpu() for t in v) for k, v in result.items()}
+        result["launches"] = launch_counts()
+        result["mode_launches"] = mode_launch_counts()
+        torch.save(result, out / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def run_partition_ranks(kp, ap):
+    """``partition_rank`` on every partition, each a spawned process; their
+    results in rank order. Fails with a rank's traceback, and when the ranks
+    have not all ended within ``DIST_RANKS_SECONDS`` (they are killed then);
+    the ranks' files are removed."""
+    import multiprocessing
+    import shutil
+
+    out = ROOT / "build" / f"dist_parts_{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        with open(out / "plans.pkl", "wb") as f:
+            pickle.dump((kp, ap), f, protocol=pickle.HIGHEST_PROTOCOL)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=partition_rank, daemon=True,
+                             args=(r, str(out / "store"), str(out)))
+                 for r in range(DIST_PARTS)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + DIST_RANKS_SECONDS
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        late = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        errors = sorted(out.glob("rank*.err"))
+        check(not errors, "a partition rank failed:\n"
+              + (errors[0].read_text() if errors else ""))
+        check(not late, f"partition ranks {late} still ran after "
+              f"{DIST_RANKS_SECONDS} s and were killed")
+        codes = [proc.exitcode for proc in procs]
+        check(not any(codes), f"partition ranks' exit codes {codes}")
+        return [torch.load(out / f"rank{r}.pt", weights_only=False)
+                for r in range(DIST_PARTS)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def distributed_partitions_phase(device, timer, workload, replaces):
+    """``distributed_partitions_arxiv_shape``: a P = 4 plan of the community
+    graph, each partition a process on the one card running the public
+    per-rank bodies forward and backward (``partition_rank``), the halo rows
+    carried by a gloo all-to-all; the reassembled outputs and gradients
+    against the single-device context's ops and the plain versions. Returns
+    the ranks' launches, mode launches and the kernel entries."""
+    import keras_geometric_tpu_torch as kgt
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+    from keras_geometric_tpu_torch.ops import reorder
+    from keras_geometric_tpu_torch.parallel import attend_plan as par_ap
+    from keras_geometric_tpu_torch.parallel import kernel_plan as par_kp
+    from keras_geometric_tpu_torch.parallel.partition import (
+        community_partition_order,
+    )
+
+    name = "distributed_partitions_arxiv_shape"
+    phase_start = time.perf_counter()
+    P, bf16 = DIST_PARTS, torch.bfloat16
+    graph = workload("skewed_graph")
+    s, r = graph["edges"][0], graph["edges"][1]
+    start = time.perf_counter()
+    order = community_partition_order(s, r, ARXIV_NODES, P)
+    order_s = time.perf_counter() - start
+    inv = reorder.invert_order(order)
+    edges = np.stack([inv[s], inv[r]]).astype(np.int32)
+    start = time.perf_counter()
+    pg = par.partition_graph(edges, ARXIV_NODES, P, gcn_normalize=True,
+                             add_self_loops=True)
+    kp = par.build_kernel_plan(pg)
+    apg = par.partition_graph(edges, ARXIV_NODES, P, add_self_loops=True)
+    ap = par_ap.build_attend_plan(apg)
+    plans_s = time.perf_counter() - start
+    halos = {"community_partition_order": pg}
+    for label, e in (("cluster_order_only", graph["edges"]),
+                     ("uniform", arxiv_arrays(True)[1])):
+        halos[label] = par.partition_graph(e, ARXIV_NODES, P,
+                                           gcn_normalize=True,
+                                           add_self_loops=True)
+    halos = {label: halo_report(q, par.build_halo_plan(q))
+             for label, q in halos.items()}
+    check(np.array_equal(kp.send_idx, ap.send_idx),
+          f"{name}: the kernel and attend plans' send tables differ")
+    L, n_pad = pg.nodes_per_part, pg.padded_num_nodes
+
+    # The run that counts: every partition in a process of its own.
+    start = time.perf_counter()
+    ranks = run_partition_ranks(kp, ap)
+    run_s = time.perf_counter() - start
+    per_part = {"gather_scatter_sum_sorted": 8 + 4 + 1,
+                "segment_max_wide_sorted": 4, "segment_max_wide_bwd": 4,
+                "sddmm_stats_agg_sorted": 1, "attend_rho_sorted": 1,
+                "attend_recv_bwd_full_sorted": 1}
+    per_mode = {"gather_scatter_sum_sorted(rows)": 8,
+                "sddmm_stats_agg_sorted(emit_scores=False)": 1,
+                "attend_rho_sorted(scores=None)": 1,
+                "attend_recv_bwd_full_sorted(scores=None)": 1}
+    counts, modes = {}, {}
+    for rank, res in enumerate(ranks):
+        for got, per, total in ((res["launches"], per_part, counts),
+                                (res["mode_launches"], per_mode, modes)):
+            expected = {k: per.get(k, 0) for k in got}
+            check(got == expected, f"{name}: rank {rank}'s launch counts "
+                  f"{got}, expected {expected}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+    # The ranks' rows stacked into the global ones, on the card.
+    stacked = lambda key, i: torch.cat([res[key][i] for res in ranks]).to(
+        device)
+
+    # Reassembled against the single-device context's ops and the plain
+    # versions on the same inputs.
+    inputs, max_inputs, (ht, att, g_att), gen = partition_inputs(device,
+                                                                 n_pad)
+    ctx = kgt.prepare_graph(edges, ARXIV_NODES, add_self_loops=True,
+                            gcn_normalize=True, device=device)
+    ctx16 = ctx.with_weight_dtype(bf16)
+    gctx = kgt.prepare_graph(edges, ARXIV_NODES, add_self_loops=True,
+                             edge_chunk=512, device=device)
+    n, results = ARXIV_NODES, {}
+    part_of = lambda ids: ids.long() // L
+    local_edge = part_of(ctx.senders) == part_of(ctx.receivers)
+    recv_part_ss = part_of(ctx.receivers_ss)
+
+    def held(got, want, mass, dtype, what, partials=None):
+        rep = compare(got, want, mass, dtype, what, partials=partials,
+                      report=True)
+        check(rep["zeros_fail_share"] > 0, f"{what}: an output of zeros "
+              f"would pass this check ({rep})")
+        return rep
+
+    def held_datt(got, want, mass, what, parts):
+        """d att, the sum over 1.3M slots of terms that cancel, is far
+        below its mass, so the element rule above cannot see it wrong;
+        it is a parameter gradient, held as step 1's are: within
+        ``BF16_GRAD_TOL`` of its largest entry."""
+        rep = compare(got, want, mass, bf16, what, partials=parts.abs().sum(0),
+                      report=True)
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        limit = BF16_GRAD_TOL * scale
+        check(err <= limit and scale > limit, f"{what}: max abs err {err} "
+              f"against {limit} ({BF16_GRAD_TOL} of the largest entry, "
+              f"{scale}), or zeros would pass")
+        # A reassembly that left out one partition's part, against the
+        # same limit.
+        total = parts.sum(0)
+        dropped = [(total - v - want.float()).abs().max().item()
+                   for v in parts]
+        return dict(element_rule=rep, gradient_limit=limit,
+                    max_abs_err=err, max_abs_reference=scale,
+                    zeros_fail=scale > limit,
+                    max_abs_err_without_each_partition=dropped)
+
+    # The plain versions take the weights as the bf16 runs do: rounded.
+    w, w_ss = (t.to(bf16).float() for t in (ctx.edge_weight,
+                                             ctx.edge_weight_ss))
+    fwd = lambda x, w: K.gather_scatter_sum_sorted_plain(
+        x, ctx.senders, ctx.receivers, n, weights=w)
+    bwd = lambda x, w: K.gather_scatter_sum_sorted_plain(
+        x, ctx.receivers_ss, ctx.senders_sorted, n, weights=w)
+    for f, (h, g) in inputs.items():
+        out, grad = stacked(f"spmm_F{f}", 0), stacked(f"spmm_F{f}", 1)
+        hh = h[:n].clone().requires_grad_()
+        ref = ctx16.spmm(hh)
+        ref.backward(g[:n])
+        hp = h[:n].float().requires_grad_()
+        plain = fwd(hp, w)
+        plain.backward(g[:n].float())
+        mass = fwd(h[:n].float().abs(), w.abs())
+        g_mass = bwd(g[:n].float().abs(), w_ss.abs())
+        # The parts each rounded to bf16 before they are added: a row's
+        # local and remote streams (forward); a sender row's part from
+        # each receiving partition (backward).
+        parts = (fwd(h[:n].float(), w * local_edge).abs()
+                 + fwd(h[:n].float(), w * ~local_edge).abs())
+        g_parts = sum(bwd(g[:n].float(), w_ss * (recv_part_ss == q)).abs()
+                      for q in range(P))
+        what = f"{name} spmm F={f}"
+        results[f"spmm_F{f}"] = dict(
+            vs_single_device=held(out[:n], ref, mass, bf16, what, parts),
+            vs_plain=held(out[:n], plain.to(bf16), mass, bf16,
+                          what + " vs plain", parts),
+            grad_vs_single_device=held(grad[:n], hh.grad, g_mass, bf16,
+                                       what + " grad", g_parts),
+            grad_vs_plain=held(grad[:n], hp.grad.to(bf16), g_mass, bf16,
+                               what + " grad vs plain", g_parts))
+        del hh, ref, hp, plain, mass, g_mass, parts, g_parts
+    for f, (h, g) in max_inputs.items():
+        out, grad = stacked(f"max_F{f}", 0), stacked(f"max_F{f}", 1)
+        hh = h[:n].clone().requires_grad_()
+        msgs = ctx.gather(hh)
+        ref = K.segment_max_wide_sorted(msgs, ctx.receivers, n,
+                                        row_ptr=ctx.row_ptr,
+                                        mask=ctx.edge_mask)
+        ref.backward(g[:n])
+        valid = ctx.edge_mask
+        p_msgs = h[:n].index_select(0, ctx.senders.long())
+        p_max = K.segment_max_wide_raw_plain(p_msgs, ctx.receivers, n,
+                                             mask=valid, empty_to_zero=True)
+        p_dmsg = K.segment_max_wide_bwd_plain(p_msgs, p_max, g[:n],
+                                              ctx.receivers, n, mask=valid)
+        p_grad = torch.zeros(n, f, dtype=torch.float64, device=device)
+        p_grad.index_add_(0, ctx.senders.long(), p_dmsg.double())
+        g_mass = torch.zeros(n, f, device=device).index_add_(
+            0, ctx.senders.long(), p_dmsg.abs())
+        what = f"{name} segment max F={f}"
+        check(torch.equal(out[:n], ref.detach()) and
+              torch.equal(out[:n], p_max),
+              f"{what}: the reassembled max differs from the single-device "
+              f"kernel's or the plain version's")
+        results[f"segment_max_F{f}"] = dict(
+            forward="bit for bit",
+            grad_vs_single_device=held(grad[:n], hh.grad, g_mass,
+                                       torch.float32, what + " grad"),
+            grad_vs_plain=held(grad[:n], p_grad.float(), g_mass,
+                               torch.float32, what + " grad vs plain"))
+        del hh, msgs, ref, p_msgs, p_max, p_dmsg, p_grad, g_mass
+    # The attention in the no-cache mode on one device, and restated in
+    # library ops (f32 inside) as the plain version. Each row's output is
+    # one walk over the same slots as one device's: no parts. A row's d ht
+    # adds parts each rounded to bf16 first: its receiver part and each
+    # slot's sender part (the finish sums those per partition, and the
+    # exchange the partitions'). d att adds the ranks'.
+    att_out, att_grad = stacked("attention", 0), stacked("attention", 1)
+    t_recv = ht[:n].clone().requires_grad_()
+    t_send = ht[:n].index_select(0, gctx.senders.long()).requires_grad_()
+    attend_restated(gctx, t_recv, att, ht_send=t_send).backward(g_att[:n])
+    dht_parts = t_recv.grad.float().abs().index_add_(
+        0, gctx.senders.long(), t_send.grad.float().abs())
+    del t_recv, t_send
+    datt_parts = torch.stack([res["attention"][2].to(device).float()
+                              for res in ranks])
+    att_datt = datt_parts.sum(0).to(bf16)
+    graph4 = (gctx.senders, gctx.receivers, gctx.row_ptr, gctx.edge_mask)
+    _, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(
+        ht[:n], *graph4[:3], att, edge_valid=gctx.edge_mask)
+    mass = attend_masses(graph4, ht[:n], att, g_att[:n], None, p_scores,
+                         p_m, p_l)
+    send_mass = mass["dht"] + torch.zeros_like(mass["dht"]).index_add_(
+        0, gctx.senders.long(), mass["v"])
+    del p_scores, p_m, p_l
+    what = f"{name} attention"
+    refs = {}
+    for label, fn in (("single_device", lambda t, a: gctx.attend(t, a)),
+                      ("plain", lambda t, a: attend_restated(gctx, t, a))):
+        t = ht[:n].clone().requires_grad_()
+        a = att.clone().requires_grad_()
+        with attend_modes("permute", False):
+            o = fn(t, a)
+            o.backward(g_att[:n])
+        refs[label] = (o.detach(), t.grad, a.grad)
+    for label, (o, dt, da) in refs.items():
+        results[f"attention_vs_{label}"] = dict(
+            out=held(att_out[:n], o, mass["out"], bf16,
+                     f"{what} out vs {label}"),
+            dht=held(att_grad[:n], dt, send_mass, bf16,
+                     f"{what} d ht vs {label}", dht_parts),
+            datt=held_datt(att_datt, da, mass["datt"],
+                           f"{what} d att vs {label}", datt_parts))
+    del refs, mass, send_mass, dht_parts, ranks
+    torch.cuda.empty_cache()
+
+    # The kernels at this path's shapes, on the partition with the most
+    # remote edges.
+    p_star = int(np.argmax(kp.rem.num_real))
+    kshard = par_kp.plan_device_data(kp, p_star, device)
+    table = par_ap.plan_device_data(ap, p_star, device).context
+    # Global rows of the partition's halo block: slot q*H + j holds row
+    # send_idx[q, p_star, j] of partition q.
+    send = torch.from_numpy(kp.send_idx[:, p_star].astype(np.int64))
+    halo_rows = (torch.arange(P)[:, None] * L + send).reshape(-1).to(device)
+    rows = slice(p_star * L, (p_star + 1) * L)
+    h128 = inputs[ARXIV_FEATS][0]
+    entries = []
+    entries += stream_entries(timer, replaces, name,
+                              f"partition {p_star} local stream",
+                              kshard.loc, h128[rows].contiguous(), bf16,
+                              f"{name} local stream")
+    entries += stream_entries(timer, replaces, name,
+                              f"partition {p_star} remote stream",
+                              kshard.rem, h128.index_select(0, halo_rows),
+                              bf16, f"{name} remote stream")
+    entries += segment_max_stream_entries(
+        timer, replaces, name, f"partition {p_star} remote stream",
+        kshard.rem, max_inputs[128][0].index_select(0, halo_rows),
+        max_inputs[128][1][rows].contiguous())
+    entries += table_attend_entries(
+        timer, replaces, name, f"partition {p_star} table", table,
+        GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0], bf16, gen, device)
+    emit(name, parts=P, backend="gloo", processes=P, halos=halos,
+         community_partition_order_seconds=order_s, plans_seconds=plans_s,
+         ranks_seconds=run_s, launches_per_partition=per_part,
+         launches=counts, mode_launches=modes, checks=results,
+         remote_edges_by_partition=[int(v) for v in kp.rem.num_real],
+         local_edges_by_partition=[int(v) for v in kp.loc.num_real],
+         seconds=time.perf_counter() - phase_start)
+    del kshard, table, inputs, max_inputs
+    torch.cuda.empty_cache()
+    return counts, modes, entries
+
+
+def segment_max_stream_entries(timer, replaces, path, label, st, source, g):
+    """The wide segment max (K4) over one stream's gathered messages,
+    forward and backward (the kernel's tie rule), against the plain
+    versions, with ``torch.segment_reduce`` beside the forward."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    msgs = source.index_select(0, st.senders)
+    e, f = msgs.shape
+    n = st.num_local
+    fwd = lambda: K._segment_max_wide_fwd(msgs, st.receivers, st.row_ptr, n,
+                                          st.valid, False)
+    fwd_plain = lambda: K.segment_max_wide_raw_plain(
+        msgs, st.receivers, n, mask=st.valid)
+    maxv = fwd_plain()
+    check(torch.equal(fwd(), maxv), f"{path} {label}: the segment max "
+          f"differs from its plain version")
+    bwd = lambda: K._segment_max_wide_bwd(msgs, maxv, g, st.receivers,
+                                          st.row_ptr, n, st.valid, False)
+    bwd_plain = lambda: K.segment_max_wide_bwd_plain(
+        msgs, maxv, g, st.receivers, n, mask=st.valid)
+    check(torch.equal(bwd(), bwd_plain()), f"{path} {label}: the segment "
+          f"max's backward differs from its plain version")
+    lengths = (st.row_ptr[1:] - st.row_ptr[:-1]).long()
+    masked = msgs.masked_fill(~st.valid[:, None], float("-inf"))
+    library = lambda: torch.segment_reduce(masked, "max", lengths=lengths,
+                                           axis=0)
+    shape = f"{label}: E={e} (real {st.num_real}) L={n} F={f} float32"
+    fwd_bytes = e * f * 4 + n * f * 4 + e + (n + 1) * 4
+    return [
+        kernel_entry(timer, replaces, "segment_max_wide_sorted", path, shape,
+                     fwd, fwd_plain, 0.0, fwd_bytes, e * f,
+                     library=("torch.segment_reduce (max)",
+                              timer.cold_ms(library, iters=10))),
+        kernel_entry(timer, replaces, "segment_max_wide_bwd", path, shape,
+                     bwd, bwd_plain, 0.0,
+                     fwd_bytes + e * f * 4 + n * f * 4, 2 * e * f),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="train_arxiv_shape",
@@ -5322,6 +6219,24 @@ def main() -> int:
               per_step_modes=gcn_rows, timed_iters=10, profile=True)
     if args.profile != "train_gcn_ogbn_arxiv":
         workloads.pop("gcn_ogbn_arxiv", None)
+    torch.cuda.empty_cache()
+
+    # Partitioned full-graph training (parallel/): the distributed step on a
+    # mesh of one card, then a four-partition plan run partition by
+    # partition against the single-device ops.
+    for phase, run_phase in (
+            ("train_distributed_arxiv_shape", lambda: (
+                distributed_training_phase(
+                    device, timer, workload, arxiv_model, gat_arxiv_model,
+                    replaced_tpu_kernels()))),
+            ("distributed_partitions_arxiv_shape", lambda: (
+                distributed_partitions_phase(device, timer, workload,
+                                             replaced_tpu_kernels())))):
+        if phase in phases:
+            (path_launches[phase], path_mode_launches[phase],
+             entries) = run_phase()
+            kernel_entries += entries
+    workloads.pop("skewed_graph", None)
     torch.cuda.empty_cache()
 
     # Graph classification (BASELINE.json config 3) and the readouts: the

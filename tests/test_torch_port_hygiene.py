@@ -33,8 +33,9 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "keras_geometric_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "attend_kernels_ab.py"] + \
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "attend_kernels_ab.py",
+    ROOT / "distributed_host_probe.py"] + \
     sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
@@ -63,6 +64,9 @@ MODULES = [
     "nn/pooling/__init__.py", "nn/pooling/global_pooling.py",
     "nn/pooling/attention_pooling.py", "models/__init__.py",
     "utils/device.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
+    "parallel/halo.py", "parallel/kernel_plan.py", "parallel/attend_plan.py",
+    "parallel/spmd.py", "parallel/distributed.py",
 ]
 # The data tier and minibatch training: the modules it added or extended.
 DATA_TIER_MODULES = [
@@ -81,6 +85,16 @@ READOUT_MODULES = [
     "nn/pooling/attention_pooling.py", "nn/module.py", "nn/__init__.py",
     "models/gnn.py", "models/__init__.py", "ops/__init__.py", "convert.py",
 ]
+# Partitioned full-graph training: the distribution tier's modules.
+PARALLEL_MODULES = [
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
+    "parallel/halo.py", "parallel/kernel_plan.py", "parallel/attend_plan.py",
+    "parallel/spmd.py", "parallel/distributed.py",
+]
+# The reference's parallel/ names the port does not have yet: the dense
+# tensor-parallel blocks.
+M11_LEFT = {"column_parallel_dense", "row_parallel_dense",
+            "tp_gcn_block_local"}
 # The reference's top-level names the port does not have (none since the
 # graph-level readout landed); and the port's own additions.
 M8_NAMES = set()
@@ -154,6 +168,33 @@ def test_readout_module_imports_neither_jax_nor_the_reference(rel):
     _imports_neither_jax_nor_the_reference(rel)
 
 
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_module_imports_neither_jax_nor_the_reference(rel):
+    _imports_neither_jax_nor_the_reference(rel)
+
+
+def test_make_mesh_needs_a_process_group_and_defaults_to_cuda():
+    """Without a process group and without a torchrun environment the
+    distribution tier raises: it never starts a CPU or gloo group of its own
+    accord; its mesh and shards default to the card."""
+    from keras_geometric_tpu_torch.parallel import mesh as par_mesh
+
+    assert not torch.distributed.is_initialized()
+    env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE",
+                                          "MASTER_ADDR", "MASTER_PORT")
+           if k in os.environ}
+    try:
+        with pytest.raises(RuntimeError, match="process group"):
+            par_mesh.make_mesh(device_type="cpu")
+        with pytest.raises(RuntimeError, match="process group"):
+            par_mesh.make_mesh()
+    finally:
+        os.environ.update(env)
+    assert not torch.distributed.is_initialized()
+    default = inspect.signature(par_mesh.make_mesh).parameters["device_type"]
+    assert default.default == "cuda"
+
+
 def test_importing_the_data_tier_loads_no_build_and_no_jax():
     code = (
         "import sys, torch\n"
@@ -183,10 +224,14 @@ def test_package_exports_differ_from_the_reference_by_the_readout_only():
     assert set(kgt_torch.__all__) - set(ref.__all__) == PORT_ADDITIONS
     for name in kgt_torch.__all__:
         assert hasattr(kgt_torch, name), name
-    for sub in ("training", "utils", "data.datasets", "ops", "nn", "models"):
+    for sub in ("training", "utils", "data.datasets", "ops", "nn", "models",
+                "parallel"):
         ref_sub = importlib.import_module(f"keras_geometric_tpu.{sub}")
         port_sub = importlib.import_module(f"keras_geometric_tpu_torch.{sub}")
-        assert set(ref_sub.__all__) <= set(port_sub.__all__), sub
+        left = M11_LEFT if sub == "parallel" else set()
+        assert set(ref_sub.__all__) - left <= set(port_sub.__all__), sub
+        if sub == "parallel":
+            assert set(port_sub.__all__) == set(ref_sub.__all__) - left
     classes = kgt_torch.get_dataset_classes()
     assert sorted(classes) == sorted(ref.get_dataset_classes())
     ei = np.array([[0, 1, 2], [1, 2, 0]])
