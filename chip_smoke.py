@@ -6,9 +6,9 @@ backward and score-cache modes, and both models on the locality tier), and
 GraphSAGE and GIN (their max and pooling paths through the segment max
 kernel) through the package's entry points; then GraphSAGE minibatch,
 partitioned full-graph training on ``torch.distributed`` (a mesh of one
-card, and a four-partition plan as four processes on it), GIN graph
-classification on the library ops, the readouts, and the twins of the
-examples.
+card, and a four-partition plan as four processes on it), tensor and data
+parallelism (four processes on the card each), GIN graph classification on
+the library ops, the readouts, and the twins of the examples.
 
 Run from the repository root, with no arguments, on a machine with one CUDA
 card, nvcc and PyTorch built for CUDA::
@@ -206,7 +206,31 @@ exit code and without the final line; so does a run of a subset of the phases
                 parts' absolute values, for parts rounded to bf16 before
                 they are added), each check's limit and largest reference
                 reported, and each shown to fail an output of zeros;
-20. ``train_gin_graph_classification``  BASELINE.json config 3 as
+20. ``tensor_parallel_arxiv_shape``  the tensor-parallel blocks at the
+                main path's widths on run 4's graph with its self-loops and
+                GCN normalisation: the GCN pair 128 -> 256 -> 40 and GATv2
+                at 4 heads x 64 (concat, the fused arxiv config's layer 1)
+                and 4 heads x 40 (mean), on a 1-D ``model`` mesh of 4 and a
+                ``(graph 2, model 2)`` mesh partitioned by
+                ``partition_graph``, each rank a process of its own on the
+                card in a gloo group; the outputs, ``d x`` and each
+                parameter shard's gradient held against the unsharded
+                layers run here in f32 with the same weights (2e-4 of the
+                largest entry), the GCN's output also against the context
+                path (K1); each block's forward + backward ms per rank and
+                the unsharded block's; one world-1 NCCL run of the GCN block
+                through the default ``make_mesh``; no hand-written kernel
+                on this path (library segment ops, as the reference's XLA);
+21. ``train_dp_graph_classification``  run 22's configuration (the 5-layer
+                GIN at width 32, sum readout, Adam 1e-3, f32, buckets of 768
+                nodes / 6,144 edges holding 32 graphs and the dummy)
+                trained data-parallel by four processes on the card, one
+                bucket each a step, for 10 steps: the losses and final
+                parameters against one process over the same four buckets
+                (NLL sums and counts added, one backward), the parameters
+                equal on every rank, the step ms, 0 hand-written launches;
+                one world-1 NCCL run holding all four buckets;
+22. ``train_gin_graph_classification``  BASELINE.json config 3 as
                 ``examples_torch/graph_classification.py`` builds it: 200
                 synthetic graphs of 10-23 nodes (seed 0), buckets of 768
                 nodes / 6,144 edges / 33 graph slots, ``GraphClassifier(GIN(
@@ -216,13 +240,13 @@ exit code and without the final line; so does a run of a subset of the phases
                 against the CPU path, the loss falling, ``step_ms``, device
                 busy time and idle share, peak memory, 0 hand-written
                 launches (the edge-list GIN and the readout are library ops);
-21. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
+23. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
                 every mode, with and without a node mask, on tied maxes, and
                 ``AttentionPooling`` and ``Set2Set`` (3 steps), forward and
                 backward against the CPU path (f32 1e-5, bf16 2e-2 of the
                 largest entry), on the encoder's output for one padded batch
                 and on one graph of 100,000 nodes x 128 features;
-22. ``examples_torch``  each of the ten twins of ``examples/`` in
+24. ``examples_torch``  each of the ten twins of ``examples/`` in
                 ``examples_torch/`` (and ``node_classification.py --dataset
                 pubmed``) as a process of its own on the card, at the
                 fewest epochs its flags allow: every exit code 0, all of
@@ -281,6 +305,7 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv",
           "train_distributed_arxiv_shape",
           "distributed_partitions_arxiv_shape",
+          "tensor_parallel_arxiv_shape", "train_dp_graph_classification",
           "train_gin_graph_classification", "readouts_on_card",
           "examples_torch")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
@@ -4328,6 +4353,17 @@ def relative_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / scale
 
 
+def gc_batches(graphs, count):
+    """The example's batches: each epoch a shuffle of the 160 training
+    graphs (numpy, seed 0) cut into 5 batches of 32; the first ``count``."""
+    rng, order, out = np.random.default_rng(0), np.arange(GC_TRAIN), []
+    while len(out) < count:
+        rng.shuffle(order)
+        for i in range(0, GC_TRAIN - GC_BATCH + 1, GC_BATCH):
+            out.append([graphs[j] for j in order[i:i + GC_BATCH]])
+    return out[:count]
+
+
 def graph_classification_phase(device) -> dict:
     """GIN graph classification as ``examples_torch/graph_classification.py``
     builds it: 200 synthetic graphs of 10-23 nodes (seed 0), buckets of 768
@@ -4349,16 +4385,6 @@ def graph_classification_phase(device) -> dict:
           and min(sizes) >= 10 and max(sizes) <= 23,
           f"{name}: the dataset has the wrong size")
 
-    def chunks(steps):
-        """The example's batches: each epoch a shuffle of the 160 training
-        graphs (numpy, seed 0) cut into 5 batches of 32."""
-        rng, order, out = np.random.default_rng(0), np.arange(GC_TRAIN), []
-        while len(out) < steps:
-            rng.shuffle(order)
-            for i in range(0, GC_TRAIN - GC_BATCH + 1, GC_BATCH):
-                out.append([graphs[j] for j in order[i:i + GC_BATCH]])
-        return out[:steps]
-
     def make_run(dev, readout):
         gen = torch.Generator(device=dev).manual_seed(0)
         model = gc.make_model(GC_HIDDEN, classes, readout, device=dev,
@@ -4371,7 +4397,7 @@ def graph_classification_phase(device) -> dict:
     for readout, steps in (("sum", GC_EPOCHS * GC_TRAIN // GC_BATCH),
                            ("mean", GC_SHORT_STEPS), ("max", GC_SHORT_STEPS)):
         what = f"{name} ({readout})"
-        batches = chunks(steps)
+        batches = gc_batches(graphs, steps)
         model, step = make_run(device, readout)
         host, host_step = make_run("cpu", readout)
         host.load_state_dict({k: v.cpu() for k, v in
@@ -5331,7 +5357,7 @@ def partition_rank(rank, store, out_dir):
             world_size=DIST_PARTS, timeout=datetime.timedelta(seconds=120))
         mesh = par.make_mesh((DIST_PARTS,), device_type="cuda")
         group, device = mesh.get_group("graph"), local_device(mesh)
-        with open(out / "plans.pkl", "rb") as f:
+        with open(out / "payload.pkl", "rb") as f:
             kp, ap = pickle.load(f)
         kshard = par_kp.plan_device_data(kp, rank, device)
         tshard = par_ap.plan_device_data(ap, rank, device)
@@ -5368,22 +5394,27 @@ def partition_rank(rank, store, out_dir):
         raise
 
 
-def run_partition_ranks(kp, ap):
-    """``partition_rank`` on every partition, each a spawned process; their
-    results in rank order. Fails with a rank's traceback, and when the ranks
-    have not all ended within ``DIST_RANKS_SECONDS`` (they are killed then);
-    the ranks' files are removed."""
+def run_card_ranks(target, payload, label):
+    """``target(rank, store, out_dir)`` on ``DIST_PARTS`` spawned processes
+    on the card (a gloo group: NCCL takes one rank a card), ``payload``
+    pickled to ``out_dir/payload.pkl`` (and any file the caller's ``payload``
+    callable writes beside it); their results in rank order. Fails with a
+    rank's traceback, and when the ranks have not all ended within
+    ``DIST_RANKS_SECONDS`` (they are killed then); the ranks' files are
+    removed."""
     import multiprocessing
     import shutil
 
-    out = ROOT / "build" / f"dist_parts_{os.getpid()}"
+    out = ROOT / "build" / f"{label}_{os.getpid()}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     try:
-        with open(out / "plans.pkl", "wb") as f:
-            pickle.dump((kp, ap), f, protocol=pickle.HIGHEST_PROTOCOL)
+        if callable(payload):
+            payload = payload(out)
+        with open(out / "payload.pkl", "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=partition_rank, daemon=True,
+        procs = [ctx.Process(target=target, daemon=True,
                              args=(r, str(out / "store"), str(out)))
                  for r in range(DIST_PARTS)]
         for proc in procs:
@@ -5397,12 +5428,12 @@ def run_partition_ranks(kp, ap):
                 proc.kill()
                 proc.join(10)
         errors = sorted(out.glob("rank*.err"))
-        check(not errors, "a partition rank failed:\n"
+        check(not errors, f"a {label} rank failed:\n"
               + (errors[0].read_text() if errors else ""))
-        check(not late, f"partition ranks {late} still ran after "
+        check(not late, f"{label} ranks {late} still ran after "
               f"{DIST_RANKS_SECONDS} s and were killed")
         codes = [proc.exitcode for proc in procs]
-        check(not any(codes), f"partition ranks' exit codes {codes}")
+        check(not any(codes), f"{label} ranks' exit codes {codes}")
         return [torch.load(out / f"rank{r}.pt", weights_only=False)
                 for r in range(DIST_PARTS)]
     finally:
@@ -5458,7 +5489,7 @@ def distributed_partitions_phase(device, timer, workload, replaces):
 
     # The run that counts: every partition in a process of its own.
     start = time.perf_counter()
-    ranks = run_partition_ranks(kp, ap)
+    ranks = run_card_ranks(partition_rank, (kp, ap), "dist_parts")
     run_s = time.perf_counter() - start
     per_part = {"gather_scatter_sum_sorted": 8 + 4 + 1,
                 "segment_max_wide_sorted": 4, "segment_max_wide_bwd": 4,
@@ -5710,6 +5741,647 @@ def segment_max_stream_entries(timer, replaces, path, label, st, source, g):
                      bwd, bwd_plain, 0.0,
                      fwd_bytes + e * f * 4 + n * f * 4, 2 * e * f),
     ]
+
+
+# ---------------------------------------------------------------------------
+# Tensor and data parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+TP_GRID = (2, 2)  # (graph, model) of the 2-D blocks; the 1-D mesh is (4,)
+# The unsharded blocks at the main path's widths: the 2-layer GCN, the fused
+# GATv2 arxiv config's first layer (concat) and a head-mean layer.
+TP_BLOCKS = {"gcn": (ARXIV_FEATS, HIDDEN, ARXIV_CLASSES),
+             "gat_concat": (GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0], True),
+             "gat_mean": (GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[1], False)}
+# f32 on both sides, sums in other orders: outputs and gradients within
+# 2e-4 of their largest entry (the f32 step-1 gradient limit).
+TP_TOL = 2e-4
+TP_TIMED = 3  # timed forward + backward passes of each block, after a warm one
+# The GCN pair's activation: smooth. With relu, the card's f32 sums in an
+# order that changes from run to run (index_add's atomics) put a few
+# pre-activations on either side of 0, and the gradient through each of them
+# changes by its whole term (tp_activation_probe.py, PERF.md). The CPU
+# tests hold the blocks with relu.
+TP_ACTIVATION = torch.nn.functional.gelu
+DP_RANKS_STEPS = 10
+# The data-parallel step against one process over the same buckets: the
+# loss within 1e-4 of its magnitude (the sum readout's first losses run to
+# the thousands), each parameter within 2e-4 of its largest entry.
+DP_LOSS_TOL, DP_PARAM_TOL = 1e-4, 2e-4
+
+
+def held_within(got, want, tol):
+    """``(err, scale)``: the largest difference and ``want``'s largest entry;
+    fails unless ``err <= tol * scale``."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return err, scale, math.isfinite(err) and err <= tol * max(scale, 1e-12)
+
+
+def tp_modules(device, generator):
+    """The unsharded layers of each block in ``TP_BLOCKS``, from one seed,
+    with nonzero biases (their paths count)."""
+    from keras_geometric_tpu_torch import GATv2Conv, GCNConv
+
+    f_in, hidden, classes = TP_BLOCKS["gcn"]
+    kw = dict(generator=generator, device=device)
+    mods = {"gcn": torch.nn.ModuleList([
+        GCNConv(hidden, input_dim=f_in, add_self_loops=False,
+                normalize=False, **kw),
+        GCNConv(classes, input_dim=hidden, add_self_loops=False,
+                normalize=False, **kw)])}
+    for name in ("gat_concat", "gat_mean"):
+        heads, f, concat = TP_BLOCKS[name]
+        mods[name] = GATv2Conv(f, input_dim=f_in, heads=heads, concat=concat,
+                               add_self_loops=False, **kw)
+    with torch.no_grad():
+        for mod in mods.values():
+            for key, p in mod.named_parameters():
+                if key.endswith("bias"):
+                    p.normal_(0.0, 0.1, generator=generator)
+    return mods
+
+
+def tp_param_tree(name, mod, grads=False):
+    """A block's parameters (or their gradients) as the reference's nested
+    numpy dict, what ``shard_params_tp`` / ``shard_params_gatv2_tp`` take."""
+    get = lambda p: (p.grad if grads else p).detach().cpu().numpy()
+    if name == "gcn":
+        return {f"layer_{i}": {"kernel": get(c.kernel), "bias": get(c.bias)}
+                for i, c in enumerate(mod)}
+    return {"kernel": get(mod.kernel), "att": get(mod.att),
+            "bias": get(mod.bias)}
+
+
+def tp_unsharded(name, mod, x, edges):
+    """The unsharded block on the edge list (library ops)."""
+    senders, receivers, weight, mask = edges
+    ei = torch.stack([senders, receivers])
+    if name == "gcn":
+        h = TP_ACTIVATION(mod[0](x, ei, weight, edge_mask=mask))
+        return mod[1](h, ei, weight, edge_mask=mask)
+    return mod(x, ei, edge_mask=mask)
+
+
+def tp_block_fn(name, tp, group_kw, activation=None):
+    """``fn(p_shard, x, senders, receivers, weight, mask)``: the block's
+    per-rank body, 1-D (``group_kw`` ``{"group"}``) or 2-D
+    (``{"graph_group", "model_group"}``); the GCN pair's ``activation``
+    (default ``TP_ACTIVATION``)."""
+    two_d = "graph_group" in group_kw
+    if name == "gcn":
+        body = (tp.tp_graph_gcn_block_local if two_d
+                else tp.tp_gcn_block_local)
+        act = activation or TP_ACTIVATION
+        return lambda p, x, s, r, w, m: body(p, x, s, r, w, m,
+                                             activation=act, **group_kw)
+    heads, _, concat = TP_BLOCKS[name]
+    body = tp.tp_graph_gatv2_block_local if two_d else tp.tp_gatv2_block_local
+    return lambda p, x, s, r, w, m: body(p, x, s, r, m, concat=concat,
+                                         heads_total=heads, **group_kw)
+
+
+def synchronize() -> None:
+    """Wait for the card (nothing to wait for without one)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def fwd_bwd_ms(fn, iters, barrier=None):
+    """Host ms of each of ``iters`` forward + backward passes of ``fn``,
+    each between two synchronisations (after a ``barrier``, if given)."""
+    out = []
+    for _ in range(iters):
+        if barrier is not None:
+            barrier()
+        synchronize()
+        start = time.perf_counter()
+        fn()
+        synchronize()
+        out.append(1e3 * (time.perf_counter() - start))
+    return out
+
+
+def tp_rank(rank, store, out_dir):
+    """One rank of ``tensor_parallel_arxiv_shape``, a process of its own on
+    the card in a gloo group of ``DIST_PARTS``: every block of
+    ``TP_BLOCKS`` on a 1-D ``model`` mesh of 4 and on the ``TP_GRID`` mesh,
+    forward and backward, its rows of the outputs and ``d x`` and its
+    parameter shards' gradients (summed over the graph group on the 2-D
+    mesh) held against the unsharded run's, the GCN's output also against
+    the context path's (K1); then the blocks timed. Writes the errors, the
+    times and the launches of the run to ``out_dir``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.parallel import tensor_parallel as tp
+    from keras_geometric_tpu_torch.parallel.distributed import _sum_gradients
+    from keras_geometric_tpu_torch.parallel.mesh import local_device
+
+    out = pathlib.Path(out_dir)
+    try:
+        # Four processes share the host's cores.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_PARTS))
+        with open(out / "payload.pkl", "rb") as f:
+            payload = pickle.load(f)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=DIST_PARTS, timeout=datetime.timedelta(seconds=120))
+        device_type = payload["device_type"]
+        meshes = {
+            "model": par.make_mesh((DIST_PARTS,), ("model",),
+                                   device_type=device_type),
+            "grid": par.make_mesh(TP_GRID, ("graph", "model"),
+                                  device_type=device_type)}
+        device = local_device(meshes["model"])
+        ref = torch.load(out / "reference.pt", map_location=device,
+                         weights_only=False)
+        x_all = torch.from_numpy(payload["x"]).to(device)
+        n = x_all.shape[0]
+        result, timing_fns = {"checks": {}, "ms": {}}, {}
+        reset_launch_counts()
+        for mesh_name, mesh in meshes.items():
+            if mesh_name == "model":
+                part, parts = 0, 1
+                t, size = mesh.get_local_rank("model"), DIST_PARTS
+                group_kw = {"group": mesh.get_group("model")}
+                graph_group = None
+            else:
+                part, t = (mesh.get_local_rank("graph"),
+                           mesh.get_local_rank("model"))
+                parts, size = TP_GRID
+                graph_group = mesh.get_group("graph")
+                group_kw = {"graph_group": graph_group,
+                            "model_group": mesh.get_group("model")}
+            pg = payload["partitions"][parts]
+            L = pg["nodes_per_part"]
+            edges = tuple(torch.from_numpy(np.ascontiguousarray(
+                pg[k][part])).to(device) for k in (
+                    "senders_global", "receivers_local", "edge_weight",
+                    "edge_mask"))
+            rows = slice(part * L, min((part + 1) * L, n))
+            real = rows.stop - rows.start
+            x_local = torch.zeros(L, x_all.shape[1], device=device)
+            x_local[:real] = x_all[rows]
+            for name in TP_BLOCKS:
+                shard = payload["params"][name][size][t]
+                params = tensor_tree(shard, device)
+                leaves = list(flat_tree(params).values())
+                fn = tp_block_fn(name, tp, group_kw)
+                g_local = torch.zeros(L, ref["cotangent"][name].shape[1],
+                                      device=device)
+                g_local[:real] = ref["cotangent"][name][rows]
+
+                def pass_once(params=params, leaves=leaves, fn=fn,
+                              g_local=g_local, x_local=x_local, edges=edges,
+                              graph_group=graph_group):
+                    for p in leaves:
+                        p.grad = None
+                    x = x_local.clone().requires_grad_()
+                    o = fn(params, x, *edges)
+                    o.backward(g_local)
+                    if graph_group is not None:
+                        _sum_gradients(leaves, graph_group)
+                    return o.detach(), x.grad
+
+                o, dx = pass_once()
+                checks = {
+                    "out": held_within(o[:real], ref["out"][name][rows],
+                                       TP_TOL),
+                    "d_x": held_within(dx[:real], ref["d_x"][name][rows],
+                                       TP_TOL)}
+                if name == "gcn":  # against the context path (K1)
+                    checks["out_vs_context_k1"] = held_within(
+                        o[:real], ref["out_context"][rows], TP_TOL)
+                want = flat_tree(payload["grads"][name][size][t])
+                for key, p in flat_tree(params).items():
+                    checks[f"d {key}"] = held_within(
+                        p.grad, torch.from_numpy(np.asarray(want[key])).to(
+                            device), TP_TOL)
+                result["checks"][mesh_name, name] = checks
+                timing_fns[mesh_name, name] = pass_once
+        result["launches"] = launch_counts()
+        result["mode_launches"] = mode_launch_counts()
+        for key, fn in timing_fns.items():
+            result["ms"][key] = fwd_bwd_ms(fn, TP_TIMED + 1,
+                                           barrier=dist.barrier)[1:]
+        torch.save(result, out / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict's leaves under dotted names."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            out.update(flat_tree(value, name))
+        else:
+            out[name] = value
+    return out
+
+
+def tensor_tree(tree, device):
+    """A nested dict of numpy arrays as leaf tensors on ``device`` that
+    require gradients."""
+    return {k: tensor_tree(v, device) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v)).to(device).requires_grad_()
+            for k, v in tree.items()}
+
+
+def tensor_parallel_phase(device) -> tuple:
+    """``tensor_parallel_arxiv_shape``: the tensor-parallel blocks of
+    ``TP_BLOCKS`` on the uniform arxiv-shaped graph with its self-loops and
+    GCN normalisation, as four processes on the card (``tp_rank``), held
+    against the unsharded layers run here in f32 with the same weights; the
+    unsharded GCN also against the context path (K1); one world-1 NCCL run
+    of the GCN block through the default ``make_mesh``. Returns the ranks'
+    launches and mode launches (no hand-written kernel on this path)."""
+    import keras_geometric_tpu_torch as kgt
+    from keras_geometric_tpu_torch import GCNConv
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.parallel import tensor_parallel as tp
+
+    name = "tensor_parallel_arxiv_shape"
+    phase_start = time.perf_counter()
+    x, edges, _ = arxiv_arrays(symmetric=True)
+    start = time.perf_counter()
+    pgs = {parts: par.partition_graph(edges, ARXIV_NODES, parts,
+                                      gcn_normalize=True, add_self_loops=True)
+           for parts in (1, TP_GRID[0])}
+    partition_s = time.perf_counter() - start
+    gen = torch.Generator(device=device).manual_seed(43)
+    mods = tp_modules(device, gen)
+    e1 = tuple(torch.from_numpy(np.ascontiguousarray(a[0])).to(device)
+               for a in (pgs[1].senders_global, pgs[1].receivers_local,
+                         pgs[1].edge_weight, pgs[1].edge_mask))
+    check(int(e1[3].sum()) == 2 * (ARXIV_EDGES // 2) + ARXIV_NODES,
+          f"{name}: the graph has the wrong edge count")
+    xd = torch.from_numpy(x).to(device)
+    ref = {"cotangent": {}, "out": {}, "d_x": {}}
+    params, grads, unsharded_ms = {}, {}, {}
+    widths = (1, TP_GRID[1], DIST_PARTS)  # model-axis widths
+    for block, mod in mods.items():
+        out_dim = (TP_BLOCKS[block][2] if block == "gcn" else
+                   mod.out_features)
+        g = torch.randn(ARXIV_NODES, out_dim, generator=gen, device=device)
+
+        def pass_once(mod=mod, block=block, g=g):
+            mod.zero_grad(set_to_none=True)
+            xx = xd.clone().requires_grad_()
+            o = tp_unsharded(block, mod, xx, e1)
+            o.backward(g)
+            return o.detach(), xx.grad
+
+        o, dx = pass_once()
+        check(bool(torch.isfinite(o).all() and torch.isfinite(dx).all()),
+              f"{name} {block}: the unsharded block is not finite")
+        ref["cotangent"][block], ref["out"][block], ref["d_x"][block] = \
+            g, o, dx
+        shard = tp.shard_params_tp if block == "gcn" else \
+            tp.shard_params_gatv2_tp
+        params[block] = {t: shard(tp_param_tree(block, mod), t)
+                         for t in widths}
+        grads[block] = {t: shard(tp_param_tree(block, mod, grads=True), t)
+                        for t in widths}
+        unsharded_ms[block] = fwd_bwd_ms(pass_once, TP_TIMED + 1)[1:]
+
+    # The unsharded GCN against the main path's layers on a context (K1).
+    ctx = kgt.prepare_graph(edges, ARXIV_NODES, add_self_loops=True,
+                            gcn_normalize=True, symmetric=True,
+                            densify_self_loops=True, pad_nodes=True,
+                            device=device)
+    convs = [GCNConv.for_context(c.output_dim, input_dim=c.input_dim,
+                                 device=device) for c in mods["gcn"]]
+    for conv, c in zip(convs, mods["gcn"]):
+        conv.load_state_dict(c.state_dict())
+    reset_launch_counts()
+    with torch.no_grad():
+        x_pad = torch.zeros(ctx.num_nodes, ARXIV_FEATS, device=device)
+        x_pad[:ARXIV_NODES] = xd
+        out_ctx = convs[1](TP_ACTIVATION(convs[0](x_pad, context=ctx)),
+                           context=ctx)[:ARXIV_NODES]
+    context_launches = {k: v for k, v in launch_counts().items() if v}
+    check(context_launches.get("gather_scatter_sum_sorted", 0) > 0,
+          f"{name}: the context path launched no K1: {context_launches}")
+    context_err = held_within(out_ctx, ref["out"]["gcn"], TP_TOL)
+    check(context_err[2], f"{name}: the unsharded GCN on the edge list vs "
+          f"on a context (K1): {context_err}")
+    ref["out_context"] = out_ctx
+    del ctx, convs, x_pad
+
+    # One world-1 NCCL run through the default make_mesh.
+    with one_rank_group():
+        import torch.distributed as dist
+
+        mesh = par.make_mesh((1,), ("model",))
+        check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+              f"{name}: the default mesh is not an NCCL mesh on the card")
+        fn = tp_block_fn("gcn", tp, {"group": mesh.get_group("model")})
+        p1 = tensor_tree(params["gcn"][1][0], device)
+
+        def nccl_pass():
+            for p in flat_tree(p1).values():
+                p.grad = None
+            xx = xd.clone().requires_grad_()
+            o = fn(p1, xx, *e1)
+            o.backward(ref["cotangent"]["gcn"])
+            return o.detach(), xx.grad
+
+        o, dx = nccl_pass()
+        nccl = {"out": held_within(o, ref["out"]["gcn"], TP_TOL),
+                "d_x": held_within(dx, ref["d_x"]["gcn"], TP_TOL)}
+        want = flat_tree(grads["gcn"][1][0])
+        for key, p in flat_tree(p1).items():
+            nccl[f"d {key}"] = held_within(
+                p.grad, torch.from_numpy(want[key]).to(device), TP_TOL)
+        nccl_ms = fwd_bwd_ms(nccl_pass, TP_TIMED + 1)[1:]
+        del p1
+    for key, (err, scale, ok) in nccl.items():
+        check(ok, f"{name}: world-1 NCCL GCN block {key}: err {err:.3e} "
+              f"against scale {scale:.3e}")
+
+    # The run that counts: four processes on the card.
+    payload = dict(
+        device_type=device.type, x=x, params=params, grads=grads,
+        partitions={parts: {**{k: getattr(pg, k) for k in (
+            "senders_global", "receivers_local", "edge_weight",
+            "edge_mask")}, "nodes_per_part": pg.nodes_per_part}
+            for parts, pg in pgs.items()})
+
+    def write(out):
+        torch.save(ref, out / "reference.pt")
+        return payload
+
+    start = time.perf_counter()
+    ranks = run_card_ranks(tp_rank, write, "tp_ranks")
+    ranks_s = time.perf_counter() - start
+    counts, modes, checks, rank_ms, failed = {}, {}, {}, {}, []
+    for rank, res in enumerate(ranks):
+        check(not any(res["launches"].values())
+              and not any(res["mode_launches"].values()),
+              f"{name}: rank {rank} launched hand-written kernels: "
+              f"{res['launches']} {res['mode_launches']}")
+        for total, got in ((counts, res["launches"]),
+                           (modes, res["mode_launches"])):
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        for (mesh_name, block), case in res["checks"].items():
+            for key, (err, scale, ok) in case.items():
+                if not ok:
+                    failed.append(f"rank {rank} {mesh_name} {block} {key}: "
+                                  f"err {err:.3e} against scale {scale:.3e}")
+                worst = checks.setdefault(f"{mesh_name} {block}", {})
+                ratio = err / max(scale, 1e-12)
+                worst[key] = max(worst.get(key, 0.0), ratio)
+        for (mesh_name, block), ms in res["ms"].items():
+            rank_ms.setdefault(f"{mesh_name} {block}", []).append(
+                min(ms))
+    check(not failed, f"{name}: " + "; ".join(failed))
+    emit(name, nodes=ARXIV_NODES,
+         edges_with_self_loops=int(e1[3].sum()), blocks={
+             b: dict(zip(("f_in", "hidden", "classes") if b == "gcn" else
+                         ("heads", "f", "concat"), v))
+             for b, v in TP_BLOCKS.items()},
+         meshes={"model": [DIST_PARTS], "grid": list(TP_GRID)},
+         backend="gloo", processes=DIST_PARTS,
+         worst_rel_err_by_case=checks, tolerance=TP_TOL,
+         context_k1_rel_err=context_err[0] / max(context_err[1], 1e-12),
+         context_k1_launches=context_launches,
+         fwd_bwd_ms_per_rank=rank_ms, unsharded_fwd_bwd_ms={
+             b: min(v) for b, v in unsharded_ms.items()},
+         nccl_world1={"fwd_bwd_ms": min(nccl_ms), "rel_err": {
+             k: e / max(s, 1e-12) for k, (e, s, _) in nccl.items()}},
+         launches=counts, launches_why="the blocks run library ops "
+         "(ops/segment.py) and dense products, as the reference's run XLA's",
+         partition_seconds=partition_s, ranks_seconds=ranks_s,
+         seconds=time.perf_counter() - phase_start)
+    del ref, mods, xd, e1
+    torch.cuda.empty_cache()
+    return counts, modes
+
+
+def dp_step_chunks(graphs):
+    """The data-parallel run's batches: ``DP_RANKS_STEPS`` steps of
+    ``DIST_PARTS`` batches of ``GC_BATCH`` graphs each (``gc_batches``)."""
+    chunks = gc_batches(graphs, DP_RANKS_STEPS * DIST_PARTS)
+    return [chunks[s * DIST_PARTS:(s + 1) * DIST_PARTS]
+            for s in range(DP_RANKS_STEPS)]
+
+
+def dp_rank(rank, store, out_dir):
+    """One rank of ``train_dp_graph_classification``, a process of its own
+    on the card in a gloo group of ``DIST_PARTS`` on a ``data`` mesh:
+    ``DP_RANKS_STEPS`` steps of ``make_dp_graph_classifier_step`` over its
+    bucket of each step. Writes its losses, parameters, step times and the
+    launches of the run to ``out_dir``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.parallel.mesh import local_device
+
+    out = pathlib.Path(out_dir)
+    try:
+        # Four processes share the host's cores.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_PARTS))
+        with open(out / "payload.pkl", "rb") as f:
+            payload = pickle.load(f)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=DIST_PARTS, timeout=datetime.timedelta(seconds=120))
+        mesh = par.make_mesh((DIST_PARTS,), ("data",),
+                             device_type=payload["device_type"])
+        device = local_device(mesh)
+        gc = example_module("graph_classification")
+        graphs, _, classes = gc.make_dataset(GC_GRAPHS, GC_CLASSES, seed=0)
+        model = gc.make_model(GC_HIDDEN, classes, "sum", device=device,
+                              generator=None)
+        model.load_state_dict(payload["state"])
+        step = par.make_dp_graph_classifier_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh,
+            GC_BATCH + 1)
+        reset_launch_counts()
+        losses, ms = [], []
+        for chunks in dp_step_chunks(graphs):
+            buckets = [gc.batch_to_arrays(c, GC_BATCH, "cpu") for c in chunks]
+            data = par.stack_padded_batches([b[0] for b in buckets], mesh)
+            check(data["x"].shape[0] == 1 and data["x"].device == device,
+                  f"rank {rank}: its share is not one bucket on its device")
+            data["y"] = buckets[rank][1][None].to(device)
+            dist.barrier()
+            synchronize()
+            start = time.perf_counter()
+            losses.append(step(data).item())
+            ms.append(1e3 * (time.perf_counter() - start))
+        torch.save(dict(losses=losses, ms=ms, fields=sorted(data),
+                        params={k: p.detach().cpu() for k, p in
+                                model.named_parameters()},
+                        launches=launch_counts(),
+                        mode_launches=mode_launch_counts()),
+                   out / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def dp_graph_classification_phase(device) -> tuple:
+    """``train_dp_graph_classification``: BASELINE.json config 3 as
+    ``examples_torch/graph_classification.py`` builds it (the 5-layer GIN at
+    width 32, sum readout, Adam 1e-3, f32), trained data-parallel by four
+    processes on the card, one bucket of 32 graphs each a step, for
+    ``DP_RANKS_STEPS`` steps; the losses and the final parameters held
+    against one process running the reference's formulation over the same
+    four buckets (NLL sums and counts added, one backward), and the
+    parameters equal on every rank; one world-1 NCCL run over all four
+    buckets through the default ``make_mesh``. Returns the ranks' launches
+    and mode launches (no hand-written kernel on this path)."""
+    from keras_geometric_tpu_torch import parallel as par
+    from keras_geometric_tpu_torch.training import label_nll
+
+    name = "train_dp_graph_classification"
+    phase_start = time.perf_counter()
+    gc = example_module("graph_classification")
+    graphs, _, classes = gc.make_dataset(GC_GRAPHS, GC_CLASSES, seed=0)
+    steps = dp_step_chunks(graphs)
+    num_graphs = GC_BATCH + 1
+    model = gc.make_model(GC_HIDDEN, classes, "sum", device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(0))
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+
+    # The reference's formulation in one process: the four buckets' NLL
+    # sums and counts added, then one backward and one Adam step.
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    reset_launch_counts()
+    ref_losses, ref_ms = [], []
+    for chunks in steps:
+        buckets = [gc.batch_to_arrays(c, GC_BATCH, device) for c in chunks]
+        synchronize()
+        start = time.perf_counter()
+        model.eval()
+        opt.zero_grad(set_to_none=True)
+        sums = []
+        for g, y, _ in buckets:
+            logits = model(g.x, g.edge_index, g.batch, num_graphs,
+                           edge_mask=g.edge_mask, node_mask=g.node_mask)
+            valid = (y >= 0).to(logits.dtype)
+            nll = label_nll(torch.log_softmax(logits, dim=-1),
+                            y.clamp_min(0))
+            sums.append(torch.stack([(nll * valid).sum(), valid.sum()]))
+        total = torch.stack(sums).sum(dim=0)
+        loss = total[0] / total[1].clamp_min(1.0)
+        loss.backward()
+        opt.step()
+        ref_losses.append(loss.item())
+        ref_ms.append(1e3 * (time.perf_counter() - start))
+    ref_params = {k: p.detach() for k, p in model.named_parameters()}
+    ref_launches = launch_counts()
+    check(not any(ref_launches.values()),
+          f"{name}: the one-process run launched hand-written kernels")
+    check(all(map(math.isfinite, ref_losses))
+          and ref_losses[-1] < ref_losses[0],
+          f"{name}: the one-process losses {ref_losses}")
+
+    def held_losses(what, losses):
+        for i, (got, want) in enumerate(zip(losses, ref_losses)):
+            check(math.isfinite(got) and abs(got - want)
+                  <= DP_LOSS_TOL * max(1.0, abs(want)),
+                  f"{name} {what}: step {i + 1} loss {got} vs {want}")
+        return max(abs(g - w) / max(1.0, abs(w))
+                   for g, w in zip(losses, ref_losses))
+
+    def held_params(what, got):
+        worst = 0.0
+        for key, want in ref_params.items():
+            err, scale, ok = held_within(got[key].to(device), want,
+                                         DP_PARAM_TOL)
+            check(ok, f"{name} {what}: parameter {key}: err {err:.3e} "
+                  f"against scale {scale:.3e}")
+            worst = max(worst, err / max(scale, 1e-12))
+        return worst
+
+    # One world-1 NCCL run over all four buckets (m = 4).
+    with one_rank_group():
+        import torch.distributed as dist
+
+        mesh = par.make_mesh((1,), ("data",))
+        check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+              f"{name}: the default mesh is not an NCCL mesh on the card")
+        nccl_model = gc.make_model(GC_HIDDEN, classes, "sum", device=device,
+                                   generator=None)
+        nccl_model.load_state_dict(state)
+        step = par.make_dp_graph_classifier_step(
+            nccl_model, torch.optim.Adam(nccl_model.parameters(), lr=1e-3),
+            mesh, num_graphs)
+        nccl_losses, nccl_ms = [], []
+        for chunks in steps:
+            buckets = [gc.batch_to_arrays(c, GC_BATCH, "cpu")
+                       for c in chunks]
+            data = par.stack_padded_batches([b[0] for b in buckets], mesh)
+            check(data["x"].shape[0] == DIST_PARTS,
+                  f"{name}: the world-1 rank does not hold every bucket")
+            data["y"] = torch.stack([b[1] for b in buckets]).to(device)
+            synchronize()
+            start = time.perf_counter()
+            nccl_losses.append(step(data).item())
+            nccl_ms.append(1e3 * (time.perf_counter() - start))
+    nccl_loss_err = held_losses("world-1 NCCL", nccl_losses)
+    nccl_param_err = held_params("world-1 NCCL", dict(
+        nccl_model.named_parameters()))
+
+    # The run that counts: four processes on the card.
+    start = time.perf_counter()
+    ranks = run_card_ranks(dp_rank, dict(device_type=device.type,
+                                         state=state), "dp_ranks")
+    ranks_s = time.perf_counter() - start
+    counts, modes = {}, {}
+    for rank, res in enumerate(ranks):
+        check(not any(res["launches"].values())
+              and not any(res["mode_launches"].values()),
+              f"{name}: rank {rank} launched hand-written kernels: "
+              f"{res['launches']} {res['mode_launches']}")
+        for total, got in ((counts, res["launches"]),
+                           (modes, res["mode_launches"])):
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        check(res["losses"] == ranks[0]["losses"],
+              f"{name}: rank {rank}'s losses differ from rank 0's")
+        for key, p in res["params"].items():
+            check(torch.equal(p, ranks[0]["params"][key]),
+                  f"{name}: rank {rank}'s {key} differs from rank 0's")
+    loss_err = held_losses("four ranks", ranks[0]["losses"])
+    param_err = held_params("four ranks", ranks[0]["params"])
+    median = lambda v: float(np.median(v[1:]))
+    emit(name, graphs=GC_GRAPHS, batch_size=GC_BATCH,
+         node_bucket=24 * GC_BATCH, edge_bucket=24 * 8 * GC_BATCH,
+         graph_slots=num_graphs, model=f"GraphClassifier(GIN(({GC_HIDDEN},) "
+         f"* 5, mlp_hidden=({GC_HIDDEN},)), {classes}, readout='sum')",
+         ranks=DIST_PARTS, backend="gloo", buckets_per_rank=1,
+         steps=DP_RANKS_STEPS, fields=ranks[0]["fields"],
+         losses=ranks[0]["losses"], losses_one_process=ref_losses,
+         loss_rel_err=loss_err, param_rel_err=param_err,
+         params_equal_on_every_rank=True,
+         step_ms_per_rank=[median(r["ms"]) for r in ranks],
+         step_ms_one_process_four_buckets=median(ref_ms),
+         nccl_world1={"step_ms": median(nccl_ms), "buckets_per_rank":
+                      DIST_PARTS, "loss_rel_err": nccl_loss_err,
+                      "param_rel_err": nccl_param_err},
+         launches=counts, launches_per_step=0, launches_why="the edge-list "
+         "GIN aggregates and the readout pools with library segment ops "
+         "(ops/segment.py), as the reference's run XLA's",
+         ranks_seconds=ranks_s, seconds=time.perf_counter() - phase_start)
+    return counts, modes
 
 
 def main() -> int:
@@ -6238,6 +6910,16 @@ def main() -> int:
             kernel_entries += entries
     workloads.pop("skewed_graph", None)
     torch.cuda.empty_cache()
+
+    # Tensor and data parallelism (parallel/tensor_parallel.py,
+    # data_parallel.py): four processes on the card each, library ops only.
+    for phase, run_phase in (
+            ("tensor_parallel_arxiv_shape",
+             lambda: tensor_parallel_phase(device)),
+            ("train_dp_graph_classification",
+             lambda: dp_graph_classification_phase(device))):
+        if phase in phases:
+            path_launches[phase], path_mode_launches[phase] = run_phase()
 
     # Graph classification (BASELINE.json config 3) and the readouts: the
     # edge-list GIN and the pooling run library ops, no hand-written kernel.

@@ -35,7 +35,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "keras_geometric_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attend_kernels_ab.py",
-    ROOT / "distributed_host_probe.py"] + \
+    ROOT / "distributed_host_probe.py", ROOT / "tp_activation_probe.py"] + \
     sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
@@ -67,6 +67,7 @@ MODULES = [
     "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
     "parallel/halo.py", "parallel/kernel_plan.py", "parallel/attend_plan.py",
     "parallel/spmd.py", "parallel/distributed.py",
+    "parallel/tensor_parallel.py", "parallel/data_parallel.py",
 ]
 # The data tier and minibatch training: the modules it added or extended.
 DATA_TIER_MODULES = [
@@ -90,11 +91,8 @@ PARALLEL_MODULES = [
     "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
     "parallel/halo.py", "parallel/kernel_plan.py", "parallel/attend_plan.py",
     "parallel/spmd.py", "parallel/distributed.py",
+    "parallel/tensor_parallel.py", "parallel/data_parallel.py",
 ]
-# The reference's parallel/ names the port does not have yet: the dense
-# tensor-parallel blocks.
-M11_LEFT = {"column_parallel_dense", "row_parallel_dense",
-            "tp_gcn_block_local"}
 # The reference's top-level names the port does not have (none since the
 # graph-level readout landed); and the port's own additions.
 M8_NAMES = set()
@@ -228,16 +226,27 @@ def test_package_exports_differ_from_the_reference_by_the_readout_only():
                 "parallel"):
         ref_sub = importlib.import_module(f"keras_geometric_tpu.{sub}")
         port_sub = importlib.import_module(f"keras_geometric_tpu_torch.{sub}")
-        left = M11_LEFT if sub == "parallel" else set()
-        assert set(ref_sub.__all__) - left <= set(port_sub.__all__), sub
+        assert set(ref_sub.__all__) <= set(port_sub.__all__), sub
         if sub == "parallel":
-            assert set(port_sub.__all__) == set(ref_sub.__all__) - left
+            assert set(port_sub.__all__) == set(ref_sub.__all__)
     classes = kgt_torch.get_dataset_classes()
     assert sorted(classes) == sorted(ref.get_dataset_classes())
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     np.testing.assert_allclose(
         kgt_torch.compute_gcn_normalization(ei, 3).numpy(),
         np.asarray(ref.compute_gcn_normalization(ei, 3)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("sub", ["tensor_parallel", "data_parallel"])
+def test_parallel_modules_export_the_references_names(sub):
+    """The distribution tier's last two modules: each ``__all__`` is the
+    reference module's, in its order, and the package has every name."""
+    ref = importlib.import_module(f"keras_geometric_tpu.parallel.{sub}")
+    port = importlib.import_module(f"keras_geometric_tpu_torch.parallel.{sub}")
+    assert port.__all__ == ref.__all__
+    package = importlib.import_module("keras_geometric_tpu_torch.parallel")
+    for name in port.__all__:
+        assert getattr(package, name) is getattr(port, name), name
 
 
 def test_importing_builds_and_loads_nothing():
