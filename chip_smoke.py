@@ -4,7 +4,8 @@ hold each against its plain PyTorch version, and train the 2-layer GCN and the
 2-layer GATv2 (fused and composed attention, the fused attention's other
 backward and score-cache modes, and both models on the locality tier), and
 GraphSAGE and GIN (their max and pooling paths through the segment max
-kernel) through the package's entry points; then GraphSAGE minibatch,
+kernel) through the package's entry points; the GCN and the GATv2 on an
+ogbn-products-sized graph (2.45M nodes, 123.7M edges); then GraphSAGE minibatch,
 partitioned full-graph training on ``torch.distributed`` (a mesh of one
 card, and a four-partition plan as four processes on it), tensor and data
 parallelism (four processes on the card each), GIN graph classification on
@@ -82,7 +83,12 @@ exit code and without the final line; so does a run of a subset of the phases
                 scatter an f64 sum's value and, at the Cora and CiteSeer
                 shapes, a serial slot-order walk's bits on every row of at
                 most one piece), and the fused attention kernels at one head
-                of 256 columns against the wide heads;
+                of 256 columns against the wide heads; last, the kernels
+                whose ``[E, D]`` operand passes 2**31 elements at
+                ogbn-products' widths (K2, K1's messages form, K4 forward
+                and backward, K10c's ``v``) on such an operand, against their
+                plain versions on sampled blocks of rows whose element
+                offsets pass 2**31 (``past_int32_case``);
 3. ``autograd`` gradients of ``GraphContext.spmm`` (symmetric and general),
                 ``gather`` and ``scatter_weighted`` through the kernels against
                 autograd over the plain versions, of ``GraphContext.attend``,
@@ -172,7 +178,31 @@ exit code and without the final line; so does a run of a subset of the phases
 17. ``train_gcn_ogbn_arxiv``  the full-graph GCN of run 4 on the same
                 dataset's own graph and train split, through ``prepare_graph``
                 (the fused-gather scatter, 3 launches a step);
-18. ``train_distributed_arxiv_shape``  partitioned full-graph training
+18. ``train_gcn_ogbn_products``  BASELINE.json's north star on the one
+                card: a size-faithful ogbn-products stand-in (2,449,029
+                nodes, 123,718,280 symmetrized edges, 100 features, 47
+                classes, a 60/20/20 split) generated with numpy from seed 0
+                into the git-ignored ``build/ogb`` at a first run and read
+                from there by the next, prepared as run 17 (2,449,152
+                padded nodes), ``GNNEncoder.for_context("gcn", (256,
+                47))``, bf16 IO / f32 masters, Adam, the train split as the
+                loss mask: K1's row walk 3 a step (layer 1 propagates first
+                at F = 100); step 1 against the plain versions run block by
+                block (``PlainContext(ctx, block_slots=2**23)``: no
+                ``[E, F]`` array of this graph fits whole); host seconds,
+                peak host memory, peak device memory, ``step_ms``, device
+                busy time and idle share, stream edges a second; then K1 at
+                both widths against its blocked plain version, with
+                ``torch.sparse.mm`` beside it;
+19. ``train_gat_ogbn_products``  the same graph with one self-loop a node
+                in the stream (126,167,309 edges), the GATv2 of run 6 at
+                100 -> 4 x 64 -> 4 x 47 in ``ATTEND_BWD_MODE = "send"``
+                with the score cache (restored after): 2 each of K9, K10b,
+                K10c without ``v`` and K10d a step; step 1 against the
+                plain versions in blocks of 2**21 slots, and the same
+                numbers as run 18; then those four kernels at both layers
+                against their plain versions run block by block;
+20. ``train_distributed_arxiv_shape``  partitioned full-graph training
                 (``parallel/``) on an NCCL process group of one rank (a
                 ``file://`` store under ``build/``) and a mesh ``(1,)``:
                 ``train_arxiv_shape``'s graph partitioned with the GCN
@@ -188,7 +218,7 @@ exit code and without the final line; so does a run of a subset of the phases
                 evaluation function's accuracy; ``step_ms``, device busy
                 time and idle share beside the single-device run's, timed
                 in the same call; the group destroyed at the end;
-19. ``distributed_partitions_arxiv_shape``  a P = 4 plan of run 11's
+21. ``distributed_partitions_arxiv_shape``  a P = 4 plan of run 11's
                 community graph in ``community_partition_order`` (halo size
                 and comm fraction beside the cluster order alone and the
                 uniform graph's), each partition a process of its own on
@@ -206,7 +236,7 @@ exit code and without the final line; so does a run of a subset of the phases
                 parts' absolute values, for parts rounded to bf16 before
                 they are added), each check's limit and largest reference
                 reported, and each shown to fail an output of zeros;
-20. ``tensor_parallel_arxiv_shape``  the tensor-parallel blocks at the
+22. ``tensor_parallel_arxiv_shape``  the tensor-parallel blocks at the
                 main path's widths on run 4's graph with its self-loops and
                 GCN normalisation: the GCN pair 128 -> 256 -> 40 and GATv2
                 at 4 heads x 64 (concat, the fused arxiv config's layer 1)
@@ -221,7 +251,7 @@ exit code and without the final line; so does a run of a subset of the phases
                 the unsharded block's; one world-1 NCCL run of the GCN block
                 through the default ``make_mesh``; no hand-written kernel
                 on this path (library segment ops, as the reference's XLA);
-21. ``train_dp_graph_classification``  run 22's configuration (the 5-layer
+23. ``train_dp_graph_classification``  run 24's configuration (the 5-layer
                 GIN at width 32, sum readout, Adam 1e-3, f32, buckets of 768
                 nodes / 6,144 edges holding 32 graphs and the dummy)
                 trained data-parallel by four processes on the card, one
@@ -230,7 +260,7 @@ exit code and without the final line; so does a run of a subset of the phases
                 (NLL sums and counts added, one backward), the parameters
                 equal on every rank, the step ms, 0 hand-written launches;
                 one world-1 NCCL run holding all four buckets;
-22. ``train_gin_graph_classification``  BASELINE.json config 3 as
+24. ``train_gin_graph_classification``  BASELINE.json config 3 as
                 ``examples_torch/graph_classification.py`` builds it: 200
                 synthetic graphs of 10-23 nodes (seed 0), buckets of 768
                 nodes / 6,144 edges / 33 graph slots, ``GraphClassifier(GIN(
@@ -240,13 +270,13 @@ exit code and without the final line; so does a run of a subset of the phases
                 against the CPU path, the loss falling, ``step_ms``, device
                 busy time and idle share, peak memory, 0 hand-written
                 launches (the edge-list GIN and the readout are library ops);
-23. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
+25. ``readouts_on_card``  ``GlobalPooling`` and ``BatchGlobalPooling`` in
                 every mode, with and without a node mask, on tied maxes, and
                 ``AttentionPooling`` and ``Set2Set`` (3 steps), forward and
                 backward against the CPU path (f32 1e-5, bf16 2e-2 of the
                 largest entry), on the encoder's output for one padded batch
                 and on one graph of 100,000 nodes x 128 features;
-24. ``examples_torch``  each of the ten twins of ``examples/`` in
+26. ``examples_torch``  each of the ten twins of ``examples/`` in
                 ``examples_torch/`` (and ``node_classification.py --dataset
                 pubmed``) as a process of its own on the card, at the
                 fewest epochs its flags allow: every exit code 0, all of
@@ -303,6 +333,7 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
           "train_gin_max_arxiv_shape", "train_sage_cora_shape",
           "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv",
+          "train_gcn_ogbn_products", "train_gat_ogbn_products",
           "train_distributed_arxiv_shape",
           "distributed_partitions_arxiv_shape",
           "tensor_parallel_arxiv_shape", "train_dp_graph_classification",
@@ -796,6 +827,118 @@ def kernel_sweep(device):
     return cases, worst
 
 
+# [E, D] arrays of more than 2**31 elements, as ogbn-products' per-edge
+# arrays are (126.2M slots x 256 columns): K2, K1's messages form and K4 on
+# E = 2**24 + 4,096 slots x 128 columns (2,148,007,936 elements, 4.3 GB in
+# bf16), K10c's v on 2**23 + 4,096 slots x 256; the sampled blocks of rows:
+# the first, the middle and the last ones, whose slots' element offsets
+# pass 2**31.
+BIG_SLOTS, BIG_F, BIG_NODES = 2**24 + 4_096, 128, 2**20
+BIG_ATTEND_SLOTS, BIG_ATTEND_NODES = 2**23 + 4_096, 2**19
+BIG_SAMPLE_SLOTS = 2**16
+
+
+def big_graph(device, gen, slots, nodes):
+    """Random receiver-sorted slots over ``nodes`` rows, its ``row_ptr``
+    and the sampled blocks of rows (``row_blocks``' kind) of about
+    ``BIG_SAMPLE_SLOTS`` slots at the start, the middle and the end."""
+    recv = torch.randint(0, nodes, (slots,), generator=gen, device=device,
+                         dtype=torch.int32).sort().values
+    row_ptr = torch.searchsorted(
+        recv, torch.arange(nodes + 1, device=device, dtype=torch.int32)).to(
+        torch.int32)
+    blocks = row_blocks(row_ptr, BIG_SAMPLE_SLOTS)
+    sample = [blocks[0], blocks[len(blocks) // 2], blocks[-1]]
+    return recv, row_ptr, sample
+
+
+def past_int32_case(device):
+    """Each kernel whose ``[E, D]`` operand passes 2**31 elements at
+    ogbn-products' widths, on such an operand, against its plain version on
+    sampled blocks of rows (``big_graph``): K2 and K4's backward bit for
+    bit on the blocks' slots, K1's messages form and K4's forward on their
+    rows, K10c's ``v`` on its blocks' slots (fed K9's and K10b's outputs,
+    under the module docstring's tolerance). A 32-bit element offset would
+    wrap on the last blocks. Returns each kernel's largest error and the
+    largest element offset it checked."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    gen = torch.Generator(device=device).manual_seed(33)
+    recv, row_ptr, sample = big_graph(device, gen, BIG_SLOTS, BIG_NODES)
+    rows = torch.randn(BIG_NODES, BIG_F, generator=gen,
+                       device=device).to(torch.bfloat16)
+    w = torch.rand(BIG_SLOTS, generator=gen, device=device)
+    errs = {}
+    msgs = K.expand_sorted(rows, recv, row_ptr=row_ptr, weights=w)
+    check(msgs.numel() > 2**31, "the [E, F] array must pass 2**31 elements")
+    for _, _, lo, hi in sample:
+        check(torch.equal(msgs[lo:hi], K.expand_sorted_plain(
+            rows, recv[lo:hi], weights=w[lo:hi])),
+            f"expand_sorted past 2**31 elements: slots {lo}..{hi} differ "
+            f"from the plain version")
+    errs["expand_sorted"] = 0.0
+    out = K.scatter_sum_sorted(msgs, recv, BIG_NODES, row_ptr=row_ptr,
+                               weights=w)
+    maxv = K.segment_max_wide_raw(msgs, BIG_NODES, row_ptr=row_ptr)
+    g = torch.randn(BIG_NODES, BIG_F, generator=gen, device=device)
+    dmsg = K._segment_max_wide_bwd(msgs, maxv, g, recv, row_ptr, BIG_NODES,
+                                   None, False)
+    errs["scatter_sum_sorted"] = errs["segment_max_wide_sorted"] = 0.0
+    for r0, r1, lo, hi in sample:
+        local = recv[lo:hi] - r0
+        p_out = K.scatter_sum_sorted_plain(msgs[lo:hi], local, r1 - r0,
+                                           weights=w[lo:hi])
+        mass = K.scatter_sum_sorted_plain(msgs[lo:hi].float().abs(), local,
+                                          r1 - r0, weights=w[lo:hi])
+        errs["scatter_sum_sorted"] = max(errs["scatter_sum_sorted"], compare(
+            out[r0:r1], p_out, mass, torch.bfloat16,
+            f"scatter_sum_sorted past 2**31 elements, rows {r0}..{r1}"))
+        p_max = K.segment_max_wide_raw_plain(msgs[lo:hi], local, r1 - r0)
+        check(torch.equal(maxv[r0:r1], p_max),
+              f"segment_max_wide_sorted past 2**31 elements: rows {r0}..{r1}")
+        check(torch.equal(dmsg[lo:hi], K.segment_max_wide_bwd_plain(
+            msgs[lo:hi], maxv[r0:r1], g[r0:r1], local, r1 - r0)),
+            f"segment_max_wide_bwd past 2**31 elements: slots {lo}..{hi}")
+    errs["segment_max_wide_bwd"] = 0.0
+    offsets = {k: (sample[-1][3] - 1) * BIG_F for k in errs}
+    del msgs, out, maxv, g, dmsg, rows, w
+    torch.cuda.empty_cache()
+
+    # K10c's v, [E, H * F] = [2**23 + 4,096, 256].
+    heads, f = GAT_ARXIV_HEADS, GAT_ARXIV_DIMS[0]
+    d = heads * f
+    recv, row_ptr, sample = big_graph(device, gen, BIG_ATTEND_SLOTS,
+                                      BIG_ATTEND_NODES)
+    send = torch.randint(0, BIG_ATTEND_NODES, (BIG_ATTEND_SLOTS,),
+                         generator=gen, device=device, dtype=torch.int32)
+    ht, att, gout, _ = attend_inputs(gen, BIG_ATTEND_NODES, heads, f,
+                                     torch.bfloat16, BIG_ATTEND_SLOTS, False,
+                                     device)
+    g3 = (send, recv, row_ptr)
+    _, scores, m, l = A.sddmm_stats_agg_sorted(ht, *g3, att)
+    rho = A.attend_rho_sorted(gout, scores, m, l, ht, *g3)
+    _, _, v = A.attend_recv_bwd_full_sorted(ht, gout, *g3, att, scores, m, l,
+                                            rho)
+    check(v.numel() > 2**31, "v must pass 2**31 elements")
+    errs["attend_recv_bwd_full_sorted"] = 0.0
+    for _, _, lo, hi in sample:
+        graph = (send[lo:hi], recv[lo:hi], None, None)
+        p_v = A.attend_recv_bwd_full_sorted_plain(
+            ht, gout, *graph[:3], att, scores[lo:hi], m, l, rho)[2]
+        mass = attend_masses(graph, ht, att, gout, None, scores[lo:hi], m, l)
+        errs["attend_recv_bwd_full_sorted"] = max(
+            errs["attend_recv_bwd_full_sorted"], compare(
+                v[lo:hi], p_v, mass["v"], torch.bfloat16,
+                f"attend_recv_bwd_full_sorted's v past 2**31 elements, "
+                f"slots {lo}..{hi}"))
+    offsets["attend_recv_bwd_full_sorted"] = (sample[-1][3] - 1) * d
+    del ht, gout, scores, m, l, rho, v
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "largest_element_offset": offsets,
+            "slots": {"spmm": BIG_SLOTS, "attend": BIG_ATTEND_SLOTS}}
+
+
 def sparse_library_ms(timer, rows_idx, cols_idx, values, shape, dense):
     """Milliseconds of ``torch.sparse.mm(A_csr, dense)``, the one library call
     that computes the same function; None (with the reason) when PyTorch has
@@ -1115,35 +1258,43 @@ def time_messages_elsewhere(name, f, dtype, weighted, masked, hub_graphs,
 
 
 def attend_restated(ctx, ht, att, drop_mask=None, negative_slope=0.2,
-                    eps=1e-10, ht_send=None):
+                    eps=1e-10, ht_send=None, block=None, dtype=None):
     """``GraphContext.attend`` written with differentiable library ops over
     the same edge order, validity mask and dropout mask, f32 inside: autograd
     over this is the oracle for the hand-written backward. ``ht_send``:
     the sender rows of every slot (``ht[senders]``) as a tensor of their
     own, whose gradient is then each slot's sender part apart from the
-    receiver part in ``ht``'s. For comparison only."""
-    n, (heads, f) = ht.shape[0], att.shape
-    s, r = ctx.senders.long(), ctx.receivers.long()
+    receiver part in ``ht``'s. ``block``: ``(r0, r1, lo, hi)`` of
+    ``row_blocks``, the rows ``[r0, r1)`` alone from their slots ``[lo,
+    hi)`` (each row's terms and order those of the whole graph's); the
+    result in ``dtype`` (default ``ht``'s). For comparison only."""
+    r0, r1, lo, hi = block or (0, ht.shape[0], 0, ctx.senders.shape[0])
+    heads, f = att.shape
+    s, r = ctx.senders[lo:hi].long(), ctx.receivers[lo:hi].long() - r0
     e = s.shape[0]
     rows = ht.float()
     hj = (rows.index_select(0, s) if ht_send is None
-          else ht_send.float()).view(e, heads, f)
-    hi = rows.index_select(0, r).view(e, heads, f)
-    z = torch.nn.functional.leaky_relu(hi + hj, negative_slope)
-    alpha = edge_softmax_restated(ctx, (z * att.float()).sum(-1), eps)
+          else ht_send[lo:hi].float()).view(e, heads, f)
+    hi_ = rows[r0:r1].index_select(0, r).view(e, heads, f)
+    z = torch.nn.functional.leaky_relu(hi_ + hj, negative_slope)
+    alpha = edge_softmax_restated(ctx, (z * att.float()).sum(-1), eps, block)
     if drop_mask is not None:
-        alpha = alpha * drop_mask.float()
-    out = torch.zeros(n, heads * f, device=ht.device).index_add(
+        alpha = alpha * drop_mask[lo:hi].float()
+    out = torch.zeros(r1 - r0, heads * f, device=ht.device).index_add(
         0, r, (alpha[:, :, None] * hj).reshape(e, heads * f))
-    return out.to(ht.dtype)
+    return out.to(dtype or ht.dtype)
 
 
-def edge_softmax_restated(ctx, scores, eps=1e-10):
+def edge_softmax_restated(ctx, scores, eps=1e-10, block=None):
     """``GraphContext.edge_softmax`` in differentiable library ops (padded
-    slots -inf, max shift held constant, f32 inside). For comparison only."""
-    n, (e, k) = ctx.num_nodes, scores.shape
-    r = ctx.receivers.long()
-    s = scores.float().masked_fill(~ctx.edge_mask[:, None], float("-inf"))
+    slots -inf, max shift held constant, f32 inside), over the rows and
+    slots of ``block`` (``attend_restated``'s) when given. For comparison
+    only."""
+    e, k = scores.shape
+    r0, r1, lo, hi = block or (0, ctx.num_nodes, 0, e)
+    n = r1 - r0
+    r = ctx.receivers[lo:hi].long() - r0
+    s = scores.float().masked_fill(~ctx.edge_mask[lo:hi, None], float("-inf"))
     m = torch.full((n, k), float("-inf"), device=s.device).scatter_reduce(
         0, r[:, None].expand(e, k), s.detach(), "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -1206,21 +1357,60 @@ def attend_masses(graph, ht, att, gout, drop, p_scores, p_m, p_l):
                 dht=dht_mass, v=v_mass, datt=datt_mass)
 
 
-def attend_case(graph, ht, att, gout, drop, what):
-    """The three attention kernels against their plain versions on one input,
+def attend_case(graph, ht, att, gout, drop, what, *, blocks=None,
+                emit_v=True, send=None):
+    """The attention kernels against their plain versions on one input,
     each element held to the tolerance of the module docstring. The backward
     kernels are fed the plain forward's scores and statistics, so each kernel
-    is held alone. Returns each kernel's largest absolute error."""
+    is held alone. ``blocks`` (``row_blocks`` of the stream): the plain
+    versions and the masses run block by block, so that no ``[E, H*F]``
+    array exists whole (ogbn-products); ``emit_v``: whether the receiver
+    backward writes ``v``; ``send``: ``(sender-order graph, valid_ss, its
+    blocks or None)``, and the sender backward is held too (no dropout
+    mask). Returns each kernel's largest absolute error, and each plain
+    version as it ran (a call without arguments), to be timed."""
     from keras_geometric_tpu_torch.kernels import attend_cuda as A
 
-    send, recv, row_ptr, valid = graph
-    kw = dict(edge_valid=valid, drop_mask=drop)
-    out, scores, m, l = A.sddmm_stats_agg_sorted(ht, send, recv, row_ptr, att,
-                                                 **kw)
-    p_out, p_scores, p_m, p_l = A.sddmm_stats_agg_sorted_plain(
-        ht, send, recv, row_ptr, att, **kw)
-    mass = attend_masses(graph, ht, att, gout, drop, p_scores, p_m, p_l)
-    s_mass, row_s_mass, out_mass = mass["s"], mass["row_s"], mass["out"]
+    senders, recv, row_ptr, valid = graph
+    n, d = ht.shape
+    blocks = blocks or [(0, n, 0, senders.shape[0])]
+
+    def cut(block, *tensors):  # each tensor's slots of the block
+        return [None if t is None else t[block[2]:block[3]] for t in tensors]
+
+    def fwd_plain(block):
+        s_, r_, valid_, drop_ = cut(block, senders, recv, valid, drop)
+        return A.sddmm_stats_agg_sorted_plain(
+            ht, s_, r_, None, att, edge_valid=valid_, drop_mask=drop_)
+
+    plain = {"sddmm_stats_agg_sorted": lambda: blocked_plain(
+        blocks, fwd_plain, ("rows", "slots", "rows", "rows"))}
+    out, scores, m, l = A.sddmm_stats_agg_sorted(
+        ht, senders, recv, row_ptr, att, edge_valid=valid, drop_mask=drop)
+    p_out, p_scores, p_m, p_l = plain["sddmm_stats_agg_sorted"]()
+
+    # The masses, block by block: per row where a row's slots all lie in
+    # its block; datt's and the sender backward's added over the blocks.
+    names = ["out", "row_s", "l", "rho", "dht", "s", "datt"]
+    kinds = ["rows"] * 5 + ["slots", "sum"]
+    if emit_v:
+        names, kinds = names + ["v"], kinds + ["slots"]
+    if send is not None:
+        check(drop is None, f"{what}: the sender backward takes no mask here")
+        names, kinds = names + ["send"], kinds + ["sum"]
+
+    def block_masses(block):
+        s_, r_, valid_, drop_, scores_ = cut(block, senders, recv, valid,
+                                             drop, p_scores)
+        mb = attend_masses((s_, r_, None, valid_), ht, att, gout, drop_,
+                           scores_, p_m, p_l)
+        mb["l"] = p_l * mb["amp"]
+        if send is not None:
+            mb["send"] = torch.zeros(n, d, device=ht.device).index_add_(
+                0, s_.long(), mb["v"])
+        return tuple(mb[name] for name in names)
+
+    mass = dict(zip(names, blocked_plain(blocks, block_masses, tuple(kinds))))
 
     finite = torch.isfinite(p_scores)
     check(bool((torch.isfinite(scores) == finite).all()),
@@ -1231,34 +1421,117 @@ def attend_case(graph, ht, att, gout, drop, what):
     zero = torch.zeros_like(scores)
     errs = {}
     errs["sddmm_stats_agg_sorted"] = max(
-        compare(out, p_out, out_mass, out.dtype, f"{what} out"),
+        compare(out, p_out, mass["out"], out.dtype, f"{what} out"),
         compare(torch.where(finite, scores, zero),
-                torch.where(finite, p_scores, zero), s_mass, scores.dtype,
+                torch.where(finite, p_scores, zero), mass["s"], scores.dtype,
                 f"{what} scores"),
-        compare(m, p_m, row_s_mass, m.dtype, f"{what} m"),
-        compare(l, p_l, p_l * mass["amp"], l.dtype, f"{what} l"))
-    del out, p_out, out_mass, scores, zero
+        compare(m, p_m, mass["row_s"], m.dtype, f"{what} m"),
+        compare(l, p_l, mass["l"], l.dtype, f"{what} l"))
+    del out, p_out, scores, m, l, zero, finite
 
-    graph3 = (send, recv, row_ptr)
+    graph3 = (senders, recv, row_ptr)
+
+    def rho_plain(block):
+        s_, r_, scores_, drop_ = cut(block, senders, recv, p_scores, drop)
+        return A.attend_rho_sorted_plain(gout, scores_, p_m, p_l, ht, s_, r_,
+                                         None, drop_mask=drop_)
+
+    plain["attend_rho_sorted"] = lambda: blocked_plain(blocks, rho_plain,
+                                                       "rows")
+    p_rho = plain["attend_rho_sorted"]()
     rho = A.attend_rho_sorted(gout, p_scores, p_m, p_l, ht, *graph3,
                               drop_mask=drop)
-    p_rho = A.attend_rho_sorted_plain(gout, p_scores, p_m, p_l, ht, *graph3,
-                                      drop_mask=drop)
     errs["attend_rho_sorted"] = compare(rho, p_rho, mass["rho"], rho.dtype,
                                         f"{what} rho")
+    del rho
 
-    dht, datt, v = A.attend_recv_bwd_full_sorted(
-        ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
-    p_dht, p_datt, p_v = A.attend_recv_bwd_full_sorted_plain(
-        ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop)
+    def recv_plain(block):  # datt's parts in f32 (att in f32), rounded once
+        s_, r_, scores_, valid_, drop_ = cut(block, senders, recv, p_scores,
+                                             valid, drop)
+        return A.attend_recv_bwd_full_sorted_plain(
+            ht, gout, s_, r_, None, att.float(), scores_, p_m, p_l, p_rho,
+            drop_mask=drop_, emit_v=emit_v, edge_valid=valid_)
+
+    def recv_whole():
+        dht, datt, *v = blocked_plain(
+            blocks, recv_plain, ("rows", "sum") + ("slots",) * emit_v)
+        return (dht, datt.to(att.dtype), *v)
+
+    plain["attend_recv_bwd_full_sorted"] = recv_whole
+    got = A.attend_recv_bwd_full_sorted(
+        ht, gout, *graph3, att, p_scores, p_m, p_l, p_rho, drop_mask=drop,
+        emit_v=emit_v, edge_valid=valid)
     errs["attend_recv_bwd_full_sorted"] = max(
-        compare(dht, p_dht, mass["dht"], dht.dtype, f"{what} dht"),
-        compare(v, p_v, mass["v"], v.dtype, f"{what} v"),
-        compare(datt, p_datt, mass["datt"], datt.dtype, f"{what} datt"))
-    if valid is not None:
-        check(not v[~valid].any().item(),
+        compare(k, p, mass[part], k.dtype, f"{what} {part}")
+        for k, p, part in zip(got, recv_whole(), ("dht", "datt", "v")))
+    if emit_v and valid is not None:
+        check(not got[2][~valid].any().item(),
               f"{what}: v must be zero on invalid slots")
-    return errs
+    del got
+
+    if send is not None:
+        ss, valid_ss, send_blocks = send
+        send_blocks = send_blocks or [(0, n, 0, ss[0].shape[0])]
+
+        def send_plain(block):
+            r_, s_, valid_ = cut(block, ss[0], ss[1], valid_ss)
+            return A.attend_send_bwd_sorted_plain(
+                ht, gout, r_, s_, None, att, p_m, p_l, p_rho, valid_ss=valid_)
+
+        plain["attend_send_bwd_sorted"] = lambda: blocked_plain(
+            send_blocks, send_plain, "rows")
+        errs["attend_send_bwd_sorted"] = compare(
+            A.attend_send_bwd_sorted(ht, gout, *ss, att, p_m, p_l, p_rho,
+                                     valid_ss=valid_ss),
+            plain["attend_send_bwd_sorted"](), mass["send"], ht.dtype,
+            f"{what} sender backward")
+    return errs, plain
+
+
+def attend_counts(n, e, heads, f, es, dropped=False):
+    """``(bytes, operations, bytes added if no gathered row is reused)`` of
+    each attention kernel call at these shapes, keyed as ``modes_case``'s
+    errors are (``name`` or ``name(mode)``). Bytes: each node array read
+    or written once, the index and validity streams, the keep mask, the
+    ``[E, H]`` f32 score cache where it is read or written, ``(m, l,
+    rho)`` and ``att``; not reused: every gathered sender row (for the
+    sender backward: ``ht[r]``, ``g[r]`` and ``(m, l, rho)[r]`` for every
+    slot)."""
+    d = heads * f
+    stats = 2 * n * heads * 4  # m and l
+    drop_bytes = e * heads * es if dropped else 0
+    index = e * 4 + (n + 1) * 4
+    nodes = n * d * es  # one node array, read or written once
+    gathered = e * d * es  # every gathered row from device memory
+    scores = e * heads * 4
+    fwd = 2 * nodes + index + e + stats + d * es + drop_bytes
+    rho = 2 * nodes + index + stats + n * heads * 4 + drop_bytes
+    bwd = (3 * nodes + index + e + stats + n * heads * 4 + d * (es + 4)
+           + drop_bytes)
+    return {
+        "sddmm_stats_agg_sorted": (fwd + scores, 8 * e * d, gathered),
+        "sddmm_stats_agg_sorted(emit_scores=False)": (fwd, 8 * e * d,
+                                                      gathered),
+        "attend_rho_sorted": (rho + scores, 2 * e * d, gathered),
+        "attend_rho_sorted(scores=None)": (rho + e + d * es, 6 * e * d,
+                                           gathered),
+        "attend_recv_bwd_full_sorted": (bwd - e + scores + gathered,
+                                        12 * e * d, gathered),
+        "attend_recv_bwd_full_sorted(scores=None)": (bwd + gathered,
+                                                     16 * e * d, gathered),
+        "attend_recv_bwd_full_sorted(emit_v=False)": (bwd - e + scores,
+                                                      10 * e * d, gathered),
+        "attend_recv_bwd_full_sorted(scores=None, emit_v=False)": (
+            bwd, 14 * e * d, gathered),
+        "attend_send_bwd_sorted": (
+            3 * nodes + index + e * 4 + 3 * n * heads * 4 + d * es
+            + drop_bytes, 12 * e * d,
+            2 * gathered - nodes + e * 3 * heads * 4 - 3 * n * heads * 4),
+        "sddmm_stats_sorted": (nodes + index + e + scores + stats + d * es,
+                               4 * e * d, gathered),
+        "attend_aggregate_sorted": (2 * nodes + index + scores + stats
+                                    + drop_bytes, 2 * e * d, gathered),
+    }
 
 
 def attend_inputs(gen, n, heads, f, dtype, num_slots, dropped, device):
@@ -1292,7 +1565,7 @@ def attend_sweep(device, timer):
             for dropped in (False, True):
                 ht, att, gout, drop = attend_inputs(
                     gen, n, heads, f, dtype, e, dropped, device)
-                errs = attend_case(
+                errs, _ = attend_case(
                     graph, ht, att, gout, drop,
                     f"attend {str(dtype)[6:]} H={heads} F={f}"
                     f"{' dropout' if dropped else ''}")
@@ -1430,7 +1703,7 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
         ht, att, gout, drop = attend_inputs(gen, n, heads, f, dtype, e,
                                             dropped, device)
         graph = (ctx.senders, ctx.receivers, ctx.row_ptr)
-        errs = attend_case(
+        errs, _ = attend_case(
             graph + (ctx.edge_mask,), ht, att, gout, drop,
             f"attend at {ctx_name} {layer}")
         torch.cuda.empty_cache()
@@ -1486,8 +1759,7 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
                 n),
         }
 
-        stats = 2 * n * heads * 4  # m and l
-        drop_bytes = 0 if drop is None else e * heads * es
+        counts = attend_counts(n, e, heads, f, es, dropped)
         index = e * 4 + (n + 1) * 4
         cases = {
             "sddmm_stats_agg_sorted": dict(
@@ -1497,20 +1769,13 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
                 plain=lambda: A.sddmm_stats_agg_sorted_plain(
                     ht, *graph, att, edge_valid=ctx.edge_mask,
                     drop_mask=drop),
-                # ht read, out written, senders, row_ptr, validity bytes,
-                # the [E, H] f32 score cache, m, l, att, keep mask.
-                nbytes=2 * n * d * es + index + e + e * heads * 4 + stats
-                + d * es + drop_bytes,
-                ops=8 * e * d, library=None),
+                counts=counts["sddmm_stats_agg_sorted"], library=None),
             "attend_rho_sorted": dict(
                 kernel=lambda: A.attend_rho_sorted(
                     gout, scores, m, l, ht, *graph, drop_mask=drop),
                 plain=lambda: A.attend_rho_sorted_plain(
                     gout, scores, m, l, ht, *graph, drop_mask=drop),
-                # g and ht read, scores, m, l read, rho written.
-                nbytes=2 * n * d * es + index + e * heads * 4 + stats
-                + n * heads * 4 + drop_bytes,
-                ops=2 * e * d, library=None),
+                counts=counts["attend_rho_sorted"], library=None),
             "attend_recv_bwd_full_sorted": dict(
                 kernel=lambda: A.attend_recv_bwd_full_sorted(
                     ht, gout, *graph, att, scores, m, l, rho,
@@ -1518,31 +1783,27 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
                 plain=lambda: A.attend_recv_bwd_full_sorted_plain(
                     ht, gout, *graph, att, scores, m, l, rho,
                     drop_mask=drop),
-                # ht and g read, dht and the [E, D] v written, scores, m, l,
-                # rho read, att read and datt written.
-                nbytes=3 * n * d * es + e * d * es + index + e * heads * 4
-                + stats + n * heads * 4 + d * (es + 4) + drop_bytes,
-                ops=12 * e * d, library=None),
+                counts=counts["attend_recv_bwd_full_sorted"], library=None),
             "gather_scatter_sum_sorted": dict(
                 kernel=lambda: K.gather_scatter_sum_sorted(
                     v, ctx.bwd_perm, ctx.senders_sorted, ctx.row_ptr_bwd, n),
                 plain=lambda: K.gather_scatter_sum_sorted_plain(
                     v, ctx.bwd_perm, ctx.senders_sorted, n),
                 # every row of v read once, the node rows written.
-                nbytes=e * d * es + n * d * es + index,
-                ops=e * d,
+                counts=(e * d * es + n * d * es + index, e * d, None),
                 library=lambda: torch.zeros(
                     n, d, dtype=dtype, device=device).index_add_(
                         0, senders_long, v)),
         }
         for name, case in cases.items():
+            nbytes, ops, no_reuse = case["counts"]
             ms = timer.cold_ms(case["kernel"], iters=10)
             plain_ms = timer.cold_ms(case["plain"], iters=5, warmup=1)
             library_ms = None
             if case["library"] is not None:
                 library_ms = timer.cold_ms(case["library"], iters=10)
-            t_bytes = case["nbytes"] / H100_BYTES_PER_S * 1e3
-            t_ops = case["ops"] / H100_F32_OPS_PER_S * 1e3
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = ops / H100_F32_OPS_PER_S * 1e3
             entry = {
                 "name": name, "route": "cuda",
                 "source": SOURCES[REPLACES[name][0]],
@@ -1557,11 +1818,11 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
                 "library": ("index_add_" if library_ms is not None else
                             "none: no single PyTorch call computes this"),
             }
-            if name != "gather_scatter_sum_sorted":
+            if no_reuse is not None:
                 # Every gathered sender row from device memory, none from
                 # cache: E more rows than the ideal count.
                 entry["bound_ms_if_gather_not_reused"] = (
-                    (case["nbytes"] + e * d * es) / H100_BYTES_PER_S * 1e3)
+                    (nbytes + no_reuse) / H100_BYTES_PER_S * 1e3)
             sender_order = name == "gather_scatter_sum_sorted"
             entry.update(piece_walk_fields(
                 name, ctx.row_ptr_bwd if sender_order else ctx.row_ptr))
@@ -1845,8 +2106,7 @@ def modes_sweep(device, timer):
         n, e, d = sg["n"], sg["e"], heads * f
         nodes, index = n * d * 2, e * 4 + (n + 1) * 4
         hub["attend_send_bwd_sorted"]["bound_ms"][label] = bound_ms(
-            3 * nodes + index + e * 4 + 3 * n * heads * 4 + d * 2,
-            12 * e * d)
+            *attend_counts(n, e, heads, f, 2)["attend_send_bwd_sorted"][:2])
         hub["gather_scatter_sum_sorted"]["bound_ms"][label] = bound_ms(
             e * d * 2 + nodes + index, e * d)
         del v, scores, finish
@@ -1884,17 +2144,10 @@ def time_wide_heads(device, timer, ctx):
                 lambda: A.attend_recv_bwd_full_sorted(
                     ht, gout, *graph, att, scores, m, l, rho), iters=10),
         }
-        n, d = ctx.num_nodes, heads * f
-        index = e * 4 + (n + 1) * 4
-        stats = 2 * n * heads * 4
-        nbytes = {  # as time_attend_cases counts them, bf16, no dropout
-            "sddmm_stats_agg_sorted": 2 * n * d * 2 + index + e
-            + e * heads * 4 + stats + d * 2,
-            "attend_rho_sorted": 2 * n * d * 2 + index + e * heads * 4
-            + stats + n * heads * 4,
-            "attend_recv_bwd_full_sorted": 3 * n * d * 2 + e * d * 2 + index
-            + e * heads * 4 + stats + n * heads * 4 + d * 6,
-        }
+        counts = attend_counts(ctx.num_nodes, e, heads, f, 2)  # bf16
+        nbytes = {k: counts[k][0] for k in (
+            "sddmm_stats_agg_sorted", "attend_rho_sorted",
+            "attend_recv_bwd_full_sorted")}
         times["ms_per_1k_columns"] = {
             k: v * 1000 / (heads * f) for k, v in list(times.items())}
         times["bound_ms"] = {k: b / H100_BYTES_PER_S * 1e3
@@ -1935,7 +2188,7 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
                  GAT_CITESEER_DIMS[1], torch.float32, True)]
     for ctx_name, layer, heads, f, dtype, dropped in arxiv + citeseer:
         ctx = contexts[ctx_name]
-        n, e, d = ctx.num_nodes, ctx.senders.shape[0], heads * f
+        n, e = ctx.num_nodes, ctx.senders.shape[0]
         es = 2 if dtype == torch.bfloat16 else 4
         ht, att, gout, drop = attend_inputs(gen, n, heads, f, dtype, e,
                                             dropped, device)
@@ -1951,18 +2204,10 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
             ht, *graph, att, edge_valid=valid, drop_mask=drop)
         rho = A.attend_rho_sorted(gout, scores, m, l, ht, *graph,
                                   drop_mask=drop)
-        stats = 2 * n * heads * 4  # m and l
-        drop_bytes = 0 if drop is None else e * heads * es
-        index = e * 4 + (n + 1) * 4
-        nodes = n * d * es  # one node array, read or written once
-        gathered = e * d * es  # every gathered row from device memory
+        counts = attend_counts(n, e, heads, f, es, dropped)
         recompute = dict(att=att, edge_valid=valid, drop_mask=drop)
         recv_kw = dict(drop_mask=drop, edge_valid=valid)
-        # name, mode, path, kernel, plain, bytes, operations, bytes if no
-        # gathered row is reused
-        fwd_bytes = 2 * nodes + index + e + stats + d * es + drop_bytes
-        bwd_bytes = (3 * nodes + index + e + stats + n * heads * 4
-                     + d * (es + 4) + drop_bytes)
+        # name, mode, path, kernel, plain
         cases = [
             ("sddmm_stats_agg_sorted", "emit_scores=False", "nocache",
              lambda: A.sddmm_stats_agg_sorted(
@@ -1970,29 +2215,24 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
                  emit_scores=False),
              lambda: A.sddmm_stats_agg_sorted_plain(
                  ht, *graph, att, edge_valid=valid, drop_mask=drop,
-                 emit_scores=False),
-             fwd_bytes, 8 * e * d, gathered),
+                 emit_scores=False)),
             ("attend_rho_sorted", "scores=None", "nocache",
              lambda: A.attend_rho_sorted(gout, None, m, l, ht, *graph,
                                          **recompute),
              lambda: A.attend_rho_sorted_plain(gout, None, m, l, ht, *graph,
-                                               **recompute),
-             2 * nodes + index + e + stats + n * heads * 4 + d * es
-             + drop_bytes, 6 * e * d, gathered),
+                                               **recompute)),
             ("attend_recv_bwd_full_sorted", "scores=None", "nocache",
              lambda: A.attend_recv_bwd_full_sorted(
                  ht, gout, *graph, att, None, m, l, rho, **recv_kw),
              lambda: A.attend_recv_bwd_full_sorted_plain(
-                 ht, gout, *graph, att, None, m, l, rho, **recv_kw),
-             bwd_bytes + e * d * es, 16 * e * d, gathered),
+                 ht, gout, *graph, att, None, m, l, rho, **recv_kw)),
             ("attend_recv_bwd_full_sorted", "emit_v=False", "send",
              lambda: A.attend_recv_bwd_full_sorted(
                  ht, gout, *graph, att, scores, m, l, rho, emit_v=False,
                  **recv_kw),
              lambda: A.attend_recv_bwd_full_sorted_plain(
                  ht, gout, *graph, att, scores, m, l, rho, emit_v=False,
-                 **recv_kw),
-             bwd_bytes - e + e * heads * 4, 10 * e * d, gathered),
+                 **recv_kw)),
             ("attend_recv_bwd_full_sorted", "scores=None, emit_v=False",
              "send_nocache",
              lambda: A.attend_recv_bwd_full_sorted(
@@ -2000,44 +2240,32 @@ def time_mode_cases(device, timer, contexts, replaces, hub, send_hub):
                  **recv_kw),
              lambda: A.attend_recv_bwd_full_sorted_plain(
                  ht, gout, *graph, att, None, m, l, rho, emit_v=False,
-                 **recv_kw),
-             bwd_bytes, 14 * e * d, gathered),
-            # ht and g read once each, the output written, the sender-order
-            # index, validity and keep streams, (m, l, rho) and att; not
-            # reused: ht[r] and g[r] and (m, l, rho)[r] for every slot.
+                 **recv_kw)),
             ("attend_send_bwd_sorted", None, "send",
              lambda: A.attend_send_bwd_sorted(
                  ht, gout, *ss, att, m, l, rho, valid_ss=ctx.edge_mask_ss,
                  drop_ss=drop_ss),
              lambda: A.attend_send_bwd_sorted_plain(
                  ht, gout, *ss, att, m, l, rho, valid_ss=ctx.edge_mask_ss,
-                 drop_ss=drop_ss),
-             3 * nodes + index + e * 4 + 3 * n * heads * 4 + d * es
-             + drop_bytes, 12 * e * d,
-             2 * gathered - nodes + e * 3 * heads * 4 - 3 * n * heads * 4),
-            # ht read, the scores and m, l written, the index and validity
-            # streams, att; not reused: every sender row.
+                 drop_ss=drop_ss)),
             ("sddmm_stats_sorted", None, "two_pass",
              lambda: D.sddmm_stats_sorted(ht, *graph, att, edge_valid=valid),
              lambda: D.sddmm_stats_sorted_plain(ht, *graph, att,
-                                                edge_valid=valid),
-             nodes + index + e + e * heads * 4 + stats + d * es, 4 * e * d,
-             gathered),
-            # ht read, out written, scores, m, l and the index streams.
+                                                edge_valid=valid)),
             ("attend_aggregate_sorted", None, "two_pass",
              lambda: A.attend_aggregate_sorted(scores, m, l, ht, *graph,
                                                drop_mask=drop),
              lambda: A.attend_aggregate_sorted_plain(scores, m, l, ht,
-                                                     *graph, drop_mask=drop),
-             2 * nodes + index + e * heads * 4 + stats + drop_bytes,
-             2 * e * d, gathered),
+                                                     *graph, drop_mask=drop)),
         ]
-        for name, mode, run, kernel, plain, nbytes, ops, no_reuse in cases:
+        for name, mode, run, kernel, plain in cases:
             if ctx_name == "citeseer" and name != "attend_send_bwd_sorted":
                 continue  # the CiteSeer send run launches no other branch
             path = ("attend_two_pass_arxiv_shape" if run == "two_pass" else
                     f"train_gat_{ctx_name.removeprefix('gat_')}_shape_{run}")
-            err = errs[name if mode is None else f"{name}({mode})"]
+            key = name if mode is None else f"{name}({mode})"
+            err = errs[key]
+            nbytes, ops, no_reuse = counts[key]
             ms = timer.cold_ms(kernel, iters=10)
             plain_ms = timer.cold_ms(plain, iters=5, warmup=1)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -3230,13 +3458,100 @@ def segment_max_narrow_phase(device, ctx, timer):
 # ---------------------------------------------------------------------------
 
 
+def row_blocks(row_ptr, block_slots):
+    """``[(r0, r1, lo, hi)]``: the rows of a sorted stream (``row_ptr``
+    ``[N + 1]``) cut into runs of whole rows ``[r0, r1)`` whose slots ``[lo,
+    hi)`` number at most ``block_slots`` (a longer row makes a block of its
+    own), in order, covering every row."""
+    rp = row_ptr.cpu().numpy().astype(np.int64)
+    n, blocks, r0 = rp.shape[0] - 1, [], 0
+    while r0 < n:
+        r1 = int(np.searchsorted(rp, rp[r0] + block_slots, side="right")) - 1
+        r1 = min(max(r1, r0 + 1), n)
+        blocks.append((r0, r1, int(rp[r0]), int(rp[r1])))
+        r0 = r1
+    return blocks
+
+
+def blocked_plain(blocks, fn, kinds, checkpointed=False):
+    """A plain version over a stream's blocks (``row_blocks``): ``fn(block)``
+    returns its outputs from the block's slots alone. ``kinds`` says of each
+    output whether it is per row (``"rows"``: the block's rows ``[r0, r1)``,
+    cut out where ``fn`` gives every row), per slot (``"slots"``) or summed
+    over the slots (``"sum"``: the blocks' parts added); one kind, one
+    output. ``checkpointed``: each block under ``torch.utils.checkpoint``,
+    so that the backward keeps no block's ``[slots, F]`` intermediates."""
+    from torch.utils.checkpoint import checkpoint
+
+    single = isinstance(kinds, str)
+    kinds = (kinds,) if single else kinds
+
+    def run(block):
+        r0, r1 = block[:2]
+        outs = fn(block)
+        return tuple(
+            out[r0:r1].clone() if kind == "rows" and out.shape[0] != r1 - r0
+            else out for out, kind in zip((outs,) if single else outs, kinds))
+
+    parts = [[] for _ in kinds]
+    for block in blocks:
+        outs = (checkpoint(run, block, use_reentrant=False) if checkpointed
+                else run(block))
+        for part, kind, out in zip(parts, kinds, outs):
+            if kind == "sum" and part:
+                part[0] = part[0] + out
+            else:
+                part.append(out)
+    result = tuple(part[0] if kind == "sum" else torch.cat(part)
+                   for part, kind in zip(parts, kinds))
+    return result[0] if single else result
+
+
+def spmm_rows(h, ctx, block, weights, self_weight, dtype):
+    """Rows ``[r0, r1)`` of the plain ``spmm`` in ``dtype``:
+    ``gather_scatter_sum_sorted_plain`` on the block's slots alone, then the
+    rows' self term, added in f32 before the one rounding as the whole call
+    adds it (the same terms in the same order into each row). ``h`` is the
+    source in f32, so that the blocks' gradients add in f32 and are rounded
+    once."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    r0, r1, lo, hi = block
+    out = K.gather_scatter_sum_sorted_plain(
+        h.float(), ctx.senders[lo:hi], ctx.receivers[lo:hi] - r0, r1 - r0,
+        weights=None if weights is None else weights[lo:hi])
+    if self_weight is not None:
+        out = out + h.float()[r0:r1] * self_weight[r0:r1].float()[:, None]
+    return out.to(dtype)
+
+
 class PlainContext:
-    def __init__(self, ctx):
+    """The context's ops through the kernels' plain versions (library ops,
+    differentiated by autograd), for step 1 against the kernels.
+
+    ``block_slots``: ``spmm`` and ``attend`` run block by block over runs of
+    whole receiver rows of at most that many slots (``row_blocks``), each
+    block under ``torch.utils.checkpoint``, so that no ``[E, F]`` array
+    exists whole in the forward or in the backward (ogbn-products' gather
+    at F = 100 alone is 24.7 GB). Each row's arithmetic is the unblocked
+    version's; the gradients add the blocks' parts in another order."""
+
+    def __init__(self, ctx, block_slots=None):
         self.ctx = ctx
         self.self_weight = ctx.self_weight
         self.senders = ctx.senders
         self.bwd_perm = ctx.bwd_perm
         self.has_unit_weights = ctx.has_unit_weights
+        self.block_slots = block_slots
+        self.blocks = {}  # id of a stream's row_ptr -> its blocks
+
+    def blockwise(self, stream, fn):
+        """``fn(block)``, the block's rows, over every block of ``stream``'s
+        rows under checkpoints, concatenated."""
+        key = id(stream.row_ptr)
+        if key not in self.blocks:
+            self.blocks[key] = row_blocks(stream.row_ptr, self.block_slots)
+        return blocked_plain(self.blocks[key], fn, "rows", checkpointed=True)
 
     # The per-edge stream's receivers, mask and node count (what a layer
     # reads from ``full_stream()`` for its library aggregators).
@@ -3260,6 +3575,12 @@ class PlainContext:
         # The same function in every mode: the sender-order twin of the
         # mask changes only how the kernels' backward is computed.
         del drop_mask_ss
+        if self.block_slots is not None:
+            stream = self.ctx.full_stream()
+            ht32, att32 = ht.float(), att.float()
+            return self.blockwise(stream, lambda block: attend_restated(
+                stream, ht32, att32, drop_mask, negative_slope, eps,
+                block=block, dtype=ht.dtype))
         return attend_restated(self.ctx.full_stream(), ht, att, drop_mask,
                                negative_slope, eps)
 
@@ -3268,6 +3589,11 @@ class PlainContext:
         from keras_geometric_tpu_torch.kernels import spmm_cuda as K
 
         c = self.ctx
+        if self.block_slots is not None:
+            check(c.band is None, "the blocked plain spmm takes no band")
+            h32 = h.float()
+            return self.blockwise(c, lambda block: spmm_rows(
+                h32, c, block, c.edge_weight, c.self_weight, h.dtype))
         out = K.gather_scatter_sum_sorted_plain(
             h, c.senders, c.receivers, c.num_nodes, weights=c.edge_weight,
             self_weight=c.self_weight)
@@ -3835,7 +4161,8 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
                 compute_dtype, steps, per_step, timed_iters=20,
                 falling=lambda l: l[-1] < l[0], same_as=None,
                 same_graph=None, extra=None, per_step_modes=None,
-                against_default_modes=False, profile=False):
+                against_default_modes=False, profile=False,
+                plain_block_slots=None):
     """``same_as``: a model that computes the same function by another path
     (built with the same initial parameters); its step-1 loss is held to the
     same tolerance as the plain path's. ``same_graph``: ``(ctx, x, y,
@@ -3850,7 +4177,10 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     ``against_default_modes``: step 1 is also taken with the attention's
     module constants at their defaults; the loss must be the same (the
     forward is the same kernel's), the gradients within the tolerance of
-    the plain path's. Returns the run's launch counts and mode counts."""
+    the plain path's. ``plain_block_slots``: the plain path runs its
+    ``spmm`` and ``attend`` in blocks of at most that many slots
+    (``PlainContext``), for a graph whose ``[E, F]`` arrays do not fit.
+    Returns the run's launch counts and mode counts."""
     from keras_geometric_tpu_torch.training import make_node_classification_step
     from keras_geometric_tpu_torch.utils import timed_steps
 
@@ -3858,8 +4188,9 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
     # Step 1 through the kernels against step 1 through the plain versions.
     k_loss, k_grads = first_step(make_model, make_gen, ctx, x, y, mask,
                                  compute_dtype)
-    p_loss, p_grads = first_step(make_model, make_gen, PlainContext(ctx), x,
-                                 y, mask, compute_dtype)
+    p_loss, p_grads = first_step(
+        make_model, make_gen, PlainContext(ctx, plain_block_slots), x, y,
+        mask, compute_dtype)
     l_tol, g_tol = (1e-4, 2e-4) if compute_dtype is None else (2e-2, 5e-2)
     check(math.isfinite(k_loss) and abs(k_loss - p_loss) <= l_tol,
           f"{name}: step-1 loss {k_loss} vs plain {p_loss}")
@@ -3971,6 +4302,7 @@ def train_phase(name, device, ctx, x, y, mask, make_model, make_optimizer,
          launches_per_step=per_step, launches=counts,
          mode_launches_per_step=per_step_modes, mode_launches=modes,
          step_ms=step_ms,
+         stream_edges_per_s=ctx.num_real_edges / step_ms * 1e3,
          step_ms_without_locality_tier=same_graph_ms,
          peak_memory_mb=peak_mb,
          peak_memory_mb_without_locality_tier=same_graph_peak_mb,
@@ -4018,25 +4350,32 @@ SAGE_FANOUTS, SAGE_BATCH, SAGE_BATCHES = (25, 10), 512, 20
 SAGE_VALID_NODES = 4_096
 
 
-def ogbn_arxiv_data():
-    """The tracked ogbn-arxiv cache (``data/ogbn_arxiv``) as host arrays:
-    the memory maps copied once, with the seconds that took."""
+def ogbn_data(name="ogbn-arxiv", root=None, **dataset_kw):
+    """An OGB cache as host arrays: the memory maps copied once.
+    ``root``: the cache's parent (default the tracked ``data/``);
+    ``dataset_kw``: ``OGBNodeDataset``'s, e.g. ``synthetic=True`` to write
+    the size-faithful stand-in there when the cache is missing.
+    ``dataset_s`` is the dataset's construction (the generation and the
+    writing, where the cache was missing), ``load_s`` everything."""
     from keras_geometric_tpu_torch.data.datasets import OGBNodeDataset
 
+    root = pathlib.Path(root or ROOT / "data")
+    cached = (root / name.replace("-", "_") / "meta.json").exists()
     start = time.perf_counter()
-    ds = OGBNodeDataset("ogbn-arxiv", root=str(
-        pathlib.Path(__file__).resolve().parent / "data"))
+    ds = OGBNodeDataset(name, root=str(root), **dataset_kw)
+    dataset_s = time.perf_counter() - start
     senders, receivers = ds.edges()
     data = dict(
         dataset=ds, edges=np.stack([np.array(senders), np.array(receivers)]),
-        x=np.array(ds.x), y=np.array(ds.y), split=ds.split_idx())
+        x=np.array(ds.x), y=np.array(ds.y), split=ds.split_idx(),
+        cache_reused=cached, dataset_s=dataset_s)
     data["load_s"] = time.perf_counter() - start
     return data
 
 
-def ogbn_arxiv_gcn_workload(device, data):
-    """``train_arxiv_shape``'s preparation of the dataset's own graph, with
-    its train split as the loss mask."""
+def ogbn_gcn_workload(device, data):
+    """``train_arxiv_shape``'s preparation of an OGB dataset's own graph,
+    with its train split as the loss mask."""
     import keras_geometric_tpu_torch as kgt
 
     ds = data["dataset"]
@@ -4046,14 +4385,219 @@ def ogbn_arxiv_gcn_workload(device, data):
         symmetric=True, densify_self_loops=True, pad_nodes=True,
         device=device)
     prepare_s = time.perf_counter() - start
-    n_pad = ctx.num_nodes
-    x = np.pad(data["x"], ((0, n_pad - ds.num_nodes), (0, 0)))
-    y = np.pad(data["y"].astype(np.int64), (0, n_pad - ds.num_nodes))
+    return (ctx.with_weight_dtype(torch.bfloat16),
+            *ogbn_node_tensors(device, data, ctx.num_nodes), prepare_s)
+
+
+def ogbn_gat_workload(device, data):
+    """``train_gat_arxiv_shape``'s preparation (one self-loop a node, in the
+    stream) of an OGB dataset's own graph, with its train split as the loss
+    mask."""
+    import keras_geometric_tpu_torch as kgt
+
+    ds = data["dataset"]
+    start = time.perf_counter()
+    ctx = kgt.prepare_graph(data["edges"], ds.num_nodes, add_self_loops=True,
+                            device=device)
+    prepare_s = time.perf_counter() - start
+    return (ctx, *ogbn_node_tensors(device, data, ctx.num_nodes), prepare_s)
+
+
+def ogbn_node_tensors(device, data, n_pad):
+    """Features, labels and the train split's mask, padded to ``n_pad``
+    rows, on ``device``."""
+    n = data["dataset"].num_nodes
+    x = np.pad(data["x"], ((0, n_pad - n), (0, 0)))
+    y = np.pad(data["y"].astype(np.int64), (0, n_pad - n))
     mask = np.zeros(n_pad, bool)
     mask[data["split"]["train"]] = True
     dev = lambda arr: torch.from_numpy(arr).to(device)
-    return ctx.with_weight_dtype(torch.bfloat16), dev(x), dev(y), dev(mask), \
-        prepare_s
+    return dev(x), dev(y), dev(mask)
+
+
+def host_peak_rss_gib() -> float:
+    """The process's peak resident set so far (``getrusage``), in GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+# ---------------------------------------------------------------------------
+# ogbn-products (BASELINE.json's north star, config 5) on one card
+# ---------------------------------------------------------------------------
+
+PRODUCTS_NODES, PRODUCTS_EDGES = 2_449_029, 123_718_280
+PRODUCTS_FEATS, PRODUCTS_CLASSES = 100, 47
+PRODUCTS_N_PAD = 2_449_152  # the GCN context's padded node count
+PRODUCTS_GAT_DIMS = (64, PRODUCTS_CLASSES)
+# Slots of a block of the plain versions at products (PlainContext): the
+# GCN's gather at F = 100 f32 is 3.4 GB a block; the attention's [E, 256]
+# f32 arrays 2.1 GB each a block, several alive in its backward.
+PLAIN_GCN_BLOCK_SLOTS, PLAIN_GAT_BLOCK_SLOTS = 2**23, 2**21
+PRODUCTS_STEPS, PRODUCTS_TIMED = 5, 5  # counted steps; timed_steps' k_hi - 2
+
+
+def products_gcn_entries(timer, replaces, path, ctx, x, gen):
+    """K1's row walk at the products GCN's two widths (layer 1 at F = 100
+    on the features, layer 2 at F = 47 on random rows), against the plain
+    version in blocks of ``PLAIN_GCN_BLOCK_SLOTS`` slots, with
+    ``torch.sparse.mm``'s time beside it."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    n, e = ctx.num_nodes, ctx.senders.shape[0]
+    w, sw = ctx.edge_weight, ctx.self_weight
+    blocks = row_blocks(ctx.row_ptr, PLAIN_GCN_BLOCK_SLOTS)
+    diag = torch.arange(n, device=x.device, dtype=torch.int32)
+    lib = (torch.cat([ctx.receivers, diag]), torch.cat([ctx.senders, diag]),
+           torch.cat([w, sw]))
+    entries = []
+    for label, h in (
+            ("layer 1", x.to(torch.bfloat16)),
+            ("layer 2", torch.randn(n, PRODUCTS_CLASSES, generator=gen,
+                                    device=x.device).to(torch.bfloat16))):
+        f, es = h.shape[1], h.element_size()
+        kernel = lambda: K.gather_scatter_sum_sorted(
+            h, ctx.senders, ctx.receivers, ctx.row_ptr, n, weights=w,
+            self_weight=sw, pieces=False)
+        plain = lambda: blocked_plain(blocks, lambda block: spmm_rows(
+            h, ctx, block, w, sw, h.dtype), "rows")
+        h_abs, w_abs, sw_abs = h.float().abs(), w.float().abs(), sw.abs()
+        mass = blocked_plain(blocks, lambda block: spmm_rows(
+            h_abs, ctx, block, w_abs, sw_abs, torch.float32), "rows")
+        del h_abs, w_abs, sw_abs
+        err = compare(kernel(), plain(), mass, h.dtype,
+                      f"{path} {label} row walk")
+        del mass
+        library_ms, note = sparse_library_ms(timer, *lib, (n, n), h)
+        nbytes = 2 * n * f * es + e * (4 + w.element_size()) + \
+            (n + 1) * 4 + n * sw.element_size()
+        entry = kernel_entry(
+            timer, replaces, "gather_scatter_sum_sorted", path,
+            f"products {label}: E={e} (real {ctx.num_real_edges}) N={n} "
+            f"F={f} bf16", kernel, plain, err, nbytes,
+            2 * e * f + 2 * n * f, mode="rows",
+            library=("torch.sparse.mm on a CSR tensor", library_ms),
+            plain_iters=1, no_reuse_bytes=nbytes + e * f * es,
+            extra={"plain_blocks": len(blocks),
+                   "plain_block_slots": PLAIN_GCN_BLOCK_SLOTS,
+                   **({"library_note": note} if note else {}),
+                   "longest_row": longest_row(ctx.row_ptr)})
+        # What the width costs: the same walk at the next multiple of 8
+        # columns, whose 16-byte rows take the widest packs.
+        wide = torch.zeros(n, padded_width(f), dtype=h.dtype, device=h.device)
+        wide[:, :f] = h
+        entry.update(padded_width=wide.shape[1], ms_at_padded_width=(
+            timer.cold_ms(lambda: K.gather_scatter_sum_sorted(
+                wide, ctx.senders, ctx.receivers, ctx.row_ptr, n, weights=w,
+                self_weight=sw, pieces=False), iters=10)))
+        del wide
+        entries.append(entry)
+        torch.cuda.empty_cache()
+    return entries
+
+
+def padded_width(f):
+    """The next multiple of 8 columns: a bf16 row of it is a whole number
+    of 16-byte packs."""
+    return -(-f // 8) * 8
+
+
+def padded_width_ms(timer, ctx, heads, f, gen):
+    """Each send-mode attention kernel's time at ``padded_width(f)`` columns
+    a head on the same graph and random inputs (what a width that is not a
+    multiple of 8 costs: its narrower packs); empty where ``f`` is one."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    fp = padded_width(f)
+    if fp == f:
+        return {}
+    s, r, rp, valid = ctx.senders, ctx.receivers, ctx.row_ptr, ctx.edge_mask
+    ss = (ctx.receivers_ss, ctx.senders_sorted, ctx.row_ptr_bwd)
+    ht, att, gout, _ = attend_inputs(gen, ctx.num_nodes, heads, fp,
+                                     torch.bfloat16, s.shape[0], False,
+                                     s.device)
+    _, scores, m, l = A.sddmm_stats_agg_sorted(ht, s, r, rp, att,
+                                               edge_valid=valid)
+    rho = A.attend_rho_sorted(gout, scores, m, l, ht, s, r, rp)
+    out = {
+        "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
+            ht, s, r, rp, att, edge_valid=valid),
+        "attend_rho_sorted": lambda: A.attend_rho_sorted(
+            gout, scores, m, l, ht, s, r, rp),
+        "attend_recv_bwd_full_sorted": lambda: A.attend_recv_bwd_full_sorted(
+            ht, gout, s, r, rp, att, scores, m, l, rho, emit_v=False,
+            edge_valid=valid),
+        "attend_send_bwd_sorted": lambda: A.attend_send_bwd_sorted(
+            ht, gout, *ss, att, m, l, rho, valid_ss=ctx.edge_mask_ss)}
+    out = {name: timer.cold_ms(fn, iters=10) for name, fn in out.items()}
+    del ht, att, gout, scores, m, l, rho
+    torch.cuda.empty_cache()
+    return out
+
+
+def products_attend_entries(timer, replaces, path, ctx, gen):
+    """The send-mode attention kernels (K9, K10b, K10c without ``v``, K10d)
+    at the products GATv2's two layers (H = 4, F = 64 and 47, bf16, random
+    ``ht``, ``att`` and cotangent), each held by ``attend_case`` against its
+    plain version in blocks of ``PLAIN_GAT_BLOCK_SLOTS`` slots (receiver
+    rows; K10d's sender rows)."""
+    from keras_geometric_tpu_torch.kernels import attend_cuda as A
+
+    n, e = ctx.num_nodes, ctx.senders.shape[0]
+    s, r, rp, valid = ctx.senders, ctx.receivers, ctx.row_ptr, ctx.edge_mask
+    ss = (ctx.receivers_ss, ctx.senders_sorted, ctx.row_ptr_bwd)
+    valid_ss = ctx.edge_mask_ss
+    blocks = row_blocks(rp, PLAIN_GAT_BLOCK_SLOTS)
+    send_blocks = row_blocks(ctx.row_ptr_bwd, PLAIN_GAT_BLOCK_SLOTS)
+    entries = []
+    for label, f in (("layer 1", PRODUCTS_GAT_DIMS[0]),
+                     ("layer 2", PRODUCTS_GAT_DIMS[1])):
+        heads = GAT_ARXIV_HEADS
+        ht, att, gout, _ = attend_inputs(gen, n, heads, f, torch.bfloat16, e,
+                                         False, s.device)
+        errs, plain = attend_case(
+            (s, r, rp, valid), ht, att, gout, None, f"{path} {label}",
+            blocks=blocks, emit_v=False, send=(ss, valid_ss, send_blocks))
+        # The kernels timed on their own forward's scores and statistics.
+        _, scores, m, l = A.sddmm_stats_agg_sorted(ht, s, r, rp, att,
+                                                   edge_valid=valid)
+        rho = A.attend_rho_sorted(gout, scores, m, l, ht, s, r, rp)
+        kernels = {
+            "sddmm_stats_agg_sorted": lambda: A.sddmm_stats_agg_sorted(
+                ht, s, r, rp, att, edge_valid=valid),
+            "attend_rho_sorted": lambda: A.attend_rho_sorted(
+                gout, scores, m, l, ht, s, r, rp),
+            "attend_recv_bwd_full_sorted": lambda: (
+                A.attend_recv_bwd_full_sorted(
+                    ht, gout, s, r, rp, att, scores, m, l, rho,
+                    emit_v=False, edge_valid=valid)),
+            "attend_send_bwd_sorted": lambda: A.attend_send_bwd_sorted(
+                ht, gout, *ss, att, m, l, rho, valid_ss=valid_ss)}
+        counts = attend_counts(n, e, heads, f, 2)  # bf16
+        padded = padded_width_ms(timer, ctx, heads, f, gen)
+        for name, kernel in kernels.items():
+            mode = "emit_v=False" if name == "attend_recv_bwd_full_sorted" \
+                else None
+            nbytes, ops, no_reuse = counts[
+                name if mode is None else f"{name}({mode})"]
+            sender_order = name == "attend_send_bwd_sorted"
+            entry = kernel_entry(
+                timer, replaces, name, path,
+                f"products {label}: E={e} N={n} H={heads} F={f} bf16",
+                kernel, plain[name], errs[name], nbytes, ops, mode=mode,
+                plain_iters=1, no_reuse_bytes=nbytes + no_reuse,
+                extra={**piece_walk_fields(
+                    name, ctx.row_ptr_bwd if sender_order else rp),
+                    "plain_blocks": len(send_blocks if sender_order
+                                        else blocks),
+                    "plain_block_slots": PLAIN_GAT_BLOCK_SLOTS})
+            if padded:
+                entry.update(padded_width=padded_width(f),
+                             ms_at_padded_width=padded[name])
+            entries.append(entry)
+        del ht, att, gout, scores, m, l, rho, kernels, plain
+        torch.cuda.empty_cache()
+    return entries
 
 
 def device_time_rows(prof) -> list:
@@ -4986,10 +5530,15 @@ def held_step1(what, got, want):
 
 
 def kernel_entry(timer, replaces, name, path, shape, kernel, plain, err,
-                 nbytes, ops, *, mode=None, library=None, extra=None):
+                 nbytes, ops, *, mode=None, library=None, extra=None,
+                 plain_iters=5, no_reuse_bytes=None):
     """One entry of the kernels line: the kernel's and its plain version's
     times, its bound from bytes and operations, and the library call's time
-    (``library``: ``(label, fn)``) where one computes the same function."""
+    (``library``: ``(label, ms)``) where one computes the same function.
+    ``plain_iters``: the plain version's timed calls, after one to warm up
+    (none when it is 1: a plain version run block by block, just run for
+    the error). ``no_reuse_bytes``: the bytes moved if every gathered row
+    came from device memory, for the bound they give."""
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BYTES_PER_S,
         H100_F32_OPS_PER_S,
@@ -5005,12 +5554,16 @@ def kernel_entry(timer, replaces, name, path, shape, kernel, plain, err,
         "replaces": replaces[name], "path": path, "shape": shape,
         "launches": 0, "max_abs_err": err, "ms": timer.cold_ms(kernel,
                                                                iters=10),
-        "plain_ms": timer.cold_ms(plain, iters=5, warmup=1),
+        "plain_ms": timer.cold_ms(plain, iters=plain_iters,
+                                  warmup=int(plain_iters > 1)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "library": label, **(extra or {})}
     if mode is not None:
         entry["mode"] = mode
+    if no_reuse_bytes is not None:
+        entry["bound_ms_if_gather_not_reused"] = max(
+            no_reuse_bytes / H100_BYTES_PER_S * 1e3, t_ops)
     return entry
 
 
@@ -6464,9 +7017,18 @@ def main() -> int:
                   **gat_kw),
               "gat_skewed_plain": lambda dev: prepared_on(
                   dev, workload("skewed_graph"), **gat_kw),
-              "ogbn_arxiv": lambda dev: ogbn_arxiv_data(),
-              "gcn_ogbn_arxiv": lambda dev: ogbn_arxiv_gcn_workload(
-                  dev, workload("ogbn_arxiv"))}
+              "ogbn_arxiv": lambda dev: ogbn_data(),
+              "gcn_ogbn_arxiv": lambda dev: ogbn_gcn_workload(
+                  dev, workload("ogbn_arxiv")),
+              # Generated with numpy from seed 0 into the git-ignored
+              # build/ogb at a first run, read from there by the next.
+              "ogbn_products": lambda dev: ogbn_data(
+                  "ogbn-products", ROOT / "build" / "ogb", synthetic=True,
+                  seed=0),
+              "gcn_ogbn_products": lambda dev: ogbn_gcn_workload(
+                  dev, workload("ogbn_products")),
+              "gat_ogbn_products": lambda dev: ogbn_gat_workload(
+                  dev, workload("ogbn_products"))}
 
     def workload(name):
         if name not in workloads:
@@ -6501,6 +7063,7 @@ def main() -> int:
                 "skewed", "skewed_plain", "gat_skewed", "gat_skewed_plain")},
             replaces)
         segmax_cases, segmax_worst = segment_max_sweep(device)
+        past_int32 = past_int32_case(device)
         kernel_entries += time_segment_max_cases(
             device, timer, {"gat_arxiv": workload("gat_arxiv")[0]}, replaces)
         emit("kernels", comparisons=cases + attend_cases + modes_cases
@@ -6508,6 +7071,7 @@ def main() -> int:
              worst_abs_err={**worst, **attend_worst, **modes_worst,
                             **composed_worst, **band_worst, **segmax_worst},
              kernels=sorted(launch_counts()),
+             past_2_31_elements=past_int32,
              wide_head_ms=time_wide_heads(device, timer,
                                           workload("gat_arxiv")[0]),
              hub_row_ms={**hub, "composed": composed_hub,
@@ -6551,6 +7115,19 @@ def main() -> int:
     def cora_model():
         gen = torch.Generator(device=device).manual_seed(0)
         return CoraGCN(1_433, 16, 7, 0.5, gen, device)
+
+    def products_gcn_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder.for_context(
+            "gcn", (HIDDEN, PRODUCTS_CLASSES), input_dim=PRODUCTS_FEATS,
+            generator=gen, device=device)
+
+    def products_gat_model():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return kgt.GNNEncoder.for_context(
+            "gatv2", PRODUCTS_GAT_DIMS, input_dim=PRODUCTS_FEATS,
+            conv_kwargs={"heads": GAT_ARXIV_HEADS, "fused_attend": True},
+            generator=gen, device=device)
 
     def sage_pool_arxiv_model():
         gen = torch.Generator(device=device).manual_seed(0)
@@ -6628,6 +7205,10 @@ def main() -> int:
                                   None),
         "train_gcn_ogbn_arxiv": ("gcn_ogbn_arxiv", arxiv_model, adam,
                                  torch.bfloat16),
+        "train_gcn_ogbn_products": ("gcn_ogbn_products", products_gcn_model,
+                                    adam, torch.bfloat16),
+        "train_gat_ogbn_products": ("gat_ogbn_products", products_gat_model,
+                                    adam, torch.bfloat16),
     }
     # The attention's module constants (ATTEND_BWD_MODE, ATTEND_SCORE_CACHE)
     # of the runs that set them; every other run keeps the defaults.
@@ -6636,6 +7217,8 @@ def main() -> int:
         "train_gat_arxiv_shape_nocache": ("permute", False),
         "train_gat_arxiv_shape_send_nocache": ("send", False),
         "train_gat_citeseer_shape_send": ("send", True),
+        # Permute mode's per-edge v at products is [E, 256] bf16: 64.6 GB.
+        "train_gat_ogbn_products": ("send", True),
     }
     for name in run_modes:
         base = name.replace("_send", "").replace("_nocache", "")
@@ -6891,6 +7474,93 @@ def main() -> int:
               per_step_modes=gcn_rows, timed_iters=10, profile=True)
     if args.profile != "train_gcn_ogbn_arxiv":
         workloads.pop("gcn_ogbn_arxiv", None)
+    torch.cuda.empty_cache()
+
+    # ogbn-products (BASELINE.json's north star) on the one card: the
+    # full-graph GCN (K1's row walk, 3 a step) and the send-mode fused GATv2
+    # (2 each of K9, K10b, K10c without v and K10d a step) at full width;
+    # step 1 against the plain versions run block by block.
+    def products_prepared(name, ctx, mask, prepare_s, slots):
+        data = workload("ogbn_products")
+        ds = data["dataset"]
+        check(ds.num_nodes == PRODUCTS_NODES and
+              ds.num_edges == PRODUCTS_EDGES and
+              data["x"].shape[1] == PRODUCTS_FEATS and
+              int(mask.sum()) == len(data["split"]["train"]) and
+              int(ctx.senders.shape[0]) == slots,
+              f"{name}: the ogbn-products context has the wrong size")
+        from keras_geometric_tpu_torch import native
+
+        emit("prepare_" + name.removeprefix("train_"),
+             dataset_seconds=data["dataset_s"], load_seconds=data["load_s"],
+             cache_reused=data["cache_reused"], is_synthetic=ds.is_synthetic,
+             native_available=native.available(),
+             prepare_graph_seconds=prepare_s,
+             host_peak_rss_gib=host_peak_rss_gib(), nodes=ctx.num_nodes,
+             stream_edges=ctx.num_real_edges, slots=slots,
+             train_nodes=int(mask.sum()))
+
+    def products_kernels(path, make_entries, phase_start):
+        """The path's kernels at its shapes, also on a line of their own
+        (a run of a subset of the phases prints no kernels line), with the
+        seconds they and the whole phase took."""
+        start = time.perf_counter()
+        entries = make_entries()
+        kernel_entries.extend(entries)
+        emit("kernels_" + path.removeprefix("train_"),
+             seconds=time.perf_counter() - start,
+             phase_seconds=time.perf_counter() - phase_start,
+             timed=[{k: e[k] for k in (
+                 "name", "mode", "shape", "max_abs_err", "ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_ms_if_gather_not_reused",
+                 "pieces", "split_rows", "padded_width",
+                 "ms_at_padded_width") if k in e} for e in entries])
+
+    if "train_gcn_ogbn_products" in phases:
+        phase_start = time.perf_counter()
+        ctx, x, _, mask, prepare_s = workload("gcn_ogbn_products")
+        check(ctx.num_real_edges == PRODUCTS_EDGES and ctx.is_symmetric and
+              ctx.num_nodes == PRODUCTS_N_PAD, "products GCN context size")
+        products_prepared("train_gcn_ogbn_products", ctx, mask, prepare_s,
+                          -(-PRODUCTS_EDGES // 1024) * 1024)
+        train("train_gcn_ogbn_products", steps=PRODUCTS_STEPS,
+              per_step=spmm_only, per_step_modes=gcn_rows,
+              timed_iters=PRODUCTS_TIMED, profile=True,
+              plain_block_slots=PLAIN_GCN_BLOCK_SLOTS)
+        products_kernels("train_gcn_ogbn_products", lambda: (
+            products_gcn_entries(
+                timer, replaced_tpu_kernels(), "train_gcn_ogbn_products", ctx,
+                x, torch.Generator(device=device).manual_seed(31))),
+            phase_start)
+        del ctx, x, mask
+    workloads.pop("gcn_ogbn_products", None)
+    torch.cuda.empty_cache()
+    if "train_gat_ogbn_products" in phases:
+        phase_start = time.perf_counter()
+        ctx, _, _, mask, prepare_s = workload("gat_ogbn_products")
+        loops = PRODUCTS_EDGES + PRODUCTS_NODES
+        check(ctx.num_real_edges == loops and ctx.num_diag == 0 and
+              ctx.num_nodes == PRODUCTS_NODES, "products GATv2 context size")
+        products_prepared("train_gat_ogbn_products", ctx, mask, prepare_s,
+                          -(-loops // 1024) * 1024)
+        train("train_gat_ogbn_products", steps=PRODUCTS_STEPS,
+              per_step=gat_send, per_step_modes=send_modes,
+              timed_iters=PRODUCTS_TIMED, profile=True,
+              plain_block_slots=PLAIN_GAT_BLOCK_SLOTS)
+        from keras_geometric_tpu_torch.ops import csr as ops_csr
+
+        check((ops_csr.ATTEND_BWD_MODE, ops_csr.ATTEND_SCORE_CACHE) ==
+              ("permute", True), "the attention's modes were not restored")
+        products_kernels("train_gat_ogbn_products", lambda: (
+            products_attend_entries(
+                timer, replaced_tpu_kernels(), "train_gat_ogbn_products", ctx,
+                torch.Generator(device=device).manual_seed(32))),
+            phase_start)
+        del ctx, mask
+    for name in ("gat_ogbn_products", "ogbn_products"):
+        if args.profile not in ("train_gat_ogbn_products",
+                                "train_gcn_ogbn_products"):
+            workloads.pop(name, None)
     torch.cuda.empty_cache()
 
     # Partitioned full-graph training (parallel/): the distributed step on a

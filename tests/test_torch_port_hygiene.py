@@ -754,6 +754,11 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     assert {"segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
             "train_gin_max_arxiv_shape",
             "train_sage_cora_shape"} <= set(module.PHASES)
+    # ogbn-products on one card, right after the arxiv GCN.
+    at = module.PHASES.index("train_gcn_ogbn_arxiv")
+    assert module.PHASES[at:at + 3] == (
+        "train_gcn_ogbn_arxiv", "train_gcn_ogbn_products",
+        "train_gat_ogbn_products")
 
 
 def test_roofline_uses_the_cards_constants():
@@ -873,6 +878,8 @@ def test_every_example_has_a_twin_with_its_flags_and_chip_smoke_runs_it():
             args[:2] == ("--epochs", "1")), script
     assert module.PHASES[-3:] == ("train_gin_graph_classification",
                                   "readouts_on_card", "examples_torch")
+    assert module.PHASES.index("train_gat_ogbn_products") < \
+        module.PHASES.index("train_distributed_arxiv_shape")
 
 
 @pytest.mark.parametrize("script", ["simple_gcn.py", "pooling_readouts.py"])
