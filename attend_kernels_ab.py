@@ -20,10 +20,13 @@ of 64 then of 40, bf16) and the two CiteSeer-shaped ones (3,327 nodes, 2 x
 each on the context as ``prepare_graph`` pads it, with the slot counts and
 the longest row. ``--unpadded`` adds the same graphs prepared with
 ``edge_chunk=1``, whose streams hold no padded slot. ``--band`` adds the
-banded SpMM (``band_spmm``) at the banded GCN's shapes (169,472 padded
-nodes, a dense random bf16 band of 1,024 columns, row blocks of 256, F = 128
-and 40) beside ``torch.bmm`` over the row blocks with the ``x`` windows
-gathered beforehand. ``--gcn`` adds the fused-gather scatter (K1) at the
+banded SpMM (``band_spmm``) at the banded GCN runs' shapes (169,472 padded
+nodes, a dense random bf16 band of 1,024 columns, row blocks of 256, F =
+128, 40, 100, 47 and 7, and 104, 48 and 8, where a copy that has it also
+times the route of F = 100, 47 and 7 there) and at the banded twin's
+(20,480 padded nodes, a dense random f32 band, F = 64 and 16), each with
+the route it takes, beside ``torch.bmm`` over the row blocks with the ``x``
+windows gathered beforehand. ``--gcn`` adds the fused-gather scatter (K1) at the
 arxiv-shaped GCN's two layers (169,343 nodes padded to 169,472, 2 x
 583,121 symmetric edges, GCN weights and the densified diagonal in bf16, F
 = 128 and 40). Where a copy's fused-gather scatter walks pieces, the GCN
@@ -128,7 +131,16 @@ SHOWN = {"attend.cu": ("unsigned short, 8, 1", "float, 4, 1", "float, 2, 1"),
                      "float, 1, false>", "unsigned short, 8, false, false>",
                      "float, 4, false, false>", "float, 4, true, false>",
                      "float, 1, false, true>"),
-         "band.cu": ("unsigned short, 8>",),
+         # the window scatter; K11's TMA kernel (the parent's "<128>",
+         # "<40>"), its flat-x instantiations at F = 100, 47, 7, the wmma
+         # kernel at F = 7 (the parent's route there), the f32 kernel (the
+         # parent's has no template) at the twin's F = 64 and 16
+         "band.cu": ("unsigned short, 8>", "band_bf16_tma_kernel<128",
+                     "band_bf16_tma_kernel<40", "tma_kernel<104, true>",
+                     "tma_kernel<48, true>", "tma_kernel<8, true>",
+                     "band_bf16_kernel<1, false>", "band_f32_kernel(",
+                     "band_f32_kernel<64, 32, true>",
+                     "band_f32_kernel<16, 64, true>"),
          "sddmm.cu": ("unsigned short, 8, 1, false>", "float, 4, 1, false>",
                       "float, 2, 1, false>"),
          "softmax.cu": ("softmax_stats", "softmax_apply"),
@@ -678,27 +690,42 @@ def time_copy(root: str, unpadded: bool, groups: set) -> None:
         torch.cuda.empty_cache()
     if band:
         gen = torch.Generator(device=device).manual_seed(13)
-        n_pad, window, rb = 169_472, 1_024, 256
-        nb = n_pad // rb
-        mat = torch.randn(n_pad, window, generator=gen,
-                          device=device).to(torch.bfloat16)
-        base_idx = torch.from_numpy(B._block_base_rows(
-            n_pad, window, rb).astype(np.int32)).to(device)
-        rows = (base_idx.long() * (window // 2))[:, None] + torch.arange(
-            window, device=device)
         result["band"] = {}
-        for f in (128, 40):
-            x = torch.randn(n_pad, f, generator=gen,
-                            device=device).to(torch.bfloat16)
-            windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
-            result["band"][f"F={f}"] = {
-                "band_spmm": cold_ms(lambda: B.band_matmul(
-                    x, mat, base_idx, window, rb)),
-                "torch.bmm": cold_ms(lambda: torch.bmm(
-                    mat.view(nb, rb, window), windows)),
-            }
-            del x, windows
-        del mat
+        # (n_pad, dtype, widths): the skewed GCN runs' band (bf16; the arxiv
+        # and products widths, F = 7, the padded widths) and the banded
+        # twin's (f32, examples_torch/locality_banded_gcn.py).
+        for n_pad, dtype, widths in (
+                (169_472, torch.bfloat16, (128, 40, 100, 47, 7, 104, 48, 8)),
+                (20_480, torch.float32, (64, 16))):
+            window, rb = 1_024, 256
+            nb = n_pad // rb
+            mat = torch.randn(n_pad, window, generator=gen,
+                              device=device).to(dtype)
+            base_idx = torch.from_numpy(B._block_base_rows(
+                n_pad, window, rb).astype(np.int32)).to(device)
+            rows = (base_idx.long() * (window // 2))[:, None] + torch.arange(
+                window, device=device)
+            for f in widths:
+                x = torch.randn(n_pad, f, generator=gen,
+                                device=device).to(dtype)
+                windows = x.index_select(0, rows.reshape(-1)).view(
+                    nb, window, f)
+                case = {
+                    "route": B.band_route(f, window, rb, dtype),
+                    "band_spmm": cold_ms(lambda: B.band_matmul(
+                        x, mat, base_idx, window, rb)),
+                    "torch.bmm": cold_ms(lambda: torch.bmm(
+                        mat.view(nb, rb, window), windows)),
+                }
+                if (dtype == torch.bfloat16 and f % 8 == 0 and
+                        hasattr(B, "_band_matmul_on")):
+                    # a padded width on the route of the width below it
+                    case["band_spmm (wgmma_flat)"] = cold_ms(
+                        lambda: B._band_matmul_on(
+                            "wgmma_flat", x, mat, base_idx, window, rb))
+                result["band"][f"n_pad={n_pad} {str(dtype)[6:]} F={f}"] = case
+                del x, windows
+            del mat
         torch.cuda.empty_cache()
     for name, edges, nodes, heads, dims, dtype, dropped in shapes:
         for pad_name, kwargs in chunks:

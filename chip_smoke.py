@@ -22,7 +22,8 @@ exit code and without the final line; so does a run of a subset of the phases
 
 1. ``device``   card, power limit (nvidia-smi), toolchain, kernel build, and
                 the registers and spills ``nvcc -Xptxas -v`` reports for the
-                TMA band kernel and the kernels that walk pieces (forward,
+                band kernels (TMA, both ways of bringing x; f32) and the
+                kernels that walk pieces (forward,
                 rho, both backwards, the fused-gather scatter and its row
                 walk, the composed path's score kernel, score backward,
                 softmax statistics and normalisation, and the two-pass
@@ -40,7 +41,7 @@ exit code and without the final line; so does a run of a subset of the phases
                 statistics of those scores bit for bit against the fused
                 forward's ``m`` and ``l`` on every row), its softmax kernels
                 at K in 1, 4, 8 with a row whose scores are all -inf), the
-                band SpMM at F in 1, 7, 40, 128, 256 and
+                band SpMM at F in 1, 7, 40, 47, 100, 128, 130, 256 and
                 W in 256, 512, 1024 (symmetric and transposed plans, a row
                 block with an empty band, the clamped last block), the window
                 scatter at F in 8, 40, 160, 256 (a window with no item, a
@@ -76,7 +77,9 @@ exit code and without the final line; so does a run of a subset of the phases
                 (the receiver walks also on the same graph without padded
                 slots, the kernels that walk pieces with their work list's
                 pieces and split rows and their times with and without the
-                hub row, the band kernel also on its wmma route at F = 7;
+                hub row, the band kernel at the banded runs' widths and at
+                F = 7, each also at its width padded to a multiple of 8 and
+                into an output filled with NaN past its end;
                 the messages-form scatter and expand also at the composed
                 CiteSeer and the Cora-shaped GraphSAGE shapes, each the same
                 bits over two calls, expand its plain version's bits, the
@@ -143,7 +146,13 @@ exit code and without the final line; so does a run of a subset of the phases
                 graph of 169,343 nodes and 1,166,242 edges relabelled by the
                 LPA cluster order, ``band_window=1024``, the GCN of run 4;
                 step 1 also against the same graph without the band; then
-                ``precompute_propagation`` on both contexts;
+                ``precompute_propagation`` on both contexts; then
+                ``train_skewed_products_widths``: the same contexts with
+                ogbn-products' widths, random features of 100 columns and
+                labels of 47 classes (seed 0), ``GNNEncoder.for_context(
+                "gcn", (256, 47))``, bf16 IO / f32 masters, Adam: the band
+                kernel 3 times a step at F = 100 and 47 (x by 1-D copies),
+                step 1 also against the same graph without the band;
                 this run and the fused GATv2 arxiv runs of 6 and 9 also
                 trace five more steps (device busy time, idle share);
 12. ``train_gat_skewed_arxiv_shape``  the same graph with self-loops and
@@ -329,7 +338,8 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_gat_arxiv_shape_nocache",
           "train_gat_arxiv_shape_send_nocache",
           "train_gat_citeseer_shape_send", "attend_two_pass_arxiv_shape",
-          "train_skewed_arxiv_shape", "train_gat_skewed_arxiv_shape",
+          "train_skewed_arxiv_shape", "train_skewed_products_widths",
+          "train_gat_skewed_arxiv_shape",
           "segment_max_narrow_arxiv_shape", "train_sage_pool_arxiv_shape",
           "train_gin_max_arxiv_shape", "train_sage_cora_shape",
           "train_sage_minibatch_ogbn_arxiv", "train_gcn_ogbn_arxiv",
@@ -359,7 +369,7 @@ ATTEND_SHAPES = ((4, 64), (4, 40), (8, 8), (8, 6), (1, 7)) + WIDE_HEAD_SHAPES
 SOFTMAX_HEADS = (1, 4, 8)  # K of the softmax kernels
 SKEWED_EDGES = 2 * (ARXIV_EDGES // 2)  # the community graph's edge count
 BAND_WINDOW = ATTEND_WINDOW = 1024
-BAND_WIDTHS = (1, 7, 40, 128, 256)  # F of the band kernel sweep
+BAND_WIDTHS = (1, 7, 40, 47, 100, 128, 130, 256)  # F of the band sweep
 BAND_WINDOWS = (256, 512, 1024)
 SCATTER_WIDTHS = (8, 40, 160, 256)  # F of the window scatter sweep
 SEGMENT_MAX_HEADS = (1, 3, 4, 6, 8, 11, 16)  # K of the narrow sweep
@@ -464,13 +474,23 @@ def reset_launch_counts() -> None:
 
 
 # Instantiations whose registers and spills the device phase reports (the
-# TMA band kernel and the kernels that walk the work list of pieces, at the
+# band kernels and the kernels that walk the work list of pieces, at the
 # shapes the training runs give them):
 # mangled-name fragment -> what it is.
 PTXAS_SHOWN = {
-    "band_bf16_tma_kernelILi128E": "band_bf16_tma_kernel<N=128>",
-    "band_bf16_tma_kernelILi40E": "band_bf16_tma_kernel<N=40>",
-    "band_bf16_kernelILi1ELb0E": "band_bf16_kernel<NF=1, VEC=false> (F=7)",
+    "band_bf16_tma_kernelILi128ELb0E": "band_bf16_tma_kernel<N=128>",
+    "band_bf16_tma_kernelILi40ELb0E": "band_bf16_tma_kernel<N=40>",
+    "band_bf16_tma_kernelILi104ELb1E":
+        "band_bf16_tma_kernel<N=104, flat x> (F=100)",
+    "band_bf16_tma_kernelILi48ELb1E":
+        "band_bf16_tma_kernel<N=48, flat x> (F=47)",
+    "band_bf16_tma_kernelILi8ELb1E": "band_bf16_tma_kernel<N=8, flat x> (F=7)",
+    "band_bf16_kernelILi1ELb0E":
+        "band_bf16_kernel<NF=1, VEC=false> (wmma, other row blocks)",
+    "band_f32_kernelILi64ELi32ELb1E":
+        "band_f32_kernel<NC=64, K=32, VEC> (banded twin F=64)",
+    "band_f32_kernelILi16ELi64ELb1E":
+        "band_f32_kernel<NC=16, K=64, VEC> (banded twin F=16)",
     "attend_recv_bwd_kernelItLi8ELi1ELb0ELb1ELb0E":
         "attend_recv_bwd_kernel<bf16, 8, 1, cached, v> (arxiv)",
     "attend_recv_bwd_kernelItLi8ELi1ELb0ELb0ELb0E":
@@ -2815,10 +2835,45 @@ def window_scatter_checked(v, tab, plan, what):
     return out
 
 
+# Where a band entry's parent time comes from (PERF.md records it).
+BAND_PARENT = ("not measured here: attend_kernels_ab.py build/parent . . "
+               "build/parent --band times a parent copy beside this one")
+BAND_GUARD = 64  # NaN values after a guarded band output's end
+
+
+def band_guarded(route, x, args, what):
+    """The band kernel on ``route`` into an output filled with NaN and
+    followed by ``BAND_GUARD`` more NaN values, held against its plain
+    version (so every element was written) with the values past its end
+    left as they were. The output's rows are contiguous, so the guard shows
+    that no column past F of the last row was written; a stray write past F
+    of another row lands on the next row's first columns, where the
+    comparison catches it only if it lands after the right value. ``x`` is
+    read from a copy followed by NaN too, so a read past its end that
+    reached the product would show in the comparison. Returns the largest
+    error."""
+    from keras_geometric_tpu_torch.kernels import band_cuda as B
+
+    n, f = x.shape
+    xbuf = torch.full((n * f + BAND_GUARD,), float("nan"), dtype=x.dtype,
+                      device=x.device)
+    x = xbuf[: n * f].view(n, f).copy_(x)
+    buf = torch.full((n * f + BAND_GUARD,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    out = B._band_matmul_on(route, x, *args, out=buf[: n * f].view(n, f))
+    err = compare(out, B.band_matmul_plain(x, *args), band_mass(x, *args),
+                  x.dtype, f"{what} route={route}")
+    check(bool(buf[n * f:].isnan().all()),
+          f"{what} route={route}: written past the output's end")
+    return err
+
+
 def band_sweep(device):
     """The band kernel at every F of ``BAND_WIDTHS``, both types, every window
     of ``BAND_WINDOWS``, over a symmetric and a directed plan (its transposed
-    plan too) of a local graph with one row block whose band is empty; the
+    plan too) of a local graph with one row block whose band is empty; at F
+    = 7, 16 and 47, both types, row blocks of 128 and a window of 288 (the
+    wmma route in bf16, slabs of 32 in f32) into guarded outputs; the
     window scatter at every F of ``SCATTER_WIDTHS``, both types, with a
     window that no chunk chose, a hub row of thousands of eligible slots and
     an all -1 table, held against its sum in f64, launched twice and against
@@ -2867,6 +2922,41 @@ def band_sweep(device):
                     check(not out[empty:empty + 256].any().item(),
                           f"band_spmm W={window}: the empty block's rows")
                     cases += 1
+    torch.cuda.synchronize()
+
+    # The shapes the TMA kernel does not take (the wmma route in bf16) and
+    # an f32 window that is not a multiple of 64 (slabs of 32 at NC = 16):
+    # row blocks of 128 at W = 256, and W = 288, a dense band made here
+    # (build_band_plan makes windows of a multiple of 256). Each goes
+    # through band_route into a guarded output (band_guarded).
+    r = rng.integers(0, n, half)
+    s = np.clip(r + rng.integers(-128, 128, half), 0, n - 1)
+    rb128, _ = B.build_band_plan(s, r, rng.uniform(0.05, 1.0, half), n,
+                                 window=256, row_block=128)
+    w288 = 288
+    dense = rng.uniform(0.05, 1.0, (n, w288)) * (rng.random((n, w288)) < 0.05)
+    base288 = np.clip((np.arange(n // 256) * 256 - 16) // (w288 // 2), 0,
+                      (n - w288) // (w288 // 2))
+    for band_h, base_h, window, rb in (
+            (rb128.band, rb128.base_idx, 256, 128),
+            (torch.from_numpy(dense.astype(np.float32)),
+             torch.from_numpy(base288.astype(np.int32)), w288, 256)):
+        base_idx = base_h.to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            band = band_h.to(device, dtype)
+            for f in (7, 16, 47):
+                route = B.band_route(f, window, rb, dtype)
+                tag = f"band_spmm W={window} row_block={rb} " \
+                      f"{str(dtype)[6:]} F={f}"
+                check(route == ("fma" if dtype == torch.float32 else "wmma"),
+                      f"{tag}: route {route}")
+                x = torch.randn(n, f, generator=gen, device=device).to(dtype)
+                before = B.MODE_LAUNCH_COUNTS[f"band_spmm({route})"]
+                worst["band_spmm"] = max(worst["band_spmm"], band_guarded(
+                    route, x, (band, base_idx, window, rb), tag))
+                check(B.MODE_LAUNCH_COUNTS[f"band_spmm({route})"]
+                      == before + 1, f"{tag}: one launch on {route}")
+                cases += 1
     torch.cuda.synchronize()
 
     # Window scatter: senders near their receivers, window 3 never chosen,
@@ -2919,17 +3009,21 @@ def band_sweep(device):
 
 
 def time_band_cases(device, timer, contexts, replaces):
-    """The band kernel at the banded GCN run's shapes (layer 1 forward at
-    F = 128, layer 2 forward and backward at F = 40, bf16) and the window
-    scatter at the banded GATv2 run's (H*F = 256 and 160, bf16): kernel,
-    plain version, library call, bound from bytes and operations. The band's
-    library call is ``torch.bmm`` over the row blocks with the ``x`` windows
-    gathered beforehand (not timed); the scatter's is ``index_add_`` over
-    the eligible slots, their rows gathered beforehand (not timed). Each
-    entry also times, on the same reordered graph, the tier's whole share of
-    the operator (band + residual fused gather; window scatter + residual
-    finish) and what it replaces on the context without the tier (the fused
-    gather over every edge; the finish over ``bwd_perm``)."""
+    """The band kernel at the banded GCN runs' shapes (layer 1 forward at
+    F = 128 and 100, layer 2 forward and backward at F = 40 and 47, bf16;
+    and F = 7, which no run gives), each held against its plain version in
+    a guarded output (``band_guarded``), a width that is not a multiple of 8
+    also timed at the next one on the same route and on the ``wgmma`` one;
+    and the window scatter at the banded GATv2 run's (H*F = 256 and 160,
+    bf16): kernel, plain version, library call, bound from bytes and
+    operations. The band's library call is ``torch.bmm`` over the row
+    blocks with the ``x`` windows gathered beforehand (not timed); the
+    scatter's is ``index_add_`` over the eligible slots, their rows gathered
+    beforehand (not timed). Each entry of a run's shape also times, on the
+    same reordered graph, the tier's whole share of the operator (band +
+    residual fused gather; window scatter + residual finish) and what it
+    replaces on the context without the tier (the fused gather over every
+    edge; the finish over ``bwd_perm``)."""
     from keras_geometric_tpu_torch.kernels import band_cuda as B
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BF16_TENSOR_OPS_PER_S,
@@ -2967,24 +3061,27 @@ def time_band_cases(device, timer, contexts, replaces):
     plan = ctx.band
     n, window, rb = plan.n_pad, plan.window, plan.row_block
     nb = n // rb
-    # The two widths of the banded GCN (the wgmma route), then F = 7, which
-    # no run gives, for the wmma route at the same band.
-    for layer, f in (("layer 1", ARXIV_FEATS), ("layers 2 and backward",
-                                                ARXIV_CLASSES),
-                     ("no run: F % 8 != 0", 7)):
+    args = (plan.band, plan.base_idx, window, rb)
+    rows = (plan.base_idx.long() * (window // 2))[:, None] + torch.arange(
+        window, device=device)
+    # The banded GCN's widths at the arxiv shape (x by its tensor map) and
+    # at ogbn-products' (x by 1-D copies), then F = 7, which no run gives.
+    for layer, f, path in (
+            ("layer 1", ARXIV_FEATS, "train_skewed_arxiv_shape"),
+            ("layers 2 and backward", ARXIV_CLASSES,
+             "train_skewed_arxiv_shape"),
+            ("products widths layer 1", PRODUCTS_FEATS,
+             "train_skewed_products_widths"),
+            ("products widths layer 2 and backward", PRODUCTS_CLASSES,
+             "train_skewed_products_widths"),
+            ("no run: F = 7", 7, None)):
         x = torch.randn(n, f, generator=gen, device=device).to(torch.bfloat16)
-        args = (plan.band, plan.base_idx, window, rb)
-        err = compare(B.band_matmul(x, *args), B.band_matmul_plain(x, *args),
-                      band_mass(x, *args), torch.bfloat16,
-                      f"band_spmm at skewed {layer}")
-        rows = (plan.base_idx.long() * (window // 2))[:, None] + torch.arange(
-            window, device=device)
+        route = B.band_route(f, window, rb, torch.bfloat16)
+        err = band_guarded(route, x, args, f"band_spmm at skewed {layer}")
         windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
         band3 = plan.band.view(nb, rb, window)
-        route = B.band_route(f, window, rb, torch.bfloat16)
         entries.append(entry(
-            "band_spmm", "train_skewed_arxiv_shape" if route == "wgmma"
-            else None,
+            "band_spmm", path,
             f"skewed {layer}: n_pad={n} W={window} F={f} bf16 "
             f"band edges={plan.num_edges} route={route}", err,
             lambda: B.band_matmul(x, *args),
@@ -2993,9 +3090,23 @@ def time_band_cases(device, timer, contexts, replaces):
             # band once, x once, out once, base_idx
             n * window * 2 + 2 * n * f * 2 + nb * 4,
             2 * n * window * f, H100_BF16_TENSOR_OPS_PER_S))
-        entries[-1]["mode"] = route
-        if route != "wgmma":
-            del windows
+        entries[-1].update(mode=route, parent_ms=None, parent=BAND_PARENT)
+        del windows
+        if padded_width(f) != f:
+            # What the width costs: the same kernel at the next multiple of
+            # 8 columns, and there also the route that reads x by its
+            # tensor map.
+            wide = torch.zeros(n, padded_width(f), dtype=x.dtype,
+                               device=device)
+            wide[:, :f] = x
+            entries[-1].update(
+                padded_width=wide.shape[1],
+                ms_at_padded_width=timer.cold_ms(
+                    lambda: B._band_matmul_on(route, wide, *args), iters=10),
+                ms_at_padded_width_wgmma=timer.cold_ms(
+                    lambda: B.band_matmul(wide, *args), iters=10))
+            del wide
+        if path is None:
             continue
 
         def residual(c):  # the GCN's operator: the row walk (ops/csr.py)
@@ -3010,7 +3121,6 @@ def time_band_cases(device, timer, contexts, replaces):
             lambda: residual(plain_ctx), iters=10)
         entries[-1]["without_tier"] = ("the fused gather over every edge of "
                                        "the same graph, no band")
-        del windows
     ctx, plain_ctx = contexts["gat_skewed"], contexts["gat_skewed_plain"]
     plan, tab = ctx.attw_plan, ctx.attw_sender
     sel = tab >= 0
@@ -4100,6 +4210,20 @@ def prepared_on(device, graph, **kwargs):
     mask = np.arange(n_pad) < ARXIV_NODES
     dev = lambda arr: torch.from_numpy(arr).to(device)
     return ctx, dev(x), dev(y), dev(mask), prepare_s
+
+
+def products_widths_on(prepared):
+    """A skewed-graph context with random features of ogbn-products' width
+    and labels of its classes (numpy, seed 0) on its padded rows, and its
+    loss mask."""
+    ctx, x, _, mask = prepared[:4]
+    rng = np.random.default_rng(0)
+    feats = np.zeros((ctx.num_nodes, PRODUCTS_FEATS), np.float32)
+    feats[:ARXIV_NODES] = rng.standard_normal((ARXIV_NODES, PRODUCTS_FEATS))
+    labels = np.zeros(ctx.num_nodes, np.int64)
+    labels[:ARXIV_NODES] = rng.integers(0, PRODUCTS_CLASSES, ARXIV_NODES)
+    dev = lambda arr: torch.from_numpy(arr).to(x.device)
+    return ctx, dev(feats), dev(labels), mask
 
 
 def citeseer_workload(device):
@@ -5266,10 +5390,11 @@ def counted_twin_run(what, twin, step, per_step) -> dict:
 
 def time_twin_band_cases(device, timer, ctx) -> list:
     """The band kernel on its f32 (FMA) route at the banded twin's shapes:
-    its band, layer 1 at F = 64 and layer 2 at F = 16, as the kernels line
-    times the bf16 routes (kernel, plain version, ``torch.bmm`` over the row
-    blocks with the ``x`` windows gathered beforehand, the bound from bytes
-    and f32 operations)."""
+    its band, layer 1 at F = 64 and layer 2 at F = 16, held against its
+    plain version in a guarded output (``band_guarded``) and timed as the
+    kernels line times the bf16 routes (kernel, plain version, ``torch.bmm``
+    over the row blocks with the ``x`` windows gathered beforehand, the
+    bound from bytes and f32 operations)."""
     from keras_geometric_tpu_torch.kernels import band_cuda as B
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BYTES_PER_S,
@@ -5288,8 +5413,7 @@ def time_twin_band_cases(device, timer, ctx) -> list:
         route = B.band_route(f, window, rb, x.dtype)
         what = (f"banded twin {layer}: n_pad={n} W={window} F={f} f32 "
                 f"band edges={plan.num_edges} route={route}")
-        err = compare(B.band_matmul(x, *args), B.band_matmul_plain(x, *args),
-                      band_mass(x, *args), torch.float32, what)
+        err = band_guarded(route, x, args, what)
         rows = (plan.base_idx.long() * (window // 2))[:, None] + torch.arange(
             window, device=device)
         windows = x.index_select(0, rows.reshape(-1)).view(nb, window, f)
@@ -5312,7 +5436,8 @@ def time_twin_band_cases(device, timer, ctx) -> list:
             "library_ms": timer.cold_ms(lambda: torch.bmm(band3, windows),
                                         iters=10),
             "library": "torch.bmm over the row blocks, x windows gathered "
-                       "beforehand"})
+                       "beforehand",
+            "parent_ms": None, "parent": BAND_PARENT})
         del windows
     return entries
 
@@ -7012,6 +7137,10 @@ def main() -> int:
                   **gcn_kw)),
               "skewed_plain": lambda dev: gcn_bf16(prepared_on(
                   dev, workload("skewed_graph"), **gcn_kw)),
+              "skewed_products": lambda dev: products_widths_on(
+                  workload("skewed")),
+              "skewed_products_plain": lambda dev: products_widths_on(
+                  workload("skewed_plain")),
               "gat_skewed": lambda dev: prepared_on(
                   dev, workload("skewed_graph"), attend_window=ATTEND_WINDOW,
                   **gat_kw),
@@ -7195,6 +7324,9 @@ def main() -> int:
             adamw(5e-3), None),
         "train_skewed_arxiv_shape": ("skewed", arxiv_model, adam,
                                      torch.bfloat16),
+        "train_skewed_products_widths": ("skewed_products",
+                                         products_gcn_model, adam,
+                                         torch.bfloat16),
         "train_gat_skewed_arxiv_shape": ("gat_skewed", gat_arxiv_model, adam,
                                          torch.bfloat16),
         "train_sage_pool_arxiv_shape": ("gat_arxiv", sage_pool_arxiv_model,
@@ -7418,8 +7550,34 @@ def main() -> int:
                  lambda: kgt.precompute_propagation(plain_ctx, xb),
                  k_hi=12))
         del xb, banded, plain
+    # The same graph and band at ogbn-products' widths (100 -> 256 -> 47):
+    # every band launch at a width that is not a multiple of 8 (layer 1
+    # propagates first at F = 100, layer 2 runs at F = 47 forward and
+    # backward), three a step on the wgmma_flat route, and the residual's
+    # row walk three times.
+    if "train_skewed_products_widths" in phases:
+        ctx, x = workload("skewed_products")[:2]
+        check(ctx is workload("skewed")[0] and
+              tuple(x.shape) == (ctx.num_nodes, PRODUCTS_FEATS) and
+              ctx.band.band.dtype == torch.bfloat16,
+              "the products-width skewed workload has the wrong size")
+        stream = ctx.num_band_edges + ctx.num_real_edges
+        train("train_skewed_products_widths", steps=8,
+              per_step={"band_spmm": 3, "gather_scatter_sum_sorted": 3},
+              per_step_modes={"band_spmm(wgmma_flat)": 3, **gcn_rows},
+              timed_iters=10,
+              same_graph=workload("skewed_products_plain")[:4],
+              extra=dict(band_edges=ctx.num_band_edges,
+                         residual_edges=ctx.num_real_edges,
+                         banded_fraction=ctx.num_band_edges / stream,
+                         widths=[PRODUCTS_FEATS, HIDDEN, PRODUCTS_CLASSES]),
+              profile=True)
+    workloads.pop("skewed_products_plain", None)
     workloads.pop("skewed_plain", None)
-    if args.profile != "train_skewed_arxiv_shape":
+    if args.profile != "train_skewed_products_widths":
+        workloads.pop("skewed_products", None)
+    if args.profile not in ("train_skewed_arxiv_shape",
+                            "train_skewed_products_widths"):
         workloads.pop("skewed", None)
     torch.cuda.empty_cache()
 

@@ -22,17 +22,31 @@ community-structured graph join nodes less than half a window apart:
 Source notes, one per kernel:
 
 - ``band_spmm`` replaces ``_band_matmul`` (``band_pallas.py:393``). Bound by
-  bytes: the band is read once (``2W`` bytes per node row in bf16 against
-  ``2F`` for each of ``x`` and ``y``). :func:`band_route` picks one of three
-  instantiations from the type and the shapes alone, and a counter per route
-  records it (``MODE_LAUNCH_COUNTS``). ``wgmma`` (bf16, ``F % 8 == 0``, row
-  blocks of 256, ``W % 64 == 0``: the banded GCN's shapes): a persistent CTA
-  per SM takes whole row blocks, reading each ``x`` window once; a producer
-  warp fills a ring of band and ``x`` tiles by TMA and two warpgroups
-  multiply them with ``wgmma`` into f32 registers. ``wmma`` (other bf16 shapes): a block owns 64 rows of a row
-  block and up to 128 columns and stages slabs of 32 window columns with
-  thread-issued loads for ``nvcuda::wmma``. ``fma`` (f32): the same tiling on
-  the FMA units (never TF32). Each rounds once at the store.
+  bytes in bf16: the band is read once (``2W`` bytes per node row against
+  ``2F`` for each of ``x`` and ``y``); in f32 by the FMA units' rate at
+  ``F = 64`` and by the band's bytes at ``F = 16``. :func:`band_route` picks
+  one of four instantiations from the type and the shapes alone, and a
+  counter per route records it (``MODE_LAUNCH_COUNTS``). ``wgmma`` (bf16,
+  ``F % 8 == 0``, row blocks of 256, ``W % 64 == 0``: the banded GCN's arxiv
+  widths): a persistent CTA per SM takes whole row blocks, reading each
+  ``x`` window once; a producer warp fills a ring of band and ``x`` tiles by
+  TMA and two warpgroups multiply them with ``wgmma`` into f32 registers.
+  ``wgmma_flat`` (bf16 at any other ``F``, the same row blocks and windows:
+  the products widths 100 and 47): the same kernel, but a tensor map cannot
+  read rows of ``2F`` bytes, so each stage's 64 ``x`` rows come in as one
+  16-byte aligned run (``cp.async.bulk``; a column tile of a wider ``F``
+  takes each row's part) and the consumers rewrite it into the swizzled
+  tile that ``wgmma`` reads, ``N = F`` rounded up to 8; no column at or
+  past ``F`` is stored. ``wmma`` (bf16 at other row blocks or windows): a
+  block owns 64 rows of a row block and up to 128 columns and stages slabs
+  of 32 window columns with thread-issued loads for ``nvcuda::wmma``.
+  ``fma`` (f32, never TF32): blocks of 64 rows and 16, 32 or 64 columns
+  (the least that holds ``F``), a ``cp.async`` ring of band and ``x`` slabs
+  (32 window columns in 4 stages; 64 in 2 at 16 columns where ``W % 64 ==
+  0``, since the band's bytes bound it there), each thread 8 x 8 outputs
+  from 16-byte shared loads, two or four warps sharing a row range over the
+  window's columns and adding their sums in a fixed order. Each rounds once
+  at the store.
 - ``window_scatter_sum`` replaces ``_win_scatter_kernel``
   (``band_pallas.py:249``), which contracts an equality one-hot on the TPU's
   matrix unit window by window: here the rows are summed directly. Bound by
@@ -96,6 +110,7 @@ LAUNCH_COUNTS = {"band_spmm": 0, "window_scatter_sum": 0}
 # Launches of band_spmm by route (band_route), counted beside its own count.
 MODE_LAUNCH_COUNTS = {
     "band_spmm(wgmma)": 0,
+    "band_spmm(wgmma_flat)": 0,
     "band_spmm(wmma)": 0,
     "band_spmm(fma)": 0,
 }
@@ -389,23 +404,26 @@ def band_matmul_plain(x, band, base_idx, window, row_block):
     return y.reshape(n_pad, f).to(x.dtype)
 
 
-# The route's code in the C entry point: the TMA + wgmma kernel is 1, the
-# thread-staged ones (wmma, FMA) are 0.
-_ROUTE_CODE = {"wgmma": 1, "wmma": 0, "fma": 0}
+# The route's code in the C entry point: the TMA + wgmma kernel with x by
+# its tensor map is 1, with x by 1-D copies 2, the thread-staged ones (wmma,
+# FMA) 0.
+_ROUTE_CODE = {"wgmma": 1, "wgmma_flat": 2, "wmma": 0, "fma": 0}
 
 
 def band_route(f: int, window: int, row_block: int, dtype) -> str:
-    """The instantiation of the band kernel for these shapes: ``"wgmma"``
-    (TMA ring and Hopper's warpgroup products) for bf16 with ``f % 8 == 0``
-    (a tensor map's rows start on 16-byte boundaries), row blocks of 256 (a
-    CTA's tile) and ``window % 64 == 0`` (its ring stage); ``"wmma"`` for
-    any other bf16 shape; ``"fma"`` for f32."""
+    """The instantiation of the band kernel for these shapes. bf16 at row
+    blocks of 256 (a CTA's tile) and ``window % 64 == 0`` (its ring stage)
+    takes the TMA ring and Hopper's warpgroup products: ``"wgmma"`` where
+    ``f % 8 == 0`` (``x`` by a tensor map, whose rows start on 16-byte
+    boundaries), ``"wgmma_flat"`` at any other ``f`` (``x`` by 1-D copies,
+    rewritten in shared memory); ``"wmma"`` for any other bf16 shape;
+    ``"fma"`` for f32."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise TypeError(f"the band kernel takes f32 or bf16, got {dtype}")
-    if f % 8 == 0 and row_block == 256 and window % 64 == 0:
-        return "wgmma"
+    if row_block == 256 and window % 64 == 0:
+        return "wgmma" if f % 8 == 0 else "wgmma_flat"
     return "wmma"
 
 
@@ -416,6 +434,16 @@ def band_matmul(x, band, base_idx, window, row_block):
     Not differentiable by itself: :func:`band_spmm` is."""
     if not x.is_cuda:
         return band_matmul_plain(x, band, base_idx, window, row_block)
+    return _band_matmul_on(
+        band_route(x.shape[1], window, row_block, x.dtype), x, band,
+        base_idx, window, row_block)
+
+
+def _band_matmul_on(route, x, band, base_idx, window, row_block, out=None):
+    """One launch of the band kernel on ``route`` (a CUDA tensor) into
+    ``out`` (a contiguous ``[n_pad, F]`` tensor like ``x``; a new one by
+    default). The C entry point refuses a route that does not take these
+    shapes."""
     device = x.device
     _check_data("x", x)
     _check_data("band", band)
@@ -433,10 +461,13 @@ def band_matmul(x, band, base_idx, window, row_block):
     if band.data_ptr() % 16:
         raise ValueError("band must be 16-byte aligned")
     _check_index("base_idx", base_idx, n_pad // row_block, device)
-    route = band_route(f, window, row_block, x.dtype)
     if x.data_ptr() % 16:  # TMA reads from 16-byte aligned rows
         x = x.clone()
-    out = torch.empty(n_pad, f, dtype=x.dtype, device=device)
+    if out is None:
+        out = torch.empty(n_pad, f, dtype=x.dtype, device=device)
+    elif (out.shape != x.shape or out.dtype != x.dtype or
+          out.device != device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like x")
     if out.numel() == 0:
         return out
     lib = _library()

@@ -12,34 +12,74 @@
 // band is read once (2W bytes per node row in bf16 against 2F for each of x
 // and y), and at F <= 128 the operations are far below the tensor cores'
 // rate.
-// Three instantiations, chosen by the caller (the route argument; nothing
+// Four instantiations, chosen by the caller (the route argument; nothing
 // falls back from one to another):
 //   - bf16, F % 8 == 0, row_block 256, window % 64 == 0 (the banded GCN's
-//     shapes): band_bf16_tma_kernel. A CTA owns a whole row block at a time
-//     (up to 128 columns; wider F takes more column tiles), so each [W, F]
-//     x window is read once per row block. A producer warp keeps a ring of
-//     up to 200 KB of stages full by TMA (cp.async.bulk.tensor, 2-D tensor maps,
-//     completion counted on mbarriers): a stage holds band[256 rows, 64
-//     window columns] and x[64 window rows, N columns], both in the 128-byte
-//     swizzle, so that every TMA row is a 128-byte run of device memory.
-//     Two consumer warpgroups, 128 rows each, multiply every stage with
-//     wgmma (m64 N k16, bf16 in, f32 accumulators in registers; the band
-//     K-major, x MN-major, N = the tile's columns, any multiple of 8 up to
-//     128, so F = 40 runs as N = 40) and release it. The grid is persistent
-//     (one CTA per SM walks the tiles), so the ring runs on into the next
-//     tile while the consumers round once to bf16 and store the last one
-//     from their registers. Rows past n_pad of an x window and columns past
-//     F are TMA's zero fill.
-//   - other bf16 shapes: band_bf16_kernel. A block owns a 64-row tile of one
-//     row block (row_block a multiple of 64) and up to 128 columns; it walks
-//     the window in slabs of 32, stages band[rows, slab] and x[base + slab,
-//     cols] in shared memory with thread-issued loads and multiplies
-//     16x16x16 fragments on the tensor cores (nvcuda::wmma, f32
-//     accumulators), each of the 4 warps owning 16 rows. Columns past F are
-//     zero in shared memory and never stored, so any F >= 1 works.
-//   - f32: band_f32_kernel, the same tiling on the FMA units (no TF32: the
-//     f32 path keeps f32 products), each of 256 threads owning a 4x4 tile of
-//     a 64x64 block. No timed run reaches it.
+//     arxiv widths): band_bf16_tma_kernel<N, false>. A CTA owns a whole row
+//     block at a time (up to 128 columns; wider F takes more column tiles),
+//     so each [W, F] x window is read once per row block. A producer warp
+//     keeps a ring of up to 192 KB of stages full by TMA
+//     (cp.async.bulk.tensor, 2-D tensor maps, completion counted on
+//     mbarriers): a stage holds band[256 rows, 64 window columns] and x[64
+//     window rows, N columns], both in the 128-byte swizzle, so that every
+//     TMA row is a 128-byte run of device memory. Two consumer warpgroups,
+//     128 rows each, multiply every stage with wgmma (m64 N k16, bf16 in,
+//     f32 accumulators in registers; the band K-major, x MN-major, N = the
+//     tile's columns, any multiple of 8 up to 128, so F = 40 runs as N =
+//     40) and release it. The grid is persistent (one CTA per SM walks the
+//     tiles), so the ring runs on into the next tile while the consumers
+//     round once to bf16 and store the last one from their registers. Rows
+//     past n_pad of an x window and columns past F are TMA's zero fill.
+//   - bf16 at any other F, row_block 256, window % 64 == 0 (the products
+//     widths, F = 100 and 47): band_bf16_tma_kernel<N, true>, the same CTA,
+//     ring, band tensor map and wgmma with N = the tile's columns rounded up
+//     to 8 (7 -> 8, 47 -> 48, 100 -> 104). A tensor map's rows must start on
+//     16-byte boundaries, which a row of 2F bytes does not; but the 64
+//     window rows of a stage start at a multiple of 32 (W/2 is one), so
+//     their 128F bytes are one run of device memory from a 64F-byte
+//     boundary, 16-byte aligned whatever F is. Where the
+//     tile holds every column (F <= 128) the producer brings that run in
+//     with one 1-D cp.async.bulk on the stage's mbarrier; a column tile of a
+//     wider F takes each row's part, widened to the 16-byte chunks around
+//     it, in a 1-D copy of its own. The consumers then rewrite the run, 8
+//     columns a thread at a time, into the MN-major swizzled tile that wgmma
+//     reads (zeros past F), fence it to the async proxy, meet on a named
+//     barrier and multiply. The epilogue stores no column at or past F.
+//   - bf16 at other row blocks or windows: band_bf16_kernel. A block owns a
+//     64-row tile of one row block (row_block a multiple of 64) and up to
+//     128 columns; it walks the window in slabs of 32, stages band[rows,
+//     slab] and x[base + slab, cols] in shared memory with thread-issued
+//     loads and multiplies 16x16x16 fragments on the tensor cores
+//     (nvcuda::wmma, f32 accumulators), each of the 4 warps owning 16 rows.
+//     Columns past F are zero in shared memory and never stored. No run of
+//     the port gives it a shape: build_band_plan makes windows of a
+//     multiple of 256, and prepare_graph's band_row_block is 256 unless a
+//     caller sets another.
+//   - f32: band_f32_kernel<NC, K, VEC>, on the FMA units (no TF32: the f32
+//     path keeps f32 products). The banded twin (examples_torch/
+//     locality_banded_gcn.py) runs it 4 times a step. Bound by operations at
+//     F = 64 (67 TFLOP/s against 4W bytes a row) and by the band's bytes at
+//     F = 16. A block of 4 warps owns 64 rows of one row block and NC = 16,
+//     32 or 64 columns, the least that holds F (wider F: more column
+//     tiles), so no FMA is spent on a zero column below 16. A cp.async ring
+//     brings band[64 rows, K window columns] (row-major, 16-byte copies,
+//     rows padded to K + 4 floats) and x[K window rows, NC columns]
+//     (16-byte copies where F % 4 == 0, else 4-byte ones; zeros past F), so
+//     the next slabs are in flight while the FMAs run, with one
+//     __syncthreads a slab: K = 32 in 4 stages where the FMAs bound it, K =
+//     64 in 2 stages at NC = 16, where the band's bytes do and 256-byte runs
+//     of a band row read faster than 128-byte ones (K = 32 there too where
+//     the window is not a multiple of 64). A thread owns 8 rows x
+//     8 columns (8 x 4 at NC = 16): per 4 window columns it reads one
+//     16-byte band vector a row and two 16-byte x vectors a column, 16
+//     shared loads for 256 FMAs (a 4 x 8 tile took 12 for 128 and ran
+//     slower, PERF.md), without bank conflicts. The rows of a block take
+//     one or two warps, so 2 or 4 warps (k groups) share each row range,
+//     each summing its own quarter or half of every slab's window columns;
+//     at the end the groups' sums meet in shared memory and are added in
+//     group order. So the twin's 20,480 rows give 320 blocks, 3 an SM at
+//     most (168 registers a thread and a 69 KB ring at NC = 64): all of
+//     them resident at once.
 // x is never read past its row. The sum is rounded once, at the store. The
 // band's zero tiles are multiplied like any other.
 //
@@ -88,11 +128,10 @@ using nvcuda::wmma::matrix_b;
 using nvcuda::wmma::mem_row_major;
 using nvcuda::wmma::row_major;
 
-constexpr int kTileRows = 64;   // rows of a block's output tile
-constexpr int kSlab = 32;       // window columns staged per step
+constexpr int kTileRows = 64;   // rows of a wmma block (the row blocks' grain)
+constexpr int kSlab = 32;       // window columns a wmma block stages a step
 constexpr int kBf16Threads = 128;
-constexpr int kF32Threads = 256;
-constexpr int kF32Cols = 64;
+constexpr int kF32Rows = 64;    // rows of an f32 block
 constexpr int kTmaRows = 256;      // rows of a row block, all in one CTA
 constexpr int kTmaK = 64;          // window columns of a ring stage
 constexpr int kTmaRingBytes = 192 * 1024;  // ring stages fill up to this
@@ -359,33 +398,97 @@ KGT_WGMMA(112, KGT_G13, KGT_R13, 56, 57, 58)
 KGT_WGMMA(120, KGT_G14, KGT_R14, 60, 61, 62)
 KGT_WGMMA(128, KGT_G15, KGT_R15, 64, 65, 66)
 
+// One 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, completion counted on
+// `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // Shared memory of a ring stage, every operand in the 128-byte swizzle TMA
 // writes and wgmma reads: the band tile [256 rows, 64 window columns], one
 // 128-byte row a node (K-major A), then the x tile [64 window rows, N
 // columns] as ceil(N/64) atoms of [64 rows, 64 columns] (MN-major B; columns
-// past F are TMA's zero fill).
-template <int N>
+// past F are TMA's zero fill). FLAT (x by 1-D copies) adds the copied run:
+// 64 slots of N + 8 bf16 values (a row's columns with up to 7 values of the
+// 16-byte chunk they start in), which also holds 64 whole rows of F <= N.
+template <int N, bool FLAT>
 struct TmaStage {
   static constexpr int kAtoms = (N + 63) / 64;
   static constexpr int kABytes = kTmaRows * kTmaK * 2;
   static constexpr int kAtomBytes = kTmaK * 64 * 2;
-  static constexpr int kBytes = kABytes + kAtoms * kAtomBytes;  // 1 KB units
+  static constexpr int kSlot = N + 8;  // bf16 values of a row's slot
+  static constexpr int kRawBytes =
+      FLAT ? (kTmaK * kSlot * 2 + 1023) / 1024 * 1024 : 0;
+  static constexpr int kBytes = kABytes + kAtoms * kAtomBytes + kRawBytes;
   static constexpr int kStages = kTmaRingBytes / kBytes;  // 4 at N = 128
   static constexpr int kSmem = kStages * kBytes + 2 * kStages * 8 + 1024;
 };
 
+// FLAT: the 1-D copy that brings x row `xr`'s columns col0 .. col0 + ncols
+// into its slot, widened to whole 16-byte chunks: the first chunk's index
+// (in bf16 values) and the bytes. A row past n_pad is not copied.
+__device__ __forceinline__ uint32_t row_copy(int64_t xr, int64_t f,
+                                             int64_t col0, int ncols,
+                                             int64_t n_pad, int64_t* first) {
+  if (xr >= n_pad) return 0;
+  const int64_t lo = xr * f + col0;
+  *first = lo / 8 * 8;
+  return static_cast<uint32_t>((lo + ncols + 7) / 8 * 8 - *first) * 2;
+}
+
+// FLAT: 8 columns (chunk j of the tile) of window row k, from the copied run
+// into the swizzled MN-major B tile; zeros past the tile's ncols and for a
+// row past n_pad. `start` is the row's first value in the run (bf16
+// index); the run is read as 32-bit words, an odd start through byte_perm.
+template <int N>
+__device__ __forceinline__ void flat_chunk(const uint8_t* raw, uint8_t* b,
+                                           int k, int j, int64_t start,
+                                           int ncols, bool in) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  const int valid = ncols - 8 * j;
+  if (in && valid > 0) {
+    const int64_t e0 = start + 8 * j;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(raw) + e0 / 2;
+    uint32_t v[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) v[i] = words[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = (e0 & 1) ? __byte_perm(v[i], v[i + 1], 0x5432) : v[i];
+      if (2 * i >= valid) {
+        w[i] = 0u;
+      } else if (2 * i + 1 >= valid) {
+        w[i] &= 0xFFFFu;  // the low half is column 2i, the high one 2i + 1
+      }
+    }
+  }
+  // TMA's 128-byte swizzle: chunk c of a 128-byte row k sits at c ^ (k % 8).
+  *reinterpret_cast<uint4*>(b + (j / 8) * TmaStage<N, true>::kAtomBytes +
+                            k * 128 + (((j % 8) ^ (k % 8)) * 16)) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Persistent: CTA c takes tiles c, c + gridDim.x, ... of `tiles` (row block
 // major, then col_tiles column tiles of N columns from col_base). The ring
 // runs on across tiles, so the producer loads the next tile while the
-// consumers store the last one.
-template <int N>
+// consumers store the last one. FLAT reads x through `x` (x_map unused);
+// `whole`: a tile holds every column (F <= 128), so a stage's x is one run.
+template <int N, bool FLAT>
 __global__ void __launch_bounds__(kTmaThreads, 1)
 band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
                      const __grid_constant__ CUtensorMap x_map,
+                     const uint16_t* __restrict__ x,
                      const int32_t* __restrict__ base_idx,
-                     uint16_t* __restrict__ out, int64_t f, int window,
-                     int col_base, int col_tiles, int tiles) {
-  using St = TmaStage<N>;
+                     uint16_t* __restrict__ out, int64_t n_pad, int64_t f,
+                     int window, int col_base, int col_tiles, int tiles) {
+  using St = TmaStage<N, FLAT>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -395,6 +498,7 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
   const int ktiles = window / kTmaK;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool whole = col_base == 0 && col_tiles == 1 && f <= N;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < St::kStages; ++s) {
@@ -423,12 +527,46 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
           }
           const uint32_t full = full0 + 8 * s;
           const uint32_t a = ring + s * St::kBytes;
-          mbar_expect_tx(full, St::kBytes);
-          tma_load_2d(a, &band_map, full, kt * kTmaK, row0, stream_once);
+          if constexpr (!FLAT) {
+            mbar_expect_tx(full, St::kBytes);
+            tma_load_2d(a, &band_map, full, kt * kTmaK, row0, stream_once);
 #pragma unroll
-          for (int g = 0; g < St::kAtoms; ++g) {
-            tma_load_2d(a + St::kABytes + g * St::kAtomBytes, &x_map, full,
-                        col0 + g * 64, base + kt * kTmaK, reread);
+            for (int g = 0; g < St::kAtoms; ++g) {
+              tma_load_2d(a + St::kABytes + g * St::kAtomBytes, &x_map, full,
+                          col0 + g * 64, base + kt * kTmaK, reread);
+            }
+          } else {
+            const uint32_t raw = a + St::kABytes + St::kAtoms * St::kAtomBytes;
+            const int64_t xr0 = static_cast<int64_t>(base) + kt * kTmaK;
+            if (whole) {
+              // The rows from xr0 (a multiple of 32: W/2 is one) up to 64 or
+              // n_pad (a multiple of 256): one run of a multiple of 64F
+              // bytes from a 64F-byte boundary, so 16-byte aligned.
+              const int64_t rows = n_pad - xr0 < kTmaK ? n_pad - xr0 : kTmaK;
+              const uint32_t bytes =
+                  rows > 0 ? static_cast<uint32_t>(rows * f * 2) : 0u;
+              mbar_expect_tx(full, St::kABytes + bytes);
+              tma_load_2d(a, &band_map, full, kt * kTmaK, row0, stream_once);
+              if (bytes) bulk_load(raw, x + xr0 * f, bytes, full, reread);
+            } else {
+              const int ncols = static_cast<int>(
+                  f - col0 < N ? f - col0 : N);
+              uint32_t bytes = 0;
+              int64_t first;
+              for (int k = 0; k < kTmaK; ++k) {
+                bytes += row_copy(xr0 + k, f, col0, ncols, n_pad, &first);
+              }
+              mbar_expect_tx(full, St::kABytes + bytes);
+              tma_load_2d(a, &band_map, full, kt * kTmaK, row0, stream_once);
+              for (int k = 0; k < kTmaK; ++k) {
+                const uint32_t row_bytes =
+                    row_copy(xr0 + k, f, col0, ncols, n_pad, &first);
+                if (row_bytes) {
+                  bulk_load(raw + k * St::kSlot * 2, x + first, row_bytes,
+                            full, reread);
+                }
+              }
+            }
           }
         }
       }
@@ -442,6 +580,7 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
   float acc[2][N / 2];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t col0 = col_base + (tile % col_tiles) * kTmaMaxN;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
 #pragma unroll
@@ -452,6 +591,32 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
       mbar_wait(full0 + 8 * s, (it / St::kStages) & 1);
       const uint32_t a = ring + s * St::kBytes + wg * 128 * 128;
       const uint32_t b = ring + s * St::kBytes + St::kABytes;
+      if constexpr (FLAT) {
+        // Rewrite the copied run into the B tile: 8 columns a thread at a
+        // time, then make the generic-proxy stores visible to wgmma and
+        // wait for the other consumers' (named barrier 1: the 256
+        // consumer threads; the producer warp never joins it).
+        uint8_t* stage = smem + s * St::kBytes;
+        const uint8_t* raw = stage + St::kABytes + St::kAtoms * St::kAtomBytes;
+        const int64_t xr0 =
+            static_cast<int64_t>(base_idx[tile / col_tiles]) * (window / 2) +
+            kt * kTmaK;
+        const int ncols = static_cast<int>(f - col0 < N ? f - col0 : N);
+        for (int item = threadIdx.x; item < kTmaK * (N / 8);
+             item += kTmaConsumers) {
+          const int k = item / (N / 8);
+          const int j = item % (N / 8);
+          const int64_t xr = xr0 + k;
+          const int64_t start =
+              whole ? static_cast<int64_t>(k) * f
+                    : static_cast<int64_t>(k) * St::kSlot +
+                          (xr * f + col0) % 8;
+          flat_chunk<N>(raw, stage + St::kABytes, k, j, start, ncols,
+                        xr < n_pad);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kTmaConsumers) : "memory");
+      }
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -478,9 +643,9 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
     // Epilogue: round once and store each thread's bf16 pairs; the ring is
-    // already taking the next tile.
+    // already taking the next tile. FLAT stores no column at or past F, a
+    // pair as one 4-byte store where F is even (then r * F + c is even).
     const int64_t row0 = static_cast<int64_t>(tile / col_tiles) * kTmaRows;
-    const int64_t col0 = col_base + (tile % col_tiles) * kTmaMaxN;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int64_t r =
@@ -488,85 +653,245 @@ band_bf16_tma_kernel(const __grid_constant__ CUtensorMap band_map,
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
         const int64_t c = col0 + j * 8 + (lane % 4) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(out + r * f + c) =
-            __floats2bfloat162_rn(acc[t][4 * j], acc[t][4 * j + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (r + 8) * f + c) =
-            __floats2bfloat162_rn(acc[t][4 * j + 2], acc[t][4 * j + 3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint16_t* dst = out + (r + 8 * h) * f + c;
+          const float lo = acc[t][4 * j + 2 * h];
+          const float hi = acc[t][4 * j + 2 * h + 1];
+          if (!FLAT || (c + 1 < f && f % 2 == 0)) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(lo, hi);
+          } else {
+            if (c < f) dst[0] = float_to_bf16_bits(lo);
+            if (c + 1 < f) dst[1] = float_to_bf16_bits(hi);
+          }
+        }
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K11, f32: FMA units, 4x4 outputs per thread.
+// K11, f32: FMA units, a cp.async ring, 8 x 8 outputs a thread.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kF32Threads)
+// Asynchronous copy of BYTES (16 or 4) into shared memory; src_bytes 0 reads
+// nothing and writes zeros.
+template <int BYTES>
+__device__ __forceinline__ void copy_async_zfill(uint32_t dst, const void* src,
+                                                 int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+  }
+}
+
+// The tile of a block: 64 rows, NC columns, 4 warps. A thread owns 8 rows
+// (ty + i*TY of its warp's rows) x TN columns (4tx .. +4, and NC/2 + 4tx ..
+// +4 where TN = 8); a warp covers WR rows. RW warps cover the block's rows
+// and KS warps, one per k group, share each row range: group kg takes
+// window columns kg*32/KS .. +32/KS of every slab, and the groups' sums
+// are added in group order at the end.
+template <int NC, int KK>
+struct F32Tile {
+  // A ring stage holds KK window columns: 32 in 4 stages where the FMAs
+  // bound the kernel; at NC = 16 the band's bytes do, and 64 columns in 2
+  // stages read 256-byte runs of each band row (where window % 64 == 0;
+  // other windows take 32 in 4 stages there too).
+  static constexpr int kK = KK;
+  static constexpr int kStages = KK == 64 ? 2 : 4;
+  static constexpr int kLdA = kK + 4;  // band rows in shared memory, floats
+  static constexpr int kRows = kF32Rows;
+  static constexpr int kTn = NC >= 32 ? 8 : 4;
+  static constexpr int kTx = NC / kTn;
+  static constexpr int kTy = 32 / kTx;
+  static constexpr int kWarpRows = 8 * kTy;
+  static constexpr int kRw = kRows / kWarpRows;
+  static constexpr int kKs = 4 / kRw;
+  static constexpr int kGroupK = kK / kKs;  // window columns a slab
+  static constexpr int kColStep = NC * 4 / kTn;  // between a thread's vectors
+  static constexpr int kThreads = 128;
+  static constexpr int kAFloats = kRows * kLdA;
+  static constexpr int kStageFloats = kAFloats + kK * NC;
+  static constexpr int kSmem = kStages * kStageFloats * 4;
+  static_assert(KK == 32 || KK == 64, "a slab of 32 or 64 window columns");
+  static_assert(kRw >= 1 && kRw * kKs == 4, "4 warps: row warps x k groups");
+  // The k groups' sums, each element of a thread kThreads / kKs floats
+  // apart, fit in the ring.
+  static_assert((kKs - 1) * kRows * NC <= kStages * kStageFloats,
+                "the merge must fit in the ring");
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+template <int NC, int KK, bool VEC>
+__global__ void __launch_bounds__(128)
 band_f32_kernel(const float* __restrict__ x, const float* __restrict__ band,
                 const int32_t* __restrict__ base_idx, float* __restrict__ out,
                 int64_t n_pad, int64_t f, int window, int row_block,
                 int col_tiles) {
-  constexpr int kLdA = kSlab + 1;
-  __shared__ float a_s[kTileRows * kLdA];
-  __shared__ __align__(16) float b_s[kSlab * kF32Cols];
-
-  const int tile = blockIdx.x / col_tiles;
-  const int64_t row0 = static_cast<int64_t>(tile) * kTileRows;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x % col_tiles) * kF32Cols;
-  const int ty = threadIdx.x / 16;  // rows ty*4 .. +4
-  const int tx = threadIdx.x % 16;  // columns tx*4 .. +4
+  using T = F32Tile<NC, KK>;
+  constexpr int kTm = 8;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int64_t row0 =
+      static_cast<int64_t>(blockIdx.x / col_tiles) * T::kRows;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x % col_tiles) * NC;
   const int64_t base =
       static_cast<int64_t>(base_idx[row0 / row_block]) * (window / 2);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int kg = warp / T::kRw;  // k group
+  const int tx = lane % T::kTx;
+  const int ty = lane / T::kTx;
+  const int wrow = (warp % T::kRw) * T::kWarpRows + ty;  // rows wrow + i*TY
+  const int ktiles = window / T::kK;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < window; k0 += kSlab) {
-    for (int c = threadIdx.x; c < kTileRows * (kSlab / 4); c += kF32Threads) {
-      const int r = c / (kSlab / 4);
-      const int q = c % (kSlab / 4);
-      const float4 v = *reinterpret_cast<const float4*>(
-          band + (row0 + r) * window + k0 + q * 4);
-      a_s[r * kLdA + q * 4 + 0] = v.x;
-      a_s[r * kLdA + q * 4 + 1] = v.y;
-      a_s[r * kLdA + q * 4 + 2] = v.z;
-      a_s[r * kLdA + q * 4 + 3] = v.w;
+  // Slab kt of the window into ring stage s: band[row0 .., k0 .. +kK] as
+  // 16-byte copies into rows of kLdA floats; x[base + k0 .., col0 ..
+  // +NC], zeros past F (and past n_pad, which a clamped window never
+  // reaches).
+  auto load = [&](int kt, int s) {
+    float* a = f32_smem + s * T::kStageFloats;
+    float* b = a + T::kAFloats;
+    const int k0 = kt * T::kK;
+    for (int c = threadIdx.x; c < T::kRows * (T::kK / 4); c += T::kThreads) {
+      const int r = c / (T::kK / 4);
+      const int q = c % (T::kK / 4);
+      copy_async_zfill<16>(shared_u32(a + r * T::kLdA + q * 4),
+                           band + (row0 + r) * window + k0 + q * 4, 16);
     }
-    for (int c = threadIdx.x; c < kSlab * kF32Cols; c += kF32Threads) {
-      const int r = c / kF32Cols;
-      const int q = c % kF32Cols;
-      const int64_t xr = base + k0 + r;
-      const int64_t xc = col0 + q;
-      b_s[r * kF32Cols + q] = (xr < n_pad && xc < f) ? x[xr * f + xc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kSlab; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(
-          &b_s[kk * kF32Cols + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = a_s[(ty * 4 + i) * kLdA + kk];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+    if constexpr (VEC) {
+      for (int c = threadIdx.x; c < T::kK * (NC / 4); c += T::kThreads) {
+        const int r = c / (NC / 4);
+        const int q = c % (NC / 4);
+        const int64_t xr = base + k0 + r;
+        const int64_t xc = col0 + q * 4;
+        const bool in = xr < n_pad && xc < f;
+        copy_async_zfill<16>(shared_u32(b + r * NC + q * 4),
+                             in ? x + xr * f + xc : x, in ? 16 : 0);
+      }
+    } else {
+      for (int c = threadIdx.x; c < T::kK * NC; c += T::kThreads) {
+        const int r = c / NC;
+        const int q = c % NC;
+        const int64_t xr = base + k0 + r;
+        const int64_t xc = col0 + q;
+        const bool in = xr < n_pad && xc < f;
+        copy_async_zfill<4>(shared_u32(b + r * NC + q), in ? x + xr * f + xc
+                                                           : x,
+                            in ? 4 : 0);
       }
     }
-    __syncthreads();
+  };
+
+  float acc[kTm][T::kTn];
+#pragma unroll
+  for (int i = 0; i < kTm; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::kTn; ++j) acc[i][j] = 0.0f;
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = row0 + ty * 4 + i;
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    copy_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    copy_wait<T::kStages - 2>();
+    // Slab kt has landed for every thread, and every thread is done with
+    // slab kt - 1, whose stage the next load refills.
+    __syncthreads();
+    if (kt + T::kStages - 1 < ktiles) {
+      load(kt + T::kStages - 1, (kt + T::kStages - 1) % T::kStages);
+    }
+    copy_commit();
+    const float* a = f32_smem + (kt % T::kStages) * T::kStageFloats;
+    const float* b = a + T::kAFloats;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t c = col0 + tx * 4 + j;
-      if (c < f) out[r * f + c] = acc[i][j];
+    for (int kq = 0; kq < T::kGroupK / 4; ++kq) {
+      const int k = kg * T::kGroupK + kq * 4;
+      float4 av[kTm];
+#pragma unroll
+      for (int i = 0; i < kTm; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(
+            a + (wrow + i * T::kTy) * T::kLdA + k);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = b + (k + kk) * NC + tx * 4;
+        float bv[T::kTn];
+#pragma unroll
+        for (int h = 0; h < T::kTn / 4; ++h) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(brow + h * T::kColStep);
+          bv[4 * h] = v.x;
+          bv[4 * h + 1] = v.y;
+          bv[4 * h + 2] = v.z;
+          bv[4 * h + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < kTm; ++i) {
+          const float ai = lane_of(av[i], kk);
+#pragma unroll
+          for (int j = 0; j < T::kTn; ++j) {
+            acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+  copy_wait<0>();
+  __syncthreads();  // the ring is free: it takes the k groups' sums
+
+  // Groups 1 .. KS-1 leave their sums in the ring, element e of thread t
+  // of a group at (group - 1, e, t); group 0 adds them in group order.
+  constexpr int kGroupThreads = T::kThreads / T::kKs;
+  const int t = threadIdx.x % kGroupThreads;
+  float* part = f32_smem;
+  if (kg > 0) {
+#pragma unroll
+    for (int i = 0; i < kTm; ++i) {
+#pragma unroll
+      for (int j = 0; j < T::kTn; ++j) {
+        part[((kg - 1) * kTm * T::kTn + i * T::kTn + j) * kGroupThreads + t] =
+            acc[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  if (kg > 0) return;
+  for (int g = 1; g < T::kKs; ++g) {
+#pragma unroll
+    for (int i = 0; i < kTm; ++i) {
+#pragma unroll
+      for (int j = 0; j < T::kTn; ++j) {
+        acc[i][j] +=
+            part[((g - 1) * kTm * T::kTn + i * T::kTn + j) * kGroupThreads + t];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTm; ++i) {
+    float* row = out + (row0 + wrow + i * T::kTy) * f;
+#pragma unroll
+    for (int h = 0; h < T::kTn / 4; ++h) {
+      const int64_t c = col0 + h * T::kColStep + tx * 4;
+      const float* v = acc[i] + 4 * h;
+      if (VEC && c < f) {  // F % 4 == 0: the four columns are all in
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else if (!VEC) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c + j < f) row[c + j] = v[j];
+        }
+      }
     }
   }
 }
@@ -647,6 +972,28 @@ cudaError_t launch_band_bf16(const void* x, const void* band,
   return cudaGetLastError();
 }
 
+// KK: window columns of a ring stage; window % KK == 0.
+template <int NC, int KK>
+cudaError_t launch_band_f32(const void* x, const void* band,
+                            const int32_t* base_idx, void* out, int64_t n_pad,
+                            int64_t f, int window, int row_block,
+                            cudaStream_t s) {
+  using T = F32Tile<NC, KK>;
+  if (window % KK != 0) return cudaErrorInvalidValue;
+  const int col_tiles = static_cast<int>((f + NC - 1) / NC);
+  const int64_t blocks = (n_pad / T::kRows) * col_tiles;
+  const bool vec = f % 4 == 0 && aligned16(x) && aligned16(out);
+  auto kernel =
+      vec ? band_f32_kernel<NC, KK, true> : band_f32_kernel<NC, KK, false>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<static_cast<unsigned>(blocks), T::kThreads, T::kSmem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(band), base_idx,
+      static_cast<float*>(out), n_pad, f, window, row_block, col_tiles);
+  return cudaGetLastError();
+}
+
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
 // link against the driver library).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -688,15 +1035,16 @@ bool encode_bf16_2d(CUtensorMap* map, const void* ptr, int64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int N>
+template <int N, bool FLAT>
 cudaError_t launch_tma_tile(const CUtensorMap& band_map,
-                            const CUtensorMap& x_map, const int32_t* base_idx,
-                            void* out, int64_t n_pad, int64_t f, int window,
-                            int col_base, int col_tiles, cudaStream_t s) {
-  const int smem = TmaStage<N>::kSmem;
+                            const CUtensorMap& x_map, const void* x,
+                            const int32_t* base_idx, void* out, int64_t n_pad,
+                            int64_t f, int window, int col_base, int col_tiles,
+                            cudaStream_t s) {
+  const int smem = TmaStage<N, FLAT>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      band_bf16_tma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      band_bf16_tma_kernel<N, FLAT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess) {
@@ -704,21 +1052,25 @@ cudaError_t launch_tma_tile(const CUtensorMap& band_map,
   }
   const int64_t tiles = n_pad / kTmaRows * col_tiles;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  band_bf16_tma_kernel<N><<<grid, kTmaThreads, smem, s>>>(
-      band_map, x_map, base_idx, static_cast<uint16_t*>(out), f, window,
-      col_base, col_tiles, static_cast<int>(tiles));
+  band_bf16_tma_kernel<N, FLAT><<<grid, kTmaThreads, smem, s>>>(
+      band_map, x_map, static_cast<const uint16_t*>(x), base_idx,
+      static_cast<uint16_t*>(out), n_pad, f, window, col_base, col_tiles,
+      static_cast<int>(tiles));
   return cudaGetLastError();
 }
 
 // `col_tiles` CTAs of n columns per row block, from column col_base.
+template <bool FLAT>
 cudaError_t launch_tma_cols(int n, const CUtensorMap& band_map,
-                            const CUtensorMap& x_map, const int32_t* base_idx,
-                            void* out, int64_t n_pad, int64_t f, int window,
-                            int col_base, int col_tiles, cudaStream_t s) {
+                            const CUtensorMap& x_map, const void* x,
+                            const int32_t* base_idx, void* out, int64_t n_pad,
+                            int64_t f, int window, int col_base, int col_tiles,
+                            cudaStream_t s) {
 #define KGT_TMA_N(N)                                                       \
   case N:                                                                  \
-    return launch_tma_tile<N>(band_map, x_map, base_idx, out, n_pad, f,    \
-                              window, col_base, col_tiles, s);
+    return launch_tma_tile<N, FLAT>(band_map, x_map, x, base_idx, out,     \
+                                    n_pad, f, window, col_base, col_tiles, \
+                                    s);
   switch (n) {
     KGT_TMA_N(8) KGT_TMA_N(16) KGT_TMA_N(24) KGT_TMA_N(32) KGT_TMA_N(40)
     KGT_TMA_N(48) KGT_TMA_N(56) KGT_TMA_N(64) KGT_TMA_N(72) KGT_TMA_N(80)
@@ -729,26 +1081,34 @@ cudaError_t launch_tma_cols(int n, const CUtensorMap& band_map,
 #undef KGT_TMA_N
 }
 
+// FLAT: x by 1-D copies (any F); else x by its tensor map (F % 8 == 0). The
+// last column tile takes the rest of F rounded up to 8.
+template <bool FLAT>
 cudaError_t launch_band_tma(const void* x, const void* band,
                             const int32_t* base_idx, void* out,
                             int64_t n_pad, int64_t f, int window,
                             cudaStream_t s) {
   CUtensorMap band_map, x_map;
-  if (!encode_bf16_2d(&band_map, band, n_pad, window, kTmaRows) ||
-      !encode_bf16_2d(&x_map, x, n_pad, f, kTmaK)) {
+  if (!encode_bf16_2d(&band_map, band, n_pad, window, kTmaRows)) {
+    return cudaErrorInvalidValue;
+  }
+  if (FLAT) {
+    x_map = band_map;  // not read
+  } else if (!encode_bf16_2d(&x_map, x, n_pad, f, kTmaK)) {
     return cudaErrorInvalidValue;
   }
   const int full = static_cast<int>(f / kTmaMaxN);
   const int rest = static_cast<int>(f % kTmaMaxN);
   if (full > 0) {
-    const cudaError_t err = launch_tma_cols(kTmaMaxN, band_map, x_map,
-                                            base_idx, out, n_pad, f, window,
-                                            0, full, s);
+    const cudaError_t err = launch_tma_cols<FLAT>(
+        kTmaMaxN, band_map, x_map, x, base_idx, out, n_pad, f, window, 0,
+        full, s);
     if (err != cudaSuccess) return err;
   }
   if (rest > 0) {
-    return launch_tma_cols(rest, band_map, x_map, base_idx, out, n_pad, f,
-                           window, full * kTmaMaxN, 1, s);
+    return launch_tma_cols<FLAT>((rest + 7) / 8 * 8, band_map, x_map, x,
+                                 base_idx, out, n_pad, f, window,
+                                 full * kTmaMaxN, 1, s);
   }
   return cudaSuccess;
 }
@@ -762,27 +1122,32 @@ extern "C" {
 // type, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); x and y are [n_pad, f],
 // band [n_pad, window]. n_pad is a multiple of row_block, row_block of 64 and
 // window of 32; band is 16-byte aligned. route picks the instantiation: 0
-// the thread-staged kernels (wmma for bf16, FMA for f32), 1 the TMA + wgmma
-// kernel, which takes bf16 with f % 8 == 0, row_block == 256, window % 64 ==
-// 0 and 16-byte aligned x and y, and refuses anything else.
+// the thread-staged kernels (wmma for bf16, the FMA ring for f32), 1 the TMA
+// + wgmma kernel with x by its tensor map, which takes bf16 with f % 8 == 0,
+// 2 the same kernel with x by 1-D copies, which takes bf16 at any f; both
+// need row_block == 256, window % 64 == 0 and 16-byte aligned x and y, and
+// refuse anything else.
 int kgt_band_matmul(const void* x, const void* band, const int32_t* base_idx,
                     void* out, int64_t n_pad, int64_t f, int window,
                     int row_block, int is_bf16, int route, void* stream) {
   if (x == nullptr || band == nullptr || base_idx == nullptr ||
       out == nullptr || n_pad <= 0 || f <= 0 || window <= 0 ||
       window % kSlab != 0 || row_block <= 0 || row_block % kTileRows != 0 ||
-      n_pad % row_block != 0 || !aligned16(band) || route < 0 || route > 1) {
+      n_pad % row_block != 0 || !aligned16(band) || route < 0 || route > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    if (!is_bf16 || f % 8 != 0 || row_block != kTmaRows ||
+  if (route != 0) {
+    if (!is_bf16 || (route == 1 && f % 8 != 0) || row_block != kTmaRows ||
         window % kTmaK != 0 || !aligned16(x) || !aligned16(out) ||
         n_pad >= (static_cast<int64_t>(1) << 31)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(
-        launch_band_tma(x, band, base_idx, out, n_pad, f, window, s));
+        route == 1 ? launch_band_tma<false>(x, band, base_idx, out, n_pad, f,
+                                            window, s)
+                   : launch_band_tma<true>(x, band, base_idx, out, n_pad, f,
+                                           window, s));
   }
   if (is_bf16) {
     const int64_t w = f < 128 ? f : 128;
@@ -791,12 +1156,23 @@ int kgt_band_matmul(const void* x, const void* band, const int32_t* base_idx,
     if (w <= 64) return static_cast<int>(launch_band_bf16<4>(x, band, base_idx, out, n_pad, f, window, row_block, s));
     return static_cast<int>(launch_band_bf16<8>(x, band, base_idx, out, n_pad, f, window, row_block, s));
   }
-  const int col_tiles = static_cast<int>((f + kF32Cols - 1) / kF32Cols);
-  const int64_t blocks = (n_pad / kTileRows) * col_tiles;
-  band_f32_kernel<<<static_cast<unsigned>(blocks), kF32Threads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(band), base_idx,
-      static_cast<float*>(out), n_pad, f, window, row_block, col_tiles);
-  return static_cast<int>(cudaGetLastError());
+  // NC: the least of 16, 32 and 64 columns that holds F (64 and more
+  // column tiles past it). Slabs of 64 window columns at NC = 16 where the
+  // window holds whole ones, else of 32.
+  if (f <= 16) {
+    return static_cast<int>(
+        window % 64 == 0
+            ? launch_band_f32<16, 64>(x, band, base_idx, out, n_pad, f,
+                                      window, row_block, s)
+            : launch_band_f32<16, 32>(x, band, base_idx, out, n_pad, f,
+                                      window, row_block, s));
+  }
+  if (f <= 32) {
+    return static_cast<int>(launch_band_f32<32, 32>(
+        x, band, base_idx, out, n_pad, f, window, row_block, s));
+  }
+  return static_cast<int>(launch_band_f32<64, 32>(
+      x, band, base_idx, out, n_pad, f, window, row_block, s));
 }
 
 // out[r, :] = sum over the eligible slots e with sender_tab[e] == r of

@@ -2,9 +2,10 @@
 work list, and the forward, rho and the receiver backward walked in pieces.
 
 ``band_route`` picks the banded SpMM's instantiation from the type and the
-shapes alone: the TMA + wgmma kernel for bf16 with ``F % 8 == 0`` (row blocks
-of 256, ``W % 64 == 0``), the wmma kernel for any other bf16 shape, the FMA
-kernel for f32.
+shapes alone: the TMA + wgmma kernel for bf16 at row blocks of 256 and ``W %
+64 == 0`` (``x`` by its tensor map where ``F % 8 == 0``, by 1-D copies at any
+other ``F``), the wmma kernel for any other bf16 shape, the FMA kernel for
+f32.
 
 ``recv_bwd_work`` cuts the receiver-sorted stream into pieces of at most
 ``piece`` slots, so that no group of the forward (K9), rho (K10b) or the
@@ -21,7 +22,8 @@ tail row, whose real slots all lie in its first piece, gets its unsplit
 result bit for bit.
 
 The ``cuda``-marked tests run the kernels on a card: the wgmma band kernel at
-F = 40 and 128 and the wmma one at F = 7 against the plain version; the
+F = 40 and 128 (``x`` by its tensor map) and at F = 7 (``x`` by 1-D copies)
+against the plain version; the
 forward, rho and the receiver backward on the hub graph in every mode,
 against their plain versions, recomputed scores giving the cached scores'
 results bit for bit and two launches giving the same bits; and the
@@ -50,9 +52,9 @@ HUB, TAIL = 5_000, 511
     (40, 1024, 256, torch.bfloat16, "wgmma"),
     (8, 512, 256, torch.bfloat16, "wgmma"),
     (256, 1024, 256, torch.bfloat16, "wgmma"),
-    (7, 1024, 256, torch.bfloat16, "wmma"),
-    (1, 1024, 256, torch.bfloat16, "wmma"),
-    (44, 1024, 256, torch.bfloat16, "wmma"),
+    (7, 1024, 256, torch.bfloat16, "wgmma_flat"),
+    (1, 1024, 256, torch.bfloat16, "wgmma_flat"),
+    (44, 1024, 256, torch.bfloat16, "wgmma_flat"),
     (128, 1024, 128, torch.bfloat16, "wmma"),
     (128, 288, 256, torch.bfloat16, "wmma"),
     (128, 1024, 256, torch.float32, "fma"),
@@ -78,7 +80,8 @@ def test_band_matmul_on_the_cpu_counts_no_route():
     assert y[0].tolist() == [1.0] * 8 and y[1].tolist() == [1.0] * 8
     assert not any(band_cuda.MODE_LAUNCH_COUNTS.values())
     assert set(band_cuda.MODE_LAUNCH_COUNTS) == {
-        "band_spmm(wgmma)", "band_spmm(wmma)", "band_spmm(fma)"}
+        "band_spmm(wgmma)", "band_spmm(wgmma_flat)", "band_spmm(wmma)",
+        "band_spmm(fma)"}
 
 
 def _hub_graph(seed=0, n=64, hub_row=7, others=249):
@@ -262,8 +265,9 @@ def test_piecewise_walk_equals_the_plain_version_and_jax(drop):
 @pytest.mark.parametrize("f", [40, 128, 7])
 def test_cuda_band_routes_match_plain_version(f):
     """On a card: the banded SpMM at the arxiv widths (the wgmma route) and
-    at F = 7 (the wmma route), over a band whose last row block's window
-    reaches the array's end, against the plain version."""
+    at F = 7 (the wgmma_flat route, and the wmma kernel on the same inputs),
+    over a band whose last row block's window reaches the array's end,
+    against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -281,13 +285,20 @@ def test_cuda_band_routes_match_plain_version(f):
     again = band_cuda.band_matmul(x, band, base_idx, window, 256)
     want = band_cuda.band_matmul_plain(x, band, base_idx, window, 256)
     torch.cuda.synchronize()
-    route = "wgmma" if f % 8 == 0 else "wmma"
+    route = "wgmma" if f % 8 == 0 else "wgmma_flat"
     assert band_cuda.MODE_LAUNCH_COUNTS[f"band_spmm({route})"] == 2
     assert torch.equal(got, again)
     mass = band_cuda.band_matmul_plain(x.abs(), band.abs(), base_idx, window,
                                        256).float()
     err = (got.float() - want.float()).abs()
     assert bool((err <= 2.0 ** -7 * mass + 1e-6).all())
+    if f % 8:
+        wmma = band_cuda._band_matmul_on("wmma", x, band, base_idx, window,
+                                         256)
+        torch.cuda.synchronize()
+        assert band_cuda.MODE_LAUNCH_COUNTS["band_spmm(wmma)"] == 1
+        err = (wmma.float() - want.float()).abs()
+        assert bool((err <= 2.0 ** -7 * mass + 1e-6).all())
 
 
 @pytest.mark.cuda

@@ -486,14 +486,21 @@ def test_composed_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 def test_band_wrappers_branch_on_the_tensor_device_only():
     src = inspect.getsource(band_cuda)
     assert "except" not in src and "torch.cuda.is_available" not in src
-    for fn, data, counter in (
-            (band_cuda.band_matmul, "x", "band_spmm"),
-            (band_cuda.window_scatter_sum, "messages", "window_scatter_sum")):
+    # band_matmul launches through _band_matmul_on (the route it picks),
+    # which counts where it launches.
+    for fn, launcher, data, counter in (
+            (band_cuda.band_matmul, band_cuda._band_matmul_on, "x",
+             "band_spmm"),
+            (band_cuda.window_scatter_sum, band_cuda.window_scatter_sum,
+             "messages", "window_scatter_sum")):
         body = inspect.getsource(fn)
         assert re.search(
             rf"if not {data}\.is_cuda:\n\s+return \w+_plain\(", body)
         assert body.count("_plain(") == 1
-        assert f'LAUNCH_COUNTS["{counter}"] += 1' in body
+        launch = inspect.getsource(launcher)
+        assert launcher is fn or f"{launcher.__name__}(" in body
+        assert "_plain(" not in launch or launcher is fn
+        assert f'LAUNCH_COUNTS["{counter}"] += 1' in launch
     # The autograd wrapper reaches the kernel through the wrapper only.
     assert "_plain" not in inspect.getsource(band_cuda._BandSpmm)
 
