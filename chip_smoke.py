@@ -289,7 +289,22 @@ exit code and without the final line; so does a run of a subset of the phases
                 ``examples_torch/`` (and ``node_classification.py --dataset
                 pubmed``) as a process of its own on the card, at the
                 fewest epochs its flags allow: every exit code 0, all of
-                them within three minutes.
+                them within three minutes;
+27. ``accuracy_trajectory``  the hardware accuracy gate
+                (``tools/accuracy_check_torch.py``, in process): 60 training
+                steps on the kernel path and on the plain edge-list path
+                from the same parameters, on the reference gate's community
+                graph (169,343 nodes, 1,166,242 edges): the GCN 128 -> 256
+                -> 40 in f32 and in bf16 IO / f32 masters (K1's row walk, 3
+                a step), and the send-mode fused GATv2 at ogbn-products'
+                widths 100 -> 4 x 64 -> 4 x 47 in bf16 IO (K9, K10b, K10c
+                without ``v`` and K10d, 2 each a step); every logged loss
+                (steps 0, 10, ..., 50, 59) within 2% relative of the plain
+                path's (the reference's limit) and within 0.15% (the
+                port's), final train accuracies within 0.01, launches a
+                step exactly as listed; then the control, the f32 GCN with
+                the kernel path's edge weights x 1.1, which must break a
+                loss limit; the card's name and power limit.
 
 Then one line ``{"kernels": [...]}``, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -331,6 +346,13 @@ import time
 import numpy as np
 import torch
 
+from keras_geometric_tpu_torch.kernels import (
+    launch_counts,
+    mode_launch_counts,
+    reset_launch_counts,
+)
+from keras_geometric_tpu_torch.ops.csr import attend_modes
+
 PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "train_directed", "train_cora_shape", "train_gat_arxiv_shape",
           "train_gat_citeseer_shape", "train_gat_arxiv_shape_composed",
@@ -348,7 +370,7 @@ PHASES = ("device", "kernels", "autograd", "train_arxiv_shape",
           "distributed_partitions_arxiv_shape",
           "tensor_parallel_arxiv_shape", "train_dp_graph_classification",
           "train_gin_graph_classification", "readouts_on_card",
-          "examples_torch")
+          "examples_torch", "accuracy_trajectory")
 # Exit code of a run of a subset of the phases that passed: not 0, so that no
 # reader of the exit code takes a partial run for a pass.
 PARTIAL_EXIT_CODE = 4
@@ -432,45 +454,6 @@ def replaced_tpu_kernels() -> dict:
               f"{name}: no pallas_call at line {line} of {filename}")
         out[name] = f"{found[0].relative_to(root).as_posix()}:{line}"
     return out
-
-
-def kernel_modules() -> tuple:
-    from keras_geometric_tpu_torch.kernels import (
-        attend_cuda,
-        band_cuda,
-        sddmm_cuda,
-        softmax_cuda,
-        spmm_cuda,
-    )
-
-    return spmm_cuda, attend_cuda, softmax_cuda, sddmm_cuda, band_cuda
-
-
-def launch_counts() -> dict:
-    """Every kernel's count of launches, from every wrapper module."""
-    counts = {}
-    for module in kernel_modules():
-        counts.update(module.LAUNCH_COUNTS)
-    return counts
-
-
-def mode_launch_counts() -> dict:
-    """Launches of the attention kernels in their other modes, of the wide
-    segment max's backward with the ties split and of the band kernel by
-    route (counted beside their kernel's own count)."""
-    from keras_geometric_tpu_torch.kernels import (
-        attend_cuda,
-        band_cuda,
-        spmm_cuda,
-    )
-
-    return {**attend_cuda.MODE_LAUNCH_COUNTS, **spmm_cuda.MODE_LAUNCH_COUNTS,
-            **band_cuda.MODE_LAUNCH_COUNTS}
-
-
-def reset_launch_counts() -> None:
-    for module in kernel_modules():
-        module.reset_launch_counts()
 
 
 # Instantiations whose registers and spills the device phase reports (the
@@ -1867,20 +1850,6 @@ def time_attend_cases(device, timer, contexts, replaces, hub, send_hub):
 # The attention family's other modes, its sender backward and its two-pass
 # forward against their plain versions
 # ---------------------------------------------------------------------------
-
-
-@contextlib.contextmanager
-def attend_modes(bwd_mode="permute", score_cache=True):
-    """``GraphContext.attend``'s two module constants set for the block and
-    restored after it, whatever happens inside."""
-    from keras_geometric_tpu_torch.ops import csr
-
-    saved = csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE
-    csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = bwd_mode, score_cache
-    try:
-        yield
-    finally:
-        csr.ATTEND_BWD_MODE, csr.ATTEND_SCORE_CACHE = saved
 
 
 def sender_order(send, recv, valid, n):
@@ -3368,10 +3337,16 @@ def time_segment_max_cases(device, timer, contexts, replaces):
     messages (it counts a row's ties first) from device memory too.
     ``library_ms``: ``torch.segment_reduce(data, "max", lengths=...)``, the
     one PyTorch call computing the forward (no mask); ``scatter_reduce_ms``:
-    ``scatter_reduce("amax")`` into ``-inf`` rows. No single call computes
-    the backward. ``ms_ties_whole``: the same backward with every tied
-    element given the whole cotangent (the public function's rule, one walk
-    of the row fewer), on the same inputs: what counting the ties costs."""
+    ``scatter_reduce("amax")`` into ``-inf`` rows. For the backward,
+    ``library_ms`` is aten's backward of that call
+    (``torch.ops.aten._segment_reduce_backward``, the cotangent in the
+    messages' type, no mask), where it splits a tied row's cotangent evenly
+    among its tied elements as the kernel does (``library_splits_ties``,
+    checked here on the card: ``library_tie_check``); otherwise it computes
+    another function and is left out (``None``). ``ms_ties_whole``: the same
+    backward with every tied element given the whole cotangent (the public
+    function's rule, one walk of the row fewer), on the same inputs: what
+    counting the ties costs."""
     from keras_geometric_tpu_torch.kernels import spmm_cuda as K
     from keras_geometric_tpu_torch.utils.profiling import (
         H100_BYTES_PER_S,
@@ -3402,7 +3377,8 @@ def time_segment_max_cases(device, timer, contexts, replaces):
         del g, sc
 
     def entry(name, path, shape, err, kernel, plain, library, scatter,
-              nbytes, ops, not_reused=None):
+              nbytes, ops, not_reused=None,
+              library_name='torch.segment_reduce(data, "max", lengths=...)'):
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_F32_OPS_PER_S * 1e3
         out = {
@@ -3415,8 +3391,7 @@ def time_segment_max_cases(device, timer, contexts, replaces):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (None if library is None
                            else timer.cold_ms(library, iters=10)),
-            "library": (None if library is None else
-                        'torch.segment_reduce(data, "max", lengths=...)'),
+            "library": None if library is None else library_name,
             "scatter_reduce_ms": (None if scatter is None
                                   else timer.cold_ms(scatter, iters=10)),
         }
@@ -3450,6 +3425,8 @@ def time_segment_max_cases(device, timer, contexts, replaces):
         entries[-1]["cuda_kernels"] = ["segment_max_sorted_kernel"]
         entries[-1]["hub_row_ms"] = hub_ms[str(dtype)[6:]]
         del scores, got
+    aten_bwd = torch.ops.aten._segment_reduce_backward
+    tie_check = library_max_backward_tie_check(device, recv, n, lengths, gen)
     for layer, f in (("layer 1", ARXIV_FEATS), ("layer 2", HIDDEN)):
         msgs = tied_messages(gen, e, f, torch.bfloat16, device)
         gout = torch.randn(n, f, generator=gen, device=device)
@@ -3480,18 +3457,72 @@ def time_segment_max_cases(device, timer, contexts, replaces):
                       msgs.dtype, f"segment_max_wide_bwd at arxiv {layer}")
         del got, plain
         nbytes = 2 * e * f * 2 + 2 * n * f * 4 + index_bytes
+        lib_out = torch.segment_reduce(msgs, "max", lengths=lengths,
+                                       unsafe=True)
+        lib_gout = gout.to(msgs.dtype)
+        aten_call = lambda: aten_bwd(lib_gout, lib_out, msgs, "max",
+                                     lengths=lengths)
         entry("segment_max_wide_bwd", "train_sage_pool_arxiv_shape",
               shape + ", ties split", err,
               lambda: K._segment_max_wide_bwd(msgs, fwd, gout, recv, row_ptr,
                                               n, mask, True),
               lambda: K.segment_max_wide_bwd_plain(
                   msgs, fwd, gout, recv, n, mask=mask, ties_split=True),
-              None, None, nbytes, 3 * e * f, not_reused=nbytes + e * f * 2)
+              aten_call if tie_check["splits_ties"] else None,
+              None, nbytes, 3 * e * f, not_reused=nbytes + e * f * 2,
+              library_name="torch.ops.aten._segment_reduce_backward(g, "
+                           'out, data, "max", lengths=...)')
+        entries[-1]["library_splits_ties"] = tie_check["splits_ties"]
+        entries[-1]["library_tie_check"] = tie_check
+        # aten's backward timed all the same: where it does not split the
+        # ties it computes another function, so it is no library_ms.
+        entries[-1]["aten_segment_reduce_backward_ms"] = timer.cold_ms(
+            aten_call, iters=10)
+        del lib_out, lib_gout, aten_call
         entries[-1]["ms_ties_whole"] = timer.cold_ms(
             lambda: K._segment_max_wide_bwd(msgs, fwd, gout, recv, row_ptr, n,
                                             mask, False))
         del msgs, gout, fwd
     return entries
+
+
+def library_max_backward_tie_check(device, recv, n, lengths, gen):
+    """Whether aten's backward of ``torch.segment_reduce(..., "max")`` splits
+    a tied row's cotangent evenly among its tied elements, per column, as
+    K4's split rule does (ROADMAP F5), here on the card: on rows tied two,
+    three and four ways under cotangents of +1 and of -1 (each share exact),
+    and on tied messages at the arxiv GraphSAGE graph's rows (no mask,
+    cotangents of both signs) against the kernel's plain version with the
+    ties split, to one bf16 unit of its largest entry."""
+    from keras_geometric_tpu_torch.kernels import spmm_cuda as K
+
+    aten_bwd = torch.ops.aten._segment_reduce_backward
+    data = torch.tensor([[1.0, 2.0], [1.0, 3.0], [0.0, 3.0], [5.0, 5.0],
+                         [2.0, 2.0], [2.0, 2.0], [2.0, 1.0], [2.0, 2.0]],
+                        device=device)
+    small_lengths = torch.tensor([3, 1, 4], device=device)
+    share = torch.tensor([[0.5, 0.0], [0.5, 0.5], [0.0, 0.5], [1.0, 1.0],
+                          [0.25, 1 / 3], [0.25, 1 / 3], [0.25, 0.0],
+                          [0.25, 1 / 3]], device=device)
+    out = torch.segment_reduce(data, "max", lengths=small_lengths, unsafe=True)
+    small_err = {}
+    for sign in (1.0, -1.0):
+        got = aten_bwd(torch.full_like(out, sign), out, data, "max",
+                       lengths=small_lengths)
+        small_err[f"{sign:+.0f}"] = (got - sign * share).abs().max().item()
+    msgs = tied_messages(gen, int(recv.shape[0]), 64, torch.bfloat16, device)
+    g = torch.randn(n, 64, generator=gen, device=device).to(torch.bfloat16)
+    out = torch.segment_reduce(msgs, "max", lengths=lengths, unsafe=True)
+    got = aten_bwd(g, out, msgs, "max", lengths=lengths).float()
+    fwd = K.segment_max_wide_raw_plain(msgs, recv, n, empty_to_zero=True)
+    plain = K.segment_max_wide_bwd_plain(msgs, fwd, g.float(), recv, n,
+                                         ties_split=True).float()
+    scale = plain.abs().max().item()
+    err = (got - plain).abs().max().item()
+    splits = (max(small_err.values()) <= 1e-6
+              and err <= 2.0 ** -7 * scale)
+    return {"splits_ties": splits, "small_rows_max_abs_err": small_err,
+            "arxiv_rows_max_abs_err": err, "arxiv_rows_largest": scale}
 
 
 def segment_max_narrow_phase(device, ctx, timer):
@@ -7062,6 +7093,55 @@ def dp_graph_classification_phase(device) -> tuple:
     return counts, modes
 
 
+ACCURACY_STEPS = 60  # the reference gate's default
+
+
+def accuracy_tool():
+    """``tools/accuracy_check_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = ROOT / "tools" / "accuracy_check_torch.py"
+    spec = importlib.util.spec_from_file_location("accuracy_check_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look it up there
+    spec.loader.exec_module(module)
+    return module
+
+
+def accuracy_trajectory_phase(device, smi) -> None:
+    """The port's hardware accuracy gate in process: each of the tool's runs
+    (``gcn_f32``, ``gcn_bf16``, ``gat_send_products_widths``) trains on the
+    kernel path and on the plain edge-list path from the same parameters for
+    ``ACCURACY_STEPS`` steps, then the tool's control (``gcn_f32`` with the
+    kernel path's edge weights x 1.1); one line each with its trajectories,
+    its gaps and the kernels' launches a step, then the card's name and
+    power limit. Any run outside the gate's limits (a relative loss gap of
+    2%, or the port's 0.15%, at a logged step, a final accuracy gap of 0.01,
+    a loss that is not finite, launches a step other than listed), or a
+    control that breaks no loss limit, fails the script."""
+    tool = accuracy_tool()
+    start = time.perf_counter()
+    records, control = tool.run_all(
+        steps=ACCURACY_STEPS, device=device,
+        emit=lambda line: emit("accuracy_trajectory", **json.loads(line)))
+    emit("accuracy_trajectory", nvidia_smi=smi,
+         runs=[r["run"] for r in records],
+         max_rel_gap={r["run"]: r["max_rel_gap"] for r in records},
+         acc_gap={r["run"]: r["acc_gap"] for r in records},
+         kernel_launches_per_step={r["run"]: r["kernel_launches_per_step"]
+                                   for r in records},
+         control=control["run"], control_max_rel_gap=control["max_rel_gap"],
+         control_faults=control["faults"],
+         seconds=time.perf_counter() - start)
+    for r in records:
+        check(r["ok"], f"accuracy_trajectory: {r['run']} diverged: "
+              f"{r['faults']}")
+    check(tool.control_caught(control),
+          f"accuracy_trajectory: the control {control['run']} broke no loss "
+          f"limit (gap {control['max_rel_gap']}): the gate cannot fail")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="train_arxiv_shape",
@@ -7208,7 +7288,9 @@ def main() -> int:
              timed=[{k: e[k] for k in ("name", "mode", "shape", "max_abs_err",
                                        "ms", "plain_ms", "library_ms",
                                        "bound_ms", "tier_ms",
-                                       "without_tier_ms") if k in e}
+                                       "without_tier_ms",
+                                       "aten_segment_reduce_backward_ms",
+                                       "library_tie_check") if k in e}
                     for e in kernel_entries if e["path"]])
 
     if "autograd" in phases:
@@ -7766,6 +7848,13 @@ def main() -> int:
              device, timer)
         kernel_entries += entries
         examples_phase()
+
+    # The hardware accuracy gate: kernel-path training trajectories against
+    # the plain edge-list path over 60 steps (tools/accuracy_check_torch.py).
+    if "accuracy_trajectory" in phases:
+        workloads.clear()
+        torch.cuda.empty_cache()
+        accuracy_trajectory_phase(device, smi)
 
     if args.profile is not None:
         from keras_geometric_tpu_torch.training import (

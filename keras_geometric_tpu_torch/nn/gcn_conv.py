@@ -189,7 +189,8 @@ class GCNConv(Module):
             w = edge_weight
             if self.normalize:
                 norm = gcn_norm(
-                    edge_index, num_nodes, edge_mask=edge_mask, dtype=h.dtype
+                    edge_index, num_nodes, edge_mask=edge_mask,
+                    indices_are_sorted=indices_are_sorted, dtype=h.dtype,
                 )
                 w = norm if w is None else w * norm
 

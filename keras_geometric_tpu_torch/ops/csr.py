@@ -34,6 +34,7 @@ scatter kernel) and only the rest through the fused-gather scatter.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -76,6 +77,19 @@ ATTEND_BWD_MODE = "permute"
 ATTEND_SCORE_CACHE = True
 
 _ATTEND_BWD_MODES = ("permute", "send")
+
+
+@contextlib.contextmanager
+def attend_modes(bwd_mode: str = "permute", score_cache: bool = True):
+    """``ATTEND_BWD_MODE`` and ``ATTEND_SCORE_CACHE`` set for the block and
+    restored after it, whatever happens inside."""
+    global ATTEND_BWD_MODE, ATTEND_SCORE_CACHE
+    saved = ATTEND_BWD_MODE, ATTEND_SCORE_CACHE
+    ATTEND_BWD_MODE, ATTEND_SCORE_CACHE = bwd_mode, score_cache
+    try:
+        yield
+    finally:
+        ATTEND_BWD_MODE, ATTEND_SCORE_CACHE = saved
 
 
 @dataclasses.dataclass(frozen=True)

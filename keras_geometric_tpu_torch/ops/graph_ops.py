@@ -93,12 +93,18 @@ def gcn_norm(
     num_nodes: int,
     *,
     edge_mask: torch.Tensor | None = None,
+    indices_are_sorted: bool = False,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Symmetric GCN edge weights from receiver in-degree (inf -> 0)."""
+    """Symmetric GCN edge weights from receiver in-degree (inf -> 0).
+
+    ``indices_are_sorted`` (receivers non-decreasing) is passed on to
+    :func:`segment_count`, as the reference does.
+    """
     edge_index = ensure_edge_index(edge_index)
     senders, receivers = edge_index[0], edge_index[1]
-    deg = segment_count(receivers, num_nodes, mask=edge_mask, dtype=dtype)
+    deg = segment_count(receivers, num_nodes, mask=edge_mask, dtype=dtype,
+                        indices_are_sorted=indices_are_sorted)
     inv_sqrt = torch.pow(deg + 1e-12, -0.5)
     inv_sqrt = torch.where(
         torch.isinf(inv_sqrt), torch.zeros_like(inv_sqrt), inv_sqrt

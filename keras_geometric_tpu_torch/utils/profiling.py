@@ -1,14 +1,16 @@
 """Timing, tracing and roofline accounting on the card.
 
-Counterpart of the JAX package's ``utils/profiling.py``, under the same names
-and with the same contract:
+Counterpart of the JAX package's ``utils/profiling.py``, under the same names:
 
 - :func:`trace`: context manager around ``torch.profiler`` that writes a
-  trace of the enclosed block into a directory;
+  trace of the enclosed block into a directory (the reference's default
+  ``/tmp/kgt_trace``);
 - :func:`timed_steps`: seconds per call, from the difference of two runs of
   back-to-back calls of different lengths, each timed by CUDA events;
 - :class:`Roofline`: byte/operation accounting for the framework's core ops
-  against one card's published peaks (``CHIP_SPECS``).
+  against one card's published peaks (``CHIP_SPECS``), under the
+  reference's names and report keys but with the fused kernel's byte model
+  and the card's defaults (divergence D19 in ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ CHIP_SPECS = {
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str = "/tmp/kgt_trace"):
     """Trace the enclosed block with ``torch.profiler`` (host operators, and
     the card's kernels where there is a card) and write it into ``log_dir``
     as ``trace.json`` (Chrome's trace format). Yields ``log_dir``."""
@@ -126,7 +128,15 @@ def timed_steps(
 @dataclasses.dataclass
 class Roofline:
     """Accumulates operation/byte counts and reports the least time the card
-    (``chip``, a key of ``CHIP_SPECS``) could take for them."""
+    (``chip``, a key of ``CHIP_SPECS``) could take for them.
+
+    D19, where it differs from the reference's: ``chip`` defaults to
+    ``"h100"`` (the reference's ``"v5e"`` is a TPU) and ``dtype_bytes`` to 2
+    (the port's bf16 IO; the reference's 4); :meth:`add_spmm` counts what the
+    fused gather-scatter kernel moves, each node row once: ``2·e·f``
+    operations and ``2·b·n·f + (4 + w)·e + 4·(n + 1)`` bytes, where the
+    reference counts no operations and ``b·(2·e·f + n·f) + 4·e`` bytes, an
+    ``[E, F]`` gather."""
 
     chip: str = "h100"
     flops: float = 0.0

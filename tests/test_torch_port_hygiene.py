@@ -35,7 +35,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "keras_geometric_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attend_kernels_ab.py",
-    ROOT / "distributed_host_probe.py", ROOT / "tp_activation_probe.py"] + \
+    ROOT / "distributed_host_probe.py", ROOT / "tp_activation_probe.py",
+    ROOT / "tools" / "accuracy_check_torch.py"] + \
     sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+optax|from\s+optax"
@@ -247,6 +248,199 @@ def test_parallel_modules_export_the_references_names(sub):
     package = importlib.import_module("keras_geometric_tpu_torch.parallel")
     for name in port.__all__:
         assert getattr(package, name) is getattr(port, name), name
+
+
+# The keyword renames that the port's recorded divergences allow (ROADMAP.md
+# Queue 3), one named entry each: (the reference modules whose functions and
+# classes it covers, the reference's keyword names, the port's). A reference
+# keyword that the port lacks, or a required keyword of the port's own, passes
+# only where an entry names it for the module that defines the callable.
+_NN = "keras_geometric_tpu.nn."
+_PAR = "keras_geometric_tpu.parallel."
+SIGNATURE_RENAMES = {
+    "D6/D17: rng / key -> torch.Generator": (
+        {_NN + "module", "keras_geometric_tpu.ops.edge_dropout",
+         "keras_geometric_tpu.training.train", _PAR + "spmd",
+         _PAR + "attend_plan"},
+        {"rng", "key"}, {"generator"}),
+    "D17/D18: axis -> group": (
+        {_PAR + "tensor_parallel", _PAR + "kernel_plan", _PAR + "attend_plan",
+         _PAR + "halo", _PAR + "spmd"},
+        {"axis", "graph_axis", "model_axis", "host_axis", "chip_axis"},
+        {"group", "graph_group", "model_group", "host_group", "chip_group"}),
+    "D16-D18: params -> modules: a layer is built with its input_dim": (
+        {_NN + "module", _NN + "gcn_conv", _NN + "gatv2_conv",
+         _NN + "gin_conv", _NN + "sage_conv", _NN + "aggregators",
+         _NN + "pooling.attention_pooling", "keras_geometric_tpu.models.gnn"},
+        set(), {"input_dim"}),
+    "D16-D18: tx / donate / params -> modules and torch.optim": (
+        {"keras_geometric_tpu.training.train",
+         "keras_geometric_tpu.training.sage_minibatch", _PAR + "distributed",
+         _PAR + "data_parallel", _PAR + "spmd"},
+        {"tx", "donate", "params", "opt_state"}, {"optimizer", "model"}),
+    "D7/D17: work-list tables / edge_chunk / row_block -> row_ptr": (
+        {"keras_geometric_tpu.ops.csr", "keras_geometric_tpu.ops.spmm",
+         _PAR + "kernel_plan", _PAR + "attend_plan"},
+        {"tables", "fwd_tables", "bwd_tables", "expand_tables",
+         "attw_res_tables", "edge_chunk", "row_block", "scatter_row_block",
+         "expand_row_block", "use_pallas"},
+        {"row_ptr", "row_ptr_bwd"}),
+    "D17: a rank's data is its slice; a mesh is a DeviceMesh": (
+        {_PAR + "spmd", _PAR + "attend_plan", _PAR + "kernel_plan",
+         _PAR + "halo", _PAR + "mesh", _PAR + "distributed"},
+        {"senders_global", "receivers_local", "send_idx_local", "kp_shard",
+         "kp_meta", "ap_meta", "training", "halo", "kernel_plan",
+         "attend_plan", "devices"},
+        {"senders", "receivers", "send_idx", "kp", "shard", "part",
+         "device"}),
+}
+# Defaults the port writes in its own library's terms: (the reference's
+# default, the port's), compared by ``_default_key``.
+SIGNATURE_DEFAULTS = {
+    "jnp.float32 -> torch.float32": ("float32", "float32"),
+    "jax.nn.relu -> torch.relu": ("relu", "relu"),
+    "D19: Roofline's chip": ("'v5e'", "'h100'"),
+}
+# Reference names with no counterpart: TPU-only (F3), or a host plan the
+# port lays out its own way (D17: its streams are ``EdgeStream`` and its
+# ``KernelPlan`` / ``AttendPlan`` hold row pointers, not work lists).
+SIGNATURE_NOT_PORTED = {"chain_after", "use_pallas_default", "graph_sharding",
+                        "replicated", "P", "Mesh", "EdgeSetShard"}
+SIGNATURE_OWN_LAYOUT = {"KernelPlan", "AttendPlan"}
+SIGNATURE_NOT_PORTED_MODULES = {
+    "keras_geometric_tpu.utils.interpret_hardening"}
+
+
+def _default_key(value):
+    """A default in terms both packages share: a dtype by its name, a
+    function by its name (the port's function of the same name), anything
+    else by its repr."""
+    name = getattr(value, "__name__", None)
+    if isinstance(value, torch.dtype):
+        return str(value).removeprefix("torch.")
+    if name is not None and isinstance(value, type):
+        return name  # jnp.float32 and the like are types
+    if name is not None and callable(value):
+        return name
+    return repr(value)
+
+
+def _renames_for(module: str) -> tuple:
+    """The reference keyword names and the port's that the entries naming
+    ``module`` allow."""
+    entries = [(r, p) for scope, r, p in SIGNATURE_RENAMES.values()
+               if module in scope]
+    return (set().union(*(r for r, _ in entries)),
+            set().union(*(p for _, p in entries)))
+
+
+def _signature_faults(ref_obj, port_obj):
+    """The differences between two public callables' keywords that no
+    recorded divergence of the reference callable's module explains."""
+    try:
+        ref_sig = inspect.signature(ref_obj)
+        port_sig = inspect.signature(port_obj)
+    except (TypeError, ValueError):
+        return []
+    plain = lambda sig: {k: p for k, p in sig.parameters.items()
+                         if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+    rp, pp = plain(ref_sig), plain(port_sig)
+    renamed_from, renamed_to = _renames_for(ref_obj.__module__)
+    faults = [f"lacks {k}" for k in rp.keys() - pp.keys()
+              if k not in renamed_from]
+    faults += [f"requires {k}" for k in pp.keys() - rp.keys()
+               if pp[k].default is inspect.Parameter.empty
+               and k not in renamed_to]
+    for k in rp.keys() & pp.keys():
+        ref_default, port_default = rp[k].default, pp[k].default
+        if ref_default is inspect.Parameter.empty:
+            continue  # a default the port adds breaks no reference call
+        pair = (_default_key(ref_default), _default_key(port_default))
+        if pair[0] != pair[1] and pair not in SIGNATURE_DEFAULTS.values():
+            faults.append(f"{k}={pair[1]} (reference {pair[0]})")
+    return faults
+
+
+@pytest.mark.parametrize("sub", ["", "data", "ops", "nn", "models",
+                                 "training", "utils", "parallel"])
+def test_public_signatures_match_the_references(sub):
+    """Every public function and class of the sub-package and of its modules
+    (each ``__all__``) takes the reference's keyword names with the
+    reference's defaults, apart from the renames that the recorded
+    divergences allow (``SIGNATURE_RENAMES``, ``SIGNATURE_DEFAULTS``)."""
+    import pkgutil
+
+    ref_pkg = importlib.import_module(
+        "keras_geometric_tpu" + (f".{sub}" if sub else ""))
+    if sub:
+        modules = [ref_pkg.__name__] + [
+            m.name for m in pkgutil.walk_packages(
+                ref_pkg.__path__, ref_pkg.__name__ + ".")]
+    else:  # the package and its top-level modules
+        modules = [ref_pkg.__name__] + [
+            m.name for m in pkgutil.iter_modules(
+                ref_pkg.__path__, ref_pkg.__name__ + ".") if not m.ispkg]
+    faults, compared = [], 0
+    for ref_name in modules:
+        ref_mod = importlib.import_module(ref_name)
+        if ref_name in SIGNATURE_NOT_PORTED_MODULES or not hasattr(
+                ref_mod, "__all__"):
+            continue
+        port_mod = importlib.import_module(ref_name.replace(
+            "keras_geometric_tpu", "keras_geometric_tpu_torch", 1))
+        for name in ref_mod.__all__:
+            ref_obj = getattr(ref_mod, name)
+            if not callable(ref_obj) or name in SIGNATURE_NOT_PORTED:
+                continue
+            port_obj = getattr(port_mod, name, None)
+            if port_obj is None:
+                faults.append(f"{ref_name}.{name}: missing")
+                continue
+            if name in SIGNATURE_OWN_LAYOUT:
+                continue
+            compared += 1
+            faults += [f"{ref_name}.{name}: {f}"
+                       for f in _signature_faults(ref_obj, port_obj)]
+    assert compared > 0
+    assert not faults, faults
+
+
+def _fake_callable(module: str, keywords, default):
+    """A function of ``module`` taking ``x`` and the keyword-only
+    ``keywords``, each with ``default``."""
+    P = inspect.Parameter
+    fn = lambda *args, **kwargs: None
+    fn.__module__ = module
+    fn.__signature__ = inspect.Signature(
+        [P("x", P.POSITIONAL_OR_KEYWORD)]
+        + [P(k, P.KEYWORD_ONLY, default=default) for k in sorted(keywords)])
+    return fn
+
+
+@pytest.mark.parametrize("entry", list(SIGNATURE_RENAMES))
+def test_each_signature_rename_holds_only_in_its_modules(entry):
+    """A rename passes for a callable of a module that its entry names, and
+    is a fault in a module that it does not name: in ``ops.graph_ops``,
+    which no entry names, and in the layers' module ``nn.gcn_conv`` unless
+    the entry names it."""
+    scope, renamed_from, renamed_to = SIGNATURE_RENAMES[entry]
+    every = {f"lacks {k}" for k in renamed_from} | {
+        f"requires {k}" for k in renamed_to}
+    faults = lambda module: set(_signature_faults(
+        _fake_callable(module, renamed_from, None),
+        _fake_callable(module, renamed_to, inspect.Parameter.empty)))
+    for module in scope:
+        assert faults(module) == set(), module
+    outside = "keras_geometric_tpu.ops.graph_ops"
+    assert all(outside not in s for s, _, _ in SIGNATURE_RENAMES.values())
+    assert faults(outside) == every
+    layer = _NN + "gcn_conv"
+    if layer not in scope:
+        allowed_from, allowed_to = _renames_for(layer)
+        allowed = {f"lacks {k}" for k in allowed_from} | {
+            f"requires {k}" for k in allowed_to}
+        assert faults(layer) == every - allowed
+        assert faults(layer), entry
 
 
 def test_importing_builds_and_loads_nothing():
@@ -690,6 +884,26 @@ def test_trace_writes_a_trace_into_its_directory(tmp_path):
     assert (log_dir / "trace.json").stat().st_size > 0
 
 
+def test_trace_defaults_to_the_references_directory(monkeypatch):
+    """P5: ``with trace():`` takes the reference's default directory and
+    would write ``trace.json`` there. The directory and the export are
+    stubbed, so that nothing is written outside the test's own files
+    (``test_trace_writes_a_trace_into_its_directory`` writes a real one)."""
+    ref = importlib.import_module("keras_geometric_tpu.utils.profiling")
+    default = inspect.signature(profiling.trace).parameters["log_dir"].default
+    assert default == inspect.signature(ref.trace).parameters[
+        "log_dir"].default == "/tmp/kgt_trace"
+    made, written = [], []
+    monkeypatch.setattr(profiling, "os", types.SimpleNamespace(
+        makedirs=lambda path, exist_ok: made.append(path), path=os.path))
+    monkeypatch.setattr(torch.profiler.profile, "export_chrome_trace",
+                        lambda self, path: written.append(path))
+    with profiling.trace() as where:
+        torch.ones(8).add_(1)
+    assert where == default and made == [default]
+    assert written == [os.path.join(default, "trace.json")]
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a CUDA device")
@@ -766,6 +980,13 @@ def test_chip_smoke_names_every_kernel_and_the_line_it_replaces():
     assert module.PHASES[at:at + 3] == (
         "train_gcn_ogbn_arxiv", "train_gcn_ogbn_products",
         "train_gat_ogbn_products")
+    # The hardware accuracy gate runs last, every run of the tool at 60
+    # steps (the reference gate's default).
+    assert module.PHASES[-1] == "accuracy_trajectory"
+    tool = module.accuracy_tool()
+    assert list(tool.RUNS) == ["gcn_f32", "gcn_bf16",
+                               "gat_send_products_widths"]
+    assert module.ACCURACY_STEPS == 60
 
 
 def test_roofline_uses_the_cards_constants():
@@ -857,6 +1078,31 @@ def test_graph_ops_host_helpers_match_reference():
         tgo.ensure_edge_index(np.zeros((3, 3)))
 
 
+@pytest.mark.parametrize("indices_are_sorted", [False, True])
+def test_gcn_norm_takes_indices_are_sorted_as_the_reference_does(
+        indices_are_sorted):
+    """P4: ``gcn_norm(..., indices_are_sorted=)`` as the reference's, with
+    and without a mask, on receivers in order (so both values are true)."""
+    from keras_geometric_tpu.ops import graph_ops as jgo
+    from keras_geometric_tpu_torch.ops import graph_ops as tgo
+
+    ei = np.array([[0, 2, 1, 0], [0, 1, 2, 2]], np.int32)
+    want = np.asarray(jgo.gcn_norm(ei, 3,
+                                   indices_are_sorted=indices_are_sorted))
+    got = tgo.gcn_norm(torch.from_numpy(ei), 3,
+                       indices_are_sorted=indices_are_sorted)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), [1.0] + [0.7071068] * 3,
+                               rtol=1e-6)
+    mask = np.array([True, True, False, True])
+    want = np.asarray(jgo.gcn_norm(ei, 3, edge_mask=mask,
+                                   indices_are_sorted=indices_are_sorted))
+    got = tgo.gcn_norm(torch.from_numpy(ei), 3,
+                       edge_mask=torch.from_numpy(mask),
+                       indices_are_sorted=indices_are_sorted)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
 def _flags(path):
     return dict(re.findall(r'add_argument\("(--[\w-]+)"(.*)\)\s*$',
                            path.read_text(), re.M))
@@ -883,8 +1129,9 @@ def test_every_example_has_a_twin_with_its_flags_and_chip_smoke_runs_it():
     for script, args in module.EXAMPLE_RUNS:  # the fewest epochs allowed
         assert ("--epochs" in _flags(ROOT / "examples_torch" / script)) == (
             args[:2] == ("--epochs", "1")), script
-    assert module.PHASES[-3:] == ("train_gin_graph_classification",
-                                  "readouts_on_card", "examples_torch")
+    assert module.PHASES[-4:] == ("train_gin_graph_classification",
+                                  "readouts_on_card", "examples_torch",
+                                  "accuracy_trajectory")
     assert module.PHASES.index("train_gat_ogbn_products") < \
         module.PHASES.index("train_distributed_arxiv_shape")
 
